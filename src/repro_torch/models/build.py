@@ -1,0 +1,44 @@
+"""Uniform model API, as ``repro.models.build``; this slice has the dense
+family only."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    """Bound functional API over one model family."""
+    cfg: ModelConfig
+    pcfg: ParallelConfig
+    mod: Any
+    tp: int = 1
+
+    def init(self, seed: int = 0, *, device=None, dtype=None):
+        return self.mod.init_params(self.cfg, seed=seed, device=device,
+                                    dtype=dtype)
+
+    def init_cache(self, batch: int, max_len: int, *, device=None):
+        return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
+                                   device=device)
+
+    def prefill(self, params, tokens, cache, positions, **kw):
+        return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
+                                pcfg=self.pcfg, positions=positions, **kw)
+
+    def decode_step(self, params, tokens, cache, positions):
+        return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
+                                    pcfg=self.pcfg, positions=positions)
+
+
+def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1
+                ) -> ModelApi:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
+    if tp != 1:
+        raise NotImplementedError("tp > 1 is not ported yet (ROADMAP.md A4)")
+    return ModelApi(cfg=cfg, pcfg=pcfg, mod=transformer, tp=tp)

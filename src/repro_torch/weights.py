@@ -1,0 +1,54 @@
+"""Weight bridge: the reference package's parameter pytree, as numpy
+arrays, to this package's parameter dict.
+
+``params_np`` is ``jax.tree.map(np.asarray, params)`` of
+``repro.models.transformer.init_params``.  Three layouts need care:
+
+* layers are either stacked with a leading layer axis (``scan_layers``
+  with uniform layer kinds) or a ``{"layer_i": ...}`` dict;
+* every weight carries a per-shard leading axis, taken at ``[0]`` (tp=1);
+  norm weights are (1, d) and become (d,);
+* bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+  refuses, so they go over through a uint16 view.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def to_torch(a, device=None, dtype=None) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _unshard(tree, device, dtype):
+    """Drop the per-shard leading axis of every leaf (norms: (1, d) -> (d,))."""
+    return {k: (_unshard(v, device, dtype) if isinstance(v, dict)
+                else to_torch(v[0], device, dtype))
+            for k, v in tree.items()}
+
+
+def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
+    """Reference pytree (numpy leaves) -> this package's parameter dict,
+    on ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
+    layers_np = params_np["layers"]
+    if "layer_0" in layers_np:
+        per_layer = [layers_np[f"layer_{i}"] for i in range(cfg.num_layers)]
+    else:
+        def take(tree, i):
+            return {k: take(v, i) if isinstance(v, dict) else v[i]
+                    for k, v in tree.items()}
+        per_layer = [take(layers_np, i) for i in range(cfg.num_layers)]
+    return {
+        "embedding": _unshard(params_np["embedding"], device, dtype),
+        "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
+        "layers": [_unshard(lp, device, dtype) for lp in per_layer],
+    }

@@ -1,0 +1,261 @@
+"""The PyTorch port's model path against the JAX reference, in float32 on
+the CPU, with the tiny dense model and the same weights on both sides.
+
+The reference runs ``tiny_pcfg`` as its own tests do (chunked attention,
+jnp add+norm); the port runs it with ``attn_impl="pallas"`` and
+``use_pallas_norm=True``, so its K2/K3 wrappers are on the path and take
+their plain versions on CPU tensors.  Prefill and decode are checked with
+the weave split both firing and not firing.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro.core import fused_collectives as jfc
+from repro.distributed.context import CommCtx as JCtx
+from repro.layers import attention as JA
+from repro.layers.embedding import sharded_argmax as j_argmax
+from repro.models import transformer as JT
+from repro.runtime import kv_cache as JKC
+
+from repro_torch.configs import base as tbase
+from repro_torch.core import fused_collectives as tfc
+from repro_torch.distributed.context import CommCtx as TCtx
+from repro_torch.layers import attention as TA
+from repro_torch.layers.embedding import sharded_argmax as t_argmax
+from repro_torch.models import transformer as TT
+from repro_torch.runtime import kv_cache as TKC
+from repro_torch.weights import from_jax_params
+
+TOL = 1e-4
+
+
+def _shard_run(mesh, fn, *args):
+    """Run ``fn`` inside shard_map on the 1x1 mesh (every arg replicated)."""
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(P(),) * len(args),
+                                 out_specs=P(), check_vma=False))(*args)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.fixture(scope="module")
+def both(tiny_model, tiny_cfg, tiny_pcfg):
+    """(jax params, jax cfg, jax pcfg, torch params, torch cfg, torch pcfg)."""
+    _, mesh, jparams = tiny_model
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(tiny_cfg))
+    tpcfg = dataclasses.replace(
+        tbase.ParallelConfig(**{f.name: getattr(tiny_pcfg, f.name)
+                                for f in dataclasses.fields(tiny_pcfg)}),
+        attn_impl="pallas", use_pallas_norm=True)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, tpcfg,
+                              device="cpu")
+    return mesh, jparams, tiny_cfg, tiny_pcfg, tparams, tcfg, tpcfg
+
+
+def _random_cache(rng, cfg, b, c, lengths):
+    """Stacked numpy cache (L, B, C, kvh, dh) with rows filled to
+    ``lengths`` (pos -1 beyond)."""
+    shape = (cfg.num_layers, b, c, cfg.num_kv_heads, cfg.head_dim)
+    k = rng.randn(*shape).astype(np.float32)
+    v = rng.randn(*shape).astype(np.float32)
+    pos = np.full((cfg.num_layers, b, c), -1, np.int32)
+    for i, n in enumerate(lengths):
+        pos[:, i, :n] = np.arange(n)
+    return {"k": k, "v": v, "pos": pos}
+
+
+def _torch_cache(np_cache):
+    return [{name: torch.from_numpy(np.ascontiguousarray(a[i]))
+             for name, a in np_cache.items()}
+            for i in range(np_cache["k"].shape[0])]
+
+
+def test_bridge_takes_stacked_and_per_layer_pytrees(both):
+    _, _, cfg, pcfg, tparams, tcfg, tpcfg = both
+    unrolled = JT.init_params(jax.random.PRNGKey(0), cfg,
+                              dataclasses.replace(pcfg, scan_layers=False), 1)
+    assert "layer_0" in unrolled["layers"]
+    other = from_jax_params(jax.tree.map(np.asarray, unrolled), tcfg, tpcfg,
+                            device="cpu")
+    flat_a = jax.tree_util.tree_leaves_with_path(tparams)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(other))
+    assert len(flat_a) == len(flat_b) > 0
+    for path, t in flat_a:
+        assert torch.equal(t, flat_b[path]), path
+
+
+@pytest.mark.parametrize("chunk,weave", [(48, True), (16, False)])
+def test_prefill_logits_and_kv_match(both, chunk, weave):
+    mesh, jparams, cfg, pcfg, tparams, tcfg, tpcfg = both
+    assert JT.weave_decision_info(1, chunk, tp=1, pcfg=pcfg).weave == weave
+    assert TT.weave_decision_info(1, chunk, tp=1, pcfg=tpcfg).weave == weave
+    rng = np.random.RandomState(chunk)
+    b, c, prior = 2, 64, [10, 3]
+    cache = _random_cache(rng, cfg, b, c, prior)
+    tokens = rng.randint(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+    positions = np.full((b, chunk), -1, np.int32)
+    take = [chunk, chunk - 5]           # row 1 ends in padding tokens
+    for i in range(b):
+        positions[i, :take[i]] = np.arange(prior[i], prior[i] + take[i])
+    last_idx = np.array([t - 1 for t in take], np.int32)
+
+    def jfn(params, tok, cache, pos, last):
+        return JT.prefill(params, tok, cache, cfg=cfg, pcfg=pcfg,
+                          positions=pos, last_idx=last)[:2]
+
+    j_logits, (jk, jv, jpos) = _shard_run(
+        mesh, jfn, jparams, jnp.asarray(tokens),
+        jax.tree.map(jnp.asarray, cache), jnp.asarray(positions),
+        jnp.asarray(last_idx))
+    t_logits, t_kv = TT.prefill(
+        tparams, torch.from_numpy(tokens), _torch_cache(cache), cfg=tcfg,
+        pcfg=tpcfg, positions=torch.from_numpy(positions),
+        last_idx=torch.from_numpy(last_idx))
+    _close(t_logits, j_logits)
+    for layer, (k, v, pos) in enumerate(t_kv):
+        _close(k, jk[layer])
+        _close(v, jv[layer])
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos[layer]))
+
+
+@pytest.mark.parametrize("batch,weave", [(16, True), (4, False)])
+def test_decode_logits_and_cache_match(both, batch, weave):
+    mesh, jparams, cfg, pcfg, tparams, tcfg, tpcfg = both
+    assert JT.weave_decision_info(batch, 1, tp=1, pcfg=pcfg,
+                                  decode=True).weave == weave
+    rng = np.random.RandomState(batch)
+    c = 32
+    lengths = rng.randint(1, c, size=batch)
+    cache = _random_cache(rng, cfg, batch, c, lengths)
+    tokens = rng.randint(0, cfg.vocab_size, (batch, 1)).astype(np.int32)
+    positions = lengths[:, None].astype(np.int32)
+    positions[1, 0] = -1                # an inactive slot
+    positions[2, 0] = c + 3             # a write that wraps the row
+
+    def jfn(params, tok, cache, pos):
+        return JT.decode_step(params, tok, cache, cfg=cfg, pcfg=pcfg,
+                              positions=pos)
+
+    j_logits, j_cache = _shard_run(
+        mesh, jfn, jparams, jnp.asarray(tokens),
+        jax.tree.map(jnp.asarray, cache), jnp.asarray(positions))
+    t_logits, t_cache = TT.decode_step(
+        tparams, torch.from_numpy(tokens), _torch_cache(cache), cfg=tcfg,
+        pcfg=tpcfg, positions=torch.from_numpy(positions))
+    _close(t_logits, j_logits)
+    for layer, lc in enumerate(t_cache):
+        _close(lc["k"], j_cache["k"][layer])
+        _close(lc["v"], j_cache["v"][layer])
+        np.testing.assert_array_equal(lc["pos"].numpy(),
+                                      np.asarray(j_cache["pos"][layer]))
+
+
+def test_attn_prefill_with_kv_prefix_matches(both):
+    _, jparams, cfg, _, tparams, tcfg, _ = both
+    rng = np.random.RandomState(3)
+    b, s, npre = 2, 12, 20
+    jl = jax.tree.map(lambda a: a[0], jparams["layers"])["attn"]
+    x = rng.randn(b, s, cfg.d_model).astype(np.float32)
+    pos = np.broadcast_to(np.arange(npre, npre + s)[None], (b, s))
+    pos = pos.astype(np.int32).copy()
+    pk = rng.randn(b, npre, cfg.num_kv_heads, cfg.head_dim).astype(np.float32)
+    pv = rng.randn(b, npre, cfg.num_kv_heads, cfg.head_dim).astype(np.float32)
+    ppos = np.broadcast_to(np.arange(npre)[None], (b, npre)).astype(np.int32)
+    ppos = ppos.copy()
+    ppos[1, -4:] = -1                   # empty cache slots in row 1
+    lay = JA.attention_layout(1, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim)
+    j_out, (jk, jv, jkp) = JA.attn_prefill(
+        jl, jnp.asarray(x), positions=jnp.asarray(pos), cfg=cfg, lay=lay,
+        theta=cfg.rope_theta, kv_prefix=tuple(map(jnp.asarray,
+                                                  (pk, pv, ppos))))
+    tlay = TA.attention_layout(1, tcfg.num_heads, tcfg.num_kv_heads,
+                               tcfg.head_dim)
+    t_out, (tk, tv, tkp) = TA.attn_prefill(
+        tparams["layers"][0]["attn"], torch.from_numpy(x),
+        positions=torch.from_numpy(pos), cfg=tcfg, lay=tlay,
+        theta=tcfg.rope_theta, impl="pallas",
+        kv_prefix=tuple(map(torch.from_numpy, (pk, pv, ppos))))
+    _close(t_out, j_out)
+    _close(tk, jk)
+    _close(tv, jv)
+    np.testing.assert_array_equal(tkp.numpy(), np.asarray(jkp))
+
+
+@pytest.mark.parametrize("mode", ["vanilla", "reordered", "fused", "nocomm"])
+@pytest.mark.parametrize("post", [False, True])
+def test_comm_norm_modes_match(both, mode, post):
+    mesh = both[0]
+    rng = np.random.RandomState(7)
+    t, d = 24, 64
+    x, res = (rng.randn(t, d).astype(np.float32) for _ in range(2))
+    w, wp = ((np.abs(rng.randn(d)) + 0.5).astype(np.float32)
+             for _ in range(2))
+
+    def jfn(x, res, w, wp):
+        return jfc.comm_norm(x, res, w, ctx=JCtx(mode=mode),
+                             weight_post=wp if post else None)
+
+    j_out, j_res = _shard_run(mesh, jfn, *map(jnp.asarray, (x, res, w, wp)))
+    tx, tres, tw, twp = map(torch.from_numpy, (x, res, w, wp))
+    t_out, t_res = tfc.comm_norm(tx, tres, tw,
+                                 ctx=TCtx(mode=mode, use_pallas=True),
+                                 weight_post=twp if post else None)
+    _close(t_out, j_out, 1e-5)
+    _close(t_res, j_res, 1e-5)
+
+
+def test_comm_norm_ring_mode_is_refused():
+    z = torch.zeros(8, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfc.comm_norm(z, z, torch.ones(16), ctx=TCtx(mode="ring"))
+
+
+def test_sharded_argmax_ties_and_vocab_pad_match(both):
+    mesh = both[0]
+    rng = np.random.RandomState(11)
+    logits = rng.randint(0, 4, size=(6, 2, 40)).astype(np.float32)
+    logits[0, 0, 37:] = 9.0             # max only in the padded tail
+    vocab = 37
+    want = _shard_run(mesh, lambda lg: j_argmax(lg, vocab_size=vocab),
+                      jnp.asarray(logits))
+    got = t_argmax(torch.from_numpy(logits), vocab_size=vocab)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[0, 0]) < vocab
+
+
+@pytest.mark.parametrize("c", [64, 8])   # 8: a ring window shorter than s
+def test_insert_chunk_with_padded_positions_matches(c):
+    rng = np.random.RandomState(c)
+    nl, bslots, s, h, dh = 2, 4, 20, 2, 4
+    cache = {"k": rng.randn(nl, bslots, c, h, dh).astype(np.float32),
+             "v": rng.randn(nl, bslots, c, h, dh).astype(np.float32),
+             "pos": rng.randint(-1, 50, (nl, bslots, c)).astype(np.int32)}
+    slot_ids = np.array([2, 0], np.int32)
+    offsets = np.array([5, 30], np.int32)
+    pos = np.full((nl, 2, s), -1, np.int32)
+    pos[:, 0, :] = np.arange(5, 5 + s)
+    pos[:, 1, :13] = np.arange(30, 43)    # the rest is padding
+    k = rng.randn(nl, 2, s, h, dh).astype(np.float32)
+    v = rng.randn(nl, 2, s, h, dh).astype(np.float32)
+    want = JKC.insert_chunk(jax.tree.map(jnp.asarray, cache),
+                            tuple(map(jnp.asarray, (k, v, pos))),
+                            jnp.asarray(offsets), jnp.asarray(slot_ids))
+    got = TKC.insert_chunk(
+        _torch_cache(cache),
+        [tuple(torch.from_numpy(a[i]) for a in (k, v, pos))
+         for i in range(nl)],
+        torch.from_numpy(offsets), torch.from_numpy(slot_ids))
+    for i, layer in enumerate(got):
+        for name in ("k", "v", "pos"):
+            np.testing.assert_array_equal(layer[name].numpy(),
+                                          np.asarray(want[name][i]))
