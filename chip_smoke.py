@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--trace-dir DIR]
 
 Phases, each printing one JSON line:
 
@@ -10,15 +10,26 @@ Phases, each printing one JSON line:
 2. kernels  hold each kernel against its plain PyTorch version on the card
             at the main path's shapes and at ragged ones, and time the
             kernel, the plain version and, where one exists, the single
-            PyTorch call computing the same function (timed only);
+            PyTorch call computing the same function (timed only); K1 also
+            gives bit-identical outputs on 1 and 8 CTAs, and is timed
+            beside the composition it replaces (sum over ranks, K2, copy
+            to every rank);
 3. engine   serve 4 greedy requests through the two-dispatch Engine with
             Llama-3.3-70B's widths cut to 4 layers (bf16, random weights
-            from the seed), and show from the launch counters that the
-            main path ran through the kernels; then trace one prefill and
-            one decode step of the model with torch.profiler and split
+            from the seed) at tp=1, and show from the launch counters that
+            the main path ran through the kernels; then trace one prefill
+            and one decode step of the model with torch.profiler and split
             their device time by kind of kernel;
-4. identity a small float32 model served on the card (kernels) and on the
-            CPU (plain versions) must give identical greedy tokens.
+4. engine_tp the same requests at tp=8 (the eight ranks on one card's rank
+            axis) in comm mode "ring": K1 launches equal splits·(1+2L) per
+            forward, so no forward fell back; one traced prefill call
+            gives K1's device time and the part of it that overlapped
+            other kernels (the weave's comm stream); every traced call's
+            Chrome trace is written to --trace-dir (build/traces/);
+5. identity a small float32 model served on the card (kernels) and on the
+            CPU (plain versions) must give identical greedy tokens, at
+            tp=1 and at tp=2 in ring mode with the weave (and its streams)
+            firing.
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -43,6 +54,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense tensor-core bf16
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 K2_TOL = 1e-2                      # atol and rtol: one bf16 ulp at |x| < 8
+# K1 sums the ranks in the plain version's order, so the reduced row is
+# bit-equal; only sum(t^2)'s order and the rsqrt differ, as in K2
+K1_TOL = 1e-2
 # K3 tolerances scale with each case's output: its rms shrinks as 1/sqrt of
 # the keys a query sees (about 0.024 at 4.6K keys), so a fixed atol would
 # let a dropped key tile through.  A bf16 ulp is at most 2^-7 of a value.
@@ -149,6 +163,62 @@ def kernel_phase(torch, seed: int):
             rows["fused_residual_rmsnorm"] = case
         emit(case)
 
+    # K1: N ranks' partials (N, T, d) and residual slices (N, T/N, d)
+    from repro_torch.core import fused_collectives as FC
+    from repro_torch.distributed.context import CommCtx
+    from repro_torch.kernels import ar_rmsnorm as K1
+    gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
+    k1_err = 0.0
+    for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
+                     + [(8, 1000, 8190)]):
+        x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
+        r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
+                        dtype=bf16)
+        w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5
+             ).to(bf16)
+        out, new_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
+        out1, new_res1 = K1.ar_rmsnorm(x, r, w, ctas=1)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out1) and torch.equal(new_res, new_res1)):
+            raise AssertionError(f"K1 N={n} T={t} d={d1}: 1 and "
+                                 f"{K1.MAX_CTAS} CTAs differ")
+        p_out, p_res = K1.ar_rmsnorm_plain(x, r, w)
+        err = max(check_close(f"K1 out N={n} T={t} d={d1}", out, p_out,
+                              K1_TOL, K1_TOL),
+                  check_close(f"K1 residual N={n} T={t} d={d1}", new_res,
+                              p_res, K1_TOL, K1_TOL))
+        k1_err = max(k1_err, err)
+        case = {"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
+                "d": d1, "dtype": "bfloat16", "max_abs_err": err,
+                "tol": K1_TOL, "ctas_bit_identical": [1, K1.MAX_CTAS]}
+        if (n, t, d1) == (8, 2048, 8192):
+            # the composition K1 replaces: sum over ranks, K2, all-gather
+            ctx = CommCtx(mode="fused", use_pallas=True, tp=n)
+            c_out, c_res = FC.comm_norm(x, r, w, ctx=ctx)
+            case["composition_max_abs_err"] = max(
+                check_close("K1 vs composition", out, c_out, K1_TOL, K1_TOL),
+                check_close("K1 vs composition residual", new_res, c_res,
+                            K1_TOL, K1_TOL))
+            # each input read once, each output written once
+            nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
+            flops = (n + 5) * t * d1
+            case.update(
+                ms=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w, ctas=8)),
+                ms_1cta=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w, ctas=1)),
+                plain_ms=time_ms(
+                    torch, lambda: K1.ar_rmsnorm_plain(x, r, w), iters=3),
+                composition_ms=time_ms(
+                    torch, lambda: FC.comm_norm(x, r, w, ctx=ctx)),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             flops / FP32_FLOPS) * 1e3,
+                bound_by="bytes", library_ms=None)
+            case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
+            case["achieved_gb_per_s_1cta"] = nbytes / case["ms_1cta"] / 1e6
+            rows["ar_rmsnorm"] = case
+        emit(case)
+        del x, r, out, out1, p_out, p_res
+    torch.cuda.empty_cache()
+
     kvh, g, dh = 8, 8, 128
     k3_err = 0.0
 
@@ -231,28 +301,52 @@ def kernel_phase(torch, seed: int):
         del q, k, v, out, plain
         torch.cuda.empty_cache()
     rows["fused_residual_rmsnorm"]["max_abs_err"] = k2_err
+    rows["ar_rmsnorm"]["max_abs_err"] = k1_err
     rows["flash_attention"]["max_abs_err"] = k3_err
     return rows
 
 
 # --------------------------------------------------------------------------
-# phase 3: the engine at full width
+# phases 3 and 4: the engine at full width, at tp=1 and at tp=8
 # --------------------------------------------------------------------------
 
-def engine_phase(torch, np, seed: int):
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.configs.llama3_70b import CONFIG
+def reset_launches():
+    from repro_torch.kernels import ar_rmsnorm as K1
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import fused_rmsnorm as K2
+    for fn in (K1.ar_rmsnorm, K2.fused_residual_rmsnorm, K3.flash_attention):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import ar_rmsnorm as K1
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import fused_rmsnorm as K2
+    return {"ar_rmsnorm": K1.ar_rmsnorm.launches,
+            "fused_residual_rmsnorm": K2.fused_residual_rmsnorm.launches,
+            "flash_attention": K3.flash_attention.launches}
+
+
+def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                 comm_mode: str, n_layers: int = 4):
+    """Serve the 4 requests at ``tp`` ranks on the card's rank axis; the
+    add+norm slots run K2 (``fused``) or K1 (``ring``)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.llama3_70b import CONFIG
+    from repro_torch.layers.embedding import sharded_argmax
     from repro_torch.models.build import build_model
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
     from repro_torch.runtime.scheduler import SchedulerConfig
 
-    n_layers, prompt_lens, new_tokens = 4, (1800, 1200, 700, 300), 16
+    phase = "engine" if tp == 1 else "engine_tp"
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    prompt_lens, new_tokens = (1800, 1200, 700, 300), 16
     cfg = dataclasses.replace(CONFIG, num_layers=n_layers)
-    pcfg = ParallelConfig(attn_impl="pallas", use_pallas_norm=True)
-    api = build_model(cfg, pcfg)
+    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
+                          use_pallas_norm=True)
+    api = build_model(cfg, pcfg, tp=tp)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(seed, device="cuda")
@@ -273,11 +367,12 @@ def engine_phase(torch, np, seed: int):
     with torch.no_grad():
         logits, _ = api.prefill(params, tokens, cache_rows, pos,
                                 last_idx=torch.tensor([1799], device="cuda"))
-    if logits.shape != (1, 1, cfg.vocab_size) or \
+    v_loc = params["embedding"]["embed"].shape[1]
+    if logits.shape != (tp, 1, 1, v_loc) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              f"not finite / wrong shape")
-    first_tok = int(logits.float().argmax())
+    first_tok = int(sharded_argmax(logits, vocab_size=cfg.vocab_size)[0, 0])
     del logits
 
     eng = Engine(api, params, SchedulerConfig())
@@ -297,14 +392,12 @@ def engine_phase(torch, np, seed: int):
     for i, p in enumerate(prompts):
         eng.add_request(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
 
-    K2.fused_residual_rmsnorm.launches = 0
-    K3.flash_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fused_residual_rmsnorm": K2.fused_residual_rmsnorm.launches,
-                "flash_attention": K3.flash_attention.launches}
+    launches = read_launches()
 
     if sorted(r.rid for r in done) != list(range(len(prompts))):
         raise AssertionError(f"finished {[r.rid for r in done]}")
@@ -321,11 +414,16 @@ def engine_phase(torch, np, seed: int):
     pf = eng.metrics.get("engine/site_forwards", site="prefill").value
     pw_inst = eng.metrics.get("engine/site_weave", site="prefill")
     pf_splits = pf + (pw_inst.value if pw_inst is not None else 0)
-    want = {"fused_residual_rmsnorm": splits * (1 + 2 * n_layers),
+    # every forward's add+norm slots ran the mode's kernel, so none fell
+    # back to vanilla (which launches neither K1 nor K2)
+    want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
             "flash_attention": pf_splits * n_layers}
-    if launches != want or 0 in launches.values():
+    want[norm_kernel] = splits * (1 + 2 * n_layers)
+    if launches != want or 0 in (launches[norm_kernel],
+                                 launches["flash_attention"]):
         raise AssertionError(f"launches {launches}, expected {want}")
-    emit({"phase": "engine", "model": cfg.name, "layers": n_layers,
+    emit({"phase": phase, "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype,
           "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
           "forwards": st.forwards, "weave_forwards": st.weave_forwards,
@@ -352,19 +450,63 @@ def engine_phase(torch, np, seed: int):
                                                 pos, last_idx=last)),
                 ("decode", lambda: api.decode_step(params, dtok, eng.cache,
                                                    dpos))):
-            emit({"phase": "breakdown", "step": step, "tokens":
+            trace = trace_dir / f"{phase}_{step}_trace.json"
+            row = device_breakdown(torch, fn, trace)
+            if tp > 1 and step == "prefill" and not row["k1_launches"]:
+                raise AssertionError("no K1 kernel in the traced prefill")
+            emit({"phase": "breakdown", "engine": phase, "tp": tp,
+                  "step": step, "tokens":
                   chunk if step == "prefill" else eng.scfg.max_batch,
-                  **device_breakdown(torch, fn)})
+                  **row})
     del eng, params, cache_rows
     torch.cuda.empty_cache()
     return launches
 
 
-def device_breakdown(torch, fn) -> dict:
+KINDS = (("flash_attention", "flash_fwd"), ("fused_rmsnorm", "fused_rmsnorm"),
+         ("ar_rmsnorm", "ar_rmsnorm"))
+
+
+def kernel_kind(name: str) -> str:
+    name = name.lower()
+    for kind, key in KINDS:
+        if key in name:
+            return kind
+    if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def overlap_ms(events, kind: str) -> float:
+    """Device time of the ``kind`` kernels during which some other kernel
+    ran (on another stream): intervals (start, end, kind) in ms."""
+    others = sorted((s, e) for s, e, k in events if k != kind)
+    merged = []
+    for s, e in others:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    total = 0.0
+    for s, e, k in events:
+        if k != kind:
+            continue
+        for ms, me in merged:
+            if me <= s:
+                continue
+            if ms >= e:
+                break
+            total += min(e, me) - max(s, ms)
+    return total
+
+
+def device_breakdown(torch, fn, trace_path) -> dict:
     """Time one call of ``fn`` on the host's clock, then trace one more
-    with torch.profiler: device time summed by kind of kernel, the longest
-    kernels, and the share of the first call's wall time in which no
-    kernel ran."""
+    with torch.profiler into ``trace_path``: device time summed by kind of
+    kernel, the longest kernels, the time some kernel ran (the union over
+    streams, so kernels that overlap count once), the share of the first
+    call's wall time in which none ran, and how much of K1's device time
+    overlapped other kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,38 +520,53 @@ def device_breakdown(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
     kinds = {"gemm": 0.0, "flash_attention": 0.0, "fused_rmsnorm": 0.0,
-             "other": 0.0}
+             "ar_rmsnorm": 0.0, "other": 0.0}
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
-        name = e.key.lower()
-        kind = ("flash_attention" if "flash_fwd" in name else
-                "fused_rmsnorm" if "fused_rmsnorm" in name else
-                "gemm" if any(s in name for s in ("gemm", "nvjet", "xmma",
-                                                  "cutlass")) else "other")
-        kinds[kind] += ms
+        kinds[kernel_kind(e.key)] += ms
         kernels.append((ms, e.count, e.key[:100]))
-    busy = sum(kinds.values())
-    if busy <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
     kernels.sort(reverse=True)
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())
+    events = events.get("traceEvents", events)
+    iv = [(e["ts"] / 1e3, (e["ts"] + e["dur"]) / 1e3, kernel_kind(e["name"]))
+          for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not iv:
+        raise AssertionError("torch.profiler recorded no kernel")
+    busy = max(e for _, e, _ in iv) - min(s for s, _, _ in iv) - idle_ms(iv)
+    k1 = [e - s for s, e, k in iv if k == "ar_rmsnorm"]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "kernel_ms_sum": sum(kinds.values()),
             "device_idle_share": 1 - busy / wall_ms,
             "device_ms_by_kind": kinds,
+            "k1_launches": len(k1), "k1_device_ms": sum(k1),
+            "k1_overlapped_ms": overlap_ms(iv, "ar_rmsnorm"),
+            "trace": str(trace_path),
             "top_kernels": [{"ms": ms, "count": n, "name": k}
                             for ms, n, k in kernels[:10]]}
 
 
+def idle_ms(events) -> float:
+    """Gaps between kernels over the traced span (any stream)."""
+    iv = sorted((s, e) for s, e, _ in events)
+    gap, end = 0.0, iv[0][1]
+    for s, e in iv[1:]:
+        if s > end:
+            gap += s - end
+        end = max(end, e)
+    return gap
+
+
 # --------------------------------------------------------------------------
-# phase 4: the same small float32 model on the card and on the CPU
+# phase 5: the same small float32 model on the card and on the CPU
 # --------------------------------------------------------------------------
 
-def identity_phase(torch, np, seed: int):
+def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     from repro_torch.configs.base import ModelConfig, ParallelConfig
-    from repro_torch.kernels import flash_attention as K3
-    from repro_torch.kernels import fused_rmsnorm as K2
     from repro_torch.models.build import build_model
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
@@ -417,14 +574,17 @@ def identity_phase(torch, np, seed: int):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
     cfg = ModelConfig(name="small", family="dense", num_layers=2, d_model=256,
                       num_heads=8, num_kv_heads=2, head_dim=32, d_ff=512,
                       vocab_size=512, dtype="float32")
-    pcfg = ParallelConfig(attn_impl="pallas", use_pallas_norm=True,
-                          split_unit=16, tokenweave_min_tokens=32)
+    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
+                          use_pallas_norm=True, split_unit=16,
+                          tokenweave_min_tokens=32)
     scfg = SchedulerConfig(max_batch=16, chunk_tokens=64, max_len=128,
                            prefill_bucket=16)
-    api = build_model(cfg, pcfg)
+    api = build_model(cfg, pcfg, tp=tp)
     p_cpu = api.init(seed, device="cpu")
 
     def to_cuda(tree):
@@ -438,22 +598,24 @@ def identity_phase(torch, np, seed: int):
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.randint(5, 100, size=16)]
-    outs, launches = {}, {}
+    outs, launches, weave = {}, {}, {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        K2.fused_residual_rmsnorm.launches = 0
-        K3.flash_attention.launches = 0
+        reset_launches()
         eng = Engine(api, params, scfg, device=dev)
         for i, p in enumerate(prompts):
             eng.add_request(Request(rid=i, prompt=p, max_new_tokens=6))
         outs[dev] = {r.rid: r.output for r in eng.run()}
-        launches[dev] = (K2.fused_residual_rmsnorm.launches,
-                         K3.flash_attention.launches)
-        weave = eng.stats.weave_forwards
+        torch.cuda.synchronize()
+        launches[dev] = read_launches()
+        weave[dev] = eng.stats.weave_forwards
     if outs["cuda"] != outs["cpu"]:
-        raise AssertionError(f"cuda tokens {outs['cuda']} != cpu "
+        raise AssertionError(f"tp={tp}: cuda tokens {outs['cuda']} != cpu "
                              f"{outs['cpu']}")
-    if 0 in launches["cuda"] or launches["cpu"] != (0, 0) or not weave:
-        raise AssertionError(f"launches {launches}, weave forwards {weave}")
+    if (0 in (launches["cuda"][norm_kernel],
+              launches["cuda"]["flash_attention"])
+            or any(launches["cpu"].values()) or not weave["cuda"]):
+        raise AssertionError(f"tp={tp}: launches {launches}, weave "
+                             f"forwards {weave}")
 
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 48)))
     pos = torch.arange(48, dtype=torch.int32)[None].repeat(2, 1)
@@ -467,16 +629,20 @@ def identity_phase(torch, np, seed: int):
                                          pos.to(dev), last_idx=last.to(dev))
     err = max_err(logits["cuda"].cpu(), logits["cpu"])
     if not err <= IDENTITY_LOGIT_TOL:
-        raise AssertionError(f"prefill logits differ by {err}")
-    emit({"phase": "identity", "model": cfg.name, "requests": len(prompts),
-          "tokens_identical": True, "weave_forwards": weave,
-          "cuda_launches": launches["cuda"], "prefill_logits_max_abs_err": err,
-          "tol": IDENTITY_LOGIT_TOL})
+        raise AssertionError(f"tp={tp}: prefill logits differ by {err}")
+    emit({"phase": "identity", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "requests": len(prompts),
+          "tokens_identical": True, "weave_forwards": weave["cuda"],
+          "cuda_launches": launches["cuda"],
+          "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-dir", type=Path,
+                    default=ROOT / "build" / "traces",
+                    help="where the traced model calls' Chrome traces go")
     args = ap.parse_args()
 
     import numpy as np
@@ -504,10 +670,19 @@ def main() -> int:
         build.load(name)
 
     rows = kernel_phase(torch, args.seed)
-    launches = engine_phase(torch, np, args.seed)
-    identity_phase(torch, np, args.seed)
+    # the main paths: launches are counted from 0 over each engine run
+    paths = [engine_phase(torch, np, args.seed, args.trace_dir, tp=1,
+                          comm_mode="fused"),
+             engine_phase(torch, np, args.seed, args.trace_dir, tp=8,
+                          comm_mode="ring")]
+    launches = {name: sum(p[name] for p in paths) for name in paths[0]}
+    identity_phase(torch, np, args.seed, tp=1, comm_mode="fused")
+    identity_phase(torch, np, args.seed, tp=2, comm_mode="ring")
 
-    sources = {"fused_residual_rmsnorm": (
+    sources = {"ar_rmsnorm": (
+        "src/repro_torch/csrc/ar_rmsnorm.cu",
+        "src/repro/kernels/ring_ar_rmsnorm.py:43"),
+        "fused_residual_rmsnorm": (
         "src/repro_torch/csrc/fused_rmsnorm.cu",
         "src/repro/kernels/fused_rmsnorm.py:27"),
         "flash_attention": (

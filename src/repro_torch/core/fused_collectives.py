@@ -1,58 +1,117 @@
 """The add+norm slot after attention and after the FFN: AllReduce +
-residual-add + RMSNorm, as ``repro.core.fused_collectives`` at tp=1.
+residual-add + RMSNorm, five ways, as ``repro.core.fused_collectives``.
 
-At tp=1 the reduction, the reduce-scatter and the all-gather around the
-norm are identities, so the modes differ only in how the add+norm runs:
+The tp ranks sit on a leading rank axis R of one device
+(``distributed/context.py``).  Shapes:
 
-    vanilla / nocomm : unfused two-pass add+norm on all tokens
-    reordered        : unfused two-pass add+norm on the token shard
-    fused            : single-pass fused add+norm (kernel K2 when
-                       ``ctx.use_pallas``)
-    ring             : the one-kernel AllReduce-RMSNorm (K1), not ported
+    x          (R, T, d)   row-parallel product output, partial over ranks
+    residual   vanilla/nocomm: (R, T, d), full on every rank
+               reordered/fused/ring: (R, T // R, d), rank r's token slice
+    weight     (d,)
+    returns    (normed (R, T, d), the same on every rank, new residual)
+
+Modes:
+
+    vanilla   : psum -> +residual -> RMSNorm on all T tokens on every rank
+    reordered : psum_scatter -> unfused add+norm on 1/R of the tokens ->
+                all_gather
+    fused     : psum_scatter -> single-pass fused add+norm (kernel K2 when
+                ``ctx.use_pallas``) -> all_gather
+    ring      : the whole slot in one kernel, K1 (``kernels/ar_rmsnorm.py``)
+                on ``ring_ctas(ctx.comm_budget)`` CTAs; falls down the
+                reference's ladder to ``fused`` when there is no reduction
+                to fold in, a sandwich post-norm, or no kernels asked for
+    nocomm    : collectives skipped (perf counterfactual, wrong math)
+
+psum sums in fp32, rank 0 first, and rounds to x's dtype
+(``kernels.ar_rmsnorm.rank_sum``), psum_scatter(tiled) gives rank r rows
+``[r·C, (r+1)·C)``, and all_gather writes the full result into every rank.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.context import CommCtx
-from repro_torch.kernels.ops import fused_residual_rmsnorm
+from repro_torch.core.splitting import ring_ctas
+from repro_torch.distributed.context import CommCtx, token_shard_slice
+from repro_torch.kernels.ar_rmsnorm import rank_sum
+from repro_torch.kernels.ops import ar_rmsnorm, fused_residual_rmsnorm
 from repro_torch.layers.norms import residual_rmsnorm_unfused, rms_norm
+
+
+def _ring_supported(ctx: CommCtx, reduce_input: bool, weight_post) -> bool:
+    """The reference's ladder for mode="ring": K1 needs a genuine
+    reduction to fold in, no sandwich post-norm (it fuses exactly
+    add+norm), and kernels enabled."""
+    return reduce_input and weight_post is None and ctx.use_pallas
+
+
+def _all_gather(full: torch.Tensor, r: int) -> torch.Tensor:
+    """Every rank's copy of the gathered (T, d): (R, T, d)."""
+    return full[None] if r == 1 else full.expand(r, *full.shape).contiguous()
 
 
 def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
               weight_post=None):
-    """x (T, d) block output; residual (T // tp, d) or (T, d) by mode;
-    weight (d,).  Returns (normed (T, d), new_residual)."""
+    """The AllReduce-RMSNorm slot.  ``reduce_input=False``: x is already
+    complete on every rank; the reduction is skipped, the token-sharded
+    structure kept.  ``weight_post``: gemma-style post-norm of the reduced
+    block output before the residual add."""
     mode = ctx.mode
-    if mode == "ring":
-        raise NotImplementedError(
-            "comm_mode='ring' needs kernel K1 (NVLS AllReduce-RMSNorm), "
-            "queued in ROADMAP.md section B")
+    if x.shape[0] != ctx.tp:
+        raise ValueError(f"x has {x.shape[0]} ranks, ctx.tp={ctx.tp}")
     if mode in ("nocomm", "vanilla"):
+        if mode == "vanilla" and reduce_input:
+            x = rank_sum(x)              # psum: (T, d), the same on every rank
         if weight_post is not None:
             x = rms_norm(x, weight_post, ctx.eps)
         return residual_rmsnorm_unfused(x, residual, weight, ctx.eps)
-    if mode not in ("reordered", "fused"):
+    if mode not in ("reordered", "fused", "ring"):
         raise ValueError(f"unknown comm mode {mode!r}")
-    local = x                     # psum_scatter at tp=1
+
+    if mode == "ring":
+        if _ring_supported(ctx, reduce_input, weight_post):
+            return ar_rmsnorm(x.contiguous(), residual, weight,
+                              eps=ctx.eps, ctas=ring_ctas(ctx.comm_budget),
+                              use_pallas=True)
+        mode = "fused"
+
+    r, t, d = x.shape
+    if reduce_input:
+        local = rank_sum(x).reshape(r, t // r, d)    # psum_scatter(tiled)
+    else:
+        local = token_shard_slice(x, ctx)
     if weight_post is not None:
         local = rms_norm(local, weight_post, ctx.eps)
     if mode == "fused" and weight_post is None:
         normed, new_res = fused_residual_rmsnorm(
-            local, residual, weight, eps=ctx.eps, use_pallas=ctx.use_pallas)
+            local.reshape(t, d), residual.reshape(t, d), weight, eps=ctx.eps,
+            use_pallas=ctx.use_pallas)
+        new_res = new_res.reshape(residual.shape)
     else:
         normed, new_res = residual_rmsnorm_unfused(local, residual, weight,
                                                    ctx.eps)
-    return normed, new_res        # all_gather at tp=1
+        normed = normed.reshape(t, d)
+    return _all_gather(normed, r), new_res
 
 
 def final_norm(residual, weight, *, ctx: CommCtx):
-    """Final pre-LM-head RMSNorm on the residual stream (no add)."""
-    return rms_norm(residual, weight, ctx.eps)
+    """Final pre-LM-head RMSNorm on the residual stream (no add), gathered
+    to every rank: (R, T, d)."""
+    normed = rms_norm(residual, weight, ctx.eps)
+    if ctx.sharded_residual:
+        return _all_gather(normed.reshape(-1, normed.shape[-1]), ctx.tp)
+    return normed
 
 
 def fresh_residual(t_tokens: int, d: int, dtype, *, ctx: CommCtx,
                    device=None):
     """Zero residual in the layout the configured mode expects."""
-    rows = t_tokens // ctx.tp_size() if ctx.sharded_residual else t_tokens
-    return torch.zeros((rows, d), dtype=dtype, device=device)
+    rows = t_tokens // ctx.tp if ctx.sharded_residual else t_tokens
+    return torch.zeros((ctx.tp, rows, d), dtype=dtype, device=device)
+
+
+def gather_residual(residual, *, ctx: CommCtx):
+    """The full residual stream on every rank: (R, T, d)."""
+    if ctx.sharded_residual:
+        return _all_gather(residual.reshape(-1, residual.shape[-1]), ctx.tp)
+    return residual

@@ -1,5 +1,6 @@
-"""Wave-aware token splitting (paper §3.1), the part of
-``repro.core.splitting`` the two-dispatch serving path needs.
+"""Wave-aware token splitting (paper §3.1) and the comm budget's channel
+count, the part of ``repro.core.splitting`` the two-dispatch serving path
+needs.
 
 The decisions are pure integer math and must equal the reference's
 exactly: the split point decides which keys the suffix split's attention
@@ -71,6 +72,25 @@ def split_decision(n_tokens: int, *, unit: int, min_tokens: int,
     return SplitDecision(split, "split" if split is not None
                          else "below_wave_floor", n_tokens, eff_unit,
                          min_tokens, 0, bucket)
+
+
+# The comm budget of a plan (an SM-equivalent fraction in (0, 1]) maps to
+#     channels = round(budget * MAX_RING_CHANNELS)
+# as in the reference, deliberately not clamped to >= 1 (the reference's
+# plan checker rejects budgets that map to zero; runtime callers clamp).
+# In this port the channels are kernel K1's CTAs, one per SM: the paper's
+# 2-8 SM grant.
+MAX_RING_CHANNELS: int = 8
+
+
+def ring_channels(budget: float) -> int:
+    """SM-equivalent comm budget -> channel count for the fused kernel."""
+    return int(round(float(budget) * MAX_RING_CHANNELS))
+
+
+def ring_ctas(budget: float) -> int:
+    """K1's grid for a comm budget: ``ring_channels`` clamped to [1, 8]."""
+    return min(MAX_RING_CHANNELS, max(1, ring_channels(budget)))
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

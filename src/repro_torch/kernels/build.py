@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "fused_rmsnorm": "fused_rmsnorm.cu",
     "flash_attention": "flash_attention.cu",
+    "ar_rmsnorm": "ar_rmsnorm.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,35 +1,48 @@
-"""Embedding, LM head and greedy argmax over vocab-sharded logits
-(``repro.layers.embedding``) at tp=1: one shard holds the whole
-(possibly padded) vocabulary."""
+"""Vocab-sharded embedding, LM head and greedy argmax over vocab-sharded
+logits, as ``repro.layers.embedding``.
+
+Rank r of the rank axis R holds vocabulary rows ``[r·V_loc, (r+1)·V_loc)``
+of the padded vocabulary (``V_pad = pad_to_multiple(V, tp)``).  The
+embedding lookup gives *partial* rows, complete after the psum that the
+entry norm's ``comm_norm`` folds in.
+"""
 from __future__ import annotations
 
 import torch
 
 
 def embed_tokens(params, ids: torch.Tensor, *, scale: float = 1.0):
-    """ids: (B, S) int -> (B, S, d).  Ids outside the table give zero rows,
-    as the reference's masked gather does."""
-    table = params["embed"]                      # (V_pad, d)
-    v = table.shape[0]
-    in_range = (ids >= 0) & (ids < v)
-    out = table[ids.long().clamp(0, v - 1)]
-    out = torch.where(in_range[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                            device=out.device))
+    """ids (B, S) -> partial (R, B, S, d): rank r gathers the ids in its
+    range and gives zero rows for the others (so do ids outside the
+    vocabulary, as the reference's masked gather)."""
+    table = params["embed"]                      # (R, V_loc, d)
+    r, v_loc, d = table.shape
+    lo = torch.arange(r, device=ids.device)[:, None, None] * v_loc
+    local = ids.long()[None] - lo                # (R, B, S)
+    in_range = (local >= 0) & (local < v_loc)
+    out = table.reshape(r * v_loc, d)[local.clamp(0, v_loc - 1) + lo]
+    out = torch.where(in_range[..., None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
     return out * scale if scale != 1.0 else out
 
 
 def lm_head_logits(params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> logits (B, S, V_pad)."""
-    if "lm_head" in params:
-        return x @ params["lm_head"]             # (d, V_pad)
-    return x @ params["embed"].t()               # tied
+    """x (R, B, S, d), the same on every rank -> local logits
+    (R, B, S, V_loc)."""
+    r, b, s, d = x.shape
+    w = (params["lm_head"] if "lm_head" in params        # (R, d, V_loc)
+         else params["embed"].transpose(1, 2))           # tied
+    return (x.reshape(r, b * s, d) @ w).reshape(r, b, s, -1)
 
 
 def sharded_argmax(logits: torch.Tensor, *, vocab_size: int) -> torch.Tensor:
-    """Greedy ids (B, S) from (B, S, V_pad) logits.  The padded vocab tail
-    is masked to -inf; ties break toward the smallest id."""
-    lg = logits.float()
-    col = torch.arange(lg.shape[-1], device=lg.device)
+    """Greedy ids (B, S) from vocab-sharded logits (R, B, S, V_loc): the
+    global max over every rank's shard, the padded vocab tail masked to
+    -inf, ties broken toward the smallest global id."""
+    r, b, s, v_loc = logits.shape
+    # rank-major flattening puts global id r·V_loc + j at that position
+    lg = logits.float().permute(1, 2, 0, 3).reshape(b, s, r * v_loc)
+    col = torch.arange(r * v_loc, device=lg.device)
     lg = torch.where(col < vocab_size, lg, float("-inf"))
     gmax = lg.max(dim=-1, keepdim=True).values
     big = torch.iinfo(torch.int32).max

@@ -1,7 +1,7 @@
-"""Gated FFN (SwiGLU for the llama family), as ``repro.layers.mlp``.
-
-At tp=1 the down projection's output is complete; the reduction slot
-that follows is ``core.fused_collectives.comm_norm``.
+"""Tensor-parallel FFN, as ``repro.layers.mlp``: column-parallel up/gate,
+row-parallel down, batched over the rank axis R.  The output is *partial*
+over the ranks; its reduction is ``core.fused_collectives.comm_norm``, so
+the AllReduce fuses with the residual add and the RMSNorm.
 """
 from __future__ import annotations
 
@@ -10,14 +10,19 @@ import torch.nn.functional as F
 
 
 def mlp_forward(params, x: torch.Tensor, *, act: str = "silu"):
-    """x: (B, S, d) -> (B, S, d).  The activation runs in float32 and is
-    cast back to x.dtype before the product with the up projection."""
-    if "w_gate" not in params:
-        raise NotImplementedError(
-            "only the gated (silu/geglu) FFN is ported (ROADMAP.md A10)")
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    gf = g.float()
-    gact = F.gelu(gf, approximate="tanh") if act == "geglu" else F.silu(gf)
-    h = gact.to(x.dtype) * u
-    return h @ params["w_down"]
+    """x (R, B, S, d), the same on every rank -> partial (R, B, S, d).
+    Activations run in float32 and are cast back to x.dtype."""
+    r, b, s, d = x.shape
+    xf = x.reshape(r, b * s, d)
+    if "w_gate" in params:
+        g = xf @ params["w_gate"]                # (R, T, f/R)
+        u = xf @ params["w_up"]
+        gf = g.float()
+        gact = F.gelu(gf, approximate="tanh") if act == "geglu" else F.silu(gf)
+        out = (gact.to(x.dtype) * u) @ params["w_down"]
+    else:
+        h = xf @ params["w_in"] + params["b_in"][:, None]
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        # the psum downstream sums R copies of the bias: pre-divide
+        out = h @ params["w_out"] + params["b_out"] / r
+    return out.reshape(r, b, s, d)

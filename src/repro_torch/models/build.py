@@ -1,5 +1,5 @@
 """Uniform model API, as ``repro.models.build``; this slice has the dense
-family only."""
+family only, at any tp (the ranks on one device's rank axis)."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,7 @@ class ModelApi:
 
     def init(self, seed: int = 0, *, device=None, dtype=None):
         return self.mod.init_params(self.cfg, seed=seed, device=device,
-                                    dtype=dtype)
+                                    dtype=dtype, tp=self.tp)
 
     def init_cache(self, batch: int, max_len: int, *, device=None):
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
@@ -39,6 +39,6 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
-    if tp != 1:
-        raise NotImplementedError("tp > 1 is not ported yet (ROADMAP.md A4)")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     return ModelApi(cfg=cfg, pcfg=pcfg, mod=transformer, tp=tp)

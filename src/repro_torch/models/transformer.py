@@ -1,23 +1,31 @@
 """Decoder-only transformer (dense family) with the TokenWeave two-split
 weave, as ``repro.models.transformer``.
 
+The tp ranks sit on a leading rank axis R of one device
+(``distributed/context.py``): every sharded weight is ``(R, ...)`` as in
+the reference's pytree, activations are ``(R, B, S, d)``, and the
+AllReduce + residual + RMSNorm slots go through
+``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).
+
 The weave (paper Fig. 8) emits, with two token splits s0/s1,
 
     attn(s0) ; AR-norm(s0) ; attn(s1) ; AR-norm(s1) ;
     ffn(s0)  ; AR-norm(s0) ; ffn(s1)  ; AR-norm(s1)
 
 and the suffix split's attention takes the prefix split's KV as
-``kv_prefix`` (§3.1).  At tp=1 there is no collective to overlap, so the
-splits run one after the other on one stream; the split points, and with
-them every key each split sees, are the reference's exactly.  CUDA streams
-and events come with the tp>1 slice.
+``kv_prefix`` (§3.1).  At tp>1 on CUDA each AR-norm runs on a comm stream:
+it waits on an event recorded after its split's row-parallel product, and
+the compute stream waits on the AR-norm's event only before that split's
+next layer part, so the other split's compute is queued in between
+(``_Weave``).  At tp=1, or unsplit, or on the CPU, everything runs in that
+order on the current stream.
 
-Parameters are a plain dict: {"embedding": {"embed" (V, d), "lm_head"
-(d, V)}, "norm_first" (d,), "layers": [per-layer dicts]} — the reference's
-pytree without its per-shard axis.  Norm-weight convention (off by one,
-like vLLM's fused add+norm): layer i's post-FFN add+norm applies layer
-i+1's input norm; ``norm_ffn`` of the last layer is the final norm;
-``norm_first`` is layer 0's input norm, applied at the embedding.
+Parameters are a plain dict: {"embedding": {"embed" (R, V_pad/R, d),
+"lm_head" (R, d, V_pad/R)}, "norm_first" (d,), "layers": [per-layer
+dicts]}.  Norm-weight convention (off by one, like vLLM's fused
+add+norm): layer i's post-FFN add+norm applies layer i+1's input norm;
+``norm_ffn`` of the last layer is the final norm; ``norm_first`` is layer
+0's input norm, applied at the embedding.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fused_collectives as fc
 from repro_torch.core.policy import DEFAULT_POLICY, ThresholdPolicy
-from repro_torch.core.splitting import token_bucket
+from repro_torch.core.splitting import pad_to_multiple, token_bucket
 from repro_torch.device import resolve_device
 from repro_torch.distributed.context import CommCtx
 from repro_torch.layers import attention as A
@@ -64,28 +72,32 @@ def layer_kinds(cfg: ModelConfig) -> List[LayerKind]:
 # params
 # --------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None):
-    """Random weights from a seeded ``torch.Generator`` on ``device``
-    (CUDA unless given), with the reference's scales (attention and MLP
-    inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head d^-0.5;
-    norms ones).  The values differ from the reference's jax.random ones;
-    tests move the reference's weights over with
-    ``weights.from_jax_params`` instead."""
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
+                tp: int = 1):
+    """Random weights for ``tp`` ranks from a seeded ``torch.Generator`` on
+    ``device`` (CUDA unless given), with the reference's scales (attention
+    and MLP inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head
+    d^-0.5; norms ones) and shapes (every sharded weight (tp, ...)).  The
+    values differ from the reference's jax.random ones; tests move the
+    reference's weights over with ``weights.from_jax_params`` instead."""
     if cfg.family != "dense" or cfg.is_moe:
         raise NotImplementedError("only the dense family is ported")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    lay = A.attention_layout(1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim)
     d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    if f % tp:
+        raise ValueError(f"d_ff={f} is not a multiple of tp={tp}")
     s = d ** -0.5
 
     def rnd(shape, scale):
-        return torch.randn(shape, generator=gen, device=device,
+        return torch.randn((tp,) + shape, generator=gen, device=device,
                            dtype=dtype) * scale
 
-    def ones():
-        return torch.ones(d, dtype=dtype, device=device)
+    def ones(n=d):
+        return torch.ones(n, dtype=dtype, device=device)
 
     layers = []
     for _ in range(cfg.num_layers):
@@ -96,95 +108,125 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None):
         if cfg.qkv_bias:
             for name, w in (("bq", lay.h_loc), ("bk", lay.kv_store),
                             ("bv", lay.kv_store)):
-                attn[name] = torch.zeros(w * dh, dtype=dtype, device=device)
+                attn[name] = torch.zeros(tp, w * dh, dtype=dtype,
+                                         device=device)
         if cfg.qk_norm:
-            attn["q_norm"] = torch.ones(dh, dtype=dtype, device=device)
-            attn["k_norm"] = torch.ones(dh, dtype=dtype, device=device)
-        mlp = {"w_gate": rnd((d, f), s), "w_up": rnd((d, f), s),
-               "w_down": rnd((f, d), f ** -0.5)}
+            attn["q_norm"] = ones(dh)
+            attn["k_norm"] = ones(dh)
+        mlp = {"w_gate": rnd((d, f // tp), s), "w_up": rnd((d, f // tp), s),
+               "w_down": rnd((f // tp, d), f ** -0.5)}
         lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones(),
               "mlp": mlp}
         if cfg.sandwich_norms:
             lp["norm_attn_post"] = ones()
             lp["norm_ffn_post"] = ones()
         layers.append(lp)
-    emb = {"embed": rnd((cfg.vocab_size, d), 0.02)}
+    v_loc = pad_to_multiple(cfg.vocab_size, tp) // tp
+    emb = {"embed": rnd((v_loc, d), 0.02)}
     if not cfg.tie_embeddings:
-        emb["lm_head"] = rnd((d, cfg.vocab_size), s)
+        emb["lm_head"] = rnd((d, v_loc), s)
     return {"embedding": emb, "norm_first": ones(), "layers": layers}
 
 
 # --------------------------------------------------------------------------
-# single layer on one split
+# the weave: one layer over one or two splits
 # --------------------------------------------------------------------------
 
-def _layer_split(lp, h, res, *, positions, kind: LayerKind, cfg, pcfg,
-                 ctx: CommCtx, lay, kv_prefix, cache_layer, decode: bool):
-    """One transformer layer on one token split.
-    Returns (h_next, res, chunk kv (prefill) or the cache layer (decode))."""
-    if kind.is_moe:
-        raise NotImplementedError("MoE layers are not ported (ROADMAP.md A10)")
-    if decode and h.shape[1] > 1:
-        a_part, kv_out = A.attn_verify(
-            lp["attn"], h, cache_layer, positions=positions, cfg=cfg,
-            lay=lay, theta=kind.theta, window=kind.window)
-    elif decode:
-        a_part, kv_out = A.attn_decode(
-            lp["attn"], h, cache_layer, positions=positions, cfg=cfg, lay=lay,
-            theta=kind.theta, window=kind.window)
-    else:
-        a_part, kv_out = A.attn_prefill(
-            lp["attn"], h, positions=positions, cfg=cfg, lay=lay,
-            theta=kind.theta, window=kind.window, kv_prefix=kv_prefix,
-            impl=pcfg.attn_impl)
+class _Weave:
+    """Where each split's AllReduce-norm runs.  With two splits at tp>1
+    on CUDA: on a high-priority comm stream (from PyTorch's stream pool),
+    so its few CTAs are scheduled ahead of queued compute CTAs, after an
+    event recorded on the compute stream behind the split's row-parallel
+    product; ``wait(i)`` makes the compute stream wait for split i's last
+    AR-norm before it reads that split's output.  Tensors that cross
+    streams get ``record_stream`` so the caching allocator does not hand
+    their memory out early.  Otherwise every call runs in order on the
+    current stream."""
 
-    b, s, d = h.shape
-    h2_flat, res = fc.comm_norm(a_part.reshape(b * s, d), res,
-                                lp["norm_attn"], ctx=ctx,
-                                weight_post=lp.get("norm_attn_post"))
-    f_part = M.mlp_forward(lp["mlp"], h2_flat.reshape(b, s, d), act=cfg.act)
-    h3_flat, res = fc.comm_norm(f_part.reshape(b * s, d), res,
-                                lp["norm_ffn"], ctx=ctx,
-                                weight_post=lp.get("norm_ffn_post"))
-    return h3_flat.reshape(b, s, d), res, kv_out
+    def __init__(self, n_splits: int, ctx: CommCtx, device: torch.device):
+        self.ctx = ctx
+        self.comm = None
+        if ctx.tp > 1 and n_splits == 2 and device.type == "cuda":
+            self.compute = torch.cuda.current_stream(device)
+            self.comm = torch.cuda.Stream(device=device, priority=-1)
+            self.done = [None] * n_splits
+
+    def comm_norm(self, i: int, x, res, weight, weight_post=None):
+        """comm_norm of split i's block output x (R, B, S, d)."""
+        r, b, s, d = x.shape
+        xf = x.reshape(r, b * s, d)
+        if self.comm is None:
+            out, res = fc.comm_norm(xf, res, weight, ctx=self.ctx,
+                                    weight_post=weight_post)
+            return out.reshape(r, b, s, d), res
+        ready = torch.cuda.Event()
+        ready.record(self.compute)
+        self.comm.wait_event(ready)
+        xf.record_stream(self.comm)
+        res.record_stream(self.comm)
+        with torch.cuda.stream(self.comm):
+            out, res = fc.comm_norm(xf, res, weight, ctx=self.ctx,
+                                    weight_post=weight_post)
+            done = torch.cuda.Event()
+            done.record(self.comm)
+        out.record_stream(self.compute)
+        self.done[i] = done
+        return out.reshape(r, b, s, d), res
+
+    def wait(self, i: int):
+        if self.comm is not None and self.done[i] is not None:
+            self.compute.wait_event(self.done[i])
 
 
-def _weave_layer(lp, state, cache_layer, *, kind, cfg, pcfg, ctx, lay,
-                 decode: bool):
+def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
+                 lay, weave: _Weave, decode: bool):
     """Run one layer over one or two splits in paper-Fig.8 order.
     Returns (state, chunk kv (prefill) or the updated cache layer)."""
+    if kind.is_moe:
+        raise NotImplementedError("MoE layers are not ported (ROADMAP.md A10)")
     n = len(state["h"])
-    new_h, new_res = list(state["h"]), list(state["res"])
-    if decode:
-        # batch split: each split updates its own rows of the cache in
-        # place through views, so the full cache is the result
-        off = 0
-        for i in range(n):
-            rows = state["h"][i].shape[0]
-            cl = {name: t[off:off + rows] for name, t in cache_layer.items()}
-            new_h[i], new_res[i], _ = _layer_split(
-                lp, state["h"][i], state["res"][i],
-                positions=state["positions"][i], kind=kind, cfg=cfg,
-                pcfg=pcfg, ctx=ctx, lay=lay, kv_prefix=None, cache_layer=cl,
-                decode=True)
-            off += rows
-        return dict(state, h=new_h, res=new_res), cache_layer
-
-    kv_prev = _cache_prefix(cache_layer)
-    kv_outs = []
+    hs, ress = list(state["h"]), list(state["res"])
+    kv_prev = None if decode else _cache_prefix(cache_layer)
+    kv_outs, off = [], 0
     for i in range(n):
-        new_h[i], new_res[i], kv = _layer_split(
-            lp, state["h"][i], state["res"][i],
-            positions=state["positions"][i], kind=kind, cfg=cfg, pcfg=pcfg,
-            ctx=ctx, lay=lay, kv_prefix=kv_prev, cache_layer=None,
-            decode=False)
-        kv_outs.append(kv)
-        # later splits attend to cache prefix + all earlier splits' kv
-        kv_prev = kv if kv_prev is None else tuple(
-            torch.cat([a, b], dim=1) for a, b in zip(kv_prev, kv))
-    kv_new = kv_outs[0] if n == 1 else tuple(
-        torch.cat([a, b], dim=1) for a, b in zip(*kv_outs))
-    return dict(state, h=new_h, res=new_res), kv_new
+        weave.wait(i)
+        h, pos = hs[i], state["positions"][i]
+        if decode:
+            # batch split: each split updates its own rows of the cache in
+            # place through views, so the full cache is the result
+            rows = h.shape[1]
+            attn = A.attn_verify if h.shape[2] > 1 else A.attn_decode
+            a_part, _ = attn(lp["attn"], h, A.cache_rows(cache_layer, off,
+                                                         rows),
+                             positions=pos, cfg=cfg, lay=lay,
+                             theta=kind.theta, window=kind.window)
+            off += rows
+        else:
+            a_part, kv = A.attn_prefill(
+                lp["attn"], h, positions=pos, cfg=cfg, lay=lay,
+                theta=kind.theta, window=kind.window, kv_prefix=kv_prev,
+                impl=pcfg.attn_impl)
+            kv_outs.append(kv)
+            # later splits attend to cache prefix + all earlier splits' kv
+            kv_prev = kv if kv_prev is None else (
+                torch.cat([kv_prev[0], kv[0]], dim=2),
+                torch.cat([kv_prev[1], kv[1]], dim=2),
+                torch.cat([kv_prev[2], kv[2]], dim=1))
+        hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i], lp["norm_attn"],
+                                         lp.get("norm_attn_post"))
+    for i in range(n):
+        weave.wait(i)
+        f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
+        hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
+                                         lp.get("norm_ffn_post"))
+    state = dict(state, h=hs, res=ress)
+    if decode:
+        return state, cache_layer
+    if n == 1:
+        return state, kv_outs[0]
+    (k0, v0, p0), (k1, v1, p1) = kv_outs
+    return state, (torch.cat([k0, k1], dim=2), torch.cat([v0, v1], dim=2),
+                   torch.cat([p0, p1], dim=1))
 
 
 def _cache_prefix(cache_layer):
@@ -210,6 +252,8 @@ class WeaveInfo:
     site: str = ""      # prefill | decode | verify
     plan_id: int = 0
     bucket: str = ""
+    budget: float = 1.0   # comm budget the plan granted (K1's CTAs)
+    comm_mode: str = ""   # plan-forced comm_norm mode; "" = pcfg.comm_mode
 
 
 def _active_policy(pcfg: ParallelConfig):
@@ -258,23 +302,20 @@ def weave_decision_info(b: int, s: int, *, tp: int, pcfg: ParallelConfig,
 
 
 def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
-              tp: int) -> CommCtx:
-    """The token-sharded modes need t_local divisible by tp; otherwise fall
-    back to vanilla (the paper's fallback for small decode batches)."""
-    mode = pcfg.comm_mode
+              tp: int, *, mode: Optional[str] = None,
+              budget: float = 1.0) -> CommCtx:
+    """Pick the effective comm mode: the token-sharded (fused/reordered/
+    ring) layouts need t_local divisible by tp; otherwise fall back to
+    vanilla (the paper's fallback for small decode batches).  ``mode``
+    overrides ``pcfg.comm_mode`` when the overlap plan forces one;
+    ``budget`` sizes K1's grid."""
+    mode = mode or pcfg.comm_mode
     if (mode in ("fused", "reordered", "ring")
             and (t_local % tp != 0 or t_local < tp)):
         mode = "vanilla"
     return CommCtx(mode=mode, eps=cfg.norm_eps,
-                   use_pallas=pcfg.use_pallas_norm, tp=tp)
-
-
-def _entry_norm(emb, w_first, ctx):
-    """Split-local embedding -> residual birth + first input norm."""
-    b, s, d = emb.shape
-    res0 = fc.fresh_residual(b * s, d, emb.dtype, ctx=ctx, device=emb.device)
-    h_flat, res = fc.comm_norm(emb.reshape(b * s, d), res0, w_first, ctx=ctx)
-    return h_flat.reshape(b, s, d), res
+                   use_pallas=pcfg.use_pallas_norm, tp=tp,
+                   comm_budget=budget)
 
 
 # --------------------------------------------------------------------------
@@ -283,7 +324,8 @@ def _entry_norm(emb, w_first, ctx):
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False):
-    """Shared forward.  Returns (hidden_normed (B, S, d), kv_or_cache).
+    """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
+    every rank, kv_or_cache).  tp is the rank axis of ``params``.
 
     prefill chunk: ``cache`` = the request rows of the KV cache (attended
     as prefix); returns the chunk's new kv per layer, [(k, v, pos)], for
@@ -291,32 +333,37 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     decode: ``cache`` = the full slot cache (updated in place and
     returned); S == 1, or S == gamma+1 for a verify window.
     """
-    tp = 1
+    tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
     winfo = weave_decision_info(b, s, tp=tp, pcfg=pcfg, decode=decode,
                                 family=cfg.family)
-    ctx = _comm_ctx(pcfg, cfg, b * s, tp)
+    ctx = _comm_ctx(pcfg, cfg, b * s, tp, mode=winfo.comm_mode or None,
+                    budget=winfo.budget)
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
-    w_first = params["norm_first"]
 
     split = winfo.split
     if split is not None and not decode:
         s1 = split[0]
-        embs = [emb[:, :s1], emb[:, s1:]]
+        embs = [emb[:, :, :s1], emb[:, :, s1:]]
         poss = [positions[:, :s1], positions[:, s1:]]
     elif split is not None:
         b1 = split[0]
-        embs = [emb[:b1], emb[b1:]]
+        embs = [emb[:, :b1], emb[:, b1:]]
         poss = [positions[:b1], positions[b1:]]
     else:
         embs, poss = [emb], [positions]
 
+    # residual birth + layer 0's input norm, split-local: the embedding's
+    # partial rows are completed by this first AllReduce
+    weave = _Weave(len(embs), ctx, emb.device)
     hs, ress = [], []
-    for e in embs:
-        h_i, r_i = _entry_norm(e, w_first, ctx)
+    for i, e in enumerate(embs):
+        res0 = fc.fresh_residual(e.shape[1] * e.shape[2], e.shape[3],
+                                 e.dtype, ctx=ctx, device=e.device)
+        h_i, r_i = weave.comm_norm(i, e, res0, params["norm_first"])
         hs.append(h_i)
         ress.append(r_i)
     state = {"h": hs, "res": ress, "positions": poss}
@@ -328,31 +375,34 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         cache_layer = None if cache is None else cache[i]
         state, kv_new = _weave_layer(
             params["layers"][i], state, cache_layer, kind=kind, cfg=cfg,
-            pcfg=pcfg, ctx=ctx, lay=lay, decode=decode)
+            pcfg=pcfg, lay=lay, weave=weave, decode=decode)
         kv_all.append(kv_new)
 
-    h_out = (torch.cat(state["h"], dim=0 if decode else 1)
+    for i in range(len(embs)):
+        weave.wait(i)
+    h_out = (torch.cat(state["h"], dim=1 if decode else 2)
              if len(state["h"]) == 2 else state["h"][0])
     return h_out, kv_all
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions, last_idx=None):
-    """One (chunked) prefill step.  Returns (logits at each row's last
-    valid token (B, 1, V), chunk kv per layer).  ``last_idx``: per-row
-    index of the last unpadded token in the chunk."""
+    """One (chunked) prefill step.  Returns (local logits at each row's
+    last valid token (R, B, 1, V_loc), chunk kv per layer).  ``last_idx``:
+    per-row index of the last unpadded token in the chunk."""
     h, kv = forward(params, tokens, cfg=cfg, pcfg=pcfg, positions=positions,
                     cache=cache)
     if last_idx is None:
-        h_last = h[:, -1:]
+        h_last = h[:, :, -1:]
     else:
-        idx = last_idx.long()[:, None, None].expand(-1, 1, h.shape[-1])
-        h_last = torch.gather(h, 1, idx)
+        r, _, _, d = h.shape
+        idx = last_idx.long()[None, :, None, None].expand(r, -1, 1, d)
+        h_last = torch.gather(h, 2, idx)
     return E.lm_head_logits(params["embedding"], h_last), kv
 
 
 def decode_step(params, tokens, cache, *, cfg, pcfg, positions):
-    """Single-token decode (or verify window).  Returns (logits (B, S, V),
-    the cache, updated in place)."""
+    """Single-token decode (or verify window).  Returns (local logits
+    (R, B, S, V_loc), the cache, updated in place)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions, cache=cache, decode=True)
     return E.lm_head_logits(params["embedding"], h), new_cache
@@ -360,8 +410,8 @@ def decode_step(params, tokens, cache, *, cfg, pcfg, positions):
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                device=None, dtype=None):
-    """Slot KV cache on ``device`` (CUDA unless given): one {"k", "v",
-    "pos"} dict per layer."""
+    """Slot KV cache for ``tp`` ranks on ``device`` (CUDA unless given):
+    one {"k", "v", "pos"} dict per layer."""
     device = resolve_device(device)
     return [A.init_kv_cache(batch, max_len, cfg, tp, window=k.window,
                             dtype=dtype, device=device)

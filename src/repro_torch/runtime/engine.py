@@ -13,8 +13,10 @@ paged pool, packed hybrid batching, speculative decoding, tuned overlap
 plans, stochastic sampling, abort/evacuate/handoff, and tracing or
 profiling hooks (ROADMAP.md).
 
-The engine runs on CUDA unless it is given ``device="cpu"``; with no
-device and no CUDA it raises.
+The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
+one device (``distributed/context.py``), and the params must carry that
+axis.  It runs on CUDA unless it is given ``device="cpu"``; with no device
+and no CUDA it raises.
 """
 from __future__ import annotations
 
@@ -91,6 +93,9 @@ class Engine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params are on {emb.device}, engine on "
                              f"{self.device}")
+        if emb.shape[0] != api.tp:
+            raise ValueError(f"params hold {emb.shape[0]} ranks, the model "
+                             f"API tp={api.tp}")
         self.api = api
         self.params = params
         self.scfg = scfg

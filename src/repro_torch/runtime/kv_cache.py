@@ -1,7 +1,9 @@
 """Slot KV cache management, as ``repro.runtime.kv_cache``: per-request
 slots of fixed length C, with ring-buffer insertion for sliding-window
 layers (C = window).  The cache is a list with one {"k", "v", "pos"} dict
-per layer; ``insert_chunk`` and ``reset_slots`` update it in place.
+per layer: k and v are (R, B, C, kv_store, dh), one slab per rank of the
+rank axis, and pos is (B, C), the same on every rank.  ``insert_chunk``
+and ``reset_slots`` update it in place, across all ranks.
 """
 from __future__ import annotations
 
@@ -11,26 +13,27 @@ import torch
 def insert_chunk(cache, kv_chunk, offsets, slot_ids):
     """Write a prefill chunk's KV into the slots ``slot_ids``.
 
-    kv_chunk: per layer (k (B, S, h, dh), v, pos (B, S)); offsets (B,):
+    kv_chunk: per layer (k (R, B, S, h, dh), v, pos (B, S)); offsets (B,):
     the chunk's first position per row.  The chunk is written in segments
     of at most C positions, so a chunk longer than a ring window writes in
     order; entries with pos < 0 (padding) are dropped instead of
     clobbering live slots."""
     for layer, (k, v, pos) in zip(cache, kv_chunk):
         b_sel, s = pos.shape
-        c = layer["k"].shape[1]
+        c = layer["k"].shape[2]
         dev = pos.device
         bidx = slot_ids.to(dev).long()[:, None].expand(b_sel, min(s, c))
         for lo in range(0, s, c):
-            ks, vs, ps = k[:, lo:lo + c], v[:, lo:lo + c], pos[:, lo:lo + c]
+            ks, vs = k[:, :, lo:lo + c], v[:, :, lo:lo + c]
+            ps = pos[:, lo:lo + c]
             seg = ps.shape[1]
             slots = (offsets.to(dev).long()[:, None] + lo
                      + torch.arange(seg, device=dev)[None, :]) % c
             keep = ps >= 0
             rows = bidx[:, :seg][keep]
             cols = slots[keep]
-            layer["k"][rows, cols] = ks[keep].to(layer["k"].dtype)
-            layer["v"][rows, cols] = vs[keep].to(layer["v"].dtype)
+            layer["k"][:, rows, cols] = ks[:, keep].to(layer["k"].dtype)
+            layer["v"][:, rows, cols] = vs[:, keep].to(layer["v"].dtype)
             layer["pos"][rows, cols] = ps[keep].to(torch.int32)
     return cache
 
@@ -38,7 +41,8 @@ def insert_chunk(cache, kv_chunk, offsets, slot_ids):
 def gather_slots(cache, slot_ids):
     """Copies of the cache rows of the given slots (same structure)."""
     idx = slot_ids.long()
-    return [{name: t[idx] for name, t in layer.items()} for layer in cache]
+    return [{name: (t[idx] if name == "pos" else t[:, idx])
+             for name, t in layer.items()} for layer in cache]
 
 
 def reset_slots(cache, slot_ids):

@@ -2,12 +2,14 @@
 arrays, to this package's parameter dict.
 
 ``params_np`` is ``jax.tree.map(np.asarray, params)`` of
-``repro.models.transformer.init_params``.  Three layouts need care:
+``repro.models.transformer.init_params`` at any tp.  Three layouts need
+care:
 
 * layers are either stacked with a leading layer axis (``scan_layers``
   with uniform layer kinds) or a ``{"layer_i": ...}`` dict;
-* every weight carries a per-shard leading axis, taken at ``[0]`` (tp=1);
-  norm weights are (1, d) and become (d,);
+* every sharded weight carries a per-shard leading axis of size tp, kept
+  as the port's rank axis; the replicated weights (norm gains, q/k norms,
+  the row-parallel output bias) carry an axis of size 1 and drop it;
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
 """
@@ -28,10 +30,16 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _unshard(tree, device, dtype):
-    """Drop the per-shard leading axis of every leaf (norms: (1, d) -> (d,))."""
-    return {k: (_unshard(v, device, dtype) if isinstance(v, dict)
-                else to_torch(v[0], device, dtype))
+# leaves the reference replicates (PartitionSpec None): (1, n) -> (n,)
+REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_attn_post",
+                        "norm_ffn_post", "q_norm", "k_norm", "b_out"})
+
+
+def _convert(tree, device, dtype):
+    """Keep the per-shard axis of sharded leaves as the rank axis; drop
+    the size-1 axis of replicated ones."""
+    return {k: (_convert(v, device, dtype) if isinstance(v, dict)
+                else to_torch(v[0] if k in REPLICATED else v, device, dtype))
             for k, v in tree.items()}
 
 
@@ -48,7 +56,7 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
                     for k, v in tree.items()}
         per_layer = [take(layers_np, i) for i in range(cfg.num_layers)]
     return {
-        "embedding": _unshard(params_np["embedding"], device, dtype),
+        "embedding": _convert(params_np["embedding"], device, dtype),
         "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
-        "layers": [_unshard(lp, device, dtype) for lp in per_layer],
+        "layers": [_convert(lp, device, dtype) for lp in per_layer],
     }

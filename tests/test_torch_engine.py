@@ -145,6 +145,7 @@ sys.modules["repro"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.kernels.ar_rmsnorm" in names, names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())

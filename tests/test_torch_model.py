@@ -1,5 +1,7 @@
 """The PyTorch port's model path against the JAX reference, in float32 on
-the CPU, with the tiny dense model and the same weights on both sides.
+the CPU, with the tiny dense model and the same weights on both sides, at
+tp=1 (the port's rank axis has size 1; tests/test_torch_tp.py covers
+tp>1).
 
 The reference runs ``tiny_pcfg`` as its own tests do (chunked attention,
 jnp add+norm); the port runs it with ``attn_impl="pallas"`` and
@@ -18,6 +20,7 @@ from jax.sharding import PartitionSpec as P
 
 from repro.core import fused_collectives as jfc
 from repro.distributed.context import CommCtx as JCtx
+from repro.kernels.ref import ring_ar_rmsnorm_ref
 from repro.layers import attention as JA
 from repro.layers.embedding import sharded_argmax as j_argmax
 from repro.models import transformer as JT
@@ -74,7 +77,9 @@ def _random_cache(rng, cfg, b, c, lengths):
 
 
 def _torch_cache(np_cache):
-    return [{name: torch.from_numpy(np.ascontiguousarray(a[i]))
+    """Per-layer torch cache with a rank axis of size 1 on k and v."""
+    return [{name: torch.from_numpy(np.ascontiguousarray(
+                 a[i] if name == "pos" else a[i][None]))
              for name, a in np_cache.items()}
             for i in range(np_cache["k"].shape[0])]
 
@@ -120,10 +125,10 @@ def test_prefill_logits_and_kv_match(both, chunk, weave):
         tparams, torch.from_numpy(tokens), _torch_cache(cache), cfg=tcfg,
         pcfg=tpcfg, positions=torch.from_numpy(positions),
         last_idx=torch.from_numpy(last_idx))
-    _close(t_logits, j_logits)
+    _close(t_logits[0], j_logits)
     for layer, (k, v, pos) in enumerate(t_kv):
-        _close(k, jk[layer])
-        _close(v, jv[layer])
+        _close(k[0], jk[layer])
+        _close(v[0], jv[layer])
         np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos[layer]))
 
 
@@ -151,10 +156,10 @@ def test_decode_logits_and_cache_match(both, batch, weave):
     t_logits, t_cache = TT.decode_step(
         tparams, torch.from_numpy(tokens), _torch_cache(cache), cfg=tcfg,
         pcfg=tpcfg, positions=torch.from_numpy(positions))
-    _close(t_logits, j_logits)
+    _close(t_logits[0], j_logits)
     for layer, lc in enumerate(t_cache):
-        _close(lc["k"], j_cache["k"][layer])
-        _close(lc["v"], j_cache["v"][layer])
+        _close(lc["k"][0], j_cache["k"][layer])
+        _close(lc["v"][0], j_cache["v"][layer])
         np.testing.assert_array_equal(lc["pos"].numpy(),
                                       np.asarray(j_cache["pos"][layer]))
 
@@ -181,13 +186,14 @@ def test_attn_prefill_with_kv_prefix_matches(both):
     tlay = TA.attention_layout(1, tcfg.num_heads, tcfg.num_kv_heads,
                                tcfg.head_dim)
     t_out, (tk, tv, tkp) = TA.attn_prefill(
-        tparams["layers"][0]["attn"], torch.from_numpy(x),
+        tparams["layers"][0]["attn"], torch.from_numpy(x)[None],
         positions=torch.from_numpy(pos), cfg=tcfg, lay=tlay,
         theta=tcfg.rope_theta, impl="pallas",
-        kv_prefix=tuple(map(torch.from_numpy, (pk, pv, ppos))))
-    _close(t_out, j_out)
-    _close(tk, jk)
-    _close(tv, jv)
+        kv_prefix=(torch.from_numpy(pk)[None], torch.from_numpy(pv)[None],
+                   torch.from_numpy(ppos)))
+    _close(t_out[0], j_out)
+    _close(tk[0], jk)
+    _close(tv[0], jv)
     np.testing.assert_array_equal(tkp.numpy(), np.asarray(jkp))
 
 
@@ -207,17 +213,43 @@ def test_comm_norm_modes_match(both, mode, post):
 
     j_out, j_res = _shard_run(mesh, jfn, *map(jnp.asarray, (x, res, w, wp)))
     tx, tres, tw, twp = map(torch.from_numpy, (x, res, w, wp))
-    t_out, t_res = tfc.comm_norm(tx, tres, tw,
+    t_out, t_res = tfc.comm_norm(tx[None], tres[None], tw,
                                  ctx=TCtx(mode=mode, use_pallas=True),
                                  weight_post=twp if post else None)
-    _close(t_out, j_out, 1e-5)
-    _close(t_res, j_res, 1e-5)
+    _close(t_out[0], j_out, 1e-5)
+    _close(t_res[0], j_res, 1e-5)
 
 
-def test_comm_norm_ring_mode_is_refused():
-    z = torch.zeros(8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfc.comm_norm(z, z, torch.ones(16), ctx=TCtx(mode="ring"))
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       ("bfloat16", 3e-2)])
+def test_comm_norm_ring_mode_matches_fused_and_ref_tp1(both, dtype, tol):
+    """ring at tp=1 runs K1's wrapper with one rank (its plain version on
+    the CPU): it must equal the reference's fused mode and its oracle."""
+    from repro_torch.kernels import ar_rmsnorm as K1
+    mesh = both[0]
+    rng = np.random.RandomState(13)
+    t, d = 24, 64
+    x, res = (jnp.asarray(rng.randn(t, d).astype(np.float32)).astype(dtype)
+              for _ in range(2))
+    w = jnp.asarray((np.abs(rng.randn(d)) + 0.5).astype(np.float32)
+                    ).astype(dtype)
+    j_out, j_res = _shard_run(
+        mesh, lambda x, r, w: jfc.comm_norm(x, r, w, ctx=JCtx(mode="fused")),
+        x, res, w)
+    ref_outs, ref_res = ring_ar_rmsnorm_ref([x], [res], w)
+    tt = {np.float32: torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+    def to_t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(tt)
+
+    before = K1.ar_rmsnorm.launches
+    t_out, t_res = tfc.comm_norm(to_t(x)[None], to_t(res)[None], to_t(w),
+                                 ctx=TCtx(mode="ring", use_pallas=True))
+    assert K1.ar_rmsnorm.launches == before      # plain version on the CPU
+    assert t_out.dtype == tt and t_out.shape == (1, t, d)
+    for got, want in ((t_out[0], j_out), (t_out[0], ref_outs[0]),
+                      (t_res[0], j_res), (t_res[0], ref_res[0])):
+        _close(got.float(), want, tol)
 
 
 def test_sharded_argmax_ties_and_vocab_pad_match(both):
@@ -228,7 +260,7 @@ def test_sharded_argmax_ties_and_vocab_pad_match(both):
     vocab = 37
     want = _shard_run(mesh, lambda lg: j_argmax(lg, vocab_size=vocab),
                       jnp.asarray(logits))
-    got = t_argmax(torch.from_numpy(logits), vocab_size=vocab)
+    got = t_argmax(torch.from_numpy(logits)[None], vocab_size=vocab)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert int(got[0, 0]) < vocab
 
@@ -252,10 +284,11 @@ def test_insert_chunk_with_padded_positions_matches(c):
                             jnp.asarray(offsets), jnp.asarray(slot_ids))
     got = TKC.insert_chunk(
         _torch_cache(cache),
-        [tuple(torch.from_numpy(a[i]) for a in (k, v, pos))
-         for i in range(nl)],
+        [(torch.from_numpy(k[i])[None], torch.from_numpy(v[i])[None],
+          torch.from_numpy(pos[i])) for i in range(nl)],
         torch.from_numpy(offsets), torch.from_numpy(slot_ids))
     for i, layer in enumerate(got):
         for name in ("k", "v", "pos"):
-            np.testing.assert_array_equal(layer[name].numpy(),
+            t = layer[name] if name == "pos" else layer[name][0]
+            np.testing.assert_array_equal(t.numpy(),
                                           np.asarray(want[name][i]))
