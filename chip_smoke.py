@@ -11,21 +11,31 @@ Phases, each printing one JSON line:
             at the main path's shapes and at ragged ones, and time the
             kernel, the plain version and, where one exists, the single
             PyTorch call computing the same function (timed only); K1 also
-            gives bit-identical outputs on 1 and 8 CTAs, and is timed
-            beside the composition it replaces (sum over ranks, K2, copy
-            to every rank);
+            gives bit-identical outputs on 1, 2, 4 and 8 CTAs, is timed on
+            each and beside the composition it replaces (sum over ranks,
+            K2, copy to every rank), and beside a plain copy kernel on the
+            same 8 CTAs moving the same bytes (``budget_bound_ms``, a probe
+            built here and used nowhere in the port); K3 adds the main
+            path's first prefill split behind an empty cache row
+            (``engine``, with the key tiles the live-tile table lets it
+            visit), its second split at tp=8 (``engine_tp``: the ranks
+            folded into the batch, one KV head each) and a sweep over G
+            and head dim;
 3. engine   serve 4 greedy requests through the two-dispatch Engine with
             Llama-3.3-70B's widths cut to 4 layers (bf16, random weights
             from the seed) at tp=1, and show from the launch counters that
             the main path ran through the kernels; then trace one prefill
             and one decode step of the model with torch.profiler and split
-            their device time by kind of kernel;
+            their device time by kind of kernel; then hold K3 against its
+            plain version on the inputs the run gave it, at each shape
+            (``main_path_k3``);
 4. engine_tp the same requests at tp=8 (the eight ranks on one card's rank
             axis) in comm mode "ring": K1 launches equal splits·(1+2L) per
             forward, so no forward fell back; one traced prefill call
             gives K1's device time and the part of it that overlapped
-            other kernels (the weave's comm stream); every traced call's
-            Chrome trace is written to --trace-dir (build/traces/);
+            other kernels (the weave's comm stream), and K3 is held on
+            its inputs again; every traced call's Chrome trace is written
+            to --trace-dir (build/traces/);
 5. identity a small float32 model served on the card (kernels) and on the
             CPU (plain versions) must give identical greedy tokens, at
             tp=1 and at tp=2 in ring mode with the weave (and its streams)
@@ -69,7 +79,61 @@ K3_REL_FRO = 1e-2                  # ||kernel - plain||_F / ||plain||_F
 # Sk / (Sk rounded up to a tile), 0.47 % at Sk = 5096.
 MASKED_RTOL = 2.0 ** -8
 MASKED_ATOL = 1e-6
+CTA_SWEEP = (1, 2, 4, 8)           # K1's budgets: bit-identical, each timed
 IDENTITY_LOGIT_TOL = 1e-4          # float32, TF32 off: summation order only
+
+
+# A plain copy on a K1-sized grid: what that many SMs can move on this
+# card.  Built beside the port's kernels; the port never calls it.
+COPY_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(1024)
+copy_probe(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + 7 * stride < n; i += 8 * stride) {  // 8 loads in flight
+    uint4 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = src[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) dst[i + u * stride] = v[u];
+  }
+  for (; i < n; i += stride) dst[i] = src[i];
+}
+extern "C" int copy_probe_launch(const void* src, void* dst, long long n16,
+                                 int ctas, void* stream) {
+  copy_probe<<<ctas, 1024, 0, (cudaStream_t)stream>>>(
+      (const uint4*)src, (uint4*)dst, n16);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_copy_probe_build():
+    """Start nvcc on the copy probe (in parallel with the port's build)."""
+    from repro_torch.kernels import build
+    out = build.BUILD_DIR.parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "copy_probe.cu").write_text(COPY_PROBE_SRC)
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
+           str(out / "libcopy_probe.so"), str(out / "copy_probe.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def load_copy_probe(proc_out):
+    import ctypes
+    proc, out = proc_out
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"copy probe build failed:\n{log}")
+    lib = ctypes.CDLL(str(out / "libcopy_probe.so"))
+    lib.copy_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.copy_probe_launch.restype = ctypes.c_int
+    return lib
 
 
 def emit(obj) -> None:
@@ -101,6 +165,19 @@ def time_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(torch, fn, iters: int = 20) -> float:
+    """Mean host time of one call of ``fn``: the time to enqueue its work,
+    without the profiler, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -126,7 +203,53 @@ def rel_fro(got, want) -> float:
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------------
 
-def kernel_phase(torch, seed: int):
+def check_k3(torch, name, q, k, v, qpos, kpos, *, causal, window=0,
+             sm_scale=None) -> dict:
+    """Hold K3 against its plain version on these inputs (every element
+    within atol = K3_ATOL_RMS * rms(plain) + K3_RTOL * |plain|, and the
+    relative Frobenius error within K3_REL_FRO), and every query row with
+    no visible key against the mean of V over all Sk keys of its KV head.
+    Returns the case's fields, with the key tiles the live-tile table lets
+    the kernel visit (bfloat16)."""
+    from repro_torch.kernels import flash_attention as K3
+    b, sq, kvh, g, dh = q.shape
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale)
+    out = K3.flash_attention(q, k, v, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    plain = K3.flash_attention_plain(q, k, v, qpos, kpos, **kw)
+    rms = float(plain.float().pow(2).mean().sqrt())
+    atol = K3_ATOL_RMS * rms
+    err = check_close(name, out, plain, atol, K3_RTOL)
+    fro = rel_fro(out, plain)
+    if not fro <= K3_REL_FRO:
+        raise AssertionError(f"{name}: relative Frobenius error {fro} > "
+                             f"{K3_REL_FRO}")
+    del plain
+    case = {"B": b, "Sq": sq, "Sk": k.shape[1], "KVH": kvh, "G": g,
+            "dh": dh, "window": window, "dtype": str(q.dtype)[6:],
+            "rms_plain": rms, "max_abs_err": err, "atol": atol,
+            "rtol": K3_RTOL, "rel_fro_err": fro, "rel_fro_tol": K3_REL_FRO}
+    if q.dtype == torch.bfloat16:
+        rows, keys, _ = K3.tiling()
+        live = K3.live_tiles(qpos, kpos, causal=causal, window=window,
+                             queries_per_cta=rows // g, keys_per_tile=keys)
+        case.update(key_tiles_visited=int((live > 0).sum()) * kvh,
+                    key_tiles_total=live.numel() * kvh)
+    masked = ~K3.attention_mask(qpos, kpos, causal, window).any(-1)
+    if bool(masked.any()):
+        want = v.float().mean(dim=1)[:, None, :, None].expand(
+            b, sq, kvh, g, dh)[masked]
+        case.update(
+            masked_rows=int(masked.sum()),
+            masked_rows_err=check_close(f"{name} fully masked rows",
+                                        out[masked], want, MASKED_ATOL,
+                                        MASKED_RTOL),
+            masked_rows_rel_fro_err=rel_fro(out[masked], want),
+            masked_rows_atol=MASKED_ATOL, masked_rows_rtol=MASKED_RTOL)
+    return case
+
+
+def kernel_phase(torch, seed: int, probe):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import fused_rmsnorm as K2
@@ -177,11 +300,12 @@ def kernel_phase(torch, seed: int):
         w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5
              ).to(bf16)
         out, new_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
-        out1, new_res1 = K1.ar_rmsnorm(x, r, w, ctas=1)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, out1) and torch.equal(new_res, new_res1)):
-            raise AssertionError(f"K1 N={n} T={t} d={d1}: 1 and "
-                                 f"{K1.MAX_CTAS} CTAs differ")
+        for c in CTA_SWEEP[:-1]:
+            out1, new_res1 = K1.ar_rmsnorm(x, r, w, ctas=c)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, out1) and torch.equal(new_res, new_res1)):
+                raise AssertionError(f"K1 N={n} T={t} d={d1}: {c} and "
+                                     f"{K1.MAX_CTAS} CTAs differ")
         p_out, p_res = K1.ar_rmsnorm_plain(x, r, w)
         err = max(check_close(f"K1 out N={n} T={t} d={d1}", out, p_out,
                               K1_TOL, K1_TOL),
@@ -190,7 +314,7 @@ def kernel_phase(torch, seed: int):
         k1_err = max(k1_err, err)
         case = {"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
                 "d": d1, "dtype": "bfloat16", "max_abs_err": err,
-                "tol": K1_TOL, "ctas_bit_identical": [1, K1.MAX_CTAS]}
+                "tol": K1_TOL, "ctas_bit_identical": list(CTA_SWEEP)}
         if (n, t, d1) == (8, 2048, 8192):
             # the composition K1 replaces: sum over ranks, K2, all-gather
             ctx = CommCtx(mode="fused", use_pallas=True, tp=n)
@@ -202,9 +326,23 @@ def kernel_phase(torch, seed: int):
             # each input read once, each output written once
             nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
             flops = (n + 5) * t * d1
+            ms_ctas = {c: time_ms(torch, lambda c=c: K1.ar_rmsnorm(
+                x, r, w, ctas=c)) for c in CTA_SWEEP}
+            # the same bytes through a plain copy on the same 8 CTAs
+            src = torch.empty(nbytes // 32 * 16, dtype=torch.uint8,
+                              device=dev)    # half read, half written
+            dst = torch.empty_like(src)
+
+            def copy():
+                rc = probe.copy_probe_launch(
+                    src.data_ptr(), dst.data_ptr(), src.numel() // 16,
+                    K1.MAX_CTAS, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"copy probe: CUDA error {rc}")
             case.update(
-                ms=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w, ctas=8)),
-                ms_1cta=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w, ctas=1)),
+                ms=ms_ctas[K1.MAX_CTAS],
+                ms_by_ctas={str(c): ms for c, ms in ms_ctas.items()},
+                budget_bound_ms=time_ms(torch, copy),
                 plain_ms=time_ms(
                     torch, lambda: K1.ar_rmsnorm_plain(x, r, w), iters=3),
                 composition_ms=time_ms(
@@ -212,76 +350,76 @@ def kernel_phase(torch, seed: int):
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              flops / FP32_FLOPS) * 1e3,
                 bound_by="bytes", library_ms=None)
+            del src, dst
             case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
-            case["achieved_gb_per_s_1cta"] = nbytes / case["ms_1cta"] / 1e6
+            case["achieved_gb_per_s_1cta"] = nbytes / ms_ctas[1] / 1e6
+            case["budget_gb_per_s"] = nbytes / case["budget_bound_ms"] / 1e6
             rows["ar_rmsnorm"] = case
         emit(case)
         del x, r, out, out1, p_out, p_res
     torch.cuda.empty_cache()
 
-    kvh, g, dh = 8, 8, 128
     k3_err = 0.0
 
-    def positions(sq, sk, q0, k_valid):
-        """qpos q0.. and kpos: k_valid cache keys 0.., empty cache slots
-        (-1) up to sk - sq, then the chunk's own keys at q0.."""
+    def positions(sq, sk, q0, k_valid, b=1, k_at=0):
+        """qpos q0..; kpos: the sk - sq keys before the chunk are empty
+        cache slots (-1) but for k_valid keys at 0.. from index k_at, then
+        the chunk's own keys at q0.."""
         qpos = torch.arange(q0, q0 + sq, dtype=torch.int32, device=dev)
         kpos = torch.full((sk,), -1, dtype=torch.int32, device=dev)
-        kpos[:k_valid] = torch.arange(k_valid, dtype=torch.int32, device=dev)
+        kpos[k_at:k_at + k_valid] = torch.arange(k_valid, dtype=torch.int32,
+                                                 device=dev)
         kpos[sk - sq:] = qpos
-        return qpos[None].contiguous(), kpos[None].contiguous()
+        return (qpos[None].repeat(b, 1).contiguous(),
+                kpos[None].repeat(b, 1).contiguous())
 
+    # (name, B, Sq, Sk, KVH, G, dh, window, q0, cache keys valid, index of
+    # the first valid one, padded query rows); every case causal, bf16
     cases = [
-        # the main path: a 1024-token split behind a full 4096-slot row
-        ("main", 1024, 4096 + 1024, 0, *positions(1024, 5120, 4096, 4096)),
+        # a 1024-token split behind a full 4096-slot row
+        ("main", 1, 1024, 4096 + 1024, 8, 8, 128, 0, 4096, 4096, 0, 0),
+        # the main path's first prefill split: a fresh request's empty
+        # 4096-slot row, then the chunk's own keys
+        ("engine", 1, 1024, 4096 + 1024, 8, 8, 128, 0, 0, 0, 0, 0),
+        # its second split at tp=8, the ranks folded into the batch (one
+        # KV head each): the empty row, the first split's 1024 keys, then
+        # its own 776 tokens and the chunk's 56 padded rows
+        ("engine_tp", 8, 832, 4096 + 1024 + 832, 1, 8, 128, 0, 1024, 1024,
+         4096, 56),
         # ragged Sk, empty cache slots, padded prefill rows (qpos -1)
-        ("padded", 1000, 4096 + 1000, 0, *positions(1000, 5096, 1000, 1000)),
-        ("window", 512, 1536, 256, *positions(512, 1536, 1024, 1024)),
+        ("padded", 1, 1000, 4096 + 1000, 8, 8, 128, 0, 1000, 1000, 0, 56),
+        ("window", 1, 512, 1536, 8, 8, 128, 256, 1024, 1024, 0, 0),
+        # the other GQA groups and head dims of the configs, ragged
+        ("g1_d64", 2, 300, 1000, 2, 1, 64, 0, 700, 600, 0, 20),
+        ("g5_d128", 1, 257, 1000, 3, 5, 128, 300, 743, 743, 0, 0),
+        ("g16_d64", 1, 100, 4096 + 100, 2, 16, 64, 0, 0, 0, 0, 7),
     ]
-    for name, sq, sk, window, qpos, kpos in cases:
-        if name == "padded":
-            qpos[0, -56:] = -1          # their keys are padding too
-            kpos[0, -56:] = -1
-        q = torch.randn(1, sq, kvh, g, dh, generator=gen, device=dev,
+    for (name, b, sq, sk, kvh, g, dh, window, q0, k_valid, k_at,
+         pad) in cases:
+        qpos, kpos = positions(sq, sk, q0, k_valid, b, k_at)
+        if pad:
+            qpos[:, -pad:] = -1          # their keys are padding too
+            kpos[:, -pad:] = -1
+        q = torch.randn(b, sq, kvh, g, dh, generator=gen, device=dev,
                         dtype=bf16)
-        k = torch.randn(1, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
-        v = torch.randn(1, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
+        k = torch.randn(b, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
+        v = torch.randn(b, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
         kw = dict(causal=True, window=window)
-        out = K3.flash_attention(q, k, v, qpos, kpos, **kw)
-        torch.cuda.synchronize()
-        plain = K3.flash_attention_plain(q, k, v, qpos, kpos, **kw)
-        rms = float(plain.float().pow(2).mean().sqrt())
-        atol = K3_ATOL_RMS * rms
-        err = check_close(f"K3 {name}", out, plain, atol, K3_RTOL)
-        fro = rel_fro(out, plain)
-        if not fro <= K3_REL_FRO:
-            raise AssertionError(f"K3 {name}: relative Frobenius error {fro}"
-                                 f" > {K3_REL_FRO}")
-        k3_err = max(k3_err, err)
         case = {"phase": "kernels", "kernel": "flash_attention", "case": name,
-                "B": 1, "Sq": sq, "Sk": sk, "KVH": kvh, "G": g, "dh": dh,
-                "window": window, "dtype": "bfloat16", "rms_plain": rms,
-                "max_abs_err": err, "atol": atol, "rtol": K3_RTOL,
-                "rel_fro_err": fro, "rel_fro_tol": K3_REL_FRO}
-        if name == "padded":
-            rows_masked = (qpos[0] < 0).nonzero().flatten()
-            mean_v = v.float().mean(dim=1)[:, :, None].expand(1, kvh, g, dh)
-            want = mean_v[:, None].expand(1, len(rows_masked), kvh, g, dh)
-            case.update(
-                masked_rows_err=check_close(
-                    "K3 fully masked rows", out[:, rows_masked], want,
-                    MASKED_ATOL, MASKED_RTOL),
-                masked_rows_rel_fro_err=rel_fro(out[:, rows_masked], want),
-                masked_rows_atol=MASKED_ATOL, masked_rows_rtol=MASKED_RTOL)
-        if name == "main":
-            qs = q.reshape(1, sq, kvh * g, dh).transpose(1, 2).contiguous()
+                **check_k3(torch, f"K3 {name}", q, k, v, qpos, kpos, **kw)}
+        k3_err = max(k3_err, case["max_abs_err"])
+        if name.startswith("engine") and not (case["key_tiles_visited"]
+                                              < case["key_tiles_total"]):
+            raise AssertionError(f"K3 {name}: no key tile skipped ({case})")
+        if name in ("main", "engine", "engine_tp"):
+            qs = q.reshape(b, sq, kvh * g, dh).transpose(1, 2).contiguous()
             ks = k.transpose(1, 2).contiguous()
             vs = v.transpose(1, 2).contiguous()
             mask = K3.attention_mask(qpos, kpos, True, window)[:, None]
             # only the (query, key) pairs the mask lets through need work
             pairs = int(mask.sum())
             flops = 4 * dh * kvh * g * pairs
-            nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (sq + sk)
+            nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * (sq + sk)
             case.update(
                 visible_pairs=pairs,
                 ms=time_ms(torch, lambda: K3.flash_attention(q, k, v, qpos,
@@ -296,9 +434,19 @@ def kernel_phase(torch, seed: int):
                     torch, lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask, scale=dh ** -0.5,
                         enable_gqa=True)))
-            rows["flash_attention"] = case
+            # what the host spends per call: the wrapper, and the
+            # live-tile table's torch ops alone
+            rows_cta, keys, _ = K3.tiling()
+            case.update(
+                host_ms=host_ms(torch, lambda: K3.flash_attention(
+                    q, k, v, qpos, kpos, **kw)),
+                table_host_ms=host_ms(torch, lambda: K3.live_tiles(
+                    qpos, kpos, queries_per_cta=rows_cta // g,
+                    keys_per_tile=keys, **kw)))
+            if name == "main":
+                rows["flash_attention"] = case
         emit(case)
-        del q, k, v, out, plain
+        del q, k, v
         torch.cuda.empty_cache()
     rows["fused_residual_rmsnorm"]["max_abs_err"] = k2_err
     rows["ar_rmsnorm"]["max_abs_err"] = k1_err
@@ -325,6 +473,25 @@ def read_launches() -> dict:
     return {"ar_rmsnorm": K1.ar_rmsnorm.launches,
             "fused_residual_rmsnorm": K2.fused_residual_rmsnorm.launches,
             "flash_attention": K3.flash_attention.launches}
+
+
+def capture_k3_inputs(store: dict):
+    """Make the model path keep a copy of K3's inputs at each shape it
+    gives the kernel (the first call of each) in ``store``, so that they
+    can be checked once the run is over; the calls still go through the
+    wrapper, which counts the launches.  Returns the undo."""
+    from repro_torch.layers import attention as A
+    wrapper = A.flash_attention
+
+    def keep(q, k, v, qpos, kpos, **kw):
+        key = (tuple(q.shape), tuple(k.shape), q.dtype,
+               tuple(sorted(kw.items())))
+        if key not in store:
+            store[key] = ([t.clone() for t in (q, k, v, qpos, kpos)], kw)
+        return wrapper(q, k, v, qpos, kpos, **kw)
+
+    A.flash_attention = keep
+    return lambda: setattr(A, "flash_attention", wrapper)
 
 
 def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
@@ -392,12 +559,17 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
     for i, p in enumerate(prompts):
         eng.add_request(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
 
-    reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = read_launches()
+    k3_inputs = {}
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        undo()
 
     if sorted(r.rid for r in done) != list(range(len(prompts))):
         raise AssertionError(f"finished {[r.rid for r in done]}")
@@ -460,11 +632,27 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                   **row})
     del eng, params, cache_rows
     torch.cuda.empty_cache()
-    return launches
+
+    # K3 at every shape this run gave it, on the inputs it got there
+    if not k3_inputs:
+        raise AssertionError(f"{phase}: the model path reached no K3 call")
+    k3_err = 0.0
+    for tensors, kw in k3_inputs.values():
+        q = tensors[0]
+        case = check_k3(torch, f"K3 {phase} main path {tuple(q.shape)}",
+                        *tensors, **kw)
+        k3_err = max(k3_err, case["max_abs_err"])
+        emit({"phase": "main_path_k3", "engine": phase, "tp": tp, **case})
+    k3_inputs.clear()
+    torch.cuda.empty_cache()
+    return launches, k3_err
 
 
-KINDS = (("flash_attention", "flash_fwd"), ("fused_rmsnorm", "fused_rmsnorm"),
-         ("ar_rmsnorm", "ar_rmsnorm"))
+# K3's side pass over V (vsum_kernel) runs in the same call as its main
+# kernel and counts as K3, as do the live-tile table's torch ops (read
+# from the wrapper's named range, device_breakdown)
+KINDS = (("flash_attention", "flash_fwd"), ("flash_attention", "vsum_kernel"),
+         ("fused_rmsnorm", "fused_rmsnorm"), ("ar_rmsnorm", "ar_rmsnorm"))
 
 
 def kernel_kind(name: str) -> str:
@@ -506,43 +694,75 @@ def device_breakdown(torch, fn, trace_path) -> dict:
     kernel, the longest kernels, the time some kernel ran (the union over
     streams, so kernels that overlap count once), the share of the first
     call's wall time in which none ran, and how much of K1's device time
-    overlapped other kernels."""
-    from torch.autograd import DeviceType
+    overlapped other kernels.  Kernels launched inside K3's live-tile
+    range count as K3; that range's host time is given apart, and so are
+    the host's time to enqueue the first call (until it returns) and its
+    span from the traced call's first launch to its last."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as K3
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    kinds = {"gemm": 0.0, "flash_attention": 0.0, "fused_rmsnorm": 0.0,
-             "ar_rmsnorm": 0.0, "other": 0.0}
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = e.self_device_time_total / 1e3
-        kinds[kernel_kind(e.key)] += ms
-        kernels.append((ms, e.count, e.key[:100]))
-    kernels.sort(reverse=True)
+        traced_wall_ms = (time.perf_counter() - t) * 1e3
     trace_path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())
     events = events.get("traceEvents", events)
-    iv = [(e["ts"] / 1e3, (e["ts"] + e["dur"]) / 1e3, kernel_kind(e["name"]))
-          for e in events if e.get("cat") == "kernel" and "dur" in e]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == K3.LIVE_TILES_RANGE]
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "dur" in e]
+    table = {e.get("args", {}).get("correlation") for e in launches
+             if any(s <= e["ts"] <= t for s, t in spans)} - {None}
+    kinds = {"gemm": 0.0, "flash_attention": 0.0, "fused_rmsnorm": 0.0,
+             "ar_rmsnorm": 0.0, "other": 0.0}
+    iv, table_ms, table_n, per_name = [], 0.0, 0, {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or "dur" not in e:
+            continue
+        ms = e["dur"] / 1e3
+        in_table = e.get("args", {}).get("correlation") in table
+        kind = "flash_attention" if in_table else kernel_kind(e["name"])
+        kinds[kind] += ms
+        table_ms += ms if in_table else 0.0
+        table_n += in_table
+        name = e["name"][:100]
+        per_name[name] = (per_name.get(name, (0.0, 0))[0] + ms,
+                          per_name.get(name, (0.0, 0))[1] + 1)
+        if e["cat"] == "kernel":
+            iv.append((e["ts"] / 1e3, (e["ts"] + e["dur"]) / 1e3, kind))
     if not iv:
         raise AssertionError("torch.profiler recorded no kernel")
     busy = max(e for _, e, _ in iv) - min(s for s, _, _ in iv) - idle_ms(iv)
     k1 = [e - s for s, e, k in iv if k == "ar_rmsnorm"]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    kernels = sorted(((ms, n, name) for name, (ms, n) in per_name.items()),
+                     reverse=True)
+    k3_calls = sum(1 for e in events if e.get("cat") == "kernel"
+                   and "flash_fwd" in e["name"])
+    return {"wall_ms": wall_ms, "host_ms": enqueue_ms,
+            "device_busy_ms": busy,
             "kernel_ms_sum": sum(kinds.values()),
             "device_idle_share": 1 - busy / wall_ms,
             "device_ms_by_kind": kinds,
+            "traced_wall_ms": traced_wall_ms,
+            "host_launch_span_ms": (max(e["ts"] + e["dur"] for e in launches)
+                                    - min(e["ts"] for e in launches)) / 1e3,
+            "k3_calls": k3_calls, "k3_table_kernels": table_n,
+            "k3_table_device_ms": table_ms,
+            "k3_table_host_ms": sum(t - s for s, t in spans) / 1e3,
             "k1_launches": len(k1), "k1_device_ms": sum(k1),
             "k1_overlapped_ms": overlap_ms(iv, "ar_rmsnorm"),
             "trace": str(trace_path),
@@ -660,6 +880,7 @@ def main() -> int:
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
+    probe = start_copy_probe_build()
     info = build.build()
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"],
@@ -669,13 +890,17 @@ def main() -> int:
     for name in build.SOURCES:
         build.load(name)
 
-    rows = kernel_phase(torch, args.seed)
+    rows = kernel_phase(torch, args.seed, load_copy_probe(probe))
     # the main paths: launches are counted from 0 over each engine run
     paths = [engine_phase(torch, np, args.seed, args.trace_dir, tp=1,
                           comm_mode="fused"),
              engine_phase(torch, np, args.seed, args.trace_dir, tp=8,
                           comm_mode="ring")]
-    launches = {name: sum(p[name] for p in paths) for name in paths[0]}
+    launches = {name: sum(p[0][name] for p in paths)
+                for name in paths[0][0]}
+    # the K3 error over every shape the main paths gave it, too
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], *(p[1] for p in paths))
     identity_phase(torch, np, args.seed, tp=1, comm_mode="fused")
     identity_phase(torch, np, args.seed, tp=2, comm_mode="ring")
 

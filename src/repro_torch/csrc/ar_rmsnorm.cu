@@ -26,14 +26,20 @@
 // operations per element.  The grid is the comm budget's CTA count, 1 to 8
 // (the paper's 2-8 SM grant), so the kernel leaves the other SMs to the
 // compute of the other split; 8 SMs cannot pull the card's full memory
-// rate, so the kernel is slower alone than its byte bound by design.  To
-// keep as many bytes in flight as a few SMs can, each thread issues its
-// N 16-byte loads of a row segment back to back before it adds them, and
-// the row's t stays in shared memory between the reduction and the
-// scaling (one read and one write of device memory per element).  Each
-// row is done by one CTA with a fixed thread mapping, so the budget
-// changes which CTA does a row but not one bit of the result.  d need not
-// be a multiple of 8: the scalar body takes what 16-byte vectors cannot.
+// rate, so the kernel is slower alone than its byte bound by design.  What
+// a few SMs can move is set by the bytes each keeps in flight, and a CTA
+// that does one row at a time leaves its loads idle through each row's two
+// barriers and N + 1 stores: per-row latency then bounds it (~62 GB/s per
+// SM on an H100, 1.218 ms for the shape below).  The pipelined body keeps
+// the next row's loads in flight through the current row's reduction and
+// stores (the next row's N + 1 vectors per thread in registers, t in
+// registers too): on an NVIDIA H100 80GB HBM3 at 700 W, 0.88-0.90 ms for
+// N = 8, T = 2048, d = 8192 bf16 on 8 CTAs, against 0.78 ms for a plain
+// copy of the same bytes on the same 8 CTAs and 0.180 ms for the whole
+// card (chip_smoke.py).  Rows it cannot hold (d * sizeof(T) not a multiple of
+// 16, or more than 2 vectors per thread) take the scalar body.  Each row
+// is done by one CTA with a fixed thread mapping, so the budget changes
+// which CTA does a row but not one bit of the result.
 //
 // Built with nvcc into a shared library with a C interface and called
 // through ctypes (src/repro_torch/kernels/ar_rmsnorm.py).
@@ -53,6 +59,13 @@ namespace {
 
 constexpr int kMaxCtas = 8;
 constexpr int kThreads = 1024;
+// the pipelined body: 512 threads (128 registers each, for the next row's
+// N + 1 vectors, t and w), each owning up to kMaxVec 16-byte vectors of a
+// row: d <= 8192 bf16, 4096 fp32
+constexpr int kPipeThreads = 512;
+constexpr int kMaxVec = 2;
+// the scalar body's row of t in shared memory
+constexpr size_t kMaxSmemBytes = 227 * 1024;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -88,118 +101,176 @@ __device__ __forceinline__ float block_sum(float v, float* red, float* total) {
   return *total;
 }
 
-// N, the number of ranks, is a template parameter so the loops over ranks
-// unroll without predicates and a thread's N loads issue back to back.
-template <typename T, int N, bool kVec>
+// The residual slab (in and out) of the rank that owns a row, selected
+// without indexing the parameter tables at run time (which would copy them
+// to local memory).
+template <typename T, int N>
+__device__ __forceinline__ void owner_slab(const PtrTable& res, const PtrTable& res_out,
+                                           int row, int chunk, int d, const T*& rr,
+                                           T*& ro) {
+  const int owner = row / chunk;
+  rr = static_cast<const T*>(res.p[0]);
+  ro = static_cast<T*>(res_out.p[0]);
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (owner == k) {
+      rr = static_cast<const T*>(res.p[k]);
+      ro = static_cast<T*>(res_out.p[k]);
+    }
+  const int64_t roff = static_cast<int64_t>(row - owner * chunk) * d;
+  rr += roff;
+  ro += roff;
+}
+
+// The scalar body, for rows the pipelined body cannot take (d * sizeof(T)
+// not a multiple of 16, a pointer not 16-byte aligned, or more than
+// kMaxVec vectors per thread): one row at a time, t kept in shared memory
+// between the reduction and the scaling.  N, the number of ranks, is a
+// template parameter (in both bodies) so the loops over ranks unroll
+// without predicates.
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
-ar_rmsnorm_kernel(PtrTable x, PtrTable res, const T* __restrict__ w,
-                  PtrTable out, PtrTable res_out, int rows, int chunk, int d,
-                  float eps) {
+ar_rmsnorm_scalar_kernel(PtrTable x, PtrTable res, const T* __restrict__ w,
+                         PtrTable out, PtrTable res_out, int rows, int chunk, int d,
+                         float eps) {
   extern __shared__ float t_s[];  // the row's t, d floats
   __shared__ float red[kThreads / 32];
   __shared__ float total;
-  constexpr int V = 16 / sizeof(T);
 
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const int owner = row / chunk;
     const int64_t xoff = static_cast<int64_t>(row) * d;
-    const int64_t roff = static_cast<int64_t>(row - owner * chunk) * d;
-    // select the owner's slabs without indexing the parameter tables at
-    // run time, which would copy them to local memory
-    const T* rr = static_cast<const T*>(res.p[0]);
-    T* ro = static_cast<T*>(res_out.p[0]);
-#pragma unroll
-    for (int k = 1; k < N; ++k)
-      if (owner == k) {
-        rr = static_cast<const T*>(res.p[k]);
-        ro = static_cast<T*>(res_out.p[k]);
-      }
-    rr += roff;
-    ro += roff;
+    const T* rr;
+    T* ro;
+    owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
     float ss = 0.f;
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      T xs[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) xs[k] = static_cast<const T*>(x.p[k])[xoff + i];
+      float s = to_f(xs[0]);
+#pragma unroll
+      for (int k = 1; k < N; ++k) s += to_f(xs[k]);
+      const float t = to_f(from_f<T>(s)) + to_f(rr[i]);
+      t_s[i] = t;
+      ss += t * t;
+      ro[i] = from_f<T>(t);
+    }
+    const float inv = rsqrtf(block_sum(ss, red, &total) / static_cast<float>(d) + eps);
+    // each thread reads back only the t values it wrote itself
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      const T o = from_f<T>(t_s[i] * inv * to_f(w[i]));
+#pragma unroll
+      for (int k = 0; k < N; ++k) static_cast<T*>(out.p[k])[xoff + i] = o;
+    }
+  }
+}
 
-    if constexpr (kVec) {
-      const int nv = d / V;
-      for (int i = threadIdx.x; i < nv; i += kThreads) {
-        uint4 xv[N];
+// ---- the pipelined body -------------------------------------------------
+//
+// Each CTA walks its rows (row = blockIdx.x + k * gridDim.x) with 512
+// threads, each owning up to kMaxVec 16-byte vectors of a row.  A thread
+// holds the next row's N partial vectors and residual vector in registers:
+// as soon as it has summed the current row into t (also in registers), it
+// issues the next row's loads, which then fly while the current row's
+// residual is stored, its sum of squares reduced across the CTA (two
+// barriers) and its N outputs written.  Each row is done by one CTA with a
+// fixed thread mapping, so every grid gives the same bits.
+template <typename T, int N>
+__global__ void __launch_bounds__(kPipeThreads)
+ar_rmsnorm_kernel(PtrTable x, PtrTable res, const T* __restrict__ w, PtrTable out,
+                  PtrTable res_out, int rows, int chunk, int d, float eps) {
+  __shared__ float red[kPipeThreads / 32];
+  __shared__ float total;
+  constexpr int V = 16 / sizeof(T);
+  const int nv = d / V, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint4 xv[kMaxVec][N], rv[kMaxVec];   // the next row's segments, in flight
+  auto load = [&](int row) {
+    const T* rr;
+    T* ro;
+    owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          xv[k] = reinterpret_cast<const uint4*>(
-              static_cast<const T*>(x.p[k]) + xoff)[i];
-        const uint4 rv = reinterpret_cast<const uint4*>(rr)[i];
-        float s[V];
-        {
-          const T* e = reinterpret_cast<const T*>(&xv[0]);
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int i = tid + j * kPipeThreads;
+      if (i >= nv) break;
 #pragma unroll
-          for (int j = 0; j < V; ++j) s[j] = to_f(e[j]);
-        }
+      for (int k = 0; k < N; ++k)
+        xv[j][k] = reinterpret_cast<const uint4*>(static_cast<const T*>(x.p[k]) +
+                                                  static_cast<int64_t>(row) * d)[i];
+      rv[j] = reinterpret_cast<const uint4*>(rr)[i];
+    }
+  };
+  uint4 wv[kMaxVec];
 #pragma unroll
-        for (int k = 1; k < N; ++k) {
-          const T* e = reinterpret_cast<const T*>(&xv[k]);
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int i = tid + j * kPipeThreads;
+    if (i < nv) wv[j] = reinterpret_cast<const uint4*>(w)[i];
+  }
+  if (blockIdx.x < rows) load(blockIdx.x);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    float tv[kMaxVec][V];
+    float ss = 0.f;
 #pragma unroll
-          for (int j = 0; j < V; ++j) s[j] += to_f(e[j]);
-        }
-        const T* re = reinterpret_cast<const T*>(&rv);
-        uint4 nres;
-        T* ne = reinterpret_cast<T*>(&nres);
-        float4 tv[V / 4];
-        float* te = reinterpret_cast<float*>(tv);
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int i = tid + j * kPipeThreads;
+      if (i >= nv) break;
+      float sum[V];
+      {
+        const T* e = reinterpret_cast<const T*>(&xv[j][0]);
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float t = to_f(from_f<T>(s[j])) + to_f(re[j]);
-          te[j] = t;
-          ss += t * t;
-          ne[j] = from_f<T>(t);
-        }
-        reinterpret_cast<uint4*>(ro)[i] = nres;
-        // 16-byte shared stores: a thread's V floats are contiguous, so
-        // scalar stores would conflict V ways across a warp's banks
-#pragma unroll
-        for (int q = 0; q < V / 4; ++q)
-          reinterpret_cast<float4*>(t_s)[i * (V / 4) + q] = tv[q];
+        for (int q = 0; q < V; ++q) sum[q] = to_f(e[q]);
       }
-    } else {
-      for (int i = threadIdx.x; i < d; i += kThreads) {
-        T xs[N];
 #pragma unroll
-        for (int k = 0; k < N; ++k) xs[k] = static_cast<const T*>(x.p[k])[xoff + i];
-        float s = to_f(xs[0]);
+      for (int k = 1; k < N; ++k) {
+        const T* e = reinterpret_cast<const T*>(&xv[j][k]);
 #pragma unroll
-        for (int k = 1; k < N; ++k) s += to_f(xs[k]);
-        const float t = to_f(from_f<T>(s)) + to_f(rr[i]);
-        t_s[i] = t;
+        for (int q = 0; q < V; ++q) sum[q] += to_f(e[q]);
+      }
+      const T* re = reinterpret_cast<const T*>(&rv[j]);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float t = to_f(from_f<T>(sum[q])) + to_f(re[q]);
+        tv[j][q] = t;
         ss += t * t;
-        ro[i] = from_f<T>(t);
       }
     }
-
-    const float inv = rsqrtf(block_sum(ss, red, &total) / static_cast<float>(d) + eps);
-
-    // each thread reads back only the t values it wrote itself
-    if constexpr (kVec) {
-      const int nv = d / V;
-      for (int i = threadIdx.x; i < nv; i += kThreads) {
-        const uint4 wv = reinterpret_cast<const uint4*>(w)[i];
-        const T* we = reinterpret_cast<const T*>(&wv);
-        float4 tv[V / 4];
+    // the next row's loads fly while this one is reduced and stored
+    if (row + gridDim.x < rows) load(row + gridDim.x);
+    ss = warp_sum(ss);
+    if (lane == 0) red[warp] = ss;
+    const T* rr;
+    T* ro;
+    owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
 #pragma unroll
-        for (int q = 0; q < V / 4; ++q)
-          tv[q] = reinterpret_cast<const float4*>(t_s)[i * (V / 4) + q];
-        const float* te = reinterpret_cast<const float*>(tv);
-        uint4 ov;
-        T* oe = reinterpret_cast<T*>(&ov);
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int i = tid + j * kPipeThreads;
+      if (i >= nv) break;
+      uint4 nres;
+      T* ne = reinterpret_cast<T*>(&nres);
 #pragma unroll
-        for (int j = 0; j < V; ++j) oe[j] = from_f<T>(te[j] * inv * to_f(we[j]));
+      for (int q = 0; q < V; ++q) ne[q] = from_f<T>(tv[j][q]);
+      reinterpret_cast<uint4*>(ro)[i] = nres;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float v = lane < kPipeThreads / 32 ? red[lane] : 0.f;
+      v = warp_sum(v);
+      if (lane == 0) total = v;
+    }
+    __syncthreads();
+    const float inv = rsqrtf(total / static_cast<float>(d) + eps);
+    const int64_t xoff = static_cast<int64_t>(row) * d;
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          reinterpret_cast<uint4*>(static_cast<T*>(out.p[k]) + xoff)[i] = ov;
-      }
-    } else {
-      for (int i = threadIdx.x; i < d; i += kThreads) {
-        const T o = from_f<T>(t_s[i] * inv * to_f(w[i]));
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int i = tid + j * kPipeThreads;
+      if (i >= nv) break;
+      const T* we = reinterpret_cast<const T*>(&wv[j]);
+      uint4 ov;
+      T* oe = reinterpret_cast<T*>(&ov);
 #pragma unroll
-        for (int k = 0; k < N; ++k) static_cast<T*>(out.p[k])[xoff + i] = o;
-      }
+      for (int q = 0; q < V; ++q) oe[q] = from_f<T>(tv[j][q] * inv * to_f(we[q]));
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        reinterpret_cast<uint4*>(static_cast<T*>(out.p[k]) + xoff)[i] = ov;
     }
   }
 }
@@ -208,16 +279,20 @@ template <typename T, int N, bool kVec>
 cudaError_t launch(const PtrTable& x, const PtrTable& res, const void* w,
                    const PtrTable& out, const PtrTable& res_out, int rows,
                    int d, float eps, int ctas, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  auto kernel = ar_rmsnorm_kernel<T, N, kVec>;
-  if (smem > 48 * 1024) {
+  // the scalar body keeps t in shared memory: d floats
+  const size_t smem = kVec ? 0 : static_cast<size_t>(d) * sizeof(float);
+  if (smem > kMaxSmemBytes || (kVec && d / (16 / sizeof(T)) > kMaxVec * kPipeThreads))
+    return cudaErrorInvalidValue;
+  auto kernel = kVec ? ar_rmsnorm_kernel<T, N> : ar_rmsnorm_scalar_kernel<T, N>;
+  // above 48 KB in all, static arrays included, only after opting in
+  if (smem > 40 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int grid = ctas < rows ? ctas : rows;
-  kernel<<<grid, kThreads, smem, stream>>>(x, res, static_cast<const T*>(w), out,
-                                           res_out, rows, rows / N, d, eps);
+  kernel<<<grid, kVec ? kPipeThreads : kThreads, smem, stream>>>(
+      x, res, static_cast<const T*>(w), out, res_out, rows, rows / N, d, eps);
   return cudaGetLastError();
 }
 
@@ -256,9 +331,10 @@ int ar_rmsnorm_table_bytes() { return static_cast<int>(sizeof(PtrTable)); }
 // x, res, out, res_out: host pointers to tables of n device pointers (the
 // tables are copied into the kernel's arguments).  rows = T, a multiple of
 // n; res and res_out rows are (T / n, d).  dtype: 0 = float32,
-// 1 = bfloat16.  vec: 1 when d * sizeof(dtype) is a multiple of 16 and
-// every pointer is 16-byte aligned.  ctas: the grid, 1 to 8.  Returns
-// cudaGetLastError() after the launch.
+// 1 = bfloat16.  vec: 1 runs the pipelined body, which wants d * sizeof(dtype)
+// a multiple of 16, at most 1024 16-byte vectors in a row and every pointer
+// 16-byte aligned; 0 runs the scalar body (d <= 58112).  ctas: the grid, 1
+// to 8.  Returns cudaGetLastError() after the launch.
 int ar_rmsnorm(const PtrTable* x, const PtrTable* res, const void* w,
                const PtrTable* out, const PtrTable* res_out, int n, int rows,
                int d, float eps, int dtype, int vec, int ctas, void* stream) {

@@ -14,7 +14,12 @@ The CUDA kernel takes tables of per-rank pointers into those tensors, so
 the same body takes peer-mapped pointers when the ranks are separate cards.
 It is bound by bytes, (N + 1)·T·d elements read and as many written; its
 grid is the comm budget's CTA count, 1 to 8 SMs (``core.splitting.ring_ctas``),
-so alone on the card it stays well above that bound (see the source note).
+so alone on the card it stays well above that bound: what a few SMs move is
+set by the bytes each keeps in flight.  The pipelined body therefore keeps
+the next row's loads in flight (in registers) while the current row is
+reduced and stored; rows it cannot hold (``pipelined``) take a scalar body
+that does one row at a time.  Every grid gives the same bits (see the
+source note).
 
 ``ar_rmsnorm`` is the wrapper: on CPU tensors it runs ``ar_rmsnorm_plain``;
 on CUDA tensors it launches the kernel or raises.
@@ -32,6 +37,9 @@ MAX_RANKS = 8
 MAX_CTAS = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024
+# the pipelined body (csrc/ar_rmsnorm.cu): 512 threads, each holding at most
+# 2 16-byte vectors of a row (and the next row's N + 1) in registers
+_PIPE_VECTORS = 512 * 2
 
 
 class PtrTable(ctypes.Structure):
@@ -100,9 +108,18 @@ def check_inputs(x, residual, weight) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t_.device != x.device:
             raise ValueError(f"{name} is on {t_.device}, x on {x.device}")
-    if d * 4 > _MAX_SMEM:
-        raise ValueError(f"d={d} exceeds the kernel's shared-memory row "
-                         f"buffer ({_MAX_SMEM // 4} floats)")
+    if not pipelined(x, residual, weight) and d * 4 > _MAX_SMEM:
+        raise ValueError(f"d={d} exceeds the scalar body's shared-memory "
+                         f"row buffer ({_MAX_SMEM // 4} floats)")
+
+
+def pipelined(*tensors) -> bool:
+    """Whether the pipelined body takes these rows: each row a whole number
+    of 16-byte vectors, at most ``_PIPE_VECTORS`` of them, and every pointer
+    16-byte aligned.  The scalar body (one row at a time) takes the rest."""
+    row_bytes = tensors[0].shape[-1] * tensors[0].element_size()
+    return (row_bytes % 16 == 0 and row_bytes // 16 <= _PIPE_VECTORS
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _lib():
@@ -147,8 +164,7 @@ def ar_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
     n, t, d = x.shape
     if t == 0:
         return out, new_res
-    vec = (d * x.element_size()) % 16 == 0 and all(
-        a.data_ptr() % 16 == 0 for a in (x, residual, weight, out, new_res))
+    vec = pipelined(x, residual, weight, out, new_res)
     tabs = [_table(a) for a in (x, residual, out, new_res)]
     lib = _lib()
     with torch.cuda.device(x.device):

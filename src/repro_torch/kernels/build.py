@@ -28,6 +28,9 @@ SOURCES = {
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per source: K3's wgmma body needs ptxas to spend registers on keeping its
+# wgmma groups in flight, or it serializes them (warning C7512)
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "--register-usage-level=10")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -43,10 +46,15 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for one source."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -64,7 +72,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, object]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp),
                str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

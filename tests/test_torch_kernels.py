@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.layers.attention import _attn_ref as j_attn_ref
 from repro.kernels.fused_rmsnorm import fused_residual_rmsnorm_pallas
 from repro.kernels.ref import fused_residual_rmsnorm_ref
 
@@ -102,6 +103,142 @@ def test_flash_attention_matches_reference(b, sq, sk, kvh, g, dh, causal,
             rtol=2e-5, atol=2e-5)
 
 
+def _skipping_attention(q, k, v, qpos, kpos, live, *, causal, window,
+                        queries_per_cta, keys_per_tile, scale):
+    """What the bfloat16 kernel computes, in fp32: per q tile, an online
+    softmax over the live key tiles of ``live`` only (masked logits at the
+    finite NEG_INF inside a visited tile), then mean(V) over all Sk keys
+    for each row whose running max stayed at NEG_INF."""
+    b, sq, kvh, g, dh = q.shape
+    sk = k.shape[1]
+    out = torch.empty(b, sq, kvh, g, dh)
+    mean_v = v.mean(dim=1)                               # (b, kvh, dh)
+    for bi in range(b):
+        for qt in range(live.shape[1]):
+            q0 = qt * queries_per_cta
+            q1 = min(sq, q0 + queries_per_cta)
+            qs = q[bi, q0:q1]                            # (n, kvh, g, dh)
+            m = torch.full((q1 - q0, kvh, g), K3.NEG_INF)
+            l = torch.zeros(q1 - q0, kvh, g)
+            acc = torch.zeros(q1 - q0, kvh, g, dh)
+            for kt in range(live.shape[2]):
+                if not live[bi, qt, kt]:
+                    continue
+                k0, k1 = kt * keys_per_tile, min(sk, (kt + 1) * keys_per_tile)
+                s = torch.einsum("qhgd,khd->qhgk", qs, k[bi, k0:k1]) * scale
+                if live[bi, qt, kt] == 1:    # 2: every pair visible, no mask
+                    vis = K3.attention_mask(qpos[bi:bi + 1, q0:q1],
+                                            kpos[bi:bi + 1, k0:k1], causal,
+                                            window)[0]   # (n, keys)
+                    s = torch.where(vis[:, None, None, :], s, K3.NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "qhgk,khd->qhgd", p, v[bi, k0:k1])
+                m = m_new
+            o = acc / l.clamp_min(1e-30)[..., None]
+            masked = m == K3.NEG_INF
+            o = torch.where(masked[..., None],
+                            mean_v[bi][None, :, None, :].expand_as(o), o)
+            out[bi, q0:q1] = o
+    return out
+
+
+# name: (b, sq, sk, kvh, g, dh, window, q0, cache keys valid, padded rows)
+_SKIP_CASES = {
+    "empty_cache_row": (1, 40, 64 + 40, 2, 8, 16, 0, 0, 0, 0),
+    "split_behind_cache": (2, 24, 50 + 24, 2, 5, 16, 0, 50, 50, 0),
+    "sliding_window": (1, 48, 60 + 48, 1, 1, 32, 20, 60, 60, 0),
+    "padded_queries": (2, 30, 40 + 30, 2, 8, 16, 0, 40, 40, 6),
+    "ragged_sk": (1, 21, 37 + 21, 3, 5, 16, 0, 30, 25, 3),
+    "window_padded_g1": (1, 33, 70 + 33, 2, 1, 16, 24, 70, 64, 5),
+}
+
+
+def _skip_inputs(name):
+    b, sq, sk, kvh, g, dh, window, q0, k_valid, pad = _SKIP_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    q = rng.randn(b, sq, kvh, g, dh).astype(np.float32)
+    k = rng.randn(b, sk, kvh, dh).astype(np.float32)
+    v = rng.randn(b, sk, kvh, dh).astype(np.float32)
+    qpos = np.arange(q0, q0 + sq)
+    kpos = np.full(sk, -1)                 # empty cache slots
+    kpos[:k_valid] = np.arange(k_valid)    # valid cache keys
+    kpos[sk - sq:] = qpos                  # the chunk's own keys
+    if pad:
+        qpos[-pad:] = -1                   # padded prefill rows ...
+        kpos[-pad:] = -1                   # ... whose keys are padding
+    qpos = np.broadcast_to(qpos, (b, sq)).astype(np.int32).copy()
+    kpos = np.broadcast_to(kpos, (b, sk)).astype(np.int32).copy()
+    return (q, k, v, qpos, kpos), window
+
+
+def _tiling(g):
+    """A small tiling with the kernel's shape: CTA rows = queries x G."""
+    return max(1, 16 // g), 8
+
+
+@pytest.mark.parametrize("name", sorted(_SKIP_CASES))
+def test_live_tile_skipping_matches_reference(name):
+    """The kernel's algorithm restricted to the live-tile table equals the
+    model path's _attn_ref in fp32, rows with no visible key included."""
+    (q, k, v, qpos, kpos), window = _skip_inputs(name)
+    g, dh = q.shape[3], q.shape[4]
+    qpc, kpt = _tiling(g)
+    t = [torch.from_numpy(a) for a in (q, k, v, qpos, kpos)]
+    live = K3.live_tiles(t[3], t[4], causal=True, window=window,
+                         queries_per_cta=qpc, keys_per_tile=kpt)
+    assert live.shape == (q.shape[0], -(-q.shape[1] // qpc),
+                          -(-k.shape[1] // kpt)) and live.dtype == torch.uint8
+    assert 0 < int((live > 0).sum()) < live.numel()  # some tiles skipped
+    got = _skipping_attention(*t, live, causal=True, window=window,
+                              queries_per_cta=qpc, keys_per_tile=kpt,
+                              scale=dh ** -0.5)
+    want = j_attn_ref(*(jnp.asarray(a) for a in (q, k, v, qpos, kpos)),
+                      causal=True, window=window, sm_scale=dh ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    plain = K3.flash_attention_plain(*t, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    # every visible pair lies in a live tile; every pair of a full tile
+    # (2) is visible and lies inside Sk
+    vis = K3.attention_mask(t[3], t[4], True, window)     # (b, sq, sk)
+    sk_pad = live.shape[2] * kpt
+    vis = torch.nn.functional.pad(vis, (0, sk_pad - k.shape[1]))
+    tile_of = live.repeat_interleave(qpc, 1)[:, :q.shape[1]] \
+        .repeat_interleave(kpt, 2)
+    assert not bool((vis & (tile_of == 0)).any())
+    assert bool(vis[tile_of == 2].all())
+    assert bool((live == 1).any())
+    if window == 0:      # a 16-query tile never fits 8 keys in a window of 20
+        assert bool((live == 2).any())
+
+
+@pytest.mark.parametrize("name", ["empty_cache_row", "padded_queries"])
+def test_live_tile_skipping_catches_a_dropped_live_tile(name):
+    """Dropping one tile that holds a visible pair must break the match:
+    the comparison above would catch a rule that skips too much."""
+    (q, k, v, qpos, kpos), window = _skip_inputs(name)
+    g, dh = q.shape[3], q.shape[4]
+    qpc, kpt = _tiling(g)
+    t = [torch.from_numpy(a) for a in (q, k, v, qpos, kpos)]
+    live = K3.live_tiles(t[3], t[4], causal=True, window=window,
+                         queries_per_cta=qpc, keys_per_tile=kpt)
+    bi, qt, kt = (int(i) for i in live.nonzero()[-1])  # the diagonal tile
+    live[bi, qt, kt] = 0
+    got = _skipping_attention(*t, live, causal=True, window=window,
+                              queries_per_cta=qpc, keys_per_tile=kpt,
+                              scale=dh ** -0.5)
+    want = np.asarray(j_attn_ref(*(jnp.asarray(a) for a in
+                                   (q, k, v, qpos, kpos)),
+                                 causal=True, window=window,
+                                 sm_scale=dh ** -0.5))
+    assert np.abs(got.numpy() - want).max() > 1e-2
+
+
 def test_kernel_input_checks_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(4, 64)
     with pytest.raises(TypeError):
@@ -122,3 +259,14 @@ def test_kernel_input_checks_refuse_what_the_kernels_do_not_take():
                         torch.zeros(1, 16, 2, 48), qp, kp)
     with pytest.raises(ValueError):
         K3.check_inputs(q, k, k[:, :8], qp, kp)
+    # the bfloat16 body (wgmma over 128-byte rows) takes head dims 64 and 128
+    bf = dict(dtype=torch.bfloat16)
+    for dh in (16, 32):
+        with pytest.raises(ValueError, match="head dim"):
+            K3.check_inputs(torch.zeros(1, 8, 2, 4, dh, **bf),
+                            torch.zeros(1, 16, 2, dh, **bf),
+                            torch.zeros(1, 16, 2, dh, **bf), qp, kp)
+    for dh in (64, 128):
+        K3.check_inputs(torch.zeros(1, 8, 2, 4, dh, **bf),
+                        torch.zeros(1, 16, 2, dh, **bf),
+                        torch.zeros(1, 16, 2, dh, **bf), qp, kp)

@@ -407,6 +407,18 @@ def test_k1_input_checks_refuse_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         K1.check_inputs(x, torch.zeros(4, 4, 64),
                         torch.zeros(64, dtype=torch.bfloat16))
+    # the pipelined body holds at most 1024 16-byte vectors of a row (bf16
+    # d <= 8192); wider or ragged rows take the scalar body, whose row of t
+    # in shared memory must fit
+    bf = dict(dtype=torch.bfloat16)
+    assert K1.pipelined(torch.zeros(8, 8, 8192, **bf))
+    assert not K1.pipelined(torch.zeros(8, 8, 8190, **bf))
+    assert not K1.pipelined(torch.zeros(2, 8, 8192))        # fp32: 2048
+    K1.check_inputs(torch.zeros(2, 8, 8192), torch.zeros(2, 4, 8192),
+                    torch.zeros(8192))
+    with pytest.raises(ValueError, match="row buffer"):
+        K1.check_inputs(torch.zeros(1, 1, 60000), torch.zeros(1, 1, 60000),
+                        torch.zeros(60000))
 
 
 # --------------------------------------------------------------------------
