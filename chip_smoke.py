@@ -36,10 +36,29 @@ Phases, each printing one JSON line:
             other kernels (the weave's comm stream), and K3 is held on
             its inputs again; every traced call's Chrome trace is written
             to --trace-dir (build/traces/);
-5. identity a small float32 model served on the card (kernels) and on the
+5. engine_packed  the same requests and a 5th that shares request 0's
+            first 1024 prompt tokens (added once request 0's prefill is
+            done: 64 blocks hit the prefix cache) through packed hybrid
+            batching over the paged pool, at tp=1 (K2) and tp=8 (ring,
+            K1): one ``packed_step`` line per step (segments, split, ms);
+            K2/K1 launches equal splits·(1+2L) and K3's splits·L (every
+            split's attention is one K3 call over its segments); K3 is
+            held on the inputs of every shape it got; at tp=1 one mixed
+            step with two splits is run again under the profiler, with
+            the device time of the segments' gather, the scatter into the
+            pool and the query/output layout apart (``breakdown``,
+            engine_packed); each packed run's peak device memory (from
+            the run's start: weights, pool and the run's activations)
+            stays within 1.5 GB of the two-dispatch run's at its tp
+            (``peak_memory``);
+6. engine_paged  the two-dispatch engine over the paged pool at tp=1
+            (paged prefill: gather, K3, insert; paged decode);
+7. identity a small float32 model served on the card (kernels) and on the
             CPU (plain versions) must give identical greedy tokens, at
             tp=1 and at tp=2 in ring mode with the weave (and its streams)
-            firing.
+            firing, through the two-dispatch engine over slots and
+            through packed batching over the paged pool with a request
+            that hits the prefix cache.
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -50,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -81,6 +101,9 @@ MASKED_RTOL = 2.0 ** -8
 MASKED_ATOL = 1e-6
 CTA_SWEEP = (1, 2, 4, 8)           # K1's budgets: bit-identical, each timed
 IDENTITY_LOGIT_TOL = 1e-4          # float32, TF32 off: summation order only
+# a packed run's peak over the two-dispatch run's at the same tp; the
+# reference's per-token KV view would add 17 GB per layer
+PACKED_PEAK_SLACK_GB = 1.5
 
 
 # A plain copy on a K1-sized grid: what that many SMs can move on this
@@ -479,7 +502,10 @@ def capture_k3_inputs(store: dict):
     """Make the model path keep a copy of K3's inputs at each shape it
     gives the kernel (the first call of each) in ``store``, so that they
     can be checked once the run is over; the calls still go through the
-    wrapper, which counts the launches.  Returns the undo."""
+    wrapper, which counts the launches.  The copies are taken on the card
+    (a copy kernel, in order with the run); ``offload`` moves them to the
+    host between steps, outside the timed region, so a phase's peak
+    memory holds at most one step's copies.  Returns the undo."""
     from repro_torch.layers import attention as A
     wrapper = A.flash_attention
 
@@ -494,34 +520,113 @@ def capture_k3_inputs(store: dict):
     return lambda: setattr(A, "flash_attention", wrapper)
 
 
-def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
-                 comm_mode: str, n_layers: int = 4):
-    """Serve the 4 requests at ``tp`` ranks on the card's rank axis; the
-    add+norm slots run K2 (``fused``) or K1 (``ring``)."""
+def offload(store: dict) -> None:
+    """Move ``capture_k3_inputs``' copies to the host."""
+    for key, (tensors, kw) in store.items():
+        store[key] = ([t.cpu() for t in tensors], kw)
+
+
+def check_main_path_k3(torch, store: dict, engine: str, tp: int) -> float:
+    """Hold K3 on the inputs ``capture_k3_inputs`` kept, shape by shape,
+    emitting one ``main_path_k3`` line each; returns the max abs error."""
+    torch.cuda.synchronize()
+    if not store:
+        raise AssertionError(f"{engine}: the model path reached no K3 call")
+    k3_err = 0.0
+    for tensors, kw in store.values():
+        tensors = [t.cuda() for t in tensors]
+        case = check_k3(torch, f"K3 {engine} main path "
+                        f"{tuple(tensors[0].shape)}", *tensors, **kw)
+        k3_err = max(k3_err, case["max_abs_err"])
+        emit({"phase": "main_path_k3", "engine": engine, "tp": tp, **case})
+        del tensors
+    store.clear()
+    torch.cuda.empty_cache()
+    return k3_err
+
+
+PROMPT_LENS, NEW_TOKENS = (1800, 1200, 700, 300), 16
+SHARED_PREFIX, SHARER_OWN = 1024, 200   # the 5th request of engine_packed
+
+
+def llama_model(torch, np, seed: int, *, tp: int, comm_mode: str,
+                n_layers: int):
+    """Llama-3.3-70B's widths cut to ``n_layers``, bf16, random weights
+    from the seed at ``tp`` ranks, and the phases' prompts.  Collects what
+    earlier phases left first (their engines sit in reference cycles
+    through the timing wrappers); returns the memory still allocated
+    then, which should be none of theirs."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.llama3_70b import CONFIG
-    from repro_torch.layers.embedding import sharded_argmax
     from repro_torch.models.build import build_model
-    from repro_torch.runtime.engine import Engine
-    from repro_torch.runtime.requests import Request
-    from repro_torch.runtime.scheduler import SchedulerConfig
 
-    phase = "engine" if tp == 1 else "engine_tp"
-    norm_kernel = {"fused": "fused_residual_rmsnorm",
-                   "ring": "ar_rmsnorm"}[comm_mode]
-    prompt_lens, new_tokens = (1800, 1200, 700, 300), 16
     cfg = dataclasses.replace(CONFIG, num_layers=n_layers)
     pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
                           use_pallas_norm=True)
     api = build_model(cfg, pcfg, tp=tp)
-    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
     params = api.init(seed, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
-               for n in prompt_lens]
+               for n in PROMPT_LENS]
+    return cfg, api, params, prompts, init_s, start_gb
+
+
+def reset_peak(torch) -> float:
+    """Start a run's peak-memory count from what is allocated now (the
+    weights and the KV cache or pool); returns that, in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def check_launches(eng, launches, *, norm_kernel: str, n_layers: int,
+                   k3_splits: int) -> dict:
+    """Every forward's add+norm slots ran the mode's kernel (so none fell
+    back to vanilla, which launches neither K1 nor K2): splits·(1+2L)
+    launches; K3 ran once per layer of each of ``k3_splits`` splits."""
+    st = eng.stats
+    splits = st.forwards + st.weave_forwards
+    want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
+            "flash_attention": k3_splits * n_layers}
+    want[norm_kernel] = splits * (1 + 2 * n_layers)
+    if launches != want or 0 in (launches[norm_kernel],
+                                 launches["flash_attention"]):
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return want
+
+
+def check_outputs(done, n_requests: int, vocab: int, new_tokens: int):
+    if sorted(r.rid for r in done) != list(range(n_requests)):
+        raise AssertionError(f"finished {[r.rid for r in done]}")
+    for r in done:
+        if len(r.output) != new_tokens or not all(
+                0 <= t < vocab for t in r.output):
+            raise AssertionError(f"rid {r.rid} output {r.output}")
+
+
+def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                 comm_mode: str, paged: bool = False, n_layers: int = 4):
+    """Serve the 4 requests through the two-dispatch engine at ``tp``
+    ranks on the card's rank axis, over legacy slots or (``paged``) the
+    paged pool; the add+norm slots run K2 (``fused``) or K1 (``ring``).
+    Returns (launches, K3's max error on the run's inputs, peak GB)."""
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    phase = "engine_paged" if paged else ("engine" if tp == 1
+                                          else "engine_tp")
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, prompts, init_s, start_gb = llama_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
 
     # a direct prefill of request 0 must give finite logits of the right
     # shape, and the engine's first token for it must be their argmax
@@ -542,8 +647,9 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
     first_tok = int(sharded_argmax(logits, vocab_size=cfg.vocab_size)[0, 0])
     del logits
 
-    eng = Engine(api, params, SchedulerConfig())
+    eng = Engine(api, params, SchedulerConfig(paged=paged))
     times = {"prefill": [], "decode": []}
+    k3_inputs = {}
 
     def timed(kind, fn):
         def run(*args):
@@ -552,16 +658,17 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
             fn(*args)
             torch.cuda.synchronize()
             times[kind].append((time.perf_counter() - t) * 1e3)
+            offload(k3_inputs)
         return run
 
     eng._run_prefill = timed("prefill", eng._run_prefill)
     eng._run_decode = timed("decode", eng._run_decode)
     for i, p in enumerate(prompts):
-        eng.add_request(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+        eng.add_request(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
 
-    k3_inputs = {}
     undo = capture_k3_inputs(k3_inputs)
     try:
+        run_start_gb = reset_peak(torch)
         reset_launches()
         t0 = time.perf_counter()
         done = eng.run()
@@ -570,82 +677,227 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
         launches = read_launches()
     finally:
         undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
 
-    if sorted(r.rid for r in done) != list(range(len(prompts))):
-        raise AssertionError(f"finished {[r.rid for r in done]}")
-    for r in done:
-        if len(r.output) != new_tokens or not all(
-                0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"rid {r.rid} output {r.output}")
+    check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
     out0 = next(r for r in done if r.rid == 0).output[0]
     if out0 != first_tok:
         raise AssertionError(f"engine's first token {out0} != direct "
                              f"prefill argmax {first_tok}")
     st = eng.stats
-    splits = st.forwards + st.weave_forwards
     pf = eng.metrics.get("engine/site_forwards", site="prefill").value
     pw_inst = eng.metrics.get("engine/site_weave", site="prefill")
     pf_splits = pf + (pw_inst.value if pw_inst is not None else 0)
-    # every forward's add+norm slots ran the mode's kernel, so none fell
-    # back to vanilla (which launches neither K1 nor K2)
-    want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
-            "flash_attention": pf_splits * n_layers}
-    want[norm_kernel] = splits * (1 + 2 * n_layers)
-    if launches != want or 0 in (launches[norm_kernel],
-                                 launches["flash_attention"]):
-        raise AssertionError(f"launches {launches}, expected {want}")
-    emit({"phase": phase, "model": cfg.name, "tp": tp,
-          "comm_mode": comm_mode, "layers": n_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype,
-          "prompt_lens": list(prompt_lens), "new_tokens": new_tokens,
-          "forwards": st.forwards, "weave_forwards": st.weave_forwards,
-          "prefill_forwards": pf, "prefill_splits": pf_splits,
-          "launches": launches, "expected_launches": want,
-          "param_init_s": init_s, "wall_s": wall_s,
-          "prefill_ms": times["prefill"], "decode_ms": times["decode"],
-          "prefill_ms_median": statistics.median(times["prefill"]),
-          "decode_ms_median": statistics.median(times["decode"]),
-          "max_memory_allocated_gb":
-              torch.cuda.max_memory_allocated() / 1e9})
+    want = check_launches(eng, launches, norm_kernel=norm_kernel,
+                          n_layers=n_layers, k3_splits=pf_splits)
+    row = {"phase": phase, "model": cfg.name, "tp": tp,
+           "comm_mode": comm_mode, "paged": paged, "layers": n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+           "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+           "prefill_forwards": pf, "prefill_splits": pf_splits,
+           "launches": launches, "expected_launches": want,
+           "param_init_s": init_s, "wall_s": wall_s,
+           "prefill_ms": times["prefill"], "decode_ms": times["decode"],
+           "prefill_ms_median": statistics.median(times["prefill"]),
+           "decode_ms_median": statistics.median(times["decode"]),
+           "allocated_at_start_gb": start_gb,
+           "allocated_at_run_start_gb": run_start_gb,
+           "max_memory_allocated_gb": peak}
+    if paged:
+        row["prefix_hit_tokens"] = eng.block_mgr.stats.hit_tokens
+    emit(row)
 
-    # where a step's time goes: request 0's whole prefill chunk, and one
-    # decode step over the 8 slots (4 active), warm after the run above
-    last = torch.tensor([1799], device="cuda")
-    dtok = torch.zeros(eng.scfg.max_batch, 1, dtype=torch.long, device="cuda")
-    dpos = torch.full((eng.scfg.max_batch, 1), -1, dtype=torch.int32,
-                      device="cuda")
-    dpos[:len(prompt_lens), 0] = torch.tensor(
-        [n + new_tokens - 1 for n in prompt_lens], device="cuda")
-    with torch.no_grad():
-        for step, fn in (
-                ("prefill", lambda: api.prefill(params, tokens, cache_rows,
-                                                pos, last_idx=last)),
-                ("decode", lambda: api.decode_step(params, dtok, eng.cache,
-                                                   dpos))):
-            trace = trace_dir / f"{phase}_{step}_trace.json"
-            row = device_breakdown(torch, fn, trace)
-            if tp > 1 and step == "prefill" and not row["k1_launches"]:
-                raise AssertionError("no K1 kernel in the traced prefill")
-            emit({"phase": "breakdown", "engine": phase, "tp": tp,
-                  "step": step, "tokens":
-                  chunk if step == "prefill" else eng.scfg.max_batch,
-                  **row})
+    if not paged:
+        # where a step's time goes: request 0's whole prefill chunk, and
+        # one decode step over the 8 slots (4 active), warm after the run
+        last = torch.tensor([1799], device="cuda")
+        dtok = torch.zeros(eng.scfg.max_batch, 1, dtype=torch.long,
+                           device="cuda")
+        dpos = torch.full((eng.scfg.max_batch, 1), -1, dtype=torch.int32,
+                          device="cuda")
+        dpos[:len(PROMPT_LENS), 0] = torch.tensor(
+            [n + NEW_TOKENS - 1 for n in PROMPT_LENS], device="cuda")
+        with torch.no_grad():
+            for step, fn in (
+                    ("prefill", lambda: api.prefill(
+                        params, tokens, cache_rows, pos, last_idx=last)),
+                    ("decode", lambda: api.decode_step(
+                        params, dtok, eng.cache, dpos))):
+                trace = trace_dir / f"{phase}_{step}_trace.json"
+                brk = device_breakdown(torch, fn, trace)
+                if tp > 1 and step == "prefill" and not brk["k1_launches"]:
+                    raise AssertionError("no K1 kernel in the traced "
+                                         "prefill")
+                emit({"phase": "breakdown", "engine": phase, "tp": tp,
+                      "step": step, "tokens":
+                      chunk if step == "prefill" else eng.scfg.max_batch,
+                      **brk})
     del eng, params, cache_rows
     torch.cuda.empty_cache()
 
     # K3 at every shape this run gave it, on the inputs it got there
-    if not k3_inputs:
-        raise AssertionError(f"{phase}: the model path reached no K3 call")
-    k3_err = 0.0
-    for tensors, kw in k3_inputs.values():
-        q = tensors[0]
-        case = check_k3(torch, f"K3 {phase} main path {tuple(q.shape)}",
-                        *tensors, **kw)
-        k3_err = max(k3_err, case["max_abs_err"])
-        emit({"phase": "main_path_k3", "engine": phase, "tp": tp, **case})
-    k3_inputs.clear()
+    return launches, check_main_path_k3(torch, k3_inputs, phase, tp), peak
+
+
+class RecordPackedSteps:
+    """The model API with its packed steps' inputs kept (the tokens on
+    the card, the host arrays), so that one step can be run again."""
+
+    def __init__(self, api):
+        self._api = api
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._api, name)
+
+    def packed_step(self, params, tokens, cache, positions, **kw):
+        self.calls.append((tokens, positions, kw))
+        return self._api.packed_step(params, tokens, cache, positions, **kw)
+
+
+def serve_with_sharer(eng, Request, prompts, new_tokens: int, sharer):
+    """Serve ``prompts`` (rids 0..n-1) and, once request 0's prefill is
+    done, one more request whose prompt is ``sharer`` (rid n): its
+    admission finds request 0's full blocks in the prefix cache.  Returns
+    (finished requests, the sharer)."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    late = Request(rid=len(prompts), prompt=sharer,
+                   max_new_tokens=new_tokens)
+    added = False
+    while True:
+        if not added and reqs[0].prefill_done:
+            eng.add_request(late)
+            added = True
+        if not eng.step():
+            break
+    if not added:
+        raise AssertionError("request 0 never finished its prefill")
+    return eng.sched.finished, late
+
+
+def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                 comm_mode: str, n_layers: int = 4):
+    """Serve the 4 requests and a 5th that repeats request 0's first 1024
+    prompt tokens (64 blocks of 16) and adds 200 of its own, through
+    packed hybrid batching over
+    the paged pool (the defaults of ``SchedulerConfig(paged=True,
+    packed=True)``): one forward per step, its splits' attention K3 over
+    the segments.  At tp=1, one mixed step (decode and prefill segments,
+    two splits) is run again under the profiler.  Returns (launches,
+    K3's max error on the run's inputs, peak GB)."""
+    from repro_torch.layers import attention as A
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, prompts, init_s, start_gb = llama_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    rng = np.random.RandomState(seed + 5)
+    sharer = (prompts[0][:SHARED_PREFIX]
+              + rng.randint(0, cfg.vocab_size, SHARER_OWN).tolist())
+    scfg = SchedulerConfig(paged=True, packed=True)
+    eng = Engine(api, params, scfg)
+    rec = RecordPackedSteps(api)
+    eng.api = rec
+    steps, k3_inputs = [], {}
+    run_packed = eng._run_packed
+
+    def timed(plan):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_packed(plan)
+        torch.cuda.synchronize()
+        kinds = {s.kind for s in plan.segments}
+        steps.append({"segments": [[s.kind, s.n_tokens]
+                                   for s in plan.segments],
+                      "tokens": plan.total_tokens,
+                      "split": plan.overlap.split,
+                      "kind": "prefill" if "prefill" in kinds else "decode",
+                      "mixed": kinds == {"prefill", "decode"},
+                      "ms": (time.perf_counter() - t) * 1e3})
+        offload(k3_inputs)
+    eng._run_packed = timed
+
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        t0 = time.perf_counter()
+        done, late = serve_with_sharer(eng, Request, prompts, NEW_TOKENS,
+                                       sharer)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    check_outputs(done, len(prompts) + 1, cfg.vocab_size, NEW_TOKENS)
+    hit_blocks = late.prompt_hit_tokens // scfg.block_size
+    if hit_blocks != SHARED_PREFIX // scfg.block_size:
+        raise AssertionError(f"the 5th request hit {hit_blocks} blocks of "
+                             f"the prefix cache, not "
+                             f"{SHARED_PREFIX // scfg.block_size}")
+    mgr = eng.block_mgr
+    if mgr.tables or any(mgr.alloc.ref):
+        raise AssertionError("the pool did not drain")
+    st = eng.stats
+    want = check_launches(eng, launches, norm_kernel=norm_kernel,
+                          n_layers=n_layers,
+                          k3_splits=st.forwards + st.weave_forwards)
+    for i, step in enumerate(steps):
+        emit({"phase": "packed_step", "tp": tp, "step": i, **step})
+    by_kind = {k: [s["ms"] for s in steps if s["kind"] == k]
+               for k in ("prefill", "decode")}
+    emit({"phase": "engine_packed", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "prompt_lens": list(PROMPT_LENS) + [len(sharer)],
+          "new_tokens": NEW_TOKENS, "block_size": scfg.block_size,
+          "num_blocks": scfg.effective_num_blocks,
+          "chunk_tokens": scfg.chunk_tokens,
+          "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+          "launches": launches, "expected_launches": want,
+          "prefix_hit_blocks_5th": hit_blocks,
+          "prefix_hit_tokens": mgr.stats.hit_tokens,
+          "param_init_s": init_s, "wall_s": wall_s,
+          "prefill_step_ms": by_kind["prefill"],
+          "decode_step_ms": by_kind["decode"],
+          "prefill_step_ms_median": statistics.median(by_kind["prefill"]),
+          "decode_step_ms_median": statistics.median(by_kind["decode"]),
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+
+    if tp == 1:
+        # one mixed step with two splits, run again on the pool after the
+        # run (its requests' blocks are still in place; the pool never
+        # ran dry): where its time goes
+        pick = next(i for i, s in enumerate(steps)
+                    if s["mixed"] and s["split"] is not None)
+        tokens, positions, kw = rec.calls[pick]
+        trace = trace_dir / "engine_packed_step_trace.json"
+        with torch.no_grad():
+            brk = device_breakdown(
+                torch, lambda: api.packed_step(params, tokens, eng.cache,
+                                               positions, **kw),
+                trace, ranges={"scatter": A.SCATTER_RANGE,
+                               "gather": A.GATHER_RANGE,
+                               "layout": A.LAYOUT_RANGE})
+        emit({"phase": "breakdown", "engine": "engine_packed", "tp": tp,
+              "step": "packed", "packed_step": pick,
+              "segments": steps[pick]["segments"],
+              "split": steps[pick]["split"], **brk})
+    del eng, rec, params
     torch.cuda.empty_cache()
-    return launches, k3_err
+    return (launches, check_main_path_k3(torch, k3_inputs, "engine_packed",
+                                         tp), peak)
 
 
 # K3's side pass over V (vsum_kernel) runs in the same call as its main
@@ -688,7 +940,7 @@ def overlap_ms(events, kind: str) -> float:
     return total
 
 
-def device_breakdown(torch, fn, trace_path) -> dict:
+def device_breakdown(torch, fn, trace_path, ranges=None) -> dict:
     """Time one call of ``fn`` on the host's clock, then trace one more
     with torch.profiler into ``trace_path``: device time summed by kind of
     kernel, the longest kernels, the time some kernel ran (the union over
@@ -697,7 +949,9 @@ def device_breakdown(torch, fn, trace_path) -> dict:
     overlapped other kernels.  Kernels launched inside K3's live-tile
     range count as K3; that range's host time is given apart, and so are
     the host's time to enqueue the first call (until it returns) and its
-    span from the traced call's first launch to its last."""
+    span from the traced call's first launch to its last.  ``ranges``
+    (label -> a ``record_function`` name): the device time, kernel count
+    and host time of each named range too."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as K3
@@ -718,14 +972,24 @@ def device_breakdown(torch, fn, trace_path) -> dict:
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())
     events = events.get("traceEvents", events)
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation"
-             and e.get("name") == K3.LIVE_TILES_RANGE]
     launches = [e for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "dur" in e]
-    table = {e.get("args", {}).get("correlation") for e in launches
-             if any(s <= e["ts"] <= t for s, t in spans)} - {None}
+
+    def in_range(name):
+        """(correlation ids of the launches inside the named range, the
+        range's host ms)."""
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name") == name]
+        corr = {e.get("args", {}).get("correlation") for e in launches
+                if any(s <= e["ts"] <= t for s, t in spans)} - {None}
+        return corr, sum(t - s for s, t in spans) / 1e3
+
+    table, table_host_ms = in_range(K3.LIVE_TILES_RANGE)
+    extra = {name: in_range(r) for name, r in (ranges or {}).items()}
+    extra_ms = {name: 0.0 for name in extra}
+    extra_n = {name: 0 for name in extra}
     kinds = {"gemm": 0.0, "flash_attention": 0.0, "fused_rmsnorm": 0.0,
              "ar_rmsnorm": 0.0, "other": 0.0}
     iv, table_ms, table_n, per_name = [], 0.0, 0, {}
@@ -734,11 +998,16 @@ def device_breakdown(torch, fn, trace_path) -> dict:
                 or "dur" not in e:
             continue
         ms = e["dur"] / 1e3
-        in_table = e.get("args", {}).get("correlation") in table
+        corr = e.get("args", {}).get("correlation")
+        in_table = corr in table
         kind = "flash_attention" if in_table else kernel_kind(e["name"])
         kinds[kind] += ms
         table_ms += ms if in_table else 0.0
         table_n += in_table
+        for name, (ids, _) in extra.items():
+            if corr in ids:
+                extra_ms[name] += ms
+                extra_n[name] += 1
         name = e["name"][:100]
         per_name[name] = (per_name.get(name, (0.0, 0))[0] + ms,
                           per_name.get(name, (0.0, 0))[1] + 1)
@@ -762,7 +1031,10 @@ def device_breakdown(torch, fn, trace_path) -> dict:
                                     - min(e["ts"] for e in launches)) / 1e3,
             "k3_calls": k3_calls, "k3_table_kernels": table_n,
             "k3_table_device_ms": table_ms,
-            "k3_table_host_ms": sum(t - s for s, t in spans) / 1e3,
+            "k3_table_host_ms": table_host_ms,
+            "ranges": {name: {"device_ms": extra_ms[name],
+                              "kernels": extra_n[name],
+                              "host_ms": extra[name][1]} for name in extra},
             "k1_launches": len(k1), "k1_device_ms": sum(k1),
             "k1_overlapped_ms": overlap_ms(iv, "ar_rmsnorm"),
             "trace": str(trace_path),
@@ -856,6 +1128,38 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
           "cuda_launches": launches["cuda"],
           "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL})
 
+    # packed hybrid batching over the paged pool, with one more request
+    # sharing the longest prompt's first 32 tokens (2 blocks of 16),
+    # added once request 0's prefill is done
+    pscfg = dataclasses.replace(scfg, paged=True, packed=True)
+    src = max(prompts, key=len)
+    order = [src] + [p for p in prompts if p is not src]
+    sharer = src[:32] + rng.randint(0, cfg.vocab_size, 8).tolist()
+    hits = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        reset_launches()
+        eng = Engine(api, params, pscfg, device=dev)
+        done, late = serve_with_sharer(eng, Request, order, 6, sharer)
+        outs[dev] = {r.rid: r.output for r in done}
+        torch.cuda.synchronize()
+        launches[dev] = read_launches()
+        weave[dev] = eng.stats.weave_forwards
+        hits[dev] = late.prompt_hit_tokens
+    if outs["cuda"] != outs["cpu"] or len(outs["cuda"]) != len(order) + 1:
+        raise AssertionError(f"tp={tp} packed paged: cuda tokens "
+                             f"{outs['cuda']} != cpu {outs['cpu']}")
+    if (0 in (launches["cuda"][norm_kernel],
+              launches["cuda"]["flash_attention"])
+            or any(launches["cpu"].values()) or not weave["cuda"]
+            or hits["cuda"] != hits["cpu"] or hits["cuda"] != 32):
+        raise AssertionError(f"tp={tp} packed paged: launches {launches}, "
+                             f"weave forwards {weave}, prefix hits {hits}")
+    emit({"phase": "identity_packed_paged", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "requests": len(order) + 1,
+          "tokens_identical": True, "weave_forwards": weave["cuda"],
+          "prefix_hit_tokens_sharer": hits["cuda"],
+          "cuda_launches": launches["cuda"]})
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -892,10 +1196,24 @@ def main() -> int:
 
     rows = kernel_phase(torch, args.seed, load_copy_probe(probe))
     # the main paths: launches are counted from 0 over each engine run
-    paths = [engine_phase(torch, np, args.seed, args.trace_dir, tp=1,
-                          comm_mode="fused"),
-             engine_phase(torch, np, args.seed, args.trace_dir, tp=8,
-                          comm_mode="ring")]
+    kw = dict(torch=torch, np=np, seed=args.seed, trace_dir=args.trace_dir)
+    two = {1: engine_phase(**kw, tp=1, comm_mode="fused"),
+           8: engine_phase(**kw, tp=8, comm_mode="ring")}
+    packed = {1: packed_phase(**kw, tp=1, comm_mode="fused"),
+              8: packed_phase(**kw, tp=8, comm_mode="ring")}
+    paths = [*two.values(), *packed.values(),
+             engine_phase(**kw, tp=1, comm_mode="fused", paged=True)]
+    # no per-token KV view on the card: each packed run's peak stays
+    # within PACKED_PEAK_SLACK_GB of the two-dispatch run's at its tp
+    for tp in (1, 8):
+        excess = packed[tp][2] - two[tp][2]
+        emit({"phase": "peak_memory", "tp": tp,
+              "two_dispatch_gb": two[tp][2], "packed_gb": packed[tp][2],
+              "excess_gb": excess, "limit_gb": PACKED_PEAK_SLACK_GB})
+        if not excess <= PACKED_PEAK_SLACK_GB:
+            raise AssertionError(f"tp={tp}: packed peak {packed[tp][2]} GB "
+                                 f"exceeds two-dispatch {two[tp][2]} GB by "
+                                 f"more than {PACKED_PEAK_SLACK_GB} GB")
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too

@@ -1,6 +1,6 @@
-"""Wave-aware token splitting (paper §3.1) and the comm budget's channel
-count, the part of ``repro.core.splitting`` the two-dispatch serving path
-needs.
+"""Wave-aware token splitting (paper §3.1), the packed-axis split and the
+tuned plans' split (``plan_split``), and the comm budget's channel count,
+as ``repro.core.splitting``.
 
 The decisions are pure integer math and must equal the reference's
 exactly: the split point decides which keys the suffix split's attention
@@ -25,6 +25,16 @@ def smart_split(n_tokens: int, unit: int) -> Optional[Tuple[int, int]]:
     total_waves = math.ceil(n_tokens / unit)
     l1 = (total_waves // 2) * unit
     return l1, n_tokens - l1
+
+
+def naive_split(n_tokens: int) -> Tuple[int, int]:
+    """Equal halves, ignoring wave quantization (paper's strawman)."""
+    l1 = n_tokens // 2
+    return l1, n_tokens - l1
+
+
+def wave_count(n_tokens: int, unit: int) -> int:
+    return math.ceil(n_tokens / unit)
 
 
 DEFAULT_BUCKET_EDGES: Tuple[int, ...] = (
@@ -53,6 +63,7 @@ class SplitDecision:
     min_tokens: int
     plan_id: int = 0
     bucket: str = ""
+    budget: float = 1.0       # comm budget -> ring_channels()
 
 
 def split_decision(n_tokens: int, *, unit: int, min_tokens: int,
@@ -72,6 +83,41 @@ def split_decision(n_tokens: int, *, unit: int, min_tokens: int,
     return SplitDecision(split, "split" if split is not None
                          else "below_wave_floor", n_tokens, eff_unit,
                          min_tokens, 0, bucket)
+
+
+def split_sizes_for_batch(n_tokens: int, *, unit: int, min_tokens: int,
+                          row_multiple: int = 1
+                          ) -> Optional[Tuple[int, int]]:
+    """The split ``split_decision`` chooses, or None."""
+    return split_decision(n_tokens, unit=unit, min_tokens=min_tokens,
+                          row_multiple=row_multiple).split
+
+
+def plan_split(n_tokens: int, unit: int, frac: float
+               ) -> Optional[Tuple[int, int]]:
+    """Wave-conserving split at a prefix-wave fraction (the tuned plans'
+    form of ``smart_split``): the prefix takes ``floor(frac ·
+    total_waves)`` full waves, clamped to [1, total_waves - 1];
+    ``frac = 0.5`` is ``smart_split``."""
+    if unit <= 0:
+        raise ValueError(f"unit must be positive, got {unit}")
+    if n_tokens < 2 * unit:
+        return None
+    total_waves = math.ceil(n_tokens / unit)
+    k = min(max(int(frac * total_waves), 1), total_waves - 1)
+    l1 = k * unit
+    return l1, n_tokens - l1
+
+
+def packed_split(n_tokens: int, *, unit: int, min_tokens: int
+                 ) -> Optional[Tuple[int, int]]:
+    """Weave decision for a packed hybrid iteration, in its global-
+    threshold form: the flat packed axis needs no rectangularity
+    (``row_multiple == 1``), and the decision sees the true combined
+    iteration size.  A segment may straddle the cut; the suffix split's
+    attention reads the prefix split's freshly written KV."""
+    return split_sizes_for_batch(n_tokens, unit=unit, min_tokens=min_tokens,
+                                 row_multiple=1)
 
 
 # The comm budget of a plan (an SM-equivalent fraction in (0, 1]) maps to

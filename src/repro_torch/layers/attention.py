@@ -1,7 +1,7 @@
-"""Tensor-parallel GQA attention for the two-dispatch serving path, as
-``repro.layers.attention``: prefill (with the weave's ``kv_prefix``),
-single-token decode and the multi-token verify window over the slot KV
-cache.
+"""Tensor-parallel GQA attention, as ``repro.layers.attention``: prefill
+(with the weave's ``kv_prefix``), single-token decode and the multi-token
+verify window over the slot KV cache or the paged pool, and packed
+mixed-segment steps over either.
 
 The tp ranks sit on a leading rank axis R (``distributed/context.py``):
 weights are ``(R, ...)`` (``wq (R, d, h_loc·dh)``, ``wo (R, h_loc·dh, d)``),
@@ -15,7 +15,10 @@ Implementations of prefill attention: ``impl="pallas"`` runs kernel K3
 (``kernels/flash_attention.py``) with R folded into the batch; ``"ref"``
 and ``"chunked"`` compute the same function with the plain version.
 Decode attention is plain tensor code, as in the reference (no Pallas
-kernel there).
+kernel there).  Packed steps have no Pallas kernel in the reference
+either; its form gathers every token's whole cache row.  Under
+``attn_impl="pallas"`` the port gathers each segment's row once instead
+and runs K3 over the split's segments (``attn_packed_paged``).
 
 Cache layout per layer: {"k": (R, B, C, kv_store, dh), "v": ..., "pos":
 (B, C) int32, -1 = empty; positions are the same on every rank}.  Decode
@@ -29,6 +32,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF
@@ -37,6 +41,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain as _attn_ref
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rotary import apply_rope
+from repro_torch.runtime import paging as PG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +226,265 @@ def attn_verify(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
                                 cache["pos"], positions, x_dtype=x.dtype,
                                 cfg=cfg, lay=lay, window=window)
     return partial, cache
+
+
+def attn_decode_paged(params, x, pool_layer, block_tables, *, positions, cfg,
+                      lay: AttnLayout, theta, window: int = 0,
+                      mrope_positions=None, where=None):
+    """Single-token decode against one layer of the paged pool: the
+    S == 1 case of ``attn_verify_paged``."""
+    return attn_verify_paged(params, x, pool_layer, block_tables,
+                             positions=positions, cfg=cfg, lay=lay,
+                             theta=theta, window=window,
+                             mrope_positions=mrope_positions, where=where)
+
+
+def attn_verify_paged(params, x, pool_layer, block_tables, *, positions, cfg,
+                      lay: AttnLayout, theta, window: int = 0,
+                      mrope_positions=None, where=None):
+    """Decode window (R, B, S_v, d) against one layer of the paged pool
+    (``runtime/paging.py``): the tokens scatter through ``block_tables``
+    (B, nblk) first (writes with pos < 0 or an unallocated block are
+    dropped), then attention runs over the gathered (B, nblk·bs) view with
+    the causal mask, the epilogue shared with ``attn_verify``.  ``where``:
+    ``paging.scatter_index`` of these tokens, computed once per forward
+    (on the host when the caller has the tables there)."""
+    b, s = positions.shape
+    q, k_new, v_new = _project_qkv(params, x, cfg, lay, positions=positions,
+                                   theta=theta,
+                                   mrope_positions=mrope_positions)
+    if where is None:
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
+        where = PG.scatter_index(positions.reshape(-1), rows.reshape(-1),
+                                 block_tables, pool_layer["pos"].shape[1])
+    r = k_new.shape[0]
+    PG.write_tokens(pool_layer, k_new.reshape(r, b * s, *k_new.shape[3:]),
+                    v_new.reshape(r, b * s, *v_new.shape[3:]),
+                    positions.reshape(-1), where)
+    view = PG.gather_layer(pool_layer, block_tables)
+    partial = _decode_attn_math(params, q, view["k"], view["v"], view["pos"],
+                                positions, x_dtype=x.dtype, cfg=cfg, lay=lay,
+                                window=window)
+    return partial, pool_layer
+
+
+# --------------------------------------------------------------------------
+# packed mixed-segment steps
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SegmentLayout:
+    """One split of a packed step laid out for the segment form, built on
+    the host once per forward (``segment_layout``) and used by every
+    layer.  A segment is the run of the split's tokens owned by one cache
+    row (slots) or block-table row (paged); segments are laid out as the
+    rows of an (n_seg, L) rectangle, L the longest, padded with qpos -1.
+
+    tok (N,): split-local index of each real token (seg_slots >= 0, pos
+    >= 0); cell (N,): its cell seg·L + col of the rectangle; qpos (n_seg,
+    L) int32; write: the cache cells the real tokens go to, (idx, phys,
+    off) into the pool (idx indexes ``tok``'s tokens that have a block)
+    or (idx, row, slot) into the slot cache; rows (n_seg,): each
+    segment's cache row (slots); tables (n_seg, nblk) int32: each
+    segment's block-table row (paged); keys: the key length the segments
+    attend, cut to the cells that can hold a position <= the split's
+    largest (the rest are hidden by the causal mask)."""
+    tok: torch.Tensor
+    cell: torch.Tensor
+    qpos: torch.Tensor
+    write: tuple
+    rows: torch.Tensor
+    tables: Optional[torch.Tensor]
+    keys: int
+
+    @property
+    def n_seg(self) -> int:
+        return self.qpos.shape[0]
+
+
+def segment_layout(positions, seg_slots, *, device, block_tables=None,
+                   block_size: int = 0, cache_len: int = 0) -> SegmentLayout:
+    """The ``SegmentLayout`` of one split from host copies of its
+    positions (T,), owners seg_slots (T,) and, paged, the block tables
+    (B, nblk) with ``block_size``; slots: the cache length ``cache_len``.
+    A split with no real token gives n_seg == 0."""
+    pos = np.asarray(positions, np.int64).reshape(-1)
+    seg = np.asarray(seg_slots, np.int64).reshape(-1)
+    real = np.nonzero((seg >= 0) & (pos >= 0))[0]
+    rows, inv = np.unique(seg[real], return_inverse=True)
+    inv = inv.reshape(-1)
+    counts = np.bincount(inv, minlength=len(rows))
+    order = np.argsort(inv, kind="stable")
+    col = np.empty_like(inv)
+    col[order] = np.arange(len(inv)) - np.repeat(np.cumsum(counts) - counts,
+                                                 counts)
+    n_seg, length = len(rows), int(counts.max(initial=0))
+    qpos = np.full((n_seg, length), -1, np.int32)
+    qpos[inv, col] = pos[real]
+    top = int(pos[real].max(initial=0))
+    tables = None
+    if block_tables is not None:
+        bt = np.asarray(block_tables, np.int64)
+        blk = pos[real] // block_size
+        phys = np.full(len(real), -1, np.int64)
+        inside = blk < bt.shape[1]
+        phys[inside] = bt[seg[real][inside], blk[inside]]
+        idx = np.nonzero(phys >= 0)[0]
+        write = (idx, phys[idx], pos[real][idx] % block_size)
+        nblk = min(top // block_size + 1, bt.shape[1])
+        tables = bt[rows, :nblk].astype(np.int32)
+        keys = nblk * block_size
+    else:
+        write = (np.arange(len(real)), seg[real], pos[real] % cache_len)
+        # slot s holds position s while no position wraps the row
+        keys = top + 1 if top < cache_len else cache_len
+
+    def dev(a):
+        return torch.as_tensor(a).to(device)
+    return SegmentLayout(tok=dev(real), cell=dev(inv * length + col),
+                         qpos=dev(qpos), write=tuple(map(dev, write)),
+                         rows=dev(rows), keys=keys,
+                         tables=None if tables is None else dev(tables))
+
+
+def _host_layout(positions, seg_slots, cache_layer, block_tables=None):
+    """``segment_layout`` from these tensors (read back to the host when
+    they are on the device; the model's forward builds it from host
+    copies once instead)."""
+    return segment_layout(
+        positions.cpu().numpy(), seg_slots.cpu().numpy(),
+        device=positions.device,
+        block_tables=(None if block_tables is None
+                      else block_tables.cpu().numpy()),
+        block_size=cache_layer["pos"].shape[1],
+        cache_len=cache_layer["pos"].shape[1])
+
+
+# named ranges around the segment form's data movement, so a profile can
+# split its device time from K3's (chip_smoke.py's packed breakdown)
+SCATTER_RANGE = "repro_torch.packed.scatter"     # tokens into the cache
+GATHER_RANGE = "repro_torch.packed.gather"       # each segment's key view
+LAYOUT_RANGE = "repro_torch.packed.layout"       # queries in, outputs out
+
+
+def _attn_segments(params, x, cache_layer, segs: SegmentLayout, *, cfg,
+                   lay: AttnLayout, theta, window, positions, paged: bool):
+    """The segment form of ``attn_packed``/``attn_packed_paged``: scatter
+    the split's tokens into the cache, take each segment's key view once,
+    run kernel K3 once over all the split's segments (ranks folded into
+    the batch), and scatter the outputs back to packed order.  Tokens
+    that own no segment (padding) get a zero attention output."""
+    if segs.n_seg == 0:
+        return torch.zeros_like(x)
+    r, _, t, _ = x.shape
+    dh = cfg.head_dim
+    record = torch.profiler.record_function
+    q, k_new, v_new = _project_qkv(params, x, cfg, lay, positions=positions,
+                                   theta=theta)
+    with record(SCATTER_RANGE):
+        idx, a, b = segs.write
+        tok = segs.tok[idx]
+        dt = cache_layer["k"].dtype
+        cache_layer["k"][:, a, b] = k_new[:, 0, tok].to(dt)
+        cache_layer["v"][:, a, b] = v_new[:, 0, tok].to(dt)
+        cache_layer["pos"][a, b] = positions[0, tok].to(torch.int32)
+    with record(GATHER_RANGE):
+        if paged:
+            view = PG.gather_layer(cache_layer, segs.tables)
+            k, v, kpos = view["k"], view["v"], view["pos"]
+        else:
+            k = cache_layer["k"][:, segs.rows, :segs.keys]
+            v = cache_layer["v"][:, segs.rows, :segs.keys]
+            kpos = cache_layer["pos"][segs.rows, :segs.keys]
+    n, length = segs.qpos.shape
+    with record(LAYOUT_RANGE):
+        q_seg = q.new_zeros(r, n * length, lay.h_loc, dh)
+        q_seg[:, segs.cell] = q[:, 0, segs.tok]
+    out = multihead_attention(
+        q_seg.reshape(r * n, length, lay.h_loc, dh),
+        k.reshape(r * n, segs.keys, lay.kv_store, dh),
+        v.reshape(r * n, segs.keys, lay.kv_store, dh),
+        segs.qpos.repeat(r, 1), kpos.repeat(r, 1), causal=True,
+        window=window, impl="pallas")
+    with record(LAYOUT_RANGE):
+        out_tok = out.new_zeros(r, t, lay.h_loc * dh)
+        out_tok[:, segs.tok] = out.reshape(r, n * length, -1)[:, segs.cell]
+    return _out_proj(params, out_tok.reshape(r, 1, t, -1), lay, x.dtype)
+
+
+def attn_packed(params, x, cache, *, positions, seg_slots, cfg,
+                lay: AttnLayout, theta, window: int = 0,
+                impl: str = "chunked", segs=None):
+    """Packed mixed-segment step (R, 1, T, d) against the slot cache.
+    seg_slots (T,): the cache row owning each token (-1 = padding);
+    positions (1, T) (-1 = padding).  All T tokens scatter into their rows
+    first, then every token attends its own row with the causal mask, so a
+    segment's later tokens see its earlier ones and no token sees another
+    segment.  Full-attention layers only (a ring buffer could evict a key
+    an earlier query of the step still needs; the engine refuses packed
+    slots for windowed models).
+
+    ``impl="pallas"`` runs the segment form (``_attn_segments``, kernel
+    K3) over ``segs``, the split's ``segment_layout`` (built here when not
+    given); other impls the reference's plain form: a per-token gather of
+    the owning row, (T, C, kv, dh), and the decode epilogue.  They agree
+    on every real token."""
+    if impl == "pallas":
+        if segs is None:
+            segs = _host_layout(positions[0], seg_slots, cache)
+        return _attn_segments(params, x, cache, segs, cfg=cfg, lay=lay,
+                              theta=theta, window=window,
+                              positions=positions, paged=False), cache
+    q, k_new, v_new = _project_qkv(params, x, cfg, lay, positions=positions,
+                                   theta=theta)
+    bslots, c = cache["pos"].shape
+    pos = positions[0]
+    keep = ((seg_slots >= 0) & (pos >= 0)).nonzero().squeeze(1)
+    row, slot = seg_slots[keep].long(), (pos[keep] % c).long()
+    cache["k"][:, row, slot] = k_new[:, 0, keep].to(cache["k"].dtype)
+    cache["v"][:, row, slot] = v_new[:, 0, keep].to(cache["v"].dtype)
+    cache["pos"][row, slot] = pos[keep].to(torch.int32)
+    # per-token gather of the owning row; padding reads row 0, masked by
+    # its qpos -1
+    rsafe = seg_slots.long().clamp(0, bslots - 1)
+    partial = _decode_attn_math(params, q[:, 0, :, None], cache["k"][:, rsafe],
+                                cache["v"][:, rsafe], cache["pos"][rsafe],
+                                pos[:, None], x_dtype=x.dtype, cfg=cfg,
+                                lay=lay, window=window)      # (R, T, 1, d)
+    return partial.transpose(1, 2), cache
+
+
+def attn_packed_paged(params, x, pool_layer, block_tables, *, positions,
+                      seg_slots, cfg, lay: AttnLayout, theta,
+                      window: int = 0, impl: str = "chunked", segs=None):
+    """Packed mixed-segment step against one layer of the paged pool:
+    each token scatters through its owning request's block-table row
+    (seg_slots indexes ``block_tables`` (B, nblk)), then attends that
+    row's gathered view.  Packed steps CAN weave: the splits run over the
+    same pool in sequence, so the suffix split reads what the prefix split
+    wrote.  ``impl`` and ``segs`` as in ``attn_packed``; the plain form's
+    per-token view is (T, nblk·bs, kv, dh), 17 GB per layer at
+    Llama-3.3-70B width and T = 2048: a reference, never the card's path."""
+    if impl == "pallas":
+        if segs is None:
+            segs = _host_layout(positions[0], seg_slots, pool_layer,
+                                block_tables)
+        return _attn_segments(params, x, pool_layer, segs, cfg=cfg, lay=lay,
+                              theta=theta, window=window,
+                              positions=positions, paged=True), pool_layer
+    q, k_new, v_new = _project_qkv(params, x, cfg, lay, positions=positions,
+                                   theta=theta)
+    pos = positions[0]
+    where = PG.scatter_index(pos, seg_slots, block_tables,
+                             pool_layer["pos"].shape[1])
+    PG.write_tokens(pool_layer, k_new[:, 0], v_new[:, 0], pos, where)
+    rsafe = seg_slots.long().clamp(0, block_tables.shape[0] - 1)
+    view = PG.gather_layer(pool_layer, block_tables[rsafe])
+    partial = _decode_attn_math(params, q[:, 0, :, None], view["k"],
+                                view["v"], view["pos"], pos[:, None],
+                                x_dtype=x.dtype, cfg=cfg, lay=lay,
+                                window=window)                # (R, T, 1, d)
+    return partial.transpose(1, 2), pool_layer
 
 
 def cache_rows(cache_layer, off: int, rows: int):

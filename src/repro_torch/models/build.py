@@ -1,5 +1,5 @@
-"""Uniform model API, as ``repro.models.build``; this slice has the dense
-family only, at any tp (the ranks on one device's rank axis)."""
+"""Uniform model API, as ``repro.models.build``; the dense family only, at
+any tp (the ranks on one device's rank axis)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,9 +29,21 @@ class ModelApi:
         return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
                                 pcfg=self.pcfg, positions=positions, **kw)
 
-    def decode_step(self, params, tokens, cache, positions):
+    def init_paged_cache(self, num_blocks: int, block_size: int, *,
+                         device=None):
+        from repro_torch.runtime.paging import init_paged_cache
+        return init_paged_cache(num_blocks, block_size, self.cfg, self.tp,
+                                device=device)
+
+    def decode_step(self, params, tokens, cache, positions, **kw):
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
-                                    pcfg=self.pcfg, positions=positions)
+                                    pcfg=self.pcfg, positions=positions,
+                                    **kw)
+
+    def packed_step(self, params, tokens, cache, positions, **kw):
+        return self.mod.packed_step(params, tokens, cache, cfg=self.cfg,
+                                    pcfg=self.pcfg, positions=positions,
+                                    **kw)
 
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1

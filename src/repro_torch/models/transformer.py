@@ -36,13 +36,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fused_collectives as fc
-from repro_torch.core.policy import DEFAULT_POLICY, ThresholdPolicy
+from repro_torch.core.policy import DEFAULT_POLICY
 from repro_torch.core.splitting import pad_to_multiple, token_bucket
 from repro_torch.device import resolve_device
 from repro_torch.distributed.context import CommCtx
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
+from repro_torch.runtime import paging as PG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,33 +180,56 @@ class _Weave:
 
 
 def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
-                 lay, weave: _Weave, decode: bool):
+                 lay, weave: _Weave, decode: bool, block_tables=None):
     """Run one layer over one or two splits in paper-Fig.8 order.
-    Returns (state, chunk kv (prefill) or the updated cache layer)."""
+    Returns (state, chunk kv (prefill) or the cache layer, updated in
+    place (decode, packed)).
+
+    Packed steps (``state["pslots"]``): the splits run over the SAME
+    cache in sequence, so the suffix split's attention reads the prefix
+    split's freshly scattered KV (a segment straddling the cut needs its
+    earlier tokens).  Paged decode runs unsplit: a batch split would fork
+    the shared pool."""
     if kind.is_moe:
         raise NotImplementedError("MoE layers are not ported (ROADMAP.md A10)")
     n = len(state["h"])
+    packed = state.get("pslots") is not None
     hs, ress = list(state["h"]), list(state["res"])
-    kv_prev = None if decode else _cache_prefix(cache_layer)
+    kv_prev = None if decode or packed else _cache_prefix(cache_layer)
     kv_outs, off = [], 0
     for i in range(n):
         weave.wait(i)
         h, pos = hs[i], state["positions"][i]
-        if decode:
+        geo = dict(positions=pos, cfg=cfg, lay=lay, theta=kind.theta,
+                   window=kind.window)
+        if packed:
+            segs = state["segs"][i]
+            if block_tables is not None:
+                a_part, _ = A.attn_packed_paged(
+                    lp["attn"], h, cache_layer, block_tables,
+                    seg_slots=state["pslots"][i], impl=pcfg.attn_impl,
+                    segs=segs, **geo)
+            else:
+                a_part, _ = A.attn_packed(
+                    lp["attn"], h, cache_layer, seg_slots=state["pslots"][i],
+                    impl=pcfg.attn_impl, segs=segs, **geo)
+        elif decode and block_tables is not None:
+            assert n == 1, "paged decode cannot weave-split the shared pool"
+            attn = (A.attn_verify_paged if h.shape[2] > 1
+                    else A.attn_decode_paged)
+            a_part, _ = attn(lp["attn"], h, cache_layer, block_tables,
+                             where=state["where"], **geo)
+        elif decode:
             # batch split: each split updates its own rows of the cache in
             # place through views, so the full cache is the result
             rows = h.shape[1]
             attn = A.attn_verify if h.shape[2] > 1 else A.attn_decode
-            a_part, _ = attn(lp["attn"], h, A.cache_rows(cache_layer, off,
-                                                         rows),
-                             positions=pos, cfg=cfg, lay=lay,
-                             theta=kind.theta, window=kind.window)
+            a_part, _ = attn(lp["attn"], h,
+                             A.cache_rows(cache_layer, off, rows), **geo)
             off += rows
         else:
-            a_part, kv = A.attn_prefill(
-                lp["attn"], h, positions=pos, cfg=cfg, lay=lay,
-                theta=kind.theta, window=kind.window, kv_prefix=kv_prev,
-                impl=pcfg.attn_impl)
+            a_part, kv = A.attn_prefill(lp["attn"], h, kv_prefix=kv_prev,
+                                        impl=pcfg.attn_impl, **geo)
             kv_outs.append(kv)
             # later splits attend to cache prefix + all earlier splits' kv
             kv_prev = kv if kv_prev is None else (
@@ -220,7 +244,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
         hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
                                          lp.get("norm_ffn_post"))
     state = dict(state, h=hs, res=ress)
-    if decode:
+    if decode or packed:
         return state, cache_layer
     if n == 1:
         return state, kv_outs[0]
@@ -245,44 +269,74 @@ class WeaveInfo:
     dispatch's native axis units) and why it was or wasn't taken."""
     weave: bool
     split: Optional[Tuple[int, int]]
-    reason: str   # split | weave_disabled | below_min_tokens | below_wave_floor
-    axis: str     # batch | seq
+    reason: str   # split | weave_disabled | paged_pool_unsplit |
+    #               below_min_tokens | below_wave_floor | plan_split |
+    #               plan_unsplit
+    axis: str     # packed | batch | seq
     threshold: int  # configured tokenweave_min_tokens (tokens)
     unit: int       # effective wave quantum the decision used
-    site: str = ""      # prefill | decode | verify
+    site: str = ""      # prefill | decode | verify | packed
     plan_id: int = 0
     bucket: str = ""
     budget: float = 1.0   # comm budget the plan granted (K1's CTAs)
+    sim_method: str = ""  # plan-forced pricing mode of the reference's sim
     comm_mode: str = ""   # plan-forced comm_norm mode; "" = pcfg.comm_mode
 
 
 def _active_policy(pcfg: ParallelConfig):
-    policy = pcfg.overlap_policy or DEFAULT_POLICY
-    if not isinstance(policy, ThresholdPolicy):
-        raise NotImplementedError("tuned overlap plans (TunedPolicy) are not "
-                                  "ported yet (ROADMAP.md A2)")
-    return policy
+    return pcfg.overlap_policy or DEFAULT_POLICY
+
+
+def _plan_meta(policy, site: str, tokens: int, tp: int, family: str,
+               has_split: bool = False) -> Tuple[float, str, str]:
+    """(budget, sim_method, comm_mode) granted by the active plan: method
+    ``none`` prices as vanilla; the fused methods force comm mode "ring"
+    (kernel K1), priced ``ring`` unsplit and ``ringweave`` when the split
+    fired."""
+    plan = policy.plan_for(site, tokens, tp=tp, family=family)
+    if plan is None:
+        return 1.0, "", ""
+    if plan.method == "none":
+        return plan.budget, "vanilla", ""
+    if plan.method == "fused-unsplit":
+        return plan.budget, "ring", "ring"
+    if plan.method == "fused":
+        return plan.budget, "ringweave" if has_split else "ring", "ring"
+    return plan.budget, "", ""
 
 
 def weave_decision_info(b: int, s: int, *, tp: int, pcfg: ParallelConfig,
                         decode: bool = False, packed: bool = False,
                         paged_pool: bool = False,
                         family: str = "dense") -> WeaveInfo:
-    """Host-side weave split decision, as the reference's: prefill splits
-    along the sequence (all rows cut at the same position), decode and
-    verify along the batch."""
-    if packed or paged_pool:
-        raise NotImplementedError("packed and paged dispatch are the next "
-                                  "slice (ROADMAP.md A6)")
+    """Host-side weave split decision, as the reference's, delegated to
+    the active overlap policy at one of four sites: prefill splits along
+    the sequence (all rows cut at the same position), decode and verify
+    along the batch, packed along the flat token axis (b == 1).
+    ``paged_pool`` marks a non-packed paged decode, which runs unsplit
+    (a batch split would fork the shared pool) but keeps the plan's
+    method."""
     thr = pcfg.tokenweave_min_tokens
     policy = _active_policy(pcfg)
-    site = ("decode" if decode and s == 1 else
+    pid = getattr(policy, "plan_id", 0)
+    site = ("packed" if packed else
+            "decode" if decode and s == 1 else
             "verify" if decode else "prefill")
     if not pcfg.tokenweave:
-        return WeaveInfo(False, None, "weave_disabled",
+        return WeaveInfo(False, None, "weave_disabled", "packed" if packed
+                         else ("batch" if decode else "seq"), thr, 0,
+                         site=site, plan_id=pid, bucket=token_bucket(b * s))
+    if paged_pool and not packed:
+        budget, sim, cm = _plan_meta(policy, site, b * s, tp, family)
+        return WeaveInfo(False, None, "paged_pool_unsplit",
                          "batch" if decode else "seq", thr, 0, site=site,
-                         plan_id=policy.plan_id, bucket=token_bucket(b * s))
-    if decode:
+                         plan_id=pid, bucket=token_bucket(b * s),
+                         budget=budget, sim_method=sim, comm_mode=cm)
+    if packed:
+        d = policy.decide("packed", b * s, unit=pcfg.split_unit_for(tp),
+                          min_tokens=thr, tp=tp, family=family)
+        split, axis = d.split, "packed"
+    elif decode:
         unit = max(tp, 8)
         if s > 1:
             min_rows = max(2 * unit, -(-thr // s))
@@ -291,14 +345,19 @@ def weave_decision_info(b: int, s: int, *, tp: int, pcfg: ParallelConfig,
         else:
             d = policy.decide("decode", b, unit=unit, min_tokens=2 * unit,
                               tp=tp, family=family)
-        return WeaveInfo(d.split is not None, d.split, d.reason, "batch",
-                         thr, d.unit, site=site, plan_id=d.plan_id,
-                         bucket=d.bucket)
-    d = policy.decide("prefill", b * s, unit=pcfg.split_unit_for(tp),
-                      min_tokens=thr, row_multiple=b, tp=tp, family=family)
-    split = None if d.split is None else (d.split[0] // b, d.split[1] // b)
-    return WeaveInfo(split is not None, split, d.reason, "seq", thr, d.unit,
-                     site="prefill", plan_id=d.plan_id, bucket=d.bucket)
+        split, axis = d.split, "batch"
+    else:
+        d = policy.decide("prefill", b * s, unit=pcfg.split_unit_for(tp),
+                          min_tokens=thr, row_multiple=b, tp=tp,
+                          family=family)
+        split = None if d.split is None else (d.split[0] // b,
+                                              d.split[1] // b)
+        axis = "seq"
+    budget, sim, cm = _plan_meta(policy, site, b * s, tp, family,
+                                 has_split=split is not None)
+    return WeaveInfo(split is not None, split, d.reason, axis, thr, d.unit,
+                     site=site, plan_id=d.plan_id, bucket=d.bucket,
+                     budget=budget, sim_method=sim, comm_mode=cm)
 
 
 def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
@@ -323,38 +382,75 @@ def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
 # --------------------------------------------------------------------------
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
-            positions=None, cache=None, decode: bool = False):
+            positions=None, cache=None, decode: bool = False,
+            block_tables=None, packed_slots=None):
     """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
     every rank, kv_or_cache).  tp is the rank axis of ``params``.
 
     prefill chunk: ``cache`` = the request rows of the KV cache (attended
     as prefix); returns the chunk's new kv per layer, [(k, v, pos)], for
     the engine to insert.
-    decode: ``cache`` = the full slot cache (updated in place and
-    returned); S == 1, or S == gamma+1 for a verify window.
+    decode: ``cache`` = the full slot cache, or the paged pool with
+    ``block_tables`` (B, max_blocks); updated in place and returned;
+    S == 1, or S == gamma+1 for a verify window.
+    packed: ``packed_slots`` (T,) = the cache row (slots) or block-table
+    row (paged) owning each token of the (1, T) packed axis, -1 =
+    padding; ``cache`` = the full slot cache or the pool; updated in
+    place and returned.  The weave splits the flat packed axis.
+
+    The packed and paged-decode index math (which cache cells each token
+    writes, each split's segments) runs once per forward on the host:
+    pass ``positions``, ``block_tables`` and ``packed_slots`` as CPU
+    tensors and nothing is read back from the device.
     """
     tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
+    dev = tokens.device
+    packed = packed_slots is not None
+    paged_decode = decode and block_tables is not None and not packed
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(b, s)
+                                 device=dev)[None].expand(b, s)
     winfo = weave_decision_info(b, s, tp=tp, pcfg=pcfg, decode=decode,
+                                packed=packed, paged_pool=paged_decode,
                                 family=cfg.family)
     ctx = _comm_ctx(pcfg, cfg, b * s, tp, mode=winfo.comm_mode or None,
                     budget=winfo.budget)
-    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
 
+    # the splits' [lo, hi) along the batch (decode) or the sequence
     split = winfo.split
-    if split is not None and not decode:
-        s1 = split[0]
-        embs = [emb[:, :, :s1], emb[:, :, s1:]]
-        poss = [positions[:, :s1], positions[:, s1:]]
-    elif split is not None:
-        b1 = split[0]
-        embs = [emb[:, :b1], emb[:, b1:]]
-        poss = [positions[:b1], positions[b1:]]
+    n = b if decode else s
+    cuts = [(0, n)] if split is None else [(0, split[0]), (split[0], n)]
+    state_extra = {}
+    if packed and pcfg.attn_impl == "pallas":
+        host_pos = positions.cpu().numpy()[0]
+        host_slots = packed_slots.cpu().numpy()
+        host_bt = None if block_tables is None else block_tables.cpu().numpy()
+        state_extra["segs"] = [A.segment_layout(
+            host_pos[lo:hi], host_slots[lo:hi], device=dev,
+            block_tables=host_bt, block_size=cache[0]["pos"].shape[1],
+            cache_len=cache[0]["pos"].shape[1]) for lo, hi in cuts]
+    elif packed:
+        state_extra["segs"] = [None] * len(cuts)
+    if paged_decode:
+        rows = torch.arange(b)[:, None].expand(b, s).reshape(-1)
+        state_extra["where"] = tuple(t.to(dev) for t in PG.scatter_index(
+            positions.cpu().reshape(-1), rows, block_tables.cpu(),
+            cache[0]["pos"].shape[1]))
+    positions = positions.to(dev)
+    if block_tables is not None:
+        block_tables = block_tables.to(dev)
+    if packed:
+        packed_slots = packed_slots.to(dev)
+        state_extra["pslots"] = [packed_slots[lo:hi] for lo, hi in cuts]
+
+    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    if decode:
+        embs = [emb[:, lo:hi] for lo, hi in cuts]
+        poss = [positions[lo:hi] for lo, hi in cuts]
     else:
-        embs, poss = [emb], [positions]
+        embs = [emb[:, :, lo:hi] for lo, hi in cuts]
+        poss = [positions[:, lo:hi] for lo, hi in cuts]
 
     # residual birth + layer 0's input norm, split-local: the embedding's
     # partial rows are completed by this first AllReduce
@@ -366,7 +462,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         h_i, r_i = weave.comm_norm(i, e, res0, params["norm_first"])
         hs.append(h_i)
         ress.append(r_i)
-    state = {"h": hs, "res": ress, "positions": poss}
+    state = {"h": hs, "res": ress, "positions": poss, **state_extra}
 
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
@@ -375,7 +471,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         cache_layer = None if cache is None else cache[i]
         state, kv_new = _weave_layer(
             params["layers"][i], state, cache_layer, kind=kind, cfg=cfg,
-            pcfg=pcfg, lay=lay, weave=weave, decode=decode)
+            pcfg=pcfg, lay=lay, weave=weave, decode=decode,
+            block_tables=block_tables)
         kv_all.append(kv_new)
 
     for i in range(len(embs)):
@@ -400,12 +497,31 @@ def prefill(params, tokens, cache, *, cfg, pcfg, positions, last_idx=None):
     return E.lm_head_logits(params["embedding"], h_last), kv
 
 
-def decode_step(params, tokens, cache, *, cfg, pcfg, positions):
+def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
+                block_tables=None):
     """Single-token decode (or verify window).  Returns (local logits
-    (R, B, S, V_loc), the cache, updated in place)."""
+    (R, B, S, V_loc), the cache, updated in place).  ``block_tables``
+    (B, max_blocks) selects the paged pool (``runtime/paging.py``)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                           positions=positions, cache=cache, decode=True)
+                           positions=positions, cache=cache, decode=True,
+                           block_tables=block_tables)
     return E.lm_head_logits(params["embedding"], h), new_cache
+
+
+def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
+                sample_idx, block_tables=None):
+    """One packed hybrid forward: tokens (1, T) carry prefill-chunk
+    segments and single-token decode slots on one axis; ``seg_slots``
+    (T,) maps each token to its cache row (slots) or block-table row
+    (paged), -1 = padding.  ``sample_idx`` (Nseg, W) indexes each
+    segment's sampling window into the packed axis (-1 = unused, clamped
+    to 0).  Returns (local logits (R, Nseg, W, V_loc), the cache, updated
+    in place)."""
+    h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
+                           positions=positions, cache=cache,
+                           block_tables=block_tables, packed_slots=seg_slots)
+    idx = sample_idx.to(h.device).long().clamp_min(0)
+    return E.lm_head_logits(params["embedding"], h[:, 0][:, idx]), new_cache
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,

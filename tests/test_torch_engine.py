@@ -125,9 +125,11 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
         calls[entry]()
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(packed=True),
+@pytest.mark.parametrize("kw", [dict(packed=True, spec_gamma=2),
+                                dict(paged=True, spec_gamma=3),
                                 dict(spec_gamma=2)])
 def test_engine_refuses_unported_modes(torch_model, kw):
+    """Speculative decoding is not ported, on any backend or scheme."""
     api, tparams = torch_model
     with pytest.raises(NotImplementedError):
         TEngine(api, tparams, tsched.SchedulerConfig(**SCHED, **kw),

@@ -292,3 +292,225 @@ def test_insert_chunk_with_padded_positions_matches(c):
             t = layer[name] if name == "pos" else layer[name][0]
             np.testing.assert_array_equal(t.numpy(),
                                           np.asarray(want[name][i]))
+
+
+# --------------------------------------------------------------------------
+# paged decode and packed steps
+# --------------------------------------------------------------------------
+
+NB, BS, MAXB = 32, 4, 10
+
+
+def _paged_state(rng, cfg, contexts, grow=4):
+    """A stacked numpy pool (L, NB, BS, kvh, dh) and block tables (B,
+    MAXB) for requests whose first ``contexts[i]`` positions are written;
+    each table holds blocks for ``grow`` more positions, then -1 entries.
+    Cells nobody wrote hold random keys with pos -1 (or stale positions
+    in blocks no table holds)."""
+    shape = (cfg.num_layers, NB, BS, cfg.num_kv_heads, cfg.head_dim)
+    pool = {"k": rng.randn(*shape).astype(np.float32),
+            "v": rng.randn(*shape).astype(np.float32),
+            "pos": np.full(shape[:3], -1, np.int32)}
+    free = list(rng.permutation(NB))
+    tables = np.full((len(contexts), MAXB), -1, np.int32)
+    for i, n in enumerate(contexts):
+        for j in range(-(-(n + grow) // BS)):
+            tables[i, j] = free.pop()
+        for p in range(n):
+            pool["pos"][:, tables[i, p // BS], p % BS] = p
+    for b in free:                               # stale, unowned
+        pool["pos"][:, b] = rng.randint(0, 30, BS)
+    return pool, tables
+
+
+def _torch_pool(np_pool):
+    return [{name: torch.from_numpy(np.ascontiguousarray(
+                 a[i] if name == "pos" else a[i][None]))
+             for name, a in np_pool.items()}
+            for i in range(np_pool["k"].shape[0])]
+
+
+def _pools_close(tpool, jpool):
+    for layer, lc in enumerate(tpool):
+        _close(lc["k"][0], jpool["k"][layer])
+        _close(lc["v"][0], jpool["v"][layer])
+        np.testing.assert_array_equal(lc["pos"].numpy(),
+                                      np.asarray(jpool["pos"][layer]))
+
+
+def _layer0(both):
+    _, jparams, cfg, _, tparams, tcfg, _ = both
+    jl = jax.tree.map(lambda a: a[0], jparams["layers"])["attn"]
+    lay = JA.attention_layout(1, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim)
+    tlay = TA.attention_layout(1, tcfg.num_heads, tcfg.num_kv_heads,
+                               tcfg.head_dim)
+    return jl, lay, tparams["layers"][0]["attn"], tlay
+
+
+@pytest.mark.parametrize("s_v", [1, 3])
+def test_attn_decode_paged_matches(both, s_v):
+    """Decode (S=1) and a verify window (S=3) through the block tables:
+    an inactive row, a short window (pos -1 tail), a row whose write
+    block is unallocated (dropped)."""
+    _, _, cfg, _, _, tcfg, _ = both
+    jl, lay, tl, tlay = _layer0(both)
+    rng = np.random.RandomState(20 + s_v)
+    pool, bt = _paged_state(rng, cfg, [5, 9, 2, 11])
+    b = bt.shape[0]
+    positions = np.array([[5 + j for j in range(s_v)],
+                          [-1] * s_v,
+                          [2] + [-1] * (s_v - 1),
+                          [11 + j for j in range(s_v)]], np.int32)
+    bt[3, 11 // BS] = -1                    # row 3 writes nowhere
+    x = rng.randn(b, s_v, cfg.d_model).astype(np.float32)
+    layer = {n: a[0] for n, a in pool.items()}
+    jfn = JA.attn_verify_paged if s_v > 1 else JA.attn_decode_paged
+    tfn = TA.attn_verify_paged if s_v > 1 else TA.attn_decode_paged
+    j_out, j_pool = jfn(jl, jnp.asarray(x), jax.tree.map(jnp.asarray, layer),
+                        jnp.asarray(bt), positions=jnp.asarray(positions),
+                        cfg=cfg, lay=lay, theta=cfg.rope_theta)
+    t_pool = _torch_pool({n: a[:1] for n, a in pool.items()})[0]
+    t_out, _ = tfn(tl, torch.from_numpy(x)[None], t_pool,
+                   torch.from_numpy(bt), positions=torch.from_numpy(positions),
+                   cfg=tcfg, lay=tlay, theta=tcfg.rope_theta)
+    live = positions[:, 0] >= 0
+    _close(t_out[0][live], np.asarray(j_out)[live])
+    _pools_close([t_pool], {n: np.asarray(a)[None] for n, a in j_pool.items()})
+
+
+def _packed_inputs(rng, cfg, t, weave):
+    """A packed axis of T tokens: a decode token of row 1, a prefill
+    segment of row 0 (straddling the weave's cut at 16 when ``weave``),
+    a fresh prefill of row 2, then padding; row 3 idle."""
+    n_a, n_c = (20, 10) if weave else (8, 5)
+    ctx = [5, 9, 0, 0]
+    tokens = np.zeros((1, t), np.int32)
+    positions = np.full((1, t), -1, np.int32)
+    seg = np.full(t, -1, np.int32)
+    sample_idx = np.full((4, 1), -1, np.int32)
+    cur = 0
+    for row, n in ((1, 1), (0, n_a), (2, n_c)):
+        tokens[0, cur:cur + n] = rng.randint(0, cfg.vocab_size, n)
+        positions[0, cur:cur + n] = np.arange(ctx[row], ctx[row] + n)
+        seg[cur:cur + n] = row
+        sample_idx[row, 0] = cur + n - 1
+        cur += n
+    return ctx, tokens, positions, seg, sample_idx
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+def test_attn_packed_matches(both, paged, impl):
+    """The segment form (impl "pallas": K3 over per-segment views) and the
+    plain form against the reference, with a segment straddling nothing
+    here (one split): real tokens' outputs and the written cache."""
+    _, _, cfg, _, _, tcfg, _ = both
+    jl, lay, tl, tlay = _layer0(both)
+    rng = np.random.RandomState(31)
+    ctx, _, positions, seg, _ = _packed_inputs(rng, cfg, 48, True)
+    t = positions.shape[1]
+    x = rng.randn(1, t, cfg.d_model).astype(np.float32)
+    geo = dict(cfg=cfg, lay=lay, theta=cfg.rope_theta)
+    tgeo = dict(cfg=tcfg, lay=tlay, theta=tcfg.rope_theta, impl=impl)
+    if paged:
+        pool, bt = _paged_state(rng, cfg, ctx, grow=20)
+        layer = {n: a[0] for n, a in pool.items()}
+        j_out, j_cache = JA.attn_packed_paged(
+            jl, jnp.asarray(x), jax.tree.map(jnp.asarray, layer),
+            jnp.asarray(bt), positions=jnp.asarray(positions),
+            seg_slots=jnp.asarray(seg), **geo)
+        t_cache = _torch_pool({n: a[:1] for n, a in pool.items()})[0]
+        t_out, _ = TA.attn_packed_paged(
+            tl, torch.from_numpy(x)[None], t_cache, torch.from_numpy(bt),
+            positions=torch.from_numpy(positions),
+            seg_slots=torch.from_numpy(seg), **tgeo)
+    else:
+        cache = _random_cache(rng, cfg, 4, 40, ctx)
+        layer = {n: a[0] for n, a in cache.items()}
+        j_out, j_cache = JA.attn_packed(
+            jl, jnp.asarray(x), jax.tree.map(jnp.asarray, layer),
+            positions=jnp.asarray(positions), seg_slots=jnp.asarray(seg),
+            **geo)
+        t_cache = _torch_cache({n: a[:1] for n, a in cache.items()})[0]
+        t_out, _ = TA.attn_packed(
+            tl, torch.from_numpy(x)[None], t_cache,
+            positions=torch.from_numpy(positions),
+            seg_slots=torch.from_numpy(seg), **tgeo)
+    # the segment form leaves padding tokens' outputs at zero; the plain
+    # form follows the reference on every token
+    rows = seg >= 0 if impl == "pallas" else slice(None)
+    _close(t_out[0][0][rows], np.asarray(j_out)[0][rows])
+    _pools_close([t_cache], {n: np.asarray(a)[None]
+                             for n, a in j_cache.items()})
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "slots"])
+@pytest.mark.parametrize("t,weave", [(48, True), (16, False)])
+def test_packed_step_logits_and_cache_match(both, t, weave, paged, impl):
+    """A whole packed forward, weave on (split 16 + 32, row 0's segment
+    straddling the cut, so the suffix split reads the prefix split's
+    keys) and off: sampled logits and the cache after the step."""
+    mesh, jparams, cfg, pcfg, tparams, tcfg, tpcfg = both
+    tpcfg = dataclasses.replace(tpcfg, attn_impl=impl)
+    info = JT.weave_decision_info(1, t, tp=1, pcfg=pcfg, packed=True)
+    assert info.weave == weave
+    assert dataclasses.asdict(TT.weave_decision_info(
+        1, t, tp=1, pcfg=tpcfg, packed=True)) == dataclasses.asdict(info)
+    rng = np.random.RandomState(t)
+    ctx, tokens, positions, seg, sample_idx = _packed_inputs(rng, cfg, t,
+                                                             weave)
+    if weave:
+        cut = info.split[0]
+        assert seg[cut - 1] == seg[cut] == 0          # straddles the cut
+    if paged:
+        cache, bt = _paged_state(rng, cfg, ctx, grow=20)
+        t_cache = _torch_pool(cache)
+        kw, tkw = ({"block_tables": jnp.asarray(bt)},
+                   {"block_tables": torch.from_numpy(bt)})
+    else:
+        cache, kw, tkw = _random_cache(rng, cfg, 4, 40, ctx), {}, {}
+        t_cache = _torch_cache(cache)
+
+    def jfn(params, tok, cache, pos, seg, idx, kw):
+        return JT.packed_step(params, tok, cache, cfg=cfg, pcfg=pcfg,
+                              positions=pos, seg_slots=seg, sample_idx=idx,
+                              **kw)
+
+    j_logits, j_cache = _shard_run(
+        mesh, jfn, jparams, jnp.asarray(tokens),
+        jax.tree.map(jnp.asarray, cache), jnp.asarray(positions),
+        jnp.asarray(seg), jnp.asarray(sample_idx), kw)
+    t_logits, t_cache = TT.packed_step(
+        tparams, torch.from_numpy(tokens), t_cache, cfg=tcfg, pcfg=tpcfg,
+        positions=torch.from_numpy(positions),
+        seg_slots=torch.from_numpy(seg),
+        sample_idx=torch.from_numpy(sample_idx), **tkw)
+    assert t_logits.shape == (1, 4, 1, cfg.vocab_size)
+    _close(t_logits[0], j_logits)
+    _pools_close(t_cache, j_cache)
+
+
+def test_paged_decode_step_matches(both):
+    mesh, jparams, cfg, pcfg, tparams, tcfg, tpcfg = both
+    rng = np.random.RandomState(41)
+    pool, bt = _paged_state(rng, cfg, [5, 9, 2, 11])
+    tokens = rng.randint(0, cfg.vocab_size, (4, 1)).astype(np.int32)
+    positions = np.array([[5], [9], [-1], [11]], np.int32)
+
+    def jfn(params, tok, cache, pos, bt):
+        return JT.decode_step(params, tok, cache, cfg=cfg, pcfg=pcfg,
+                              positions=pos, block_tables=bt)
+
+    j_logits, j_pool = _shard_run(
+        mesh, jfn, jparams, jnp.asarray(tokens),
+        jax.tree.map(jnp.asarray, pool), jnp.asarray(positions),
+        jnp.asarray(bt))
+    t_logits, t_pool = TT.decode_step(
+        tparams, torch.from_numpy(tokens), _torch_pool(pool), cfg=tcfg,
+        pcfg=tpcfg, positions=torch.from_numpy(positions),
+        block_tables=torch.from_numpy(bt))
+    live = positions[:, 0] >= 0
+    _close(t_logits[0][live], np.asarray(j_logits)[live])
+    _pools_close(t_pool, j_pool)

@@ -52,6 +52,8 @@ SCHED = dict(max_batch=3, chunk_tokens=48, max_len=128, prefill_bucket=16)
 PREFILL = {"weave": 48, "unsplit": 8}          # chunk per row, 2 rows
 DECODE = {"weave": 16, "unsplit": 4, "ragged": 5}   # batch rows
 N_TRACES = 4
+N_PACKED = 2                       # packed paged engine traces at tp=2
+PACKED = dict(SCHED, paged=True, packed=True, block_size=16)
 # at tp=4, 2 query heads on 1 KV head: head shards replicated twice
 REPLICATED = dict(CFG, num_heads=2, num_kv_heads=1, head_dim=32)
 
@@ -76,6 +78,7 @@ from repro.runtime.scheduler import SchedulerConfig
 tp, path = TP, PATH
 CFG, PCFG, SCHED, REPLICATED = CFG_, PCFG_, SCHED_, REPLICATED_
 PREFILL, DECODE, MODES, N_TRACES = PREFILL_, DECODE_, MODES_, N_TRACES_
+N_PACKED, PACKED = N_PACKED_, PACKED_
 mesh = jax.make_mesh((1, tp), ('data', 'model'),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 out = {}
@@ -240,6 +243,31 @@ if tp == 2:
                        'forwards': eng.stats.forwards,
                        'weave_forwards': eng.stats.weave_forwards})
 out['engine'] = np.asarray(json.dumps(traces))
+
+# packed hybrid batching over the paged pool: prompts share a prefix, so
+# later admissions hit the prefix cache
+traces = []
+if tp == 2:
+    jit_cache = {}
+    for trial in range(N_PACKED):
+        trng = np.random.RandomState(7100 + trial)
+        shared = [int(t) for t in trng.randint(0, cfg.vocab_size, 40)]
+        prompts = [shared[:int(trng.randint(16, 41))]
+                   + [int(t) for t in trng.randint(0, cfg.vocab_size,
+                                                   int(trng.randint(1, 30)))]
+                   for _ in range(5)]
+        outs = [int(trng.randint(2, 9)) for _ in prompts]
+        eng = Engine(api, mesh, params, SchedulerConfig(**PACKED),
+                     jit_cache=jit_cache)
+        for i, (p, n) in enumerate(zip(prompts, outs)):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=n))
+        got = {r.rid: r.output for r in eng.run()}
+        traces.append({'prompts': prompts, 'outs': outs,
+                       'tokens': [got[i] for i in range(len(prompts))],
+                       'forwards': eng.stats.forwards,
+                       'weave_forwards': eng.stats.weave_forwards,
+                       'hit_tokens': eng.block_mgr.stats.hit_tokens})
+out['engine_packed'] = np.asarray(json.dumps(traces))
 np.savez(path, **out)
 print('PASS')
 """
@@ -261,7 +289,9 @@ def jax_side(tmp_path_factory):
                              ("PREFILL_", repr(PREFILL)),
                              ("DECODE_", repr(DECODE)),
                              ("MODES_", repr(MODES)),
-                             ("N_TRACES_", repr(N_TRACES))):
+                             ("N_TRACES_", repr(N_TRACES)),
+                             ("N_PACKED_", repr(N_PACKED)),
+                             ("PACKED_", repr(PACKED))):
                 code = code.replace(key, str(val), 1)
             run_distributed(code, n_devices=tp, timeout=600)
             made[tp] = dict(np.load(path))
@@ -539,6 +569,29 @@ def test_engine_token_identical_to_reference_tp2(jax_side, trial):
     assert [got[i] for i in range(len(tr["prompts"]))] == tr["tokens"]
     assert eng.stats.forwards == tr["forwards"]
     assert eng.stats.weave_forwards == tr["weave_forwards"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("trial", range(N_PACKED))
+def test_packed_paged_engine_token_identical_to_reference_tp2(jax_side,
+                                                               trial):
+    """Packed hybrid batching over the paged pool at tp=2 in ring mode:
+    greedy tokens, weave forwards and prefix-cache hits equal the
+    reference engine's on 2 host devices, and the pool drains."""
+    ref = jax_side(2)
+    tr = json.loads(str(ref["engine_packed"]))[trial]
+    cfg, pcfg, params = _port(ref, 2, "ring")
+    api = t_build_model(cfg, pcfg, tp=2)
+    eng = TEngine(api, params, TSched(**PACKED), device="cpu")
+    for i, (p, n) in enumerate(zip(tr["prompts"], tr["outs"])):
+        eng.add_request(TRequest(rid=i, prompt=list(p), max_new_tokens=n))
+    got = {r.rid: r.output for r in eng.run()}
+    assert [got[i] for i in range(len(tr["prompts"]))] == tr["tokens"]
+    assert (eng.stats.forwards, eng.stats.weave_forwards,
+            eng.block_mgr.stats.hit_tokens) == (
+        tr["forwards"], tr["weave_forwards"], tr["hit_tokens"])
+    assert tr["weave_forwards"] > 0 and tr["hit_tokens"] > 0
+    assert not eng.block_mgr.tables and not any(eng.block_mgr.alloc.ref)
 
 
 @pytest.mark.slow
