@@ -283,7 +283,7 @@ def kernel_phase(torch, seed: int, probe):
 
     d = 8192
     k2_err = 0.0
-    for t in (8, 1000, 2048):
+    for t in (8, 32, 1000, 2048):
         x = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         r = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         w = (torch.randn(d, generator=gen, device=dev).abs() + 0.5).to(bf16)
@@ -316,7 +316,7 @@ def kernel_phase(torch, seed: int, probe):
     gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
     k1_err = 0.0
     for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
-                     + [(8, 1000, 8190)]):
+                     + [(8, 32, 8192), (8, 1000, 8190)]):
         x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
         r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
                         dtype=bf16)
@@ -900,6 +900,354 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                                          tp), peak)
 
 
+# --------------------------------------------------------------------------
+# speculative decoding at full width: engine_spec and verify_weave
+# --------------------------------------------------------------------------
+
+SPEC_BLOCK, SPEC_NEW_TOKENS, SPEC_GAMMA = 64, 64, 3
+VERIFY_ROWS, VERIFY_CACHE, VERIFY_FILLED = 128, 1024, 960
+VERIFY_REL_FRO = 1e-2          # weave-on logits against the unsplit call's
+
+
+def spec_prompts(np, seed: int, vocab: int):
+    """One seeded 64-token block repeated up to each of PROMPT_LENS:
+    prompt-lookup traffic (code editing, retrieval-grounded chat)."""
+    block = np.random.RandomState(seed + 15).randint(0, vocab,
+                                                     SPEC_BLOCK).tolist()
+    return [(block * -(-n // SPEC_BLOCK))[:n] for n in PROMPT_LENS]
+
+
+def serve_steps(torch, eng, Request, prompts, new_tokens: int, store: dict):
+    """Serve ``prompts`` one timed step at a time (the card synchronized
+    around each).  Returns (requests, steps): per step its ms, whether it
+    prefilled, whether it verified, and the tokens it committed."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    st, steps = eng.stats, []
+    while True:
+        before = (st.prefill_tokens, st.spec.verify_steps,
+                  sum(len(r.output) for r in reqs))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        offload(store)
+        if not more:
+            return reqs, steps
+        steps.append({"ms": ms, "prefill": st.prefill_tokens > before[0],
+                      "verify": st.spec.verify_steps > before[1],
+                      "tokens": sum(len(r.output) for r in reqs)
+                      - before[2]})
+
+
+def decode_summary(steps) -> dict:
+    """Times of the steps that prefilled nothing: their median, and their
+    wall per token they committed."""
+    dec = [s for s in steps if not s["prefill"]]
+    return {"decode_steps": len(dec),
+            "decode_step_ms_median": statistics.median(s["ms"] for s in dec),
+            "decode_ms_per_token": (sum(s["ms"] for s in dec)
+                                    / sum(s["tokens"] for s in dec)),
+            "ms_per_token": (sum(s["ms"] for s in steps)
+                             / sum(s["tokens"] for s in steps))}
+
+
+def spec_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
+               packed: bool = True, n_layers: int = 4):
+    """Serve the 4 prompt-lookup requests (64 new tokens each, greedy)
+    with speculative decoding (n-gram draft, gamma 3) over the paged pool,
+    packed (verify windows are segments of K3's packed steps) or
+    two-dispatch (``verify_step``), then the same engine with spec off on
+    the same prompts.  Returns (launches of both runs, K3's max error on
+    the spec run's inputs)."""
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, _, init_s, start_gb = llama_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    prompts = spec_prompts(np, seed, cfg.vocab_size)
+    runs, k3_inputs, total = {}, {}, {}
+    for gamma in (SPEC_GAMMA, 0):
+        scfg = SchedulerConfig(paged=True, packed=packed, spec_gamma=gamma)
+        eng = Engine(api, params, scfg)
+        draft_ms = []
+        if gamma:
+            # the drafting is host work: its time per step, on its own
+            propose = eng.draft.propose
+
+            def timed_propose(contexts, propose=propose):
+                t = time.perf_counter()
+                out = propose(contexts)
+                draft_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            eng.draft.propose = timed_propose
+        undo = capture_k3_inputs(k3_inputs) if gamma else None
+        try:
+            run_start_gb = reset_peak(torch)
+            reset_launches()
+            t0 = time.perf_counter()
+            reqs, steps = serve_steps(torch, eng, Request, prompts,
+                                      SPEC_NEW_TOKENS, k3_inputs)
+            wall_s = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            if undo is not None:
+                undo()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_outputs(eng.sched.finished, len(prompts), cfg.vocab_size,
+                      SPEC_NEW_TOKENS)
+        mgr = eng.block_mgr
+        if mgr.tables or any(mgr.alloc.ref):
+            raise AssertionError(f"gamma={gamma}: the pool did not drain")
+        st = eng.stats
+        if packed:
+            k3_splits = st.forwards + st.weave_forwards
+        else:
+            pw = eng.metrics.get("engine/site_weave", site="prefill")
+            k3_splits = (eng.metrics.get("engine/site_forwards",
+                                         site="prefill").value
+                         + (pw.value if pw is not None else 0))
+        want = check_launches(eng, launches, norm_kernel=norm_kernel,
+                              n_layers=n_layers, k3_splits=k3_splits)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        runs[gamma] = {
+            "outputs": {r.rid: r.output for r in reqs},
+            "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+            "launches": launches, "expected_launches": want,
+            "wall_s": wall_s, "steps": len(steps),
+            "mixed_step_ms": [s["ms"] for s in steps if s["prefill"]],
+            **decode_summary(steps),
+            "allocated_at_run_start_gb": run_start_gb,
+            "max_memory_allocated_gb": peak}
+        if gamma:
+            sp = st.spec
+            verify_ms = [s["ms"] for s in steps
+                         if s["verify"] and not s["prefill"]]
+            runs[gamma].update(
+                verify_steps=sp.verify_steps,
+                draft_proposed=sp.draft_proposed,
+                draft_accepted=sp.draft_accepted,
+                acceptance_rate=sp.acceptance_rate,
+                tokens_per_step=sp.tokens_per_step,
+                verify_step_ms_median=statistics.median(verify_ms),
+                verify_step_ms=verify_ms,
+                draft_ms_median=statistics.median(draft_ms),
+                draft_ms_total=sum(draft_ms))
+            if not (sp.verify_steps > 0 and sp.draft_proposed > 0):
+                raise AssertionError(f"no verify step or draft: {runs}")
+        del eng, mgr
+        gc.collect()
+    if packed and not any(tensors[0].shape[1] == SPEC_GAMMA + 1
+                          for tensors, _ in k3_inputs.values()):
+        raise AssertionError("K3 never got a verify-only packed step")
+    spec, off = runs[SPEC_GAMMA], runs[0]
+    prefix = []
+    for rid, out in spec.pop("outputs").items():
+        ref = off["outputs"][rid]
+        n = next((i for i, (a, b) in enumerate(zip(out, ref)) if a != b),
+                 len(out))
+        prefix.append(n)
+    off.pop("outputs")
+    emit({"phase": "engine_spec", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "packed": packed, "paged": True,
+          "layers": n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "gamma": SPEC_GAMMA, "draft": "ngram n=3",
+          "prompt_lens": list(PROMPT_LENS), "new_tokens": SPEC_NEW_TOKENS,
+          "param_init_s": init_s, "allocated_at_start_gb": start_gb, **spec,
+          "spec_off": off,
+          "tokens_matching_spec_off": sum(prefix),
+          "matching_prefix_by_request": prefix,
+          "tokens_total": SPEC_NEW_TOKENS * len(prompts),
+          "ms_per_token_vs_spec_off": (spec["decode_ms_per_token"]
+                                       / off["decode_ms_per_token"])})
+    del params
+    return total, check_main_path_k3(
+        torch, k3_inputs, "engine_spec" + ("" if packed else "_two"), tp)
+
+
+def verify_weave_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                       comm_mode: str, n_layers: int = 4) -> dict:
+    """One ``verify_step`` of 128 rows x (1 + gamma 3) tokens over a slot
+    cache of 1024 cells with 960 positions filled (random bf16 KV): the
+    verify site's threshold (128 rows) is met, so the weave splits the
+    batch.  Run with the weave on and off: the split taken, the mode's
+    kernel once per add+norm slot of each split, logits within
+    VERIFY_REL_FRO of the unsplit call's; wall ms and a traced breakdown
+    of each.  Returns the launches of the two counted calls."""
+    from repro_torch.models import transformer as TRX
+
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, _, init_s, start_gb = llama_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    cache = api.init_cache(VERIFY_ROWS, VERIFY_CACHE, device="cuda")
+    for layer in cache:
+        layer["k"].normal_(generator=gen)
+        layer["v"].normal_(generator=gen)
+        layer["pos"][:, :VERIFY_FILLED] = torch.arange(
+            VERIFY_FILLED, dtype=torch.int32, device="cuda")
+    s_v = SPEC_GAMMA + 1
+    tokens = torch.randint(0, cfg.vocab_size, (VERIFY_ROWS, s_v),
+                           generator=gen, device="cuda")
+    positions = (VERIFY_FILLED + torch.arange(
+        s_v, dtype=torch.int32, device="cuda"))[None].repeat(VERIFY_ROWS, 1)
+    cache_gb = sum(t.numel() * t.element_size() for layer in cache
+                   for t in layer.values()) / 1e9
+    out, total = {}, {}
+    for weave in (True, False):
+        wapi = dataclasses.replace(api, pcfg=dataclasses.replace(
+            api.pcfg, tokenweave=weave))
+        info = TRX.weave_decision_info(VERIFY_ROWS, s_v, tp=tp,
+                                       pcfg=wapi.pcfg, decode=True)
+        if info.weave != weave or (info.split is None) == weave:
+            raise AssertionError(f"weave={weave}: decision {info}")
+
+        def call():
+            return wapi.verify_step(params, tokens, cache, positions)
+        with torch.no_grad():
+            call()                                   # warm-up
+            reset_launches()
+            logits, _ = call()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            name = f"verify_weave_tp{tp}_{'on' if weave else 'off'}"
+            brk = device_breakdown(torch, call,
+                                   trace_dir / f"{name}_trace.json")
+        splits = 2 if weave else 1
+        want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
+                "flash_attention": 0}
+        want[norm_kernel] = splits * (1 + 2 * n_layers)
+        if launches != want:
+            raise AssertionError(f"weave={weave}: launches {launches}, "
+                                 f"expected {want}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        out[weave] = logits.float()
+        emit({"phase": "verify_weave", "model": cfg.name, "tp": tp,
+              "comm_mode": comm_mode, "layers": n_layers, "weave": weave,
+              "rows": VERIFY_ROWS, "window": s_v, "cache_len": VERIFY_CACHE,
+              "filled": VERIFY_FILLED, "cache_gb": cache_gb,
+              "split": info.split, "reason": info.reason,
+              "launches": launches, "expected_launches": want,
+              "wall_ms": walls, "wall_ms_median": statistics.median(walls),
+              "breakdown": brk})
+    err = rel_fro(out[True], out[False])
+    emit({"phase": "verify_weave_check", "tp": tp,
+          "logits_rel_fro_err": err, "tol": VERIFY_REL_FRO})
+    if not err <= VERIFY_REL_FRO:
+        raise AssertionError(f"tp={tp}: weave-on logits differ by {err}")
+    del cache, params, out
+    return total
+
+
+# --------------------------------------------------------------------------
+# the sampler on the card at the full vocabulary
+# --------------------------------------------------------------------------
+
+SAMPLE_DRAWS, SAMPLE_BATCH, TV_TOL = 20000, 1000, 0.05
+SAMPLE_SETTINGS = (dict(temperature=1.0, top_k=0, top_p=1.0),
+                   dict(temperature=0.8, top_k=50, top_p=0.9))
+
+
+def target_probs(np, row, *, temperature, top_k, top_p):
+    """The filtered softmax of one logits row in float64 numpy:
+    temperature, the k largest, then the smallest prefix reaching p."""
+    x = row.astype(np.float64) / temperature
+    keep = np.ones(len(x), bool)
+    if top_k:
+        keep &= x >= np.sort(x)[::-1][top_k - 1]
+    p = np.where(keep, np.exp(x - x.max()), 0.0)
+    p /= p.sum()
+    if top_p < 1.0:
+        order = np.argsort(p)[::-1]
+        cut = int(np.searchsorted(np.cumsum(p[order]), top_p)) + 1
+        q = np.zeros_like(p)
+        q[order[:cut]] = p[order[:cut]]
+        p = q / q.sum()
+    return p
+
+
+def total_variation(np, ids, p) -> float:
+    emp = np.bincount(ids, minlength=len(p)) / len(ids)
+    return 0.5 * float(np.abs(emp - p).sum())
+
+
+def sampler_phase(torch, np, seed: int, *, tp: int):
+    """Llama-3.3-70B's vocabulary (128256) on ``tp`` ranks: two fixed
+    logits rows (24 hot tokens over a normal tail).  For each setting,
+    ``filtered_logits`` keeps on the card the set it keeps on the CPU,
+    and 20000 draws of ``sample``, and of the first token that
+    ``verify_sample`` commits for a window whose draft is the most likely
+    token or one outside the kept set, lie within TV 0.05 of the
+    filtered softmax."""
+    from repro_torch.configs.llama3_70b import CONFIG
+    from repro_torch.runtime import sampler as S
+    from repro_torch.runtime import spec as SP
+
+    vocab = CONFIG.vocab_size
+    rng = np.random.RandomState(seed + 31)
+    rows = rng.randn(2, vocab).astype(np.float32)
+    for row in rows:
+        row[rng.choice(vocab, 24, replace=False)] += 14 + 2 * rng.rand(24)
+
+    def on_ranks(a, dev):
+        """(B, S, V) -> (R, B, S, V/R)."""
+        b, s, v = a.shape
+        return a.reshape(b, s, tp, v // tp).permute(2, 0, 1, 3).to(dev)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    full = torch.from_numpy(rows)
+    for i, kw in enumerate(SAMPLE_SETTINGS):
+        kept = {dev: (S.filtered_logits(on_ranks(full[:, None], dev),
+                                        vocab_size=vocab, **kw)
+                      > -1e29).cpu() for dev in ("cuda", "cpu")}
+        if not torch.equal(kept["cuda"], kept["cpu"]):
+            raise AssertionError(f"tp={tp} {kw}: kept sets differ between "
+                                 f"cuda and cpu")
+        p = target_probs(np, rows[0], **kw)
+        batch = on_ranks(full[:1, None].expand(SAMPLE_BATCH, 1, vocab),
+                         "cuda").contiguous()
+        t = time.perf_counter()
+        ids = np.concatenate([
+            S.sample(batch, vocab_size=vocab, generator=gen, **kw).cpu()
+            .numpy() for _ in range(SAMPLE_DRAWS // SAMPLE_BATCH)])
+        sample_s = time.perf_counter() - t
+        tv = {"sample": total_variation(np, ids, p)}
+        window = on_ranks(full[None].expand(SAMPLE_BATCH, 2, vocab),
+                          "cuda").contiguous()
+        for label, first in (("draft_top", int(np.argmax(p))),
+                             ("draft_outside", int(np.argmin(rows[0])))):
+            draft = torch.full((SAMPLE_BATCH, 1), first, device="cuda")
+            got = []
+            for _ in range(SAMPLE_DRAWS // SAMPLE_BATCH):
+                n_acc, emit_ = SP.verify_sample(window, draft, gen,
+                                                vocab_size=vocab, **kw)
+                got.append(torch.where(n_acc >= 1, draft[:, 0],
+                                       emit_.long()).cpu().numpy())
+            tv[label] = total_variation(np, np.concatenate(got), p)
+        emit({"phase": "sampler", "tp": tp, "vocab": vocab, **kw,
+              "draws": SAMPLE_DRAWS,
+              "kept_tokens": int(kept["cpu"][:, 0].sum()),
+              "kept_equal_cpu": True, "tv": tv, "tv_tol": TV_TOL,
+              "sample_s": sample_s})
+        if not max(tv.values()) < TV_TOL:
+            raise AssertionError(f"tp={tp} {kw}: total variation {tv}")
+        del batch, window
+
+
 # K3's side pass over V (vsum_kernel) runs in the same call as its main
 # kernel and counts as K3, as do the live-tile table's torch ops (read
 # from the wrapper's named range, device_breakdown)
@@ -1090,13 +1438,56 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.randint(5, 100, size=16)]
+
+    # greedy speculative decoding (gamma 3) with the n-gram draft and
+    # with a one-layer random draft model of the same vocabulary
+    from repro_torch.runtime import spec as SP
+    dapi = build_model(dataclasses.replace(cfg, num_layers=1), pcfg, tp=tp)
+    d_cpu = dapi.init(seed + 7, device="cpu")
+    d_params = {"cpu": d_cpu, "cuda": to_cuda(d_cpu)}
+
+    def spec_identity(engine, base, serve, want):
+        """The spec engines over ``base``'s scheduler give the spec-off
+        tokens ``want`` on cuda and on cpu, verifying windows on both."""
+        for kind in ("ngram", "model"):
+            got, launches, spec = {}, {}, {}
+            for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+                draft = None if kind == "ngram" else SP.ModelDraft(
+                    dapi, d_params[dev], SPEC_GAMMA, max_batch=base.max_batch)
+                reset_launches()
+                eng = Engine(api, params, dataclasses.replace(
+                    base, spec_gamma=SPEC_GAMMA), draft=draft, device=dev)
+                got[dev] = serve(eng)
+                torch.cuda.synchronize()
+                launches[dev] = read_launches()
+                spec[dev] = [eng.stats.spec.verify_steps,
+                             eng.stats.spec.draft_accepted]
+            if got["cuda"] != want or got["cpu"] != want:
+                raise AssertionError(f"tp={tp} {engine} {kind} draft: spec "
+                                     f"tokens {got} != spec off {want}")
+            if (0 in (launches["cuda"][norm_kernel],
+                      launches["cuda"]["flash_attention"],
+                      spec["cuda"][0], spec["cpu"][0])
+                    or any(launches["cpu"].values())):
+                raise AssertionError(f"tp={tp} {engine} {kind}: launches "
+                                     f"{launches}, verify/accepted {spec}")
+            emit({"phase": "identity_spec", "model": cfg.name, "tp": tp,
+                  "comm_mode": comm_mode, "engine": engine, "draft": kind,
+                  "gamma": SPEC_GAMMA, "requests": len(want),
+                  "tokens_identical": True,
+                  "verify_steps_accepted": spec,
+                  "cuda_launches": launches["cuda"]})
+
+    def serve_slots(eng):
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=6))
+        return {r.rid: r.output for r in eng.run()}
+
     outs, launches, weave = {}, {}, {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         reset_launches()
         eng = Engine(api, params, scfg, device=dev)
-        for i, p in enumerate(prompts):
-            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=6))
-        outs[dev] = {r.rid: r.output for r in eng.run()}
+        outs[dev] = serve_slots(eng)
         torch.cuda.synchronize()
         launches[dev] = read_launches()
         weave[dev] = eng.stats.weave_forwards
@@ -1127,6 +1518,7 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
           "tokens_identical": True, "weave_forwards": weave["cuda"],
           "cuda_launches": launches["cuda"],
           "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL})
+    spec_identity("slots", scfg, serve_slots, outs["cuda"])
 
     # packed hybrid batching over the paged pool, with one more request
     # sharing the longest prompt's first 32 tokens (2 blocks of 16),
@@ -1159,6 +1551,9 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
           "tokens_identical": True, "weave_forwards": weave["cuda"],
           "prefix_hit_tokens_sharer": hits["cuda"],
           "cuda_launches": launches["cuda"]})
+    spec_identity("packed_paged", pscfg, lambda eng: {
+        r.rid: r.output for r in serve_with_sharer(
+            eng, Request, order, 6, sharer)[0]}, outs["cuda"])
 
 
 def main() -> int:
@@ -1214,11 +1609,21 @@ def main() -> int:
             raise AssertionError(f"tp={tp}: packed peak {packed[tp][2]} GB "
                                  f"exceeds two-dispatch {two[tp][2]} GB by "
                                  f"more than {PACKED_PEAK_SLACK_GB} GB")
+    # speculative decoding: packed at tp=1 and tp=8, two-dispatch paged
+    kw.pop("trace_dir")
+    paths += [spec_phase(**kw, tp=1, comm_mode="fused"),
+              spec_phase(**kw, tp=8, comm_mode="ring"),
+              spec_phase(**kw, tp=1, comm_mode="fused", packed=False)]
+    for tp, mode in ((1, "fused"), (8, "ring")):
+        paths.append((verify_weave_phase(**kw, trace_dir=args.trace_dir,
+                                         tp=tp, comm_mode=mode), 0.0))
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], *(p[1] for p in paths))
+    for tp in (1, 8):
+        sampler_phase(torch, np, args.seed, tp=tp)
     identity_phase(torch, np, args.seed, tp=1, comm_mode="fused")
     identity_phase(torch, np, args.seed, tp=2, comm_mode="ring")
 

@@ -25,6 +25,12 @@ class ModelApi:
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device)
 
+    def forward(self, params, tokens, positions, **kw):
+        """The shared forward with no cache: (hidden (R, B, S, d), chunk
+        kv per layer); ``spec.ModelDraft``'s rollout step."""
+        return self.mod.forward(params, tokens, cfg=self.cfg, pcfg=self.pcfg,
+                                positions=positions, **kw)
+
     def prefill(self, params, tokens, cache, positions, **kw):
         return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
                                 pcfg=self.pcfg, positions=positions, **kw)
@@ -37,6 +43,11 @@ class ModelApi:
 
     def decode_step(self, params, tokens, cache, positions, **kw):
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
+                                    pcfg=self.pcfg, positions=positions,
+                                    **kw)
+
+    def verify_step(self, params, tokens, cache, positions, **kw):
+        return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **kw)
 

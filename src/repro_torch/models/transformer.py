@@ -508,14 +508,28 @@ def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
+def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
+                block_tables=None):
+    """Speculative multi-token verify: tokens (B, gamma+1) are the
+    pending decode input followed by the draft, positions -1 where a row
+    has no (or a short) draft.  Returns (local logits (R, B, gamma+1,
+    V_loc), one target distribution per window position, and the cache
+    with the whole window's KV written in place; the engine rolls back
+    rejected positions on the host).  The decode path at S = gamma+1."""
+    return decode_step(params, tokens, cache, cfg=cfg, pcfg=pcfg,
+                       positions=positions, block_tables=block_tables)
+
+
 def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
                 sample_idx, block_tables=None):
     """One packed hybrid forward: tokens (1, T) carry prefill-chunk
-    segments and single-token decode slots on one axis; ``seg_slots``
+    segments, single-token decode slots and verify windows on one axis;
+    ``seg_slots``
     (T,) maps each token to its cache row (slots) or block-table row
     (paged), -1 = padding.  ``sample_idx`` (Nseg, W) indexes each
-    segment's sampling window into the packed axis (-1 = unused, clamped
-    to 0).  Returns (local logits (R, Nseg, W, V_loc), the cache, updated
+    segment's sampling window into the packed axis (row 0 the position a
+    plain sample uses, rows 1..gamma a verify window; -1 = unused,
+    clamped to 0).  Returns (local logits (R, Nseg, W, V_loc), the cache, updated
     in place)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions, cache=cache,

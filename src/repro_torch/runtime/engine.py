@@ -1,5 +1,4 @@
-"""Continuous-batching inference engine, as ``repro.runtime.engine``
-without speculative decoding.
+"""Continuous-batching inference engine, as ``repro.runtime.engine``.
 
 Two dispatch schemes (``SchedulerConfig.packed``):
 
@@ -20,11 +19,27 @@ Two KV-cache backends (``SchedulerConfig.paged``):
   recompute preemption (DECODE -> WAITING) when the pool runs dry.
   Admission charges only prefix-miss tokens against ``chunk_tokens``.
 
+Speculative decoding (``SchedulerConfig.spec_gamma > 0``,
+``runtime/spec.py``): decode iterations become gamma+1-token verify
+windows.  A draft proposes on the host, ONE multi-token forward scores
+every window (``verify_step`` over slots or the pool; a verify segment
+of 1 + |draft| tokens in a packed step), verification commits the
+longest accepted prefix + 1 token, and rejected KV is rolled back by
+block-table truncation (paged) or left to the overwrite-before-query
+invariant (slots: the next window rewrites each stale cell before any
+query can see it).  Greedy spec output is token-identical to plain
+greedy decoding.
+
+Sampling is greedy at temperature 0; above it, temperature/top-k/top-p
+filtering and Gumbel-max draws (rejection sampling for verify windows)
+from one ``torch.Generator`` on the engine's device, seeded by ``seed``,
+so stochastic runs are reproducible for a fixed request order.  Each
+step brings its sampled ids (and accept counts) to the host once.
+
 TokenWeave activates inside the model whenever a dispatch crosses the
 active overlap policy's threshold (``SchedulerConfig.plan_path`` loads a
 tuned plan).  Not ported yet, and refused with NotImplementedError:
-speculative decoding, stochastic sampling, evacuate/handoff, and tracing
-or profiling hooks (ROADMAP.md).
+evacuate/handoff and the tracing or profiling hooks (ROADMAP.md).
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
@@ -37,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -50,6 +65,7 @@ from repro_torch.models.build import ModelApi
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime import kv_cache as KC
 from repro_torch.runtime import paging as PG
+from repro_torch.runtime import spec as SP
 from repro_torch.runtime.paging import BlockManager
 from repro_torch.runtime.requests import Request, State
 from repro_torch.runtime.sampler import sample
@@ -57,8 +73,26 @@ from repro_torch.runtime.scheduler import (PackedPlan, Scheduler,
                                            SchedulerConfig)
 
 
+class SpecStatsView:
+    """``SpecStats``' API over the registry's ``spec/*`` counters."""
+
+    def __init__(self, registry: MetricsRegistry):
+        self._verify_steps = registry.counter("spec/verify_steps")
+        self._draft_proposed = registry.counter("spec/draft_proposed")
+        self._draft_accepted = registry.counter("spec/draft_accepted")
+        self._emitted = registry.counter("spec/emitted")
+
+    verify_steps = property(lambda self: self._verify_steps.value)
+    draft_proposed = property(lambda self: self._draft_proposed.value)
+    draft_accepted = property(lambda self: self._draft_accepted.value)
+    emitted = property(lambda self: self._emitted.value)
+    acceptance_rate = SP.SpecStats.acceptance_rate
+    tokens_per_step = SP.SpecStats.tokens_per_step
+
+
 class EngineStats:
-    """Read view over the engine's MetricsRegistry (``engine/*``)."""
+    """Read view over the engine's MetricsRegistry (``engine/*``, and
+    ``spec/*`` through ``spec``)."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -73,6 +107,7 @@ class EngineStats:
         self._weave_forwards = r.counter("engine/weave_forwards")
         self._forward_tokens = r.counter("engine/forward_tokens")
         self._max_forward_tokens = r.gauge("engine/max_forward_tokens")
+        self.spec = SpecStatsView(r)
 
     steps = property(lambda self: self._steps.value)
     prefill_tokens = property(lambda self: self._prefill_tokens.value)
@@ -102,20 +137,17 @@ class EngineStats:
         return self.forward_tokens / self.forwards if self.forwards else 0.0
 
 
-
-
 class Engine:
     def __init__(self, api: ModelApi, params, scfg: SchedulerConfig,
-                 temperature: float = 0.0, *, device=None, obs=None,
-                 profiler=None):
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, draft: Optional[SP.DraftProposer] = None,
+                 seed: int = 0, *, device=None, obs=None, profiler=None):
         self.device = resolve_device(device)
-        for what, asked in (("speculative decoding", scfg.spec_gamma),
-                            ("stochastic sampling", temperature > 0.0),
-                            ("tracing", obs is not None),
+        for what, asked in (("tracing", obs is not None),
                             ("profiling", profiler is not None)):
             if asked:
                 raise NotImplementedError(f"{what} is not ported yet "
-                                          f"(ROADMAP.md)")
+                                          f"(ROADMAP.md A9)")
         if scfg.plan_path:
             # the tuned plan goes on the model's ParallelConfig before
             # anything reads it: forward dispatch and packed planner alike
@@ -132,6 +164,8 @@ class Engine:
         self.params = params
         self.scfg = scfg
         self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
         self.metrics = MetricsRegistry()
         self.stats = EngineStats(self.metrics)
         self.metrics.gauge("engine/plan_id").set(
@@ -149,6 +183,26 @@ class Engine:
                     "evict keys earlier packed queries still need; use the "
                     "paged backend (full-length storage, mask-enforced "
                     "windows)")
+        self.spec_gamma = int(scfg.spec_gamma)
+        self.draft = None
+        if self.spec_gamma:
+            if api.pcfg.seq_shard_kv:
+                raise ValueError("speculative verify writes full KV rows "
+                                 "locally; disable seq_shard_kv")
+            if not self.paged and api.cfg.sliding_window:
+                raise ValueError(
+                    "legacy-slot sliding-window ring buffers cannot hold a "
+                    "multi-token verify window (a later write could evict a "
+                    "key an earlier query needs); use the paged backend")
+            self.draft = draft if draft is not None else SP.make_draft(
+                "ngram", self.spec_gamma, ngram=scfg.spec_ngram)
+            if self.draft.gamma < self.spec_gamma:
+                raise ValueError(
+                    f"draft gamma {self.draft.gamma} < scheduler "
+                    f"spec_gamma {self.spec_gamma}")
+        # one stream of draws, seeded here, feeds prefill, decode and
+        # verify sampling alike; greedy steps draw nothing
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.paged:
             self.block_mgr = BlockManager(
                 scfg.effective_num_blocks, scfg.block_size,
@@ -247,7 +301,10 @@ class Engine:
             if plan.prefill is not None:
                 self._run_prefill(*plan.prefill)
             if plan.decode_slots:
-                self._run_decode()
+                if self.spec_gamma:
+                    self._run_verify()
+                else:
+                    self._run_decode()
         return True
 
     def run(self, max_steps: int = 100000) -> List[Request]:
@@ -341,6 +398,26 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     # ------------------------------------------------------------------
+    # sampling and verification: one copy to the host per step
+    # ------------------------------------------------------------------
+    def _sample(self, logits) -> np.ndarray:
+        """Each row's token id from (R, B, 1, V_loc) logits."""
+        return sample(logits, vocab_size=self.api.cfg.vocab_size,
+                      temperature=self.temperature, top_k=self.top_k,
+                      top_p=self.top_p, generator=self.generator
+                      ).cpu().numpy()
+
+    def _verify(self, logits, draft: np.ndarray):
+        """(n_acc, emit) per row from (R, B, gamma+1, V_loc) logits and
+        the (B, gamma) drafts, -1 = none."""
+        n_acc, emit = SP.verify_tokens(
+            logits, torch.from_numpy(draft), self.generator,
+            vocab_size=self.api.cfg.vocab_size, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p)
+        out = torch.stack([n_acc, emit.long()]).cpu().numpy()
+        return out[0], out[1]
+
+    # ------------------------------------------------------------------
     # per-request commits, shared by both dispatch schemes
     # ------------------------------------------------------------------
     def _commit_prefill(self, r: Request, tok: int):
@@ -371,6 +448,26 @@ class Engine:
             # a block just filled: make it hittable for future prompts
             self.block_mgr.register_filled(
                 r.rid, r.prompt + r.output[:-1], n_written)
+        self._maybe_finish(r)
+
+    def _commit_verify(self, r: Request, prop: List[int], n_acc: int,
+                       emit: int):
+        """Commit the longest accepted draft prefix + the corrected/bonus
+        token and roll back rejected KV (paged: block-table truncation,
+        then only blocks holding committed tokens are registered; slots
+        need none by the overwrite-before-query invariant)."""
+        n = min(n_acc, len(prop))
+        base_len = r.length          # L: the window wrote L-1 .. L-1+|prop|
+        r.output.extend(prop[:n] + [emit])
+        st = self.stats.spec
+        st._draft_proposed.inc(len(prop))
+        st._draft_accepted.inc(n)
+        st._emitted.inc(n + 1)
+        self.stats._decode_tokens.inc(n + 1)
+        if self.paged:
+            self.block_mgr.truncate(r.rid, base_len + n)
+            self.block_mgr.register_filled(
+                r.rid, r.prompt + r.output[:-1], base_len + n)
         self._maybe_finish(r)
 
     # ------------------------------------------------------------------
@@ -413,8 +510,7 @@ class Engine:
                                   positions=torch.from_numpy(positions))
         else:
             KC.insert_chunk(self.cache, kv, self._tensor(offsets), slot_ids)
-        tok = sample(logits, vocab_size=self.api.cfg.vocab_size,
-                     temperature=self.temperature).cpu().numpy()
+        tok = self._sample(logits)
         n_real = int((positions >= 0).sum())
         self.stats._prefill_tokens.inc(n_real)
         self._note_forward(b_sel, chunk, n_real)
@@ -445,20 +541,102 @@ class Engine:
             logits, self.cache = self.api.decode_step(
                 self.params, self._tensor(tokens), self.cache,
                 self._tensor(positions))
-        tok = sample(logits, vocab_size=self.api.cfg.vocab_size,
-                     temperature=self.temperature).cpu().numpy()
+        tok = self._sample(logits)
         self._note_forward(bmax, 1, len(reqs), decode=True)
         for r in list(reqs):
             self._commit_decode(r, int(tok[r.slot]))
 
     # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+    def _grow_for_draft(self, r: Request, want: int) -> int:
+        """Grow the paged blocks for the draft positions ``length ..
+        length-1+want`` as far as the pool allows; a draft that cannot
+        grow is shrunk (draft tokens are optional), no peer preempted.
+        Returns the number of draft tokens whose cell is writable."""
+        for j in range(1, want + 1):
+            if not self.block_mgr.ensure_writable(r.rid, r.length - 1 + j):
+                return j - 1
+        return want
+
+    def _capped_drafts(self, reqs: List[Request]) -> Dict[int, List[int]]:
+        """Draft proposals for these DECODE requests, capped so the window
+        never overshoots max_new_tokens (a verify always commits one
+        extra token) or the cache ceiling, and shrunk to the paged blocks
+        that can grow.  Shared by both dispatch schemes."""
+        props = self.draft.propose([r.prompt + r.output for r in reqs])
+        capped: Dict[int, List[int]] = {}
+        for r, prop in zip(reqs, props):
+            cap = min(self.spec_gamma, r.max_new_tokens - len(r.output) - 1,
+                      self.scfg.max_len - r.length)
+            prop = [int(t) for t in prop[:max(cap, 0)]]
+            if self.paged and prop:
+                prop = prop[:self._grow_for_draft(r, len(prop))]
+            capped[r.rid] = prop
+        return capped
+
+    def _run_verify(self):
+        """One speculative iteration over every DECODE request: draft,
+        ONE (max_batch, gamma+1) verify forward, commit the accepted
+        prefix + 1 token per request, roll back the rest."""
+        gamma = self.spec_gamma
+        if self.paged:
+            reqs = self._ensure_decode_blocks()   # the input cell is due
+        else:
+            reqs = [r for r in self.sched.active
+                    if r is not None and r.state == State.DECODE]
+        if not reqs:
+            return
+        capped = self._capped_drafts(reqs)
+        if not any(capped.values()):
+            # nothing drafted: a gamma+1-wide window would pay (gamma+1)x
+            # decode compute for one token per request
+            self._run_decode()
+            return
+        if self.paged:
+            self._apply_fixups()
+
+        bmax = self.scfg.max_batch
+        s_v = gamma + 1
+        tokens = np.zeros((bmax, s_v), np.int64)
+        positions = np.full((bmax, s_v), -1, np.int32)
+        draft = np.full((bmax, gamma), -1, np.int64)
+        for r in reqs:
+            prop = capped[r.rid]
+            tokens[r.slot, 0] = r.output[-1]
+            positions[r.slot, 0] = r.length - 1
+            tokens[r.slot, 1:1 + len(prop)] = prop
+            positions[r.slot, 1:1 + len(prop)] = np.arange(
+                r.length, r.length + len(prop))
+            draft[r.slot, :len(prop)] = prop
+        kw = {}
+        if self.paged:
+            kw["block_tables"] = torch.from_numpy(self._tables(bmax, reqs))
+        logits, self.cache = self.api.verify_step(
+            self.params, self._tensor(tokens), self.cache,
+            torch.from_numpy(positions), **kw)
+        n_acc, emit = self._verify(logits, draft)
+        self._note_forward(bmax, s_v,
+                           sum(1 + len(capped[r.rid]) for r in reqs),
+                           decode=True)
+        self.stats.spec._verify_steps.inc()
+        for r in list(reqs):
+            self._commit_verify(r, capped[r.rid], int(n_acc[r.slot]),
+                                int(emit[r.slot]))
+
+    # ------------------------------------------------------------------
     # packed hybrid batching
     # ------------------------------------------------------------------
     def _run_packed(self, plan: PackedPlan):
-        """ONE forward for the whole iteration: prefill segments and
-        decode slots concatenated along a (1, T) token axis (T padded to
-        lcm(prefill_bucket, tp)) through ``ModelApi.packed_step``, then
-        one sample per segment."""
+        """ONE forward for the whole iteration: prefill segments, decode
+        slots and verify windows concatenated along a (1, T) token axis
+        (T padded to lcm(prefill_bucket, tp)) through
+        ``ModelApi.packed_step``; then one sample per segment, or with
+        speculation one verification over (max_batch, gamma+1) windows
+        whose (n_acc, emit) commit every kind of segment (a row with no
+        draft verifies to the plain sample of its window row 0)."""
+        gamma = self.spec_gamma
+        w = gamma + 1 if gamma else 1
         if self.paged:
             # grow/COW the decode write cells first; this can preempt or
             # ceiling-finish DECODE requests, so re-filter the plan
@@ -468,17 +646,27 @@ class Engine:
                                    else State.DECODE)]
         if not segs:
             return
+        props: Dict[int, List[int]] = {}
+        vreqs = [s.req for s in segs if s.kind == "verify"]
+        if vreqs:
+            props = self._capped_drafts(vreqs)
         if self.paged:
             self._apply_fixups()
 
-        t_real = sum(s.n_tokens if s.kind == "prefill" else 1 for s in segs)
+        def seg_len(s):
+            if s.kind == "prefill":
+                return s.n_tokens
+            return 1 + len(props.get(s.req.rid, ()))
+
+        t_real = sum(seg_len(s) for s in segs)
         t = pad_to_multiple(t_real, math.lcm(self.scfg.prefill_bucket,
                                              self.api.tp))
         bmax = self.scfg.max_batch
         tokens = np.zeros((1, t), np.int64)
         positions = np.full((1, t), -1, np.int32)
         seg_slots = np.full(t, -1, np.int32)
-        sample_idx = np.full((bmax, 1), -1, np.int32)
+        sample_idx = np.full((bmax, w), -1, np.int32)
+        draft = np.full((bmax, gamma), -1, np.int64)
         cur = 0
         for s in segs:
             r, m = s.req, s.req.slot
@@ -488,13 +676,19 @@ class Engine:
                     r.context_tokens[r.prefill_pos:r.prefill_pos + take]
                 positions[0, cur:cur + take] = np.arange(
                     r.prefill_pos, r.prefill_pos + take)
+                sample_idx[m, 0] = cur + take - 1
                 r.prefill_pos += take
             else:
-                take = 1
+                # the pending input at L-1, then the draft at L, L+1, ..
+                prop = props.get(r.rid, [])
+                take = 1 + len(prop)
                 tokens[0, cur] = r.output[-1]
-                positions[0, cur] = r.length - 1
+                tokens[0, cur + 1:cur + take] = prop
+                positions[0, cur:cur + take] = np.arange(
+                    r.length - 1, r.length - 1 + take)
+                sample_idx[m, :take] = np.arange(cur, cur + take)
+                draft[m, :len(prop)] = prop
             seg_slots[cur:cur + take] = m
-            sample_idx[m, 0] = cur + take - 1
             cur += take
 
         kw = {}
@@ -505,16 +699,23 @@ class Engine:
             self.params, self._tensor(tokens), self.cache,
             torch.from_numpy(positions), seg_slots=torch.from_numpy(seg_slots),
             sample_idx=torch.from_numpy(sample_idx), **kw)
-        emit = sample(logits, vocab_size=self.api.cfg.vocab_size,
-                      temperature=self.temperature).cpu().numpy()
+        if w > 1:
+            n_acc, emit = self._verify(logits, draft)
+        else:
+            emit = self._sample(logits)
         self._note_forward(1, t, t_real, packed=True)
+        if vreqs:
+            self.stats.spec._verify_steps.inc()
         for s in segs:
             r = s.req
             if s.kind == "prefill":
                 self.stats._prefill_tokens.inc(s.n_tokens)
                 self._commit_prefill(r, int(emit[r.slot]))
-            else:
+            elif s.kind == "decode":
                 self._commit_decode(r, int(emit[r.slot]))
+            else:
+                self._commit_verify(r, props.get(r.rid, []),
+                                    int(n_acc[r.slot]), int(emit[r.slot]))
 
     def _maybe_finish(self, r: Request):
         if len(r.output) >= r.max_new_tokens:

@@ -125,15 +125,21 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
         calls[entry]()
 
 
-@pytest.mark.parametrize("kw", [dict(packed=True, spec_gamma=2),
-                                dict(paged=True, spec_gamma=3),
-                                dict(spec_gamma=2)])
+@pytest.mark.parametrize("kw", [dict(obs=object()), dict(profiler=object()),
+                                dict(evacuate=True)],
+                         ids=["obs", "profiler", "evacuate"])
 def test_engine_refuses_unported_modes(torch_model, kw):
-    """Speculative decoding is not ported, on any backend or scheme."""
+    """What stays unported is refused: the tracing and profiling hooks at
+    construction, ``evacuate`` when called (speculative decoding and
+    stochastic sampling are ported, tests/test_torch_spec.py)."""
     api, tparams = torch_model
+    scfg = tsched.SchedulerConfig(**SCHED, spec_gamma=2)
     with pytest.raises(NotImplementedError):
-        TEngine(api, tparams, tsched.SchedulerConfig(**SCHED, **kw),
-                device="cpu")
+        if kw.pop("evacuate", False):
+            TEngine(api, tparams, scfg, temperature=0.5,
+                    device="cpu").evacuate()
+        else:
+            TEngine(api, tparams, scfg, device="cpu", **kw)
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -54,6 +54,10 @@ DECODE = {"weave": 16, "unsplit": 4, "ragged": 5}   # batch rows
 N_TRACES = 4
 N_PACKED = 2                       # packed paged engine traces at tp=2
 PACKED = dict(SCHED, paged=True, packed=True, block_size=16)
+N_SPEC = 2                         # greedy speculative traces at tp=2
+SPEC = dict(PACKED, spec_gamma=3)
+SPEC_COUNTERS = ("verify_steps", "draft_proposed", "draft_accepted",
+                 "emitted")
 # at tp=4, 2 query heads on 1 KV head: head shards replicated twice
 REPLICATED = dict(CFG, num_heads=2, num_kv_heads=1, head_dim=32)
 
@@ -79,6 +83,7 @@ tp, path = TP, PATH
 CFG, PCFG, SCHED, REPLICATED = CFG_, PCFG_, SCHED_, REPLICATED_
 PREFILL, DECODE, MODES, N_TRACES = PREFILL_, DECODE_, MODES_, N_TRACES_
 N_PACKED, PACKED = N_PACKED_, PACKED_
+N_SPEC, SPEC, COUNTERS = N_SPEC_, SPEC_, COUNTERS_
 mesh = jax.make_mesh((1, tp), ('data', 'model'),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 out = {}
@@ -268,6 +273,32 @@ if tp == 2:
                        'weave_forwards': eng.stats.weave_forwards,
                        'hit_tokens': eng.block_mgr.stats.hit_tokens})
 out['engine_packed'] = np.asarray(json.dumps(traces))
+
+# greedy speculative decoding (n-gram draft, gamma 3) over packed + paged:
+# prompts repeat a motif, so the draft finds continuations to propose
+traces = []
+if tp == 2:
+    jit_cache = {}
+    for trial in range(N_SPEC):
+        trng = np.random.RandomState(7200 + trial)
+        motif = [int(t) for t in trng.randint(0, cfg.vocab_size, 7)]
+        prompts = [motif * int(trng.randint(2, 5))
+                   + [int(t) for t in trng.randint(0, cfg.vocab_size,
+                                                   int(trng.randint(1, 9)))]
+                   for _ in range(4)]
+        outs = [int(trng.randint(4, 12)) for _ in prompts]
+        eng = Engine(api, mesh, params, SchedulerConfig(**SPEC),
+                     jit_cache=jit_cache)
+        for i, (p, n) in enumerate(zip(prompts, outs)):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=n))
+        got = {r.rid: r.output for r in eng.run()}
+        traces.append({'prompts': prompts, 'outs': outs,
+                       'tokens': [got[i] for i in range(len(prompts))],
+                       'forwards': eng.stats.forwards,
+                       'weave_forwards': eng.stats.weave_forwards,
+                       'spec': [getattr(eng.stats.spec, c)
+                                for c in COUNTERS]})
+out['engine_spec'] = np.asarray(json.dumps(traces))
 np.savez(path, **out)
 print('PASS')
 """
@@ -291,7 +322,10 @@ def jax_side(tmp_path_factory):
                              ("MODES_", repr(MODES)),
                              ("N_TRACES_", repr(N_TRACES)),
                              ("N_PACKED_", repr(N_PACKED)),
-                             ("PACKED_", repr(PACKED))):
+                             ("PACKED_", repr(PACKED)),
+                             ("N_SPEC_", repr(N_SPEC)),
+                             ("SPEC_", repr(SPEC)),
+                             ("COUNTERS_", repr(SPEC_COUNTERS))):
                 code = code.replace(key, str(val), 1)
             run_distributed(code, n_devices=tp, timeout=600)
             made[tp] = dict(np.load(path))
@@ -591,6 +625,29 @@ def test_packed_paged_engine_token_identical_to_reference_tp2(jax_side,
             eng.block_mgr.stats.hit_tokens) == (
         tr["forwards"], tr["weave_forwards"], tr["hit_tokens"])
     assert tr["weave_forwards"] > 0 and tr["hit_tokens"] > 0
+    assert not eng.block_mgr.tables and not any(eng.block_mgr.alloc.ref)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("trial", range(N_SPEC))
+def test_spec_engine_token_identical_to_reference_tp2(jax_side, trial):
+    """Greedy speculative decoding (n-gram draft, gamma 3) through packed
+    batching over the paged pool at tp=2 in ring mode: tokens, forwards
+    and the spec/* counters equal the reference engine's on 2 host
+    devices, drafts are accepted, and the pool drains."""
+    ref = jax_side(2)
+    tr = json.loads(str(ref["engine_spec"]))[trial]
+    cfg, pcfg, params = _port(ref, 2, "ring")
+    api = t_build_model(cfg, pcfg, tp=2)
+    eng = TEngine(api, params, TSched(**SPEC), device="cpu")
+    for i, (p, n) in enumerate(zip(tr["prompts"], tr["outs"])):
+        eng.add_request(TRequest(rid=i, prompt=list(p), max_new_tokens=n))
+    got = {r.rid: r.output for r in eng.run()}
+    assert [got[i] for i in range(len(tr["prompts"]))] == tr["tokens"]
+    assert (eng.stats.forwards, eng.stats.weave_forwards) == (
+        tr["forwards"], tr["weave_forwards"])
+    assert [getattr(eng.stats.spec, c) for c in SPEC_COUNTERS] == tr["spec"]
+    assert tr["spec"][2] > 0
     assert not eng.block_mgr.tables and not any(eng.block_mgr.alloc.ref)
 
 
