@@ -21,7 +21,24 @@ Phases, each printing one JSON line:
             visit), its second split at tp=8 (``engine_tp``: the ranks
             folded into the batch, one KV head each) and a sweep over G
             and head dim;
-3. engine   serve 4 greedy requests through the two-dispatch Engine with
+3. online   the serving front end and observability at full width
+            (Llama-3.3-70B cut to 4 layers, bf16, packed + paged):
+            8 requests (prompts of 300-1800 tokens, 32 new) served with
+            a WallClockProfiler and a TraceRecorder at tp=1, then plain
+            and profiled in turns (tokens, steps equal; the profiler's
+            cost per step), ``fit_calibration`` on the measured forwards
+            (its JSON and the Chrome traces go to --trace-dir/online/;
+            the trace validates, its weave counts equal the engine's);
+            the same requests through ``OnlineServer`` on the calibrated
+            clock with Poisson arrivals, a cancel and an expiring
+            deadline (TTFT, TPOT, e2e percentiles and goodput; pool
+            drained; one terminal event per request; K3 held on the
+            inputs it gave K3, ``main_path_k3``), and on a small
+            float32 model with the online tokens gated equal to the
+            offline ones; at tp=8 ``ring`` 4 requests profiled and plain
+            (tokens equal), a fit, and each woven prefill's fenced wall
+            not below the same call's CUDA-event time;
+4. engine   serve 4 greedy requests through the two-dispatch Engine with
             Llama-3.3-70B's widths cut to 4 layers (bf16, random weights
             from the seed) at tp=1, and show from the launch counters that
             the main path ran through the kernels; then trace one prefill
@@ -29,14 +46,14 @@ Phases, each printing one JSON line:
             their device time by kind of kernel; then hold K3 against its
             plain version on the inputs the run gave it, at each shape
             (``main_path_k3``);
-4. engine_tp the same requests at tp=8 (the eight ranks on one card's rank
+5. engine_tp the same requests at tp=8 (the eight ranks on one card's rank
             axis) in comm mode "ring": K1 launches equal splits·(1+2L) per
             forward, so no forward fell back; one traced prefill call
             gives K1's device time and the part of it that overlapped
             other kernels (the weave's comm stream), and K3 is held on
             its inputs again; every traced call's Chrome trace is written
             to --trace-dir (build/traces/);
-5. engine_packed  the same requests and a 5th that shares request 0's
+6. engine_packed  the same requests and a 5th that shares request 0's
             first 1024 prompt tokens (added once request 0's prefill is
             done: 64 blocks hit the prefix cache) through packed hybrid
             batching over the paged pool, at tp=1 (K2) and tp=8 (ring,
@@ -51,9 +68,9 @@ Phases, each printing one JSON line:
             the run's start: weights, pool and the run's activations)
             stays within 1.5 GB of the two-dispatch run's at its tp
             (``peak_memory``);
-6. engine_paged  the two-dispatch engine over the paged pool at tp=1
+7. engine_paged  the two-dispatch engine over the paged pool at tp=1
             (paged prefill: gather, K3, insert; paged decode);
-7. identity a small float32 model served on the card (kernels) and on the
+8. identity a small float32 model served on the card (kernels) and on the
             CPU (plain versions) must give identical greedy tokens, at
             tp=1 and at tp=2 in ring mode with the weave (and its streams)
             firing, through the two-dispatch engine over slots and
@@ -610,6 +627,13 @@ def check_outputs(done, n_requests: int, vocab: int, new_tokens: int):
             raise AssertionError(f"rid {r.rid} output {r.output}")
 
 
+def check_drained(eng) -> None:
+    """No block table left and no block referenced in the paged pool."""
+    mgr = eng.block_mgr
+    if mgr.tables or any(mgr.alloc.ref):
+        raise AssertionError("the pool did not drain")
+
+
 def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                  comm_mode: str, paged: bool = False, n_layers: int = 4):
     """Serve the 4 requests through the two-dispatch engine at ``tp``
@@ -844,9 +868,8 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
         raise AssertionError(f"the 5th request hit {hit_blocks} blocks of "
                              f"the prefix cache, not "
                              f"{SHARED_PREFIX // scfg.block_size}")
+    check_drained(eng)
     mgr = eng.block_mgr
-    if mgr.tables or any(mgr.alloc.ref):
-        raise AssertionError("the pool did not drain")
     st = eng.stats
     want = check_launches(eng, launches, norm_kernel=norm_kernel,
                           n_layers=n_layers,
@@ -1002,9 +1025,7 @@ def spec_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
         peak = torch.cuda.max_memory_allocated() / 1e9
         check_outputs(eng.sched.finished, len(prompts), cfg.vocab_size,
                       SPEC_NEW_TOKENS)
-        mgr = eng.block_mgr
-        if mgr.tables or any(mgr.alloc.ref):
-            raise AssertionError(f"gamma={gamma}: the pool did not drain")
+        check_drained(eng)
         st = eng.stats
         if packed:
             k3_splits = st.forwards + st.weave_forwards
@@ -1041,7 +1062,7 @@ def spec_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
                 draft_ms_total=sum(draft_ms))
             if not (sp.verify_steps > 0 and sp.draft_proposed > 0):
                 raise AssertionError(f"no verify step or draft: {runs}")
-        del eng, mgr
+        del eng
         gc.collect()
     if packed and not any(tensors[0].shape[1] == SPEC_GAMMA + 1
                           for tensors, _ in k3_inputs.values()):
@@ -1405,8 +1426,20 @@ def idle_ms(events) -> float:
 # phase 5: the same small float32 model on the card and on the CPU
 # --------------------------------------------------------------------------
 
-def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
+def small_api(*, tp: int, comm_mode: str):
+    """The identity checks' small float32 model: (config, model API)."""
     from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.models.build import build_model
+    cfg = ModelConfig(name="small", family="dense", num_layers=2, d_model=256,
+                      num_heads=8, num_kv_heads=2, head_dim=32, d_ff=512,
+                      vocab_size=512, dtype="float32")
+    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
+                          use_pallas_norm=True, split_unit=16,
+                          tokenweave_min_tokens=32)
+    return cfg, build_model(cfg, pcfg, tp=tp)
+
+
+def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     from repro_torch.models.build import build_model
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
@@ -1416,15 +1449,10 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     torch.backends.cudnn.allow_tf32 = False
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg = ModelConfig(name="small", family="dense", num_layers=2, d_model=256,
-                      num_heads=8, num_kv_heads=2, head_dim=32, d_ff=512,
-                      vocab_size=512, dtype="float32")
-    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
-                          use_pallas_norm=True, split_unit=16,
-                          tokenweave_min_tokens=32)
+    cfg, api = small_api(tp=tp, comm_mode=comm_mode)
+    pcfg = api.pcfg
     scfg = SchedulerConfig(max_batch=16, chunk_tokens=64, max_len=128,
                            prefill_bucket=16)
-    api = build_model(cfg, pcfg, tp=tp)
     p_cpu = api.init(seed, device="cpu")
 
     def to_cuda(tree):
@@ -1556,6 +1584,437 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
             eng, Request, order, 6, sharer)[0]}, outs["cuda"])
 
 
+# --------------------------------------------------------------------------
+# online serving with tracing, profiling and calibration at full width
+# --------------------------------------------------------------------------
+
+ONLINE_N, ONLINE_NEW = 8, 32       # (a) and (b): 8 requests, 32 new tokens
+ONLINE_TP8_N, ONLINE_TP8_NEW = 4, 16   # (c)
+ONLINE_PROMPTS = (300, 1800)       # prompt lengths, drawn from the seed
+ONLINE_GAP_STEPS = 6               # mean inter-arrival: a prefill + 6
+#                                    decode steps on the calibrated clock
+ONLINE_CANCEL = (1, 4)             # rid 1 disconnects after 4 tokens
+ONLINE_EXPIRE = (2, 4)             # rid 2's deadline: 4 decode steps
+ONLINE_MIN_OVERLAP = 3             # arrivals while others decode
+FENCE_CALLS = 1000                 # wrapped no-ops timing the fence
+
+
+def online_prompts(np, seed: int, vocab: int, n: int):
+    rng = np.random.RandomState(seed + 16)
+    lens = rng.randint(ONLINE_PROMPTS[0], ONLINE_PROMPTS[1] + 1, n)
+    return [rng.randint(0, vocab, int(m)).tolist() for m in lens]
+
+
+class EventTimedSteps:
+    """The model API with each packed step timed between two CUDA events
+    on the current stream: inside the engine's dispatch, so inside the
+    profiler's fences, the same call the profiler measures."""
+
+    def __init__(self, torch, api):
+        self._torch = torch
+        self._api = api
+        self.events = []
+
+    def __getattr__(self, name):
+        return getattr(self._api, name)
+
+    def packed_step(self, *args, **kw):
+        start = self._torch.cuda.Event(enable_timing=True)
+        end = self._torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._api.packed_step(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+
+def serve_counted(torch, eng, Request, prompts, new_tokens: int, *,
+                  norm_kernel: str, n_layers: int, total: dict):
+    """Serve ``prompts`` offline with the launch counts set to 0 just
+    before and read just after; the counts must equal the packed
+    formulas, and are added to ``total``.  Returns ({rid: tokens},
+    wall seconds)."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    st = eng.stats
+    check_launches(eng, launches, norm_kernel=norm_kernel,
+                   n_layers=n_layers,
+                   k3_splits=st.forwards + st.weave_forwards)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    check_outputs(reqs, len(prompts), eng.api.cfg.vocab_size, new_tokens)
+    check_drained(eng)
+    return {r.rid: list(r.output) for r in reqs}, wall_s
+
+
+def calibration_row(rep) -> dict:
+    return {"mfu_cap": rep.mfu_cap, "ici": rep.ici,
+            "overhead_s": rep.overhead, "step_base_s": rep.step_base,
+            "step_per_token_s": rep.step_per_token,
+            "n_samples": rep.n_samples, "buckets": len(rep.buckets),
+            "worst_rel_err": rep.worst_rel_err,
+            "worst_bucket": rep.worst_bucket,
+            "per_mode_rel_err": rep.per_mode_rel_err}
+
+
+def measured_ms(prof) -> dict:
+    return {kind: {"n": row["n"], "mean_ms": row["mean_s"] * 1e3}
+            for kind, row in prof.summary().items()}
+
+
+def serve_online(torch, eng, prompts, new_tokens: int, cost, seed: int, *,
+                 trace_path: Path, norm_kernel: str, n_layers: int,
+                 total: dict):
+    """Serve ``prompts`` through an ``OnlineServer`` over ``eng`` (which
+    carries a TraceRecorder) on the clock ``cost``, with Poisson arrivals,
+    ONLINE_CANCEL's rid disconnecting during its decode and ONLINE_EXPIRE's
+    rid given a deadline that expires.  Gates: launches equal the packed
+    formulas (added to ``total``), the pool drains, the cancel and the
+    expiry land, every other request finishes with its budget, at least
+    ONLINE_MIN_OVERLAP requests arrive while others decode, and the trace
+    validates with one terminal event per request.  Returns (the row to
+    print, the requests)."""
+    from repro_torch.obs import (TERMINAL_PHASES, export_chrome_trace,
+                                 validate_chrome_trace)
+    from repro_torch.runtime.requests import Request, poisson_arrivals
+    from repro_torch.runtime.server import OnlineServer, ServerConfig
+
+    decode_s = cost.of(len(prompts))
+    # a mean gap of one mean prompt's prefill and ONLINE_GAP_STEPS decode
+    # steps: each request lives about new_tokens steps, so several overlap
+    mean_prompt = sum(map(len, prompts)) / len(prompts)
+    rate = 1.0 / (cost.of(mean_prompt) + ONLINE_GAP_STEPS * decode_s)
+    srv = OnlineServer(eng, ServerConfig(step_cost=cost,
+                                         expire_on_deadline=True))
+    reqs = poisson_arrivals(
+        [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+         for i, p in enumerate(prompts)], rate=rate, seed=seed)
+    cancel_rid, cancel_after = ONLINE_CANCEL
+    expire_rid, expire_steps = ONLINE_EXPIRE
+    streamed, disconnect = [], []
+
+    def on_token(req, tok, at):
+        streamed.append((req.rid, tok, at))
+        if req.rid == cancel_rid and len(req.output) >= cancel_after \
+                and not disconnect:
+            disconnect.append(at)
+            srv.cancel(cancel_rid)
+    for r in reqs:
+        if r.rid == expire_rid:
+            r.deadline = r.arrival_time + expire_steps * decode_s
+        srv.submit(r, on_token=on_token)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    st = eng.stats
+    check_launches(eng, launches, norm_kernel=norm_kernel,
+                   n_layers=n_layers,
+                   k3_splits=st.forwards + st.weave_forwards)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    check_drained(eng)
+    by_rid = {r.rid: r for r in reqs}
+    if by_rid[cancel_rid].finish_reason != "cancelled" or \
+            by_rid[expire_rid].finish_reason != "expired":
+        raise AssertionError(
+            f"cancel/expiry: {by_rid[cancel_rid].finish_reason}, "
+            f"{by_rid[expire_rid].finish_reason}")
+    for r in reqs:
+        if r.rid not in (cancel_rid, expire_rid) and (
+                r.finish_reason != "stop" or len(r.output) != new_tokens):
+            raise AssertionError(f"rid {r.rid}: {r.finish_reason}, "
+                                 f"{len(r.output)} tokens")
+    overlap = [r.rid for r in reqs if any(
+        o is not r and o.first_token_time is not None
+        and o.first_token_time <= r.arrival_time
+        < (o.finish_time if o.finish_time is not None else float("inf"))
+        for o in reqs)]
+    if len(overlap) < ONLINE_MIN_OVERLAP:
+        raise AssertionError(f"only {overlap} arrived while others "
+                             f"decoded")
+    doc = export_chrome_trace(eng.obs, path=str(trace_path))
+    problems = validate_chrome_trace(doc)
+    phases: dict = {}
+    for ev in eng.obs.events:
+        if ev["kind"] == "request":
+            phases.setdefault(ev["rid"], []).append(ev["phase"])
+    admitted = [rid for rid, ph in phases.items() if "admit" in ph]
+    terminals = {rid: sum(p in TERMINAL_PHASES for p in ph)
+                 for rid, ph in phases.items()}
+    # every request reached one terminal state (the expiring one may
+    # expire before its admission); the validator holds the admitted ones
+    # to it too
+    if problems or len(phases) != len(prompts) or not admitted or any(
+            n != 1 for n in terminals.values()):
+        raise AssertionError(f"online trace: {problems[:5]}, terminals "
+                             f"{terminals}")
+    lat = st.latency
+    if (st.cancelled, st.expired) != (1, 1) or not lat.goodput < 1.0:
+        raise AssertionError(f"cancelled {st.cancelled}, expired "
+                             f"{st.expired}, goodput {lat.goodput}")
+    return {"rate_per_s": rate, "decode_step_s": decode_s,
+            "step_cost": {"base_s": cost.base, "per_token_s": cost.per_token},
+            "arrivals_s": [r.arrival_time for r in reqs],
+            "arrived_while_others_decode": overlap,
+            "latency": lat.summary(), "goodput": lat.goodput,
+            "cancelled": st.cancelled, "expired": st.expired,
+            "completed": st.completed, "steps": st.steps,
+            "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+            "streamed_tokens": len(streamed), "disconnect_s": disconnect,
+            "virtual_s": srv.clock, "wall_s": wall_s, "launches": launches,
+            "trace": str(trace_path), "trace_events": len(doc["traceEvents"]),
+            "admitted": len(admitted), "terminal_events": terminals}, reqs
+
+
+def online_identity(torch, np, seed: int, total: dict, trace_path: Path):
+    """Online tokens against offline ones, gated, on the identity phase's
+    small float32 model (TF32 off) on the card: the same traffic as the
+    llama-width run (8 requests, 32 new tokens, Poisson arrivals, a
+    cancel, an expiry) on a unit clock; every request that finishes gives
+    its offline tokens.  At llama width in bf16 the online run's batches
+    give the GEMMs other shapes than the offline run's, so its tokens are
+    reported, not gated (as spec against spec off)."""
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+    from repro_torch.runtime.server import StepCost
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, api = small_api(tp=1, comm_mode="fused")
+        params = api.init(seed, device="cuda")
+        rng = np.random.RandomState(seed + 17)
+        prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.randint(5, 100, size=ONLINE_N)]
+        scfg = SchedulerConfig(max_batch=ONLINE_N, chunk_tokens=64,
+                               max_len=160, prefill_bucket=16, paged=True,
+                               packed=True)
+        kw = dict(norm_kernel="fused_residual_rmsnorm",
+                  n_layers=cfg.num_layers, total=total)
+        offline, _ = serve_counted(torch, Engine(api, params, scfg),
+                                   Request, prompts, ONLINE_NEW, **kw)
+        eng = Engine(api, params, scfg, obs=TraceRecorder())
+        row, reqs = serve_online(
+            torch, eng, prompts, ONLINE_NEW, StepCost(1.0, 0.02), seed,
+            trace_path=trace_path, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    differ = {r.rid: r.output for r in reqs
+              if r.finish_reason == "stop" and r.output != offline[r.rid]}
+    emit({"phase": "online_identity", "model": cfg.name, "tp": 1,
+          "dtype": cfg.dtype, "new_tokens": ONLINE_NEW,
+          "prompt_lens": [len(p) for p in prompts],
+          "tokens_equal_offline": not differ,
+          **{k: row[k] for k in ("arrived_while_others_decode", "latency",
+                                 "cancelled", "expired", "steps",
+                                 "forwards", "weave_forwards",
+                                 "launches")}})
+    if differ:
+        raise AssertionError(f"online tokens differ from offline: {differ}")
+
+
+def online_phase(torch, np, seed: int, trace_dir: Path,
+                 n_layers: int = 4) -> dict:
+    """The port's serving front end and observability on the card.
+
+    (a) tp=1 ``fused``: 8 requests (prompts of 300-1800 tokens, 32 new,
+        greedy) through the packed paged engine with a WallClockProfiler
+        and a TraceRecorder, then plain, profiled, profiled, plain
+        (tokens, steps and forwards equal; the profiler's cost per step
+        from the turns; the same profiler, so every shape is past its
+        warm-up);
+        ``fit_calibration`` on the profiler's steady samples; its JSON
+        and the Chrome trace are written to ``trace_dir/online/``; the
+        trace validates and its weave counts equal EngineStats'.
+    (b) tp=1: the same requests through ``OnlineServer`` on the clock
+        ``StepCost.from_calibration`` gives, with Poisson arrivals at a
+        rate of one per ONLINE_GAP_STEPS decode steps, rid 1 cancelled
+        during its decode and rid 2 past a deadline that expires; the
+        others finish with their offline tokens, the pool drains, the
+        trace has one terminal event per admitted request.  At llama
+        width in bf16 the online tokens are reported beside the offline
+        ones; ``online_identity`` gates them on a small float32 model.
+    (c) tp=8 ``ring`` (K1 on the weave's comm stream): 4 requests, 16
+        new tokens, profiled, plain, and profiled again with the same
+        profiler (tokens equal); a fit at tp=8; each woven prefill's
+        measured ms is not below its model call's time between CUDA
+        events on the current stream, taken by chip_smoke inside the
+        same dispatch (the fence covers every stream).
+
+    Returns (the launches of the counted runs, summed; K3's max error
+    on the inputs the online run (b) gave it, ``main_path_k3`` lines)."""
+    from repro_torch.analysis.calibration import fit_calibration
+    from repro_torch.obs import (TraceRecorder, WallClockProfiler,
+                                 export_chrome_trace, validate_chrome_trace,
+                                 weave_counts_from_trace)
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+    from repro_torch.runtime.server import StepCost
+
+    out_dir = trace_dir / "online"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total: dict = {}
+    scfg = SchedulerConfig(paged=True, packed=True)
+
+    # (a) calibrate at tp=1
+    cfg, api, params, _, init_s, _ = llama_model(
+        torch, np, seed, tp=1, comm_mode="fused", n_layers=n_layers)
+    prompts = online_prompts(np, seed, cfg.vocab_size, ONLINE_N)
+    kw = dict(norm_kernel="fused_residual_rmsnorm", n_layers=n_layers,
+              total=total)
+    rec, prof = TraceRecorder(), WallClockProfiler()
+    eng = Engine(api, params, scfg, obs=rec, profiler=prof)
+    offline, wall_prof = serve_counted(torch, eng, Request, prompts,
+                                       ONLINE_NEW, **kw)
+    st = eng.stats
+    # plain and profiled in turns (the same profiler: every shape is past
+    # its warm-up now, so the fit sees each kind of step, the first
+    # prefill's included); the profiler's cost is the difference
+    walls = {"plain": [], "profiled": []}
+    for name in ("plain", "profiled", "profiled", "plain"):
+        other = Engine(api, params, scfg,
+                       profiler=prof if name == "profiled" else None)
+        toks, wall = serve_counted(torch, other, Request, prompts,
+                                   ONLINE_NEW, **kw)
+        walls[name].append(wall)
+        if toks != offline or (other.stats.steps, other.stats.forwards) \
+                != (st.steps, st.forwards):
+            raise AssertionError(f"a {name} run differs from the profiled "
+                                 f"and traced one")
+    del other
+    # the fence's own cost on an idle card: two synchronizes and a timer
+    fence = WallClockProfiler().attach(device="cuda").wrap(lambda: None)
+    t0 = time.perf_counter()
+    for _ in range(FENCE_CALLS):
+        fence()
+    fence_us = (time.perf_counter() - t0) * 1e6 / FENCE_CALLS
+    report = fit_calibration(cfg, prof.steady_samples(), tp=1,
+                             tile=api.pcfg.split_unit_for(1),
+                             model=cfg.name)
+    report.save(str(out_dir / "calibration_tp1.json"))
+    doc = export_chrome_trace(rec, path=str(out_dir / "offline_tp1.json"))
+    problems = validate_chrome_trace(doc)
+    weave = weave_counts_from_trace(rec)
+    if problems or weave != (st.weave_forwards, st.forwards):
+        raise AssertionError(f"offline trace: {problems[:5]}, weave "
+                             f"counts {weave} vs {st.weave_forwards}, "
+                             f"{st.forwards}")
+    emit({"phase": "online_calibrate", "model": cfg.name, "tp": 1,
+          "comm_mode": "fused", "layers": n_layers,
+          "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": ONLINE_NEW, "steps": st.steps,
+          "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+          "samples": len(prof.samples),
+          "steady_samples": len(prof.steady_samples()),
+          "measured_ms": measured_ms(prof),
+          "wall_s": {"profiled_traced": wall_prof, **walls},
+          "profiler_ms_per_step": (sum(walls["profiled"])
+                                   - sum(walls["plain"])) / 2 * 1e3
+          / st.steps, "fence_us_idle_card": fence_us,
+          "calibration": calibration_row(report),
+          "calibration_json": str(out_dir / "calibration_tp1.json"),
+          "trace": str(out_dir / "offline_tp1.json"),
+          "trace_events": len(doc["traceEvents"]),
+          "trace_problems": len(problems),
+          "trace_weave_forwards": list(weave), "param_init_s": init_s})
+    del eng
+
+    # (b) online at tp=1 on the calibrated clock; the same traffic on a
+    # small float32 model holds the online tokens to the offline ones
+    cost = StepCost.from_calibration(report)
+    eng = Engine(api, params, scfg, obs=TraceRecorder())
+    # K3's inputs at each shape this run gives it (copied on the card,
+    # moved to the host after the run), held against the plain version
+    k3_inputs: dict = {}
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        row, reqs = serve_online(torch, eng, prompts, ONLINE_NEW, cost,
+                                 seed, trace_path=out_dir / "online_tp1.json",
+                                 **kw)
+    finally:
+        undo()
+    offload(k3_inputs)
+    matched = {r.rid: sum(a == b for a, b in zip(r.output, offline[r.rid]))
+               for r in reqs if r.finish_reason == "stop"}
+    emit({"phase": "online", "model": cfg.name, "tp": 1,
+          "comm_mode": "fused", "layers": n_layers, **row,
+          "tokens_matched_offline": matched, "new_tokens": ONLINE_NEW})
+    del eng, params
+    k3_err = check_main_path_k3(torch, k3_inputs, "online", 1)
+    online_identity(torch, np, seed, total,
+                    trace_path=out_dir / "online_identity.json")
+
+    # (c) tp=8 ring, profiled against plain
+    cfg8, api8, params8, _, _, _ = llama_model(
+        torch, np, seed, tp=8, comm_mode="ring", n_layers=n_layers)
+    kw8 = dict(kw, norm_kernel="ar_rmsnorm")
+    prompts8 = prompts[:ONLINE_TP8_N]
+    prof8 = WallClockProfiler()
+    runs = {}
+    for name, prof_ in (("profiled", prof8), ("plain", None),
+                        ("profiled_again", prof8)):
+        eng8 = Engine(api8, params8, scfg, profiler=prof_)
+        first = len(prof8.samples)
+        timed_api = eng8.api = EventTimedSteps(torch, api8)
+        toks, wall = serve_counted(torch, eng8, Request, prompts8,
+                                   ONLINE_TP8_NEW, **kw8)
+        runs[name] = (toks, wall, eng8.stats.steps)
+    if len({repr((t, n)) for t, _, n in runs.values()}) != 1:
+        raise AssertionError("tp=8 profiled runs differ from the plain one")
+    report8 = fit_calibration(cfg8, prof8.steady_samples(), tp=8,
+                              tile=api8.pcfg.split_unit_for(8),
+                              model=cfg8.name)
+    report8.save(str(out_dir / "calibration_tp8.json"))
+    # the woven prefill-bearing forwards of the last run (past their
+    # warm-up): each one's fenced wall against its model call's CUDA-event
+    # time, taken in the same dispatch
+    torch.cuda.synchronize()
+    woven = [(i, smp.wall_s * 1e3,
+              timed_api.events[i][0].elapsed_time(timed_api.events[i][1]))
+             for i, smp in enumerate(prof8.samples[first:])
+             if smp.weave and smp.tokens_real > ONLINE_TP8_N]
+    if not woven:
+        raise AssertionError("no woven prefill at tp=8")
+    emit({"phase": "online_tp8", "model": cfg8.name, "tp": 8,
+          "comm_mode": "ring", "layers": n_layers,
+          "requests": ONLINE_TP8_N, "new_tokens": ONLINE_TP8_NEW,
+          "steps": eng8.stats.steps, "forwards": eng8.stats.forwards,
+          "weave_forwards": eng8.stats.weave_forwards,
+          "measured_ms": measured_ms(prof8),
+          "wall_s": {name: wall for name, (_, wall, _) in runs.items()},
+          "calibration": calibration_row(report8),
+          "calibration_json": str(out_dir / "calibration_tp8.json"),
+          "fence_check": [
+              {"forward": i, "tokens": prof8.samples[first + i].tokens_static,
+               "split": prof8.samples[first + i].split,
+               "measured_ms": meas, "event_ms": ev}
+              for i, meas, ev in woven]})
+    for i, meas, ev in woven:
+        if not meas >= ev:
+            raise AssertionError(f"forward {i}: measured {meas} ms < "
+                                 f"CUDA-event {ev} ms: the fence missed work")
+    del eng8, timed_api, params8
+    torch.cuda.empty_cache()
+    emit({"phase": "online_launches", "launches": total})
+    return total, k3_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1592,11 +2051,12 @@ def main() -> int:
     rows = kernel_phase(torch, args.seed, load_copy_probe(probe))
     # the main paths: launches are counted from 0 over each engine run
     kw = dict(torch=torch, np=np, seed=args.seed, trace_dir=args.trace_dir)
+    online = online_phase(**kw)
     two = {1: engine_phase(**kw, tp=1, comm_mode="fused"),
            8: engine_phase(**kw, tp=8, comm_mode="ring")}
     packed = {1: packed_phase(**kw, tp=1, comm_mode="fused"),
               8: packed_phase(**kw, tp=8, comm_mode="ring")}
-    paths = [*two.values(), *packed.values(),
+    paths = [online, *two.values(), *packed.values(),
              engine_phase(**kw, tp=1, comm_mode="fused", paged=True)]
     # no per-token KV view on the card: each packed run's peak stays
     # within PACKED_PEAK_SLACK_GB of the two-dispatch run's at its tp

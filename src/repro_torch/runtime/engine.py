@@ -38,8 +38,18 @@ step brings its sampled ids (and accept counts) to the host once.
 
 TokenWeave activates inside the model whenever a dispatch crosses the
 active overlap policy's threshold (``SchedulerConfig.plan_path`` loads a
-tuned plan).  Not ported yet, and refused with NotImplementedError:
-evacuate/handoff and the tracing or profiling hooks (ROADMAP.md).
+tuned plan).
+
+Observability (``obs/``), off by default: ``obs=TraceRecorder()`` records
+request lifecycle events and one step span per iteration with one
+forward span per dispatch carrying its weave attribution, priced on the
+§9 sim; ``profiler=WallClockProfiler()`` times each dispatch (the model
+call and its sampling up to the host copy of the tokens) between two
+fences on the device and joins it to the same attribution record.
+Neither changes a token or a step.  ``EngineStats.latency`` holds the
+per-request latencies the online server (``runtime/server.py``) stamps.
+Not ported yet, and refused with NotImplementedError: ``evacuate`` and
+the disaggregated KV handoff (ROADMAP.md A6).
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
@@ -52,7 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -62,7 +72,11 @@ from repro_torch.core.splitting import pad_to_multiple
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as TRX
 from repro_torch.models.build import ModelApi
+from repro_torch.obs.attribution import Attributor, WeaveAttribution
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import percentile as _percentile
+from repro_torch.obs.profiler import WallClockProfiler
+from repro_torch.obs.trace import TraceRecorder
 from repro_torch.runtime import kv_cache as KC
 from repro_torch.runtime import paging as PG
 from repro_torch.runtime import spec as SP
@@ -71,6 +85,61 @@ from repro_torch.runtime.requests import Request, State
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.scheduler import (PackedPlan, Scheduler,
                                            SchedulerConfig)
+
+
+class LatencyStats:
+    """Per-request serving latencies in VIRTUAL time (runtime/server.py's
+    deterministic clock) plus SLO attainment.
+
+    ``slo_total`` counts every request whose outcome the service is
+    accountable for: completions and deadline expiries.  User-initiated
+    cancellations are excluded — the client walked away, the server did
+    not fail it.  ``goodput`` is the SLO-attainment fraction (requests
+    served within their deadline / accountable requests).
+
+    A view over ``latency/*`` instruments in a MetricsRegistry, so a
+    ``snapshot()`` and this object can never disagree."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry())
+        self._ttft = self.registry.histogram("latency/ttft")
+        self._tpot = self.registry.histogram("latency/tpot")
+        self._e2e = self.registry.histogram("latency/e2e")
+        self._slo_total = self.registry.counter("latency/slo_total")
+        self._slo_met = self.registry.counter("latency/slo_met")
+
+    ttft = property(lambda self: self._ttft.values)
+    tpot = property(lambda self: self._tpot.values)
+    e2e = property(lambda self: self._e2e.values)
+    slo_total = property(lambda self: self._slo_total.value)
+    slo_met = property(lambda self: self._slo_met.value)
+
+    def record(self, r) -> None:
+        if r.finish_reason != "cancelled":
+            self._slo_total.inc()
+            self._slo_met.inc(int(r.slo_ok))
+        if r.ttft is not None:
+            self._ttft.observe(r.ttft)
+        if r.tpot is not None:
+            self._tpot.observe(r.tpot)
+        if r.e2e_latency is not None:
+            self._e2e.observe(r.e2e_latency)
+
+    @property
+    def goodput(self) -> float:
+        return self.slo_met / self.slo_total if self.slo_total else 0.0
+
+    def percentile(self, metric: str, q: float) -> float:
+        return _percentile(getattr(self, metric), q)
+
+    def summary(self) -> Dict[str, float]:
+        out: Dict[str, float] = {"goodput": self.goodput,
+                                 "requests": float(self.slo_total)}
+        for m in ("ttft", "tpot", "e2e"):
+            for q in (0.5, 0.9, 0.99):
+                out[f"{m}_p{int(q * 100)}"] = self.percentile(m, q)
+        return out
 
 
 class SpecStatsView:
@@ -92,7 +161,7 @@ class SpecStatsView:
 
 class EngineStats:
     """Read view over the engine's MetricsRegistry (``engine/*``, and
-    ``spec/*`` through ``spec``)."""
+    ``spec/*`` through ``spec``, ``latency/*`` through ``latency``)."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -108,6 +177,7 @@ class EngineStats:
         self._forward_tokens = r.counter("engine/forward_tokens")
         self._max_forward_tokens = r.gauge("engine/max_forward_tokens")
         self.spec = SpecStatsView(r)
+        self.latency = LatencyStats(r)
 
     steps = property(lambda self: self._steps.value)
     prefill_tokens = property(lambda self: self._prefill_tokens.value)
@@ -141,13 +211,11 @@ class Engine:
     def __init__(self, api: ModelApi, params, scfg: SchedulerConfig,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, draft: Optional[SP.DraftProposer] = None,
-                 seed: int = 0, *, device=None, obs=None, profiler=None):
+                 seed: int = 0, *, device=None,
+                 obs: Optional[TraceRecorder] = None,
+                 obs_track: str = "engine",
+                 profiler: Optional[WallClockProfiler] = None):
         self.device = resolve_device(device)
-        for what, asked in (("tracing", obs is not None),
-                            ("profiling", profiler is not None)):
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet "
-                                          f"(ROADMAP.md A9)")
         if scfg.plan_path:
             # the tuned plan goes on the model's ParallelConfig before
             # anything reads it: forward dispatch and packed planner alike
@@ -170,6 +238,19 @@ class Engine:
         self.stats = EngineStats(self.metrics)
         self.metrics.gauge("engine/plan_id").set(
             getattr(api.pcfg.overlap_policy, "plan_id", 0))
+        # tracing and profiling are None by default: every hook is behind
+        # an ``is not None`` guard, and when on they only observe, so
+        # traced or profiled runs are token- and step-identical
+        self.obs = obs
+        self.obs_track = obs_track
+        self.profiler = profiler
+        if profiler is not None:
+            profiler.attach(self.metrics, trace=obs, track=obs_track,
+                            device=self.device)
+        self._attributor = (Attributor(api.cfg, api.pcfg, api.tp)
+                            if obs is not None or profiler is not None
+                            else None)
+        self._step_forwards: List[WeaveAttribution] = []
         self._step_count = 0
         self.paged = bool(scfg.paged)
         self.packed = bool(scfg.packed)
@@ -219,6 +300,7 @@ class Engine:
         # install_overlap_policy swaps the planner's view too
         self.sched = Scheduler(
             scfg, block_mgr=self.block_mgr,
+            on_admit=self._obs_admit if obs is not None else None,
             overlap_hint=self._overlap_hint if self.packed else None)
 
     # ------------------------------------------------------------------
@@ -231,10 +313,14 @@ class Engine:
 
     def install_overlap_policy(self, policy) -> None:
         """Swap the active overlap policy; in-flight requests and caches
-        are untouched (a policy only picks split points)."""
+        are untouched (a policy only picks split points).  The attributor
+        is rebuilt, so later trace spans price the new plan."""
         self.api = dataclasses.replace(
             self.api, pcfg=dataclasses.replace(self.api.pcfg,
                                                overlap_policy=policy))
+        if self._attributor is not None:
+            self._attributor = Attributor(self.api.cfg, self.api.pcfg,
+                                          self.api.tp)
         self.metrics.gauge("engine/plan_id").set(
             getattr(policy, "plan_id", 0))
 
@@ -254,6 +340,38 @@ class Engine:
                     f"{self.scfg.effective_num_blocks} (rid={req.rid})")
         req.arrival_step = self._step_count
         self.sched.add(req)
+        if self.obs is not None:
+            self.obs.request_event(req.rid, "queued")
+
+    def _obs_admit(self, req: Request) -> None:
+        """Scheduler admission hook (only wired when tracing is on)."""
+        self.obs.request_event(req.rid, "admit", args={"slot": req.slot})
+
+    def metrics_snapshot(self) -> Dict[str, float]:
+        """Sync the derived gauges, then flatten the registry."""
+        m = self.metrics
+        st = self.stats
+        m.gauge("engine/weave_rate").set(st.weave_rate)
+        m.gauge("engine/tokens_per_forward").set(st.tokens_per_forward)
+        for (name, lk), inst in list(m._instruments.items()):
+            if name != "engine/site_forwards" or not inst.value:
+                continue
+            labels = dict(lk)
+            w = m.get("engine/site_weave", **labels)
+            m.gauge("engine/site_weave_rate", **labels).set(
+                (w.value if w is not None else 0) / inst.value)
+            fz = m.get("engine/site_fused", **labels)
+            m.gauge("engine/site_fused_rate", **labels).set(
+                (fz.value if fz is not None else 0) / inst.value)
+        m.gauge("spec/acceptance_rate").set(st.spec.acceptance_rate)
+        m.gauge("spec/tokens_per_step").set(st.spec.tokens_per_step)
+        m.gauge("latency/goodput").set(st.latency.goodput)
+        if self.block_mgr is not None:
+            bs = self.block_mgr.stats
+            m.gauge("paging/hit_rate").set(bs.hit_rate)
+            m.gauge("paging/preemptions").set(bs.preemptions)
+            m.gauge("paging/evictions").set(bs.evictions)
+        return m.snapshot()
 
     def abort(self, req: Request, reason: str = "cancelled") -> bool:
         """Cancel a live request at any point of its life (waiting, mid-
@@ -268,6 +386,10 @@ class Engine:
             self.stats._expired.inc()
         else:
             self.stats._cancelled.inc()
+        if self.obs is not None:
+            self.obs.request_event(
+                req.rid, "expire" if reason == "expired" else "cancel",
+                args={"reason": reason})
         if req.state == State.WAITING:
             # not admitted: no slot and no blocks (a preempted request
             # freed its own)
@@ -289,23 +411,59 @@ class Engine:
 
     def step(self) -> bool:
         """Run one engine iteration.  Returns False when idle."""
+        obs = self.obs
+        if obs is not None:
+            # offline engines self-clock one tick per step (a no-op once
+            # the server has synced), stamped before next_step() so
+            # admission events land at step time
+            obs.auto(float(self._step_count))
+            self._step_forwards = []
         plan = self.sched.next_step()
         if plan is None:
             return False
         self._step_count += 1
         self.stats._steps.inc()
+        packed = isinstance(plan, PackedPlan)
         with torch.no_grad():
-            if isinstance(plan, PackedPlan):
+            if packed:
                 self._run_packed(plan)
-                return True
-            if plan.prefill is not None:
-                self._run_prefill(*plan.prefill)
-            if plan.decode_slots:
-                if self.spec_gamma:
-                    self._run_verify()
-                else:
-                    self._run_decode()
+            else:
+                if plan.prefill is not None:
+                    self._run_prefill(*plan.prefill)
+                if plan.decode_slots:
+                    if self.spec_gamma:
+                        self._run_verify()
+                    else:
+                        self._run_decode()
+        if obs is not None:
+            self._obs_emit_step(packed=packed)
         return True
+
+    def _obs_emit_step(self, packed: bool) -> None:
+        """Emit this iteration's step span plus one nested forward span
+        per model dispatch, carrying the weave attribution record.  All
+        spans start at the step's clock stamp with sim-roofline
+        durations; the step span covers its longest forward, so nesting
+        holds however far the owner clock advances."""
+        obs = self.obs
+        fwds = self._step_forwards
+        t0 = obs.now
+        durs = [max(a.est_makespan, 1e-9) for a in fwds]
+        obs.complete(self.obs_track,
+                     "step/packed" if packed else "step/two_dispatch",
+                     t0, max(durs, default=1e-9), cat="step",
+                     args={"step": self._step_count, "forwards": len(fwds)})
+        for a, d in zip(fwds, durs):
+            args = a.args()
+            args["step"] = self._step_count
+            obs.complete(self.obs_track, f"forward/{a.kind}", t0, d,
+                         cat="forward", args=args)
+        self._step_forwards = []
+
+    def _prof_wrap(self, fn: Callable) -> Callable:
+        """Fenced wall-clock timing around one dispatch when a
+        ``WallClockProfiler`` is attached; identity otherwise."""
+        return fn if self.profiler is None else self.profiler.wrap(fn)
 
     def run(self, max_steps: int = 100000) -> List[Request]:
         while not self.sched.all_done() and max_steps > 0:
@@ -323,9 +481,13 @@ class Engine:
         return self.sched.finished
 
     def _note_forward(self, b: int, s: int, n_real: int, *,
-                      decode: bool = False, packed: bool = False):
+                      decode: bool = False, packed: bool = False,
+                      kind: str = "prefill"):
         """Record one model dispatch: its (b, s) shape decides the weave,
-        its real token count feeds tokens/forward."""
+        its real token count feeds tokens/forward.  The same decision
+        object feeds the counters and, when tracing or profiling, the
+        attribution record, so trace-derived weave rates equal
+        ``EngineStats.weave_rate``."""
         st = self.stats
         st._forwards.inc()
         st._forward_tokens.inc(n_real)
@@ -335,13 +497,22 @@ class Engine:
                                        packed=packed,
                                        paged_pool=self.paged and decode,
                                        family=self.api.cfg.family)
-        self.metrics.counter("engine/site_forwards", site=info.site).inc()
+        site = info.site or kind
+        self.metrics.counter("engine/site_forwards", site=site).inc()
         if info.weave:
             st._weave_forwards.inc()
-            self.metrics.counter("engine/site_weave", site=info.site).inc()
+            self.metrics.counter("engine/site_weave", site=site).inc()
         if info.comm_mode == "ring":
             # a tuned plan sent this site to the fused kernel (K1)
-            self.metrics.counter("engine/site_fused", site=info.site).inc()
+            self.metrics.counter("engine/site_fused", site=site).inc()
+        if self._attributor is not None:
+            att = self._attributor.attribute(info, b=b, s=s, n_real=n_real,
+                                             kind=kind)
+            if self.obs is not None:
+                self._step_forwards.append(att)
+            if self.profiler is not None:
+                # join the timing _prof_wrap stashed for this dispatch
+                self.profiler.commit(att)
 
     # ------------------------------------------------------------------
     # paged-pool plumbing
@@ -362,6 +533,8 @@ class Engine:
         self.block_mgr.free_request(victim.rid)
         self.block_mgr.stats.preemptions += 1
         self.sched.preempt(victim)
+        if self.obs is not None:
+            self.obs.request_event(victim.rid, "preempt")
 
     def _ensure_decode_blocks(self) -> List[Request]:
         """Grow/COW the write-target block of every DECODE request; when
@@ -438,6 +611,9 @@ class Engine:
                 r.output.append(tok)
                 r.first_token_step = self._step_count
             r.state = State.DECODE
+            if self.obs is not None:
+                self.obs.request_event(r.rid, "prefill_done",
+                                       args={"tokens": r.prefill_pos})
             self._maybe_finish(r)
 
     def _commit_decode(self, r: Request, tok: int):
@@ -492,28 +668,33 @@ class Engine:
         if self.paged:
             self._apply_fixups()
             bt = np.stack([self.block_mgr.table_array(r.rid) for r in group])
-            # attended as prefix: the blocks written before this chunk
-            # (the rest of each table holds unwritten cells only, pos -1)
-            width = max([self.block_mgr.blocks_needed(int(o))
-                         for o in offsets] + [1])
-            rows = PG.gather_block_rows(self.cache,
-                                        self._tensor(bt[:, :width]))
-        else:
-            slot_ids = self._tensor(np.array([r.slot for r in group],
-                                             np.int64))
-            rows = KC.gather_slots(self.cache, slot_ids)
-        logits, kv = self.api.prefill(
-            self.params, self._tensor(tokens), rows, self._tensor(positions),
-            last_idx=self._tensor(last_idx))
-        if self.paged:
-            PG.insert_chunk_paged(self.cache, kv, torch.from_numpy(bt),
-                                  positions=torch.from_numpy(positions))
-        else:
-            KC.insert_chunk(self.cache, kv, self._tensor(offsets), slot_ids)
-        tok = self._sample(logits)
+
+        def dispatch():
+            if self.paged:
+                # attended as prefix: the blocks written before this chunk
+                # (the rest of each table holds unwritten cells, pos -1)
+                width = max([self.block_mgr.blocks_needed(int(o))
+                             for o in offsets] + [1])
+                rows = PG.gather_block_rows(self.cache,
+                                            self._tensor(bt[:, :width]))
+            else:
+                slot_ids = self._tensor(np.array([r.slot for r in group],
+                                                 np.int64))
+                rows = KC.gather_slots(self.cache, slot_ids)
+            logits, kv = self.api.prefill(
+                self.params, self._tensor(tokens), rows,
+                self._tensor(positions), last_idx=self._tensor(last_idx))
+            if self.paged:
+                PG.insert_chunk_paged(self.cache, kv, torch.from_numpy(bt),
+                                      positions=torch.from_numpy(positions))
+            else:
+                KC.insert_chunk(self.cache, kv, self._tensor(offsets),
+                                slot_ids)
+            return self._sample(logits)
+        tok = self._prof_wrap(dispatch)()
         n_real = int((positions >= 0).sum())
         self.stats._prefill_tokens.inc(n_real)
-        self._note_forward(b_sel, chunk, n_real)
+        self._note_forward(b_sel, chunk, n_real, kind="prefill")
         for i, r in enumerate(group):
             self._commit_prefill(r, int(tok[i]))
 
@@ -532,17 +713,19 @@ class Engine:
         for r in reqs:
             tokens[r.slot, 0] = r.output[-1]
             positions[r.slot, 0] = r.length - 1
-        if self.paged:
-            logits, self.cache = self.api.decode_step(
-                self.params, self._tensor(tokens), self.cache,
-                torch.from_numpy(positions),
-                block_tables=torch.from_numpy(self._tables(bmax, reqs)))
-        else:
-            logits, self.cache = self.api.decode_step(
-                self.params, self._tensor(tokens), self.cache,
-                self._tensor(positions))
-        tok = self._sample(logits)
-        self._note_forward(bmax, 1, len(reqs), decode=True)
+        def dispatch():
+            if self.paged:
+                logits, self.cache = self.api.decode_step(
+                    self.params, self._tensor(tokens), self.cache,
+                    torch.from_numpy(positions),
+                    block_tables=torch.from_numpy(self._tables(bmax, reqs)))
+            else:
+                logits, self.cache = self.api.decode_step(
+                    self.params, self._tensor(tokens), self.cache,
+                    self._tensor(positions))
+            return self._sample(logits)
+        tok = self._prof_wrap(dispatch)()
+        self._note_forward(bmax, 1, len(reqs), decode=True, kind="decode")
         for r in list(reqs):
             self._commit_decode(r, int(tok[r.slot]))
 
@@ -612,13 +795,16 @@ class Engine:
         kw = {}
         if self.paged:
             kw["block_tables"] = torch.from_numpy(self._tables(bmax, reqs))
-        logits, self.cache = self.api.verify_step(
-            self.params, self._tensor(tokens), self.cache,
-            torch.from_numpy(positions), **kw)
-        n_acc, emit = self._verify(logits, draft)
+
+        def dispatch():
+            logits, self.cache = self.api.verify_step(
+                self.params, self._tensor(tokens), self.cache,
+                torch.from_numpy(positions), **kw)
+            return self._verify(logits, draft)
+        n_acc, emit = self._prof_wrap(dispatch)()
         self._note_forward(bmax, s_v,
                            sum(1 + len(capped[r.rid]) for r in reqs),
-                           decode=True)
+                           decode=True, kind="verify")
         self.stats.spec._verify_steps.inc()
         for r in list(reqs):
             self._commit_verify(r, capped[r.rid], int(n_acc[r.slot]),
@@ -695,15 +881,17 @@ class Engine:
         if self.paged:
             kw["block_tables"] = torch.from_numpy(
                 self._tables(bmax, [s.req for s in segs]))
-        logits, self.cache = self.api.packed_step(
-            self.params, self._tensor(tokens), self.cache,
-            torch.from_numpy(positions), seg_slots=torch.from_numpy(seg_slots),
-            sample_idx=torch.from_numpy(sample_idx), **kw)
-        if w > 1:
-            n_acc, emit = self._verify(logits, draft)
-        else:
-            emit = self._sample(logits)
-        self._note_forward(1, t, t_real, packed=True)
+        def dispatch():
+            logits, self.cache = self.api.packed_step(
+                self.params, self._tensor(tokens), self.cache,
+                torch.from_numpy(positions),
+                seg_slots=torch.from_numpy(seg_slots),
+                sample_idx=torch.from_numpy(sample_idx), **kw)
+            if w > 1:
+                return self._verify(logits, draft)
+            return None, self._sample(logits)
+        n_acc, emit = self._prof_wrap(dispatch)()
+        self._note_forward(1, t, t_real, packed=True, kind="packed")
         if vreqs:
             self.stats.spec._verify_steps.inc()
         for s in segs:
@@ -735,3 +923,7 @@ class Engine:
         r.finish_reason = r.finish_reason or "stop"
         self.sched.finish(r, self._step_count)
         self.stats._completed.inc()
+        if self.obs is not None:
+            self.obs.request_event(r.rid, "finish",
+                                   args={"reason": r.finish_reason,
+                                         "tokens": len(r.output)})

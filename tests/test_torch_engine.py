@@ -125,26 +125,32 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
         calls[entry]()
 
 
-@pytest.mark.parametrize("kw", [dict(obs=object()), dict(profiler=object()),
-                                dict(evacuate=True)],
-                         ids=["obs", "profiler", "evacuate"])
-def test_engine_refuses_unported_modes(torch_model, kw):
-    """What stays unported is refused: the tracing and profiling hooks at
-    construction, ``evacuate`` when called (speculative decoding and
-    stochastic sampling are ported, tests/test_torch_spec.py)."""
+@pytest.mark.parametrize("what", ["evacuate", "handoff_two",
+                                  "handoff_packed"])
+def test_engine_refuses_unported_modes(torch_model, what):
+    """What stays unported is refused (ROADMAP.md A6): ``evacuate`` when
+    called, and a request marked for the disaggregated KV handoff once
+    its prefill completes, in both dispatch schemes (tracing and
+    profiling are ported, tests/test_torch_obs.py and
+    tests/test_torch_profiler.py)."""
     api, tparams = torch_model
-    scfg = tsched.SchedulerConfig(**SCHED, spec_gamma=2)
-    with pytest.raises(NotImplementedError):
-        if kw.pop("evacuate", False):
-            TEngine(api, tparams, scfg, temperature=0.5,
-                    device="cpu").evacuate()
+    scfg = tsched.SchedulerConfig(**SCHED, spec_gamma=2, paged=True,
+                                  packed=what == "handoff_packed")
+    eng = TEngine(api, tparams, scfg, temperature=0.5, device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        if what == "evacuate":
+            eng.evacuate()
         else:
-            TEngine(api, tparams, scfg, device="cpu", **kw)
+            eng.add_request(TRequest(rid=0, prompt=list(range(1, 20)),
+                                     max_new_tokens=3,
+                                     handoff_after_prefill=True))
+            eng.run()
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of the port, and chip_smoke.py's imports, load with
-    ``jax`` and ``repro`` made unimportable."""
+    """Every module of the port (the sim, calibration, tracing, profiler
+    and online server among them), and chip_smoke.py's imports, load
+    with ``jax`` and ``repro`` made unimportable."""
     code = r"""
 import ast, pathlib, sys, importlib, pkgutil
 sys.path.insert(0, sys.argv[1])
@@ -153,7 +159,11 @@ sys.modules["repro"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert "repro_torch.kernels.ar_rmsnorm" in names, names
+assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
+        "repro_torch.analysis.calibration", "repro_torch.sim.overlap_sim",
+        "repro_torch.obs.trace", "repro_torch.obs.attribution",
+        "repro_torch.obs.profiler", "repro_torch.runtime.server"
+        } <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
