@@ -70,12 +70,32 @@ Phases, each printing one JSON line:
             (``peak_memory``);
 7. engine_paged  the two-dispatch engine over the paged pool at tp=1
             (paged prefill: gather, K3, insert; paged decode);
-8. identity a small float32 model served on the card (kernels) and on the
+8. engine_moe  the MoE family at full width, random bf16 weights from
+            the seed: Mixtral-8x22B (``ffn``: every rank a d_ff slice of
+            all 8 experts; 4 of 56 layers) serves the engine phases' 4
+            requests through the two-dispatch engine at tp=1 ``fused`` and
+            tp=8 ``ring`` and, with the 5th sharing request, packed over
+            the pool at tp=8 ``ring`` (``engine_moe_packed``); OLMoE-1B-7B
+            (``expert``: 8 of its 64 experts a rank; all 16 layers) packed
+            at tp=8 ``ring`` (``engine_moe_olmoe``).  Gated as the Llama
+            runs (launch formulas, pools drained, K3 held at every shape
+            it got, ``main_path_k3``); reported: step times, peaks, per
+            forward the share of assignments capacity dropped and the
+            assignments per expert (``moe_forwards``), and one traced
+            prefill or mixed step whose device time the MoE layer's named
+            ranges split into routing, dispatch, expert products and
+            combine (``breakdown``);
+9. moe_sync one ``moe_forward`` at Mixtral width over 2048 tokens at tp=1
+            and tp=8 under ``torch.cuda.set_sync_debug_mode("error")``:
+            the layer never waits for the card;
+10. identity a small float32 model served on the card (kernels) and on the
             CPU (plain versions) must give identical greedy tokens, at
             tp=1 and at tp=2 in ring mode with the weave (and its streams)
             firing, through the two-dispatch engine over slots and
             through packed batching over the paged pool with a request
-            that hits the prefix cache.
+            that hits the prefix cache; so must its two MoE twins
+            (``ffn`` and ``expert``), whose prefill also keeps every
+            layer's expert choices equal on both devices.
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -566,18 +586,19 @@ PROMPT_LENS, NEW_TOKENS = (1800, 1200, 700, 300), 16
 SHARED_PREFIX, SHARER_OWN = 1024, 200   # the 5th request of engine_packed
 
 
-def llama_model(torch, np, seed: int, *, tp: int, comm_mode: str,
-                n_layers: int):
-    """Llama-3.3-70B's widths cut to ``n_layers``, bf16, random weights
-    from the seed at ``tp`` ranks, and the phases' prompts.  Collects what
-    earlier phases left first (their engines sit in reference cycles
-    through the timing wrappers); returns the memory still allocated
-    then, which should be none of theirs."""
+def full_width_model(torch, np, seed: int, *, tp: int, comm_mode: str,
+                     n_layers: int, config=None):
+    """A registry model's widths (Llama-3.3-70B unless ``config``) cut to
+    ``n_layers``, bf16, random weights from the seed at ``tp`` ranks, and
+    the phases' prompts.  Collects what earlier phases left first (their
+    engines sit in reference cycles through the timing wrappers); returns
+    the memory still allocated then, which should be none of theirs."""
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
-    from repro_torch.configs.llama3_70b import CONFIG
     from repro_torch.models.build import build_model
 
-    cfg = dataclasses.replace(CONFIG, num_layers=n_layers)
+    cfg = dataclasses.replace(config or get_config("llama3.3-70b"),
+                              num_layers=n_layers)
     pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
                           use_pallas_norm=True)
     api = build_model(cfg, pcfg, tp=tp)
@@ -592,6 +613,76 @@ def llama_model(torch, np, seed: int, *, tp: int, comm_mode: str,
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
     return cfg, api, params, prompts, init_s, start_gb
+
+
+class MoeStats:
+    """Per forward of a run: the MoE assignments each expert got and the
+    share capacity dropped.  The counts are taken on the card, in stream
+    order with the dispatch (no host sync), and read after the run;
+    ``step`` closes a forward.  A no-op for a dense model."""
+
+    def __init__(self, torch, cfg):
+        from repro_torch.layers import moe
+        self.torch, self.cfg, self.mod = torch, cfg, moe
+        self.orig = moe._capacity_dispatch
+        self.calls, self.forwards = [], []
+        if not cfg.is_moe:
+            return
+        experts = torch.arange(cfg.num_experts, device="cuda")
+        ffn = cfg.moe_partition == "ffn"     # every rank holds every expert
+
+        def count(x, topi, topw, **kw):
+            buf, slot, flat_w = self.orig(x, topi, topw, **kw)
+            kept = (slot[:1] if ffn else slot).ge(0).sum()
+            load = (topi[0].reshape(-1, 1) == experts).sum(0)
+            self.calls.append((topi.shape[1], torch.cat([load, kept[None]])))
+            return buf, slot, flat_w
+
+        moe._capacity_dispatch = count
+
+    def step(self):
+        if self.calls:
+            self.forwards.append(self.calls)
+            self.calls = []
+
+    def undo(self):
+        self.mod._capacity_dispatch = self.orig
+
+    def summary(self) -> dict:
+        """Per forward: tokens (over its splits), the share of its T·k
+        assignments dropped, and each expert's assignments per layer
+        (min, mean, max; the list itself for at most 8 experts)."""
+        cfg, k, n_layers = self.cfg, self.cfg.num_experts_per_tok, \
+            self.cfg.num_layers
+        rows, total = [], 0
+        for calls in self.forwards:
+            counts = self.torch.stack([c for _, c in calls]).sum(0).cpu()
+            tokens = sum(t for t, _ in calls) // n_layers
+            load = (counts[:-1].double() / n_layers).tolist()
+            assigned = tokens * k * n_layers
+            row = {"tokens": tokens, "splits": len(calls) // n_layers,
+                   "drop_share": 1 - int(counts[-1]) / assigned,
+                   "load_min": min(load), "load_mean": tokens * k
+                   / cfg.num_experts, "load_max": max(load)}
+            if cfg.num_experts <= 8:
+                row["load"] = load
+            rows.append(row)
+            total += assigned
+        dropped = sum(r["drop_share"] * r["tokens"] * k * n_layers
+                      for r in rows)
+        return {"forwards": rows, "drop_share": dropped / max(total, 1),
+                "capacity_factor": cfg.capacity_factor}
+
+
+def moe_ranges(cfg) -> dict:
+    """The MoE layer's named ranges (label -> range) for
+    ``device_breakdown``; none for a dense model."""
+    if not cfg.is_moe:
+        return {}
+    from repro_torch.layers import moe
+    return {"moe_route": moe.ROUTE_RANGE, "moe_dispatch": moe.DISPATCH_RANGE,
+            "moe_experts": moe.EXPERTS_RANGE,
+            "moe_combine": moe.COMBINE_RANGE}
 
 
 def reset_peak(torch) -> float:
@@ -635,22 +726,26 @@ def check_drained(eng) -> None:
 
 
 def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
-                 comm_mode: str, paged: bool = False, n_layers: int = 4):
+                 comm_mode: str, paged: bool = False, n_layers: int = 4,
+                 config=None, phase: str = ""):
     """Serve the 4 requests through the two-dispatch engine at ``tp``
     ranks on the card's rank axis, over legacy slots or (``paged``) the
     paged pool; the add+norm slots run K2 (``fused``) or K1 (``ring``).
-    Returns (launches, K3's max error on the run's inputs, peak GB)."""
+    ``config``: the model (Llama-3.3-70B by default), ``phase`` its
+    lines' name.  Returns (launches, K3's max error on the run's inputs,
+    peak GB)."""
     from repro_torch.layers.embedding import sharded_argmax
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
     from repro_torch.runtime.scheduler import SchedulerConfig
 
-    phase = "engine_paged" if paged else ("engine" if tp == 1
-                                          else "engine_tp")
+    phase = phase or ("engine_paged" if paged else ("engine" if tp == 1
+                                                    else "engine_tp"))
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg, api, params, prompts, init_s, start_gb = llama_model(
-        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    cfg, api, params, prompts, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers,
+        config=config)
 
     # a direct prefill of request 0 must give finite logits of the right
     # shape, and the engine's first token for it must be their argmax
@@ -674,6 +769,7 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
     eng = Engine(api, params, SchedulerConfig(paged=paged))
     times = {"prefill": [], "decode": []}
     k3_inputs = {}
+    stats = MoeStats(torch, cfg)
 
     def timed(kind, fn):
         def run(*args):
@@ -683,6 +779,7 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
             torch.cuda.synchronize()
             times[kind].append((time.perf_counter() - t) * 1e3)
             offload(k3_inputs)
+            stats.step()
         return run
 
     eng._run_prefill = timed("prefill", eng._run_prefill)
@@ -701,6 +798,7 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
         launches = read_launches()
     finally:
         undo()
+        stats.undo()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
@@ -731,6 +829,9 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
     if paged:
         row["prefix_hit_tokens"] = eng.block_mgr.stats.hit_tokens
     emit(row)
+    if cfg.is_moe:
+        emit({"phase": "moe_forwards", "engine": phase, "tp": tp,
+              **stats.summary()})
 
     if not paged:
         # where a step's time goes: request 0's whole prefill chunk, and
@@ -748,8 +849,9 @@ def engine_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                         params, tokens, cache_rows, pos, last_idx=last)),
                     ("decode", lambda: api.decode_step(
                         params, dtok, eng.cache, dpos))):
-                trace = trace_dir / f"{phase}_{step}_trace.json"
-                brk = device_breakdown(torch, fn, trace)
+                trace = trace_dir / f"{phase}_tp{tp}_{step}_trace.json"
+                brk = device_breakdown(torch, fn, trace,
+                                       ranges=moe_ranges(cfg))
                 if tp > 1 and step == "prefill" and not brk["k1_launches"]:
                     raise AssertionError("no K1 kernel in the traced "
                                          "prefill")
@@ -804,15 +906,18 @@ def serve_with_sharer(eng, Request, prompts, new_tokens: int, sharer):
 
 
 def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
-                 comm_mode: str, n_layers: int = 4):
+                 comm_mode: str, n_layers: int = 4, config=None,
+                 phase: str = "engine_packed"):
     """Serve the 4 requests and a 5th that repeats request 0's first 1024
     prompt tokens (64 blocks of 16) and adds 200 of its own, through
     packed hybrid batching over
     the paged pool (the defaults of ``SchedulerConfig(paged=True,
     packed=True)``): one forward per step, its splits' attention K3 over
     the segments.  At tp=1, one mixed step (decode and prefill segments,
-    two splits) is run again under the profiler.  Returns (launches,
-    K3's max error on the run's inputs, peak GB)."""
+    two splits) is run again under the profiler, as it is at any tp for a
+    MoE model (``config``; Llama-3.3-70B by default), whose expert parts
+    the profile splits apart.  Returns (launches, K3's max error on the
+    run's inputs, peak GB)."""
     from repro_torch.layers import attention as A
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
@@ -820,8 +925,9 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
 
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg, api, params, prompts, init_s, start_gb = llama_model(
-        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    cfg, api, params, prompts, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers,
+        config=config)
     rng = np.random.RandomState(seed + 5)
     sharer = (prompts[0][:SHARED_PREFIX]
               + rng.randint(0, cfg.vocab_size, SHARER_OWN).tolist())
@@ -830,6 +936,7 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
     rec = RecordPackedSteps(api)
     eng.api = rec
     steps, k3_inputs = [], {}
+    stats = MoeStats(torch, cfg)
     run_packed = eng._run_packed
 
     def timed(plan):
@@ -846,6 +953,7 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                       "mixed": kinds == {"prefill", "decode"},
                       "ms": (time.perf_counter() - t) * 1e3})
         offload(k3_inputs)
+        stats.step()
     eng._run_packed = timed
 
     undo = capture_k3_inputs(k3_inputs)
@@ -860,6 +968,7 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
         launches = read_launches()
     finally:
         undo()
+        stats.undo()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     check_outputs(done, len(prompts) + 1, cfg.vocab_size, NEW_TOKENS)
@@ -875,10 +984,11 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
                           n_layers=n_layers,
                           k3_splits=st.forwards + st.weave_forwards)
     for i, step in enumerate(steps):
-        emit({"phase": "packed_step", "tp": tp, "step": i, **step})
+        emit({"phase": "packed_step", "engine": phase, "tp": tp, "step": i,
+              **step})
     by_kind = {k: [s["ms"] for s in steps if s["kind"] == k]
                for k in ("prefill", "decode")}
-    emit({"phase": "engine_packed", "model": cfg.name, "tp": tp,
+    emit({"phase": phase, "model": cfg.name, "tp": tp,
           "comm_mode": comm_mode, "layers": n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype,
           "prompt_lens": list(PROMPT_LENS) + [len(sharer)],
@@ -897,30 +1007,32 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
           "allocated_at_start_gb": start_gb,
           "allocated_at_run_start_gb": run_start_gb,
           "max_memory_allocated_gb": peak})
+    if cfg.is_moe:
+        emit({"phase": "moe_forwards", "engine": phase, "tp": tp,
+              **stats.summary()})
 
-    if tp == 1:
+    if tp == 1 or cfg.is_moe:
         # one mixed step with two splits, run again on the pool after the
         # run (its requests' blocks are still in place; the pool never
         # ran dry): where its time goes
         pick = next(i for i, s in enumerate(steps)
                     if s["mixed"] and s["split"] is not None)
         tokens, positions, kw = rec.calls[pick]
-        trace = trace_dir / "engine_packed_step_trace.json"
+        trace = trace_dir / f"{phase}_tp{tp}_step_trace.json"
         with torch.no_grad():
             brk = device_breakdown(
                 torch, lambda: api.packed_step(params, tokens, eng.cache,
                                                positions, **kw),
                 trace, ranges={"scatter": A.SCATTER_RANGE,
                                "gather": A.GATHER_RANGE,
-                               "layout": A.LAYOUT_RANGE})
-        emit({"phase": "breakdown", "engine": "engine_packed", "tp": tp,
+                               "layout": A.LAYOUT_RANGE, **moe_ranges(cfg)})
+        emit({"phase": "breakdown", "engine": phase, "tp": tp,
               "step": "packed", "packed_step": pick,
               "segments": steps[pick]["segments"],
               "split": steps[pick]["split"], **brk})
     del eng, rec, params
     torch.cuda.empty_cache()
-    return (launches, check_main_path_k3(torch, k3_inputs, "engine_packed",
-                                         tp), peak)
+    return launches, check_main_path_k3(torch, k3_inputs, phase, tp), peak
 
 
 # --------------------------------------------------------------------------
@@ -992,7 +1104,7 @@ def spec_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
 
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg, api, params, _, init_s, start_gb = llama_model(
+    cfg, api, params, _, init_s, start_gb = full_width_model(
         torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
     prompts = spec_prompts(np, seed, cfg.vocab_size)
     runs, k3_inputs, total = {}, {}, {}
@@ -1105,7 +1217,7 @@ def verify_weave_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
 
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg, api, params, _, init_s, start_gb = llama_model(
+    cfg, api, params, _, init_s, start_gb = full_width_model(
         torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(seed + 21)
     cache = api.init_cache(VERIFY_ROWS, VERIFY_CACHE, device="cuda")
@@ -1423,23 +1535,137 @@ def idle_ms(events) -> float:
 
 
 # --------------------------------------------------------------------------
+# the MoE family at full width: Mixtral-8x22B and OLMoE-1B-7B
+# --------------------------------------------------------------------------
+
+MIXTRAL_LAYERS = 4                 # of 56: 19.3 GB of experts in bf16
+OLMOE_LAYERS = 16                  # all of them: 12.9 GB of experts
+MOE_SYNC_TOKENS = 2048
+
+
+def moe_phases(**kw) -> list:
+    """Mixtral-8x22B (``ffn``) through the two-dispatch engine at tp=1
+    ``fused`` and tp=8 ``ring`` and packed over the pool at tp=8 ``ring``;
+    OLMoE-1B-7B (``expert``, 8 experts a rank) packed at tp=8 ``ring``.
+    The gates are the Llama phases': launch formulas, pools drained, K3
+    held at every shape.  Returns each run's (launches, K3 error, peak)."""
+    from repro_torch.configs import get_config
+    mixtral = dict(config=get_config("mixtral-8x22b"), n_layers=MIXTRAL_LAYERS)
+    olmoe = dict(config=get_config("olmoe-1b-7b"), n_layers=OLMOE_LAYERS)
+    return [engine_phase(**kw, **mixtral, tp=1, comm_mode="fused",
+                         phase="engine_moe"),
+            engine_phase(**kw, **mixtral, tp=8, comm_mode="ring",
+                         phase="engine_moe"),
+            packed_phase(**kw, **mixtral, tp=8, comm_mode="ring",
+                         phase="engine_moe_packed"),
+            packed_phase(**kw, **olmoe, tp=8, comm_mode="ring",
+                         phase="engine_moe_olmoe")]
+
+
+def moe_sync_phase(torch, seed: int):
+    """One ``moe_forward`` at Mixtral-8x22B's widths over 2048 tokens at
+    tp=1 and tp=8, under ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation that waits for the card raises.  A warm call first (the
+    libraries' first-use set-up is not the layer's); the output must be
+    finite, and the call is timed between CUDA events."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers import moe
+    cfg = get_config("mixtral-8x22b")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    for tp in (1, 8):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = moe.init_moe_params(gen, cfg, tp, device="cuda",
+                                     dtype=torch.bfloat16)
+        x = torch.randn(1, 1, MOE_SYNC_TOKENS, cfg.d_model, generator=gen,
+                        device="cuda", dtype=torch.bfloat16).expand(
+                            tp, -1, -1, -1)
+        with torch.no_grad():
+            moe.moe_forward(params, x, cfg)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                out, aux = moe.moe_forward(params, x, cfg)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"moe_sync tp={tp}: output "
+                                 f"{tuple(out.shape)} not finite")
+        emit({"phase": "moe_sync", "model": cfg.name, "tp": tp,
+              "tokens": MOE_SYNC_TOKENS, "sync_debug_mode": "error",
+              "raised": False, "ms": start.elapsed_time(end),
+              "aux": aux.tolist()})
+        del params, x, out
+
+
+# --------------------------------------------------------------------------
 # phase 5: the same small float32 model on the card and on the CPU
 # --------------------------------------------------------------------------
 
-def small_api(*, tp: int, comm_mode: str):
-    """The identity checks' small float32 model: (config, model API)."""
+def small_api(*, tp: int, comm_mode: str, moe: str = ""):
+    """The identity checks' small float32 model: (config, model API);
+    ``moe`` ("ffn" or "expert"): its MoE twin, 4 experts top-2 with
+    expert d_ff 256 in that partitioning."""
     from repro_torch.configs.base import ModelConfig, ParallelConfig
     from repro_torch.models.build import build_model
     cfg = ModelConfig(name="small", family="dense", num_layers=2, d_model=256,
                       num_heads=8, num_kv_heads=2, head_dim=32, d_ff=512,
                       vocab_size=512, dtype="float32")
+    if moe:
+        cfg = dataclasses.replace(
+            cfg, name=f"small-moe-{moe}", family="moe", num_experts=4,
+            num_experts_per_tok=2, moe_d_ff=256, moe_partition=moe)
     pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
                           use_pallas_norm=True, split_unit=16,
                           tokenweave_min_tokens=32)
     return cfg, build_model(cfg, pcfg, tp=tp)
 
 
-def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
+def capture_routes(torch, store: list):
+    """Make the MoE layer keep, per call, each row's expert choice and
+    the gap between its k-th and (k+1)-th router probability (how near a
+    tie it was), on the host.  Returns the undo."""
+    from repro_torch.layers import moe
+    orig = moe._route
+
+    def keep(x, router, cfg):
+        topw, topi, aux = orig(x, router, cfg)
+        probs = torch.softmax(x.float() @ router, dim=-1)
+        top = moe.top_k(probs, cfg.num_experts_per_tok + 1)[0]
+        store.append((topi[0].cpu(), (top[0, :, -2] - top[0, :, -1]).cpu()))
+        return topw, topi, aux
+
+    moe._route = keep
+    return lambda: setattr(moe, "_route", orig)
+
+
+def route_flips(routes: dict, splits: int) -> list:
+    """The rows whose experts differ between cuda and cpu, by layer."""
+    flips = []
+    for i, ((ti, tm), (ci, cm)) in enumerate(zip(routes["cuda"],
+                                                 routes["cpu"])):
+        for row in (ti != ci).any(-1).nonzero().flatten().tolist():
+            flips.append({"layer": i // splits, "split": i % splits,
+                          "row": row, "cuda": ti[row].tolist(),
+                          "cpu": ci[row].tolist(),
+                          "margin_cuda": float(tm[row]),
+                          "margin_cpu": float(cm[row])})
+    return flips
+
+
+def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
+                   moe: str = ""):
+    """A small float32 model (its MoE twin with ``moe``) served on the
+    card and on the CPU: greedy tokens equal over slots and packed over
+    the pool, prefill logits within IDENTITY_LOGIT_TOL; for the dense
+    model also with speculation.  A MoE twin's prefill check also holds
+    each layer's expert choices equal on both devices, and a mismatch
+    names the rows that flipped and how near a tie they were."""
     from repro_torch.models.build import build_model
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
@@ -1449,7 +1675,7 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     torch.backends.cudnn.allow_tf32 = False
     norm_kernel = {"fused": "fused_residual_rmsnorm",
                    "ring": "ar_rmsnorm"}[comm_mode]
-    cfg, api = small_api(tp=tp, comm_mode=comm_mode)
+    cfg, api = small_api(tp=tp, comm_mode=comm_mode, moe=moe)
     pcfg = api.pcfg
     scfg = SchedulerConfig(max_batch=16, chunk_tokens=64, max_len=128,
                            prefill_bucket=16)
@@ -1467,12 +1693,39 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.randint(5, 100, size=16)]
 
+    # prefill logits on both devices (and, for a MoE twin, every layer's
+    # expert choices)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 48)))
+    pos = torch.arange(48, dtype=torch.int32)[None].repeat(2, 1)
+    pos[1, 40:] = -1
+    last = torch.tensor([47, 39])
+    logits, routes = {}, {}
+    with torch.no_grad():
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            rows = api.init_cache(2, scfg.max_len, device=dev)
+            routes[dev] = []
+            undo = capture_routes(torch, routes[dev])
+            try:
+                logits[dev], _ = api.prefill(params, tokens.to(dev), rows,
+                                             pos.to(dev),
+                                             last_idx=last.to(dev))
+            finally:
+                undo()
+    err = max_err(logits["cuda"].cpu(), logits["cpu"])
+    splits = 1 + api.mod.weave_decision_info(2, 48, tp=tp, pcfg=pcfg).weave
+    flips = route_flips(routes, splits) if moe else []
+    if flips or not err <= IDENTITY_LOGIT_TOL:
+        raise AssertionError(f"tp={tp} {cfg.name}: prefill logits differ "
+                             f"by {err}; expert choices flipped: {flips}")
+
     # greedy speculative decoding (gamma 3) with the n-gram draft and
     # with a one-layer random draft model of the same vocabulary
     from repro_torch.runtime import spec as SP
-    dapi = build_model(dataclasses.replace(cfg, num_layers=1), pcfg, tp=tp)
-    d_cpu = dapi.init(seed + 7, device="cpu")
-    d_params = {"cpu": d_cpu, "cuda": to_cuda(d_cpu)}
+    if not moe:
+        dapi = build_model(dataclasses.replace(cfg, num_layers=1), pcfg,
+                           tp=tp)
+        d_cpu = dapi.init(seed + 7, device="cpu")
+        d_params = {"cpu": d_cpu, "cuda": to_cuda(d_cpu)}
 
     def spec_identity(engine, base, serve, want):
         """The spec engines over ``base``'s scheduler give the spec-off
@@ -1520,33 +1773,24 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
         launches[dev] = read_launches()
         weave[dev] = eng.stats.weave_forwards
     if outs["cuda"] != outs["cpu"]:
-        raise AssertionError(f"tp={tp}: cuda tokens {outs['cuda']} != cpu "
-                             f"{outs['cpu']}")
+        raise AssertionError(f"tp={tp} {cfg.name}: cuda tokens "
+                             f"{outs['cuda']} != cpu {outs['cpu']}")
     if (0 in (launches["cuda"][norm_kernel],
               launches["cuda"]["flash_attention"])
             or any(launches["cpu"].values()) or not weave["cuda"]):
         raise AssertionError(f"tp={tp}: launches {launches}, weave "
                              f"forwards {weave}")
-
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 48)))
-    pos = torch.arange(48, dtype=torch.int32)[None].repeat(2, 1)
-    pos[1, 40:] = -1
-    last = torch.tensor([47, 39])
-    logits = {}
-    with torch.no_grad():
-        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-            rows = api.init_cache(2, scfg.max_len, device=dev)
-            logits[dev], _ = api.prefill(params, tokens.to(dev), rows,
-                                         pos.to(dev), last_idx=last.to(dev))
-    err = max_err(logits["cuda"].cpu(), logits["cpu"])
-    if not err <= IDENTITY_LOGIT_TOL:
-        raise AssertionError(f"tp={tp}: prefill logits differ by {err}")
-    emit({"phase": "identity", "model": cfg.name, "tp": tp,
-          "comm_mode": comm_mode, "requests": len(prompts),
-          "tokens_identical": True, "weave_forwards": weave["cuda"],
-          "cuda_launches": launches["cuda"],
-          "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL})
-    spec_identity("slots", scfg, serve_slots, outs["cuda"])
+    row = {"phase": "identity", "model": cfg.name, "tp": tp,
+           "comm_mode": comm_mode, "requests": len(prompts),
+           "tokens_identical": True, "weave_forwards": weave["cuda"],
+           "cuda_launches": launches["cuda"],
+           "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL}
+    if moe:
+        row["min_route_margin"] = min(
+            float(m.min()) for _, m in routes["cuda"])
+    emit(row)
+    if not moe:
+        spec_identity("slots", scfg, serve_slots, outs["cuda"])
 
     # packed hybrid batching over the paged pool, with one more request
     # sharing the longest prompt's first 32 tokens (2 blocks of 16),
@@ -1579,9 +1823,10 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str):
           "tokens_identical": True, "weave_forwards": weave["cuda"],
           "prefix_hit_tokens_sharer": hits["cuda"],
           "cuda_launches": launches["cuda"]})
-    spec_identity("packed_paged", pscfg, lambda eng: {
-        r.rid: r.output for r in serve_with_sharer(
-            eng, Request, order, 6, sharer)[0]}, outs["cuda"])
+    if not moe:
+        spec_identity("packed_paged", pscfg, lambda eng: {
+            r.rid: r.output for r in serve_with_sharer(
+                eng, Request, order, 6, sharer)[0]}, outs["cuda"])
 
 
 # --------------------------------------------------------------------------
@@ -1873,7 +2118,7 @@ def online_phase(torch, np, seed: int, trace_dir: Path,
     scfg = SchedulerConfig(paged=True, packed=True)
 
     # (a) calibrate at tp=1
-    cfg, api, params, _, init_s, _ = llama_model(
+    cfg, api, params, _, init_s, _ = full_width_model(
         torch, np, seed, tp=1, comm_mode="fused", n_layers=n_layers)
     prompts = online_prompts(np, seed, cfg.vocab_size, ONLINE_N)
     kw = dict(norm_kernel="fused_residual_rmsnorm", n_layers=n_layers,
@@ -1961,7 +2206,7 @@ def online_phase(torch, np, seed: int, trace_dir: Path,
                     trace_path=out_dir / "online_identity.json")
 
     # (c) tp=8 ring, profiled against plain
-    cfg8, api8, params8, _, _, _ = llama_model(
+    cfg8, api8, params8, _, _, _ = full_width_model(
         torch, np, seed, tp=8, comm_mode="ring", n_layers=n_layers)
     kw8 = dict(kw, norm_kernel="ar_rmsnorm")
     prompts8 = prompts[:ONLINE_TP8_N]
@@ -2077,6 +2322,9 @@ def main() -> int:
     for tp, mode in ((1, "fused"), (8, "ring")):
         paths.append((verify_weave_phase(**kw, trace_dir=args.trace_dir,
                                          tp=tp, comm_mode=mode), 0.0))
+    # the MoE family, and the MoE layer free of host syncs
+    paths += moe_phases(**kw, trace_dir=args.trace_dir)
+    moe_sync_phase(torch, args.seed)
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too
@@ -2084,8 +2332,11 @@ def main() -> int:
         rows["flash_attention"]["max_abs_err"], *(p[1] for p in paths))
     for tp in (1, 8):
         sampler_phase(torch, np, args.seed, tp=tp)
-    identity_phase(torch, np, args.seed, tp=1, comm_mode="fused")
-    identity_phase(torch, np, args.seed, tp=2, comm_mode="ring")
+    for moe in ("", "ffn", "expert"):
+        identity_phase(torch, np, args.seed, tp=1, comm_mode="fused",
+                       moe=moe)
+        identity_phase(torch, np, args.seed, tp=2, comm_mode="ring",
+                       moe=moe)
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",

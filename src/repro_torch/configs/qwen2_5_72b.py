@@ -1,0 +1,10 @@
+"""qwen2.5-72b (paper model): 80L d=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064; QKV bias. [arXiv:2412.15115]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-72b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=29568, vocab_size=152064,
+    qkv_bias=True, rope_theta=1_000_000.0,
+)

@@ -1,0 +1,11 @@
+"""qwen2-vl-7b [vlm]: 28L d=3584 28H (GQA kv=4) d_ff=18944 vocab=152064;
+M-RoPE (16,24,24 sections); vision frontend stubbed (input_specs supplies
+patch embeddings). [arXiv:2409.12191]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-vl-7b", family="vlm",
+    num_layers=28, d_model=3584, num_heads=28, num_kv_heads=4, head_dim=128,
+    d_ff=18944, vocab_size=152064,
+    mrope_sections=(16, 24, 24), rope_theta=1_000_000.0,
+)

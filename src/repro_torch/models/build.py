@@ -1,11 +1,13 @@
-"""Uniform model API, as ``repro.models.build``; the dense family only, at
-any tp (the ranks on one device's rank axis)."""
+"""Uniform model API, as ``repro.models.build``; the dense and MoE
+(``expert``, ``ffn``) families of the transformer, at any tp (the ranks on
+one device's rank axis)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.layers.moe import EP2D_REFUSAL
 from repro_torch.models import transformer
 
 
@@ -57,11 +59,13 @@ class ModelApi:
                                     **kw)
 
 
-def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1
-                ) -> ModelApi:
-    if cfg.family != "dense":
+def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
+                ep: int = 1) -> ModelApi:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
+    if ep > 1 or (cfg.is_moe and cfg.moe_partition == "ep2d"):
+        raise NotImplementedError(EP2D_REFUSAL)
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
     return ModelApi(cfg=cfg, pcfg=pcfg, mod=transformer, tp=tp)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense family) with the TokenWeave two-split
-weave, as ``repro.models.transformer``.
+"""Decoder-only transformer (dense and MoE families) with the TokenWeave
+two-split weave, as ``repro.models.transformer``.
 
 The tp ranks sit on a leading rank axis R of one device
 (``distributed/context.py``): every sharded weight is ``(R, ...)`` as in
@@ -12,7 +12,9 @@ The weave (paper Fig. 8) emits, with two token splits s0/s1,
     attn(s0) ; AR-norm(s0) ; attn(s1) ; AR-norm(s1) ;
     ffn(s0)  ; AR-norm(s0) ; ffn(s1)  ; AR-norm(s1)
 
-and the suffix split's attention takes the prefix split's KV as
+where a MoE layer's ffn is ``layers.moe.moe_forward``, run per split so
+that each split's expert capacity follows from its own token count, and
+the suffix split's attention takes the prefix split's KV as
 ``kv_prefix`` (§3.1).  At tp>1 on CUDA each AR-norm runs on a comm stream:
 it waits on an event recorded after its split's row-parallel product, and
 the compute stream waits on the AR-norm's event only before that split's
@@ -43,6 +45,7 @@ from repro_torch.distributed.context import CommCtx
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
+from repro_torch.layers import moe as X
 from repro_torch.runtime import paging as PG
 
 
@@ -78,18 +81,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator`` on
     ``device`` (CUDA unless given), with the reference's scales (attention
     and MLP inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head
-    d^-0.5; norms ones) and shapes (every sharded weight (tp, ...)).  The
-    values differ from the reference's jax.random ones; tests move the
-    reference's weights over with ``weights.from_jax_params`` instead."""
-    if cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError("only the dense family is ported")
+    d^-0.5; norms ones; MoE layers as ``layers.moe.init_moe_params``) and
+    shapes (every sharded weight (tp, ...)).  The values differ from the
+    reference's jax.random ones; tests move the reference's weights over
+    with ``weights.from_jax_params`` instead."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
     d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-    if f % tp:
+    if not cfg.is_moe and f % tp:
         raise ValueError(f"d_ff={f} is not a multiple of tp={tp}")
     s = d ** -0.5
 
@@ -114,10 +119,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
         if cfg.qk_norm:
             attn["q_norm"] = ones(dh)
             attn["k_norm"] = ones(dh)
-        mlp = {"w_gate": rnd((d, f // tp), s), "w_up": rnd((d, f // tp), s),
-               "w_down": rnd((f // tp, d), f ** -0.5)}
-        lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones(),
-              "mlp": mlp}
+        lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones()}
+        if cfg.is_moe:
+            lp["moe"] = X.init_moe_params(gen, cfg, tp, device=device,
+                                          dtype=dtype)
+        else:
+            lp["mlp"] = {"w_gate": rnd((d, f // tp), s),
+                         "w_up": rnd((d, f // tp), s),
+                         "w_down": rnd((f // tp, d), f ** -0.5)}
         if cfg.sandwich_norms:
             lp["norm_attn_post"] = ones()
             lp["norm_ffn_post"] = ones()
@@ -189,9 +198,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     cache in sequence, so the suffix split's attention reads the prefix
     split's freshly scattered KV (a segment straddling the cut needs its
     earlier tokens).  Paged decode runs unsplit: a batch split would fork
-    the shared pool."""
-    if kind.is_moe:
-        raise NotImplementedError("MoE layers are not ported (ROADMAP.md A10)")
+    the shared pool.  A MoE layer's aux loss is dropped (serving)."""
     n = len(state["h"])
     packed = state.get("pslots") is not None
     hs, ress = list(state["h"]), list(state["res"])
@@ -240,7 +247,10 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
                                          lp.get("norm_attn_post"))
     for i in range(n):
         weave.wait(i)
-        f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
+        if kind.is_moe:
+            f_part, _ = X.moe_forward(lp["moe"], hs[i], cfg)
+        else:
+            f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
         hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
                                          lp.get("norm_ffn_post"))
     state = dict(state, h=hs, res=ress)

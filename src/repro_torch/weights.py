@@ -8,8 +8,11 @@ care:
 * layers are either stacked with a leading layer axis (``scan_layers``
   with uniform layer kinds) or a ``{"layer_i": ...}`` dict;
 * every sharded weight carries a per-shard leading axis of size tp, kept
-  as the port's rank axis; the replicated weights (norm gains, q/k norms,
-  the row-parallel output bias) carry an axis of size 1 and drop it;
+  as the port's rank axis (a MoE layer's expert weights too); the
+  replicated weights (norm gains, q/k norms, the row-parallel output bias,
+  the MoE router) carry an axis of size 1 and drop it;
+* the MoE router stays float32 whatever ``dtype`` asks for, as routing
+  runs in float32;
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
 """
@@ -30,16 +33,18 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-# leaves the reference replicates (PartitionSpec None): (1, n) -> (n,)
+# leaves the reference replicates (PartitionSpec None): (1, ...) -> (...)
 REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_attn_post",
-                        "norm_ffn_post", "q_norm", "k_norm", "b_out"})
+                        "norm_ffn_post", "q_norm", "k_norm", "b_out",
+                        "router"})
 
 
 def _convert(tree, device, dtype):
     """Keep the per-shard axis of sharded leaves as the rank axis; drop
     the size-1 axis of replicated ones."""
     return {k: (_convert(v, device, dtype) if isinstance(v, dict)
-                else to_torch(v[0] if k in REPLICATED else v, device, dtype))
+                else to_torch(v[0] if k in REPLICATED else v, device,
+                              torch.float32 if k == "router" else dtype))
             for k, v in tree.items()}
 
 

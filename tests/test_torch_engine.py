@@ -22,6 +22,9 @@ import torch
 from repro.runtime.requests import Request as JRequest
 
 from repro_torch.configs import base as tbase
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.layers import moe as TM
+from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model as t_build_model
 from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime.engine import Engine as TEngine
@@ -125,14 +128,37 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
         calls[entry]()
 
 
+# registry configs the port names but does not serve, and the ROADMAP.md
+# labels their refusals name
+UNSERVED = {"qwen3-moe-235b-a22b": "A10.*A4", "falcon-mamba-7b": "A10",
+            "zamba2-7b": "A10", "whisper-base": "A10", "qwen2-vl-7b": "A10"}
+
+
 @pytest.mark.parametrize("what", ["evacuate", "handoff_two",
-                                  "handoff_packed"])
+                                  "handoff_packed", *UNSERVED])
 def test_engine_refuses_unported_modes(torch_model, what):
     """What stays unported is refused (ROADMAP.md A6): ``evacuate`` when
     called, and a request marked for the disaggregated KV handoff once
     its prefill completes, in both dispatch schemes (tracing and
     profiling are ported, tests/test_torch_obs.py and
-    tests/test_torch_profiler.py)."""
+    tests/test_torch_profiler.py).  The families other than dense and MoE
+    (ssm, hybrid, encdec, vlm) and the MoE ``ep2d`` partitioning are
+    refused when the model is built or initialised (ROADMAP.md A10, and
+    A4 for ep2d's data rank axis), as is ``ep > 1`` for any model."""
+    if what in UNSERVED:
+        cfg = t_get_config(what).reduced()
+        pcfg = tbase.ParallelConfig()
+        for make in (lambda: t_build_model(cfg, pcfg),
+                     lambda: TT.init_params(cfg, device="cpu")):
+            with pytest.raises(NotImplementedError, match=UNSERVED[what]):
+                make()
+        if cfg.is_moe:
+            with pytest.raises(NotImplementedError, match="A10.*A4"):
+                TM.moe_forward({}, torch.zeros(1, 1, 4, cfg.d_model), cfg)
+            with pytest.raises(NotImplementedError, match="A10.*A4"):
+                t_build_model(t_get_config("mixtral-8x22b").reduced(), pcfg,
+                              ep=2)
+        return
     api, tparams = torch_model
     scfg = tsched.SchedulerConfig(**SCHED, spec_gamma=2, paged=True,
                                   packed=what == "handoff_packed")
@@ -148,9 +174,10 @@ def test_engine_refuses_unported_modes(torch_model, what):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of the port (the sim, calibration, tracing, profiler
-    and online server among them), and chip_smoke.py's imports, load
-    with ``jax`` and ``repro`` made unimportable."""
+    """Every module of the port (the sim, calibration, tracing, profiler,
+    online server, MoE layer and config registry among them), and
+    chip_smoke.py's imports, load with ``jax`` and ``repro`` made
+    unimportable."""
     code = r"""
 import ast, pathlib, sys, importlib, pkgutil
 sys.path.insert(0, sys.argv[1])
@@ -162,7 +189,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.analysis.calibration", "repro_torch.sim.overlap_sim",
         "repro_torch.obs.trace", "repro_torch.obs.attribution",
-        "repro_torch.obs.profiler", "repro_torch.runtime.server"
+        "repro_torch.obs.profiler", "repro_torch.runtime.server",
+        "repro_torch.layers.moe", "repro_torch.configs.mixtral_8x22b"
         } <= set(names), names
 for n in names:
     importlib.import_module(n)

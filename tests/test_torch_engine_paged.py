@@ -5,10 +5,10 @@ Seeded traces drawn by test_differential's generator (seeds 1000 +
 trial, prompts sharing random prefixes, cancellations at a request's
 progress point) with speculative decoding off replay through the
 reference ``Engine`` and the port's ``Engine(device="cpu")`` with the same
-tiny model, in four columns: two-dispatch over the paged pool, packed
+tiny model, in five columns: two-dispatch over the paged pool, packed
 over the paged pool, packed over legacy slots, and packed over the paged
-pool with an all-``fused`` overlap plan read through the port's
-``load_policy``.  Greedy tokens must be identical, cancellations go
+pool and two-dispatch over legacy slots with an all-``fused`` overlap
+plan read through the port's ``load_policy``.  Greedy tokens must be identical, cancellations go
 through ``Engine.abort``, and after each trace the port's pool is empty:
 no table left, no reference held.  One more trace starves the pool so
 that both engines preempt.
@@ -41,7 +41,9 @@ SCHED = dict(max_batch=3, chunk_tokens=48, max_len=128, prefill_bucket=16,
 COLUMNS = {"two_paged": dict(paged=True, packed=False),
            "packed_paged": dict(paged=True, packed=True),
            "packed": dict(paged=False, packed=True),
-           "packed_fused": dict(paged=True, packed=True, plan="fused")}
+           "packed_fused": dict(paged=True, packed=True, plan="fused"),
+           "two_legacy_fused": dict(paged=False, packed=False,
+                                    plan="fused")}
 
 
 @pytest.fixture(scope="module")

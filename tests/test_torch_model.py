@@ -98,6 +98,35 @@ def test_bridge_takes_stacked_and_per_layer_pytrees(both):
         assert torch.equal(t, flat_b[path]), path
 
 
+@pytest.mark.parametrize("tp", [1, 2])
+def test_bridge_takes_moe_pytrees_in_both_layouts(tp):
+    """A MoE model's pytree, stacked and per layer, bridges to the same
+    dict: the router replicated (d, E) and float32 under bf16, the expert
+    weights keeping their shard axis as the rank axis."""
+    from repro.configs import get_config
+    from repro.models.build import build_model as j_build_model
+    cfg = get_config("olmoe-1b-7b").reduced()
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(cfg))
+    got = {}
+    for scan in (True, False):
+        pcfg = JT.ParallelConfig(scan_layers=scan)
+        params = j_build_model(cfg, pcfg, tp=tp).init(jax.random.PRNGKey(0))
+        assert ("layer_0" in params["layers"]) != scan
+        got[scan] = from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu", dtype=torch.bfloat16)
+    flat = dict(jax.tree_util.tree_leaves_with_path(got[True]))
+    for path, t in jax.tree_util.tree_leaves_with_path(got[False]):
+        assert torch.equal(t, flat[path]), path
+    for lp in got[True]["layers"]:
+        moe = lp["moe"]
+        assert moe["router"].shape == (cfg.d_model, cfg.num_experts)
+        assert moe["router"].dtype == torch.float32
+        assert moe["w_gate"].shape == (tp, cfg.num_experts // tp,
+                                       cfg.d_model, cfg.moe_d_ff)
+        assert moe["w_down"].dtype == torch.bfloat16
+        assert "mlp" not in lp
+
+
 @pytest.mark.parametrize("chunk,weave", [(48, True), (16, False)])
 def test_prefill_logits_and_kv_match(both, chunk, weave):
     mesh, jparams, cfg, pcfg, tparams, tcfg, tpcfg = both

@@ -4,10 +4,10 @@ float32 on the CPU with the tiny dense model and the same weights.
 
 The differential traces of test_differential (seeds 1000 + trial) whose
 drawn gamma is above 0 replay through the reference ``Engine`` and the
-port's ``Engine(device="cpu")`` in five columns: two-dispatch over the
+port's ``Engine(device="cpu")`` in six columns: two-dispatch over the
 paged pool, packed over the paged pool, two-dispatch over legacy slots,
-packed over legacy slots, and packed over the pool with the all-fused
-overlap plan.  Greedy tokens and the ``spec/*`` counters must be equal,
+packed over legacy slots, and packed over the pool and two-dispatch over
+legacy slots with the all-fused overlap plan.  Greedy tokens and the ``spec/*`` counters must be equal,
 cancellations go through ``Engine.abort``, and the pool drains.
 
 The reference runs ``tiny_pcfg``; the port ``attn_impl="pallas"`` and
