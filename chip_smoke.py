@@ -95,7 +95,25 @@ Phases, each printing one JSON line:
             through packed batching over the paged pool with a request
             that hits the prefix cache; so must its two MoE twins
             (``ffn`` and ``expert``), whose prefill also keeps every
-            layer's expert choices equal on both devices.
+            layer's expert choices equal on both devices;
+11. cluster the engine phases' 4 requests at Llama-3.3-70B width (4
+            layers, bf16) through a disaggregated pair, one prefill and
+            one decode replica sharing the params, every envelope and KV
+            payload through the loopback wire, at tp=1 ``fused`` and tp=8
+            ``ring``: one ``cluster_handoff`` line per handoff (tokens,
+            payload and frame bytes, extract / encode / decode / implant
+            ms, each fenced), launches equal their formula, every request
+            migrated once, both pools quiescent, one payload bit-identical
+            after extract -> frame -> decode -> implant -> extract, tokens
+            against a single paged engine reported; then the small
+            float32 model on the card, every engine from
+            ``build_engine_from_spec``: a two-replica cluster under each
+            router, the disaggregated loopback cluster and a kill with
+            its requeue, a spawned ``python -m
+            repro_torch.runtime.transport`` replica hard-killed mid-run
+            beside a local one, and one SSE stream from a spawned ``python
+            -m repro_torch.runtime.http_api``, each token-identical to the
+            offline engine (a failed server fails the script).
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -2260,6 +2278,439 @@ def online_phase(torch, np, seed: int, trace_dir: Path,
     return total, k3_err
 
 
+# --------------------------------------------------------------------------
+# the cluster: disaggregated KV handoff, the wire, sockets and HTTP
+# --------------------------------------------------------------------------
+
+CLUSTER_SMALL_N, CLUSTER_SMALL_NEW = 8, 6
+CLUSTER_KILL_AT = 4.0              # virtual time: r0 then owns decodes
+SOCKET_DIE_AFTER = 4               # the socket replica's steps before exit
+SERVER_TIMEOUT_S = 300
+
+
+def same_bits(torch, a, b) -> bool:
+    """Same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+class HandoffTimes:
+    """Per KV handoff of a disaggregated cluster (by rid): its committed
+    tokens, payload bytes and frame bytes, and the ms of its extract
+    (device -> host, in the prefill engine's park), encode and decode (the
+    loopback wire) and implant (host -> device, in the decode engine's
+    adoption), each fenced with ``torch.cuda.synchronize()``.  Keeps the
+    first payload for the round trip."""
+
+    def __init__(self, torch, engines):
+        from repro_torch.runtime import paging as PG
+        from repro_torch.runtime import transport as TR
+        self.torch, self.PG, self.TR = torch, PG, TR
+        self.rows: dict = {}
+        self.first_payload = None
+        self._req = None           # the request whose park/adoption runs
+        self.orig = [(PG, "extract_blocks", PG.extract_blocks),
+                     (PG, "implant_blocks", PG.implant_blocks),
+                     (TR, "encode_frame", TR.encode_frame),
+                     (TR, "decode_frame", TR.decode_frame)]
+        PG.extract_blocks = self._extract
+        PG.implant_blocks = self._implant
+        TR.encode_frame = self._encode
+        TR.decode_frame = self._decode
+        for eng in engines:
+            eng._park_for_handoff = self._owner(
+                eng._park_for_handoff, lambda r: r)
+            eng.adopt_request = self._owner(
+                eng.adopt_request, lambda req, *a: req)
+
+    def undo(self):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+    def _owner(self, fn, req_of):
+        def run(*args):
+            self._req = req_of(*args)
+            return fn(*args)
+        return run
+
+    def _timed(self, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def _row(self, rid):
+        return self.rows.setdefault(rid, {"rid": rid})
+
+    def _extract(self, pool, ids, **kw):
+        out, ms = self._timed(self.orig[0][2], pool, ids, **kw)
+        row = self._row(self._req.rid)
+        row.update(n_tokens=self._req.prefill_pos, blocks=len(ids),
+                   payload_nbytes=self.PG.payload_nbytes(out),
+                   extract_ms=ms)
+        if self.first_payload is None:
+            self.first_payload = out
+        return out
+
+    def _implant(self, pool, payload, ids):
+        out, ms = self._timed(self.orig[1][2], pool, payload, ids)
+        self._row(self._req.rid).update(implant_ms=ms,
+                                        implanted_blocks=len(ids))
+        return out
+
+    def _encode(self, kind, obj):
+        out, ms = self._timed(self.orig[2][2], kind, obj)
+        if kind == "handoff":
+            self._row(obj["req"]["rid"]).update(encode_ms=ms,
+                                                frame_bytes=len(out))
+        return out
+
+    def _decode(self, buf):
+        (kind, obj), ms = self._timed(self.orig[3][2], buf)
+        if kind == "handoff":
+            self._row(obj["req"]["rid"])["decode_ms"] = ms
+        return kind, obj
+
+
+def cluster_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
+                  n_layers: int = 4):
+    """The engine phases' 4 requests through a disaggregated cluster at
+    Llama-3.3-70B width (4 layers, bf16): one prefill replica and one
+    decode replica over the paged pool, sharing one params object, every
+    arrival envelope and KV payload through the loopback wire.  One
+    ``cluster_handoff`` line per handoff; gates: every request migrated
+    once, both pools quiescent, launches equal their formula, and one
+    payload taken through extract -> frame -> decode -> implant into fresh
+    blocks -> extract comes back bit-identical in bf16.  The tokens are
+    compared with a single paged engine's and reported, not gated (the
+    decode replica runs other GEMM shapes).  Returns (launches, K3's max
+    error on the run's inputs, peak GB)."""
+    from repro_torch.runtime import cluster as CL
+    from repro_torch.runtime import paging as PG
+    from repro_torch.runtime import transport as TR
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, prompts, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=n_layers)
+    scfg = SchedulerConfig(paged=True)
+    engines = [Engine(api, params, scfg) for _ in range(2)]
+    reps = [CL.Replica("p0", engines[0], role="prefill"),
+            CL.Replica("d0", engines[1], role="decode")]
+    cs = CL.ClusterServer(reps, CL.ClusterConfig(router="round_robin",
+                                                 wire="loopback"))
+    for i, p in enumerate(prompts):
+        cs.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    k3_inputs = {}
+    times = HandoffTimes(torch, engines)
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        t0 = time.perf_counter()
+        done = cs.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        undo()
+        times.undo()
+    offload(k3_inputs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
+    if (any(r.migrations != 1 for r in done)
+            or cs.summary()["migrations"] != len(prompts)
+            or sorted(times.rows) != list(range(len(prompts)))):
+        raise AssertionError(f"tp={tp}: migrations "
+                             f"{[r.migrations for r in done]}, handoffs "
+                             f"{sorted(times.rows)}")
+    cs.check_quiescent()
+    pf = engines[0].metrics.get("engine/site_forwards", site="prefill")
+    pw = engines[0].metrics.get("engine/site_weave", site="prefill")
+    splits = sum(e.stats.forwards + e.stats.weave_forwards for e in engines)
+    want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
+            "flash_attention": (pf.value + (pw.value if pw else 0))
+            * n_layers}
+    want[norm_kernel] = splits * (1 + 2 * n_layers)
+    if launches != want or 0 in (launches[norm_kernel],
+                                 launches["flash_attention"]):
+        raise AssertionError(f"tp={tp}: launches {launches}, expected "
+                             f"{want}")
+    for rid in sorted(times.rows):
+        emit({"phase": "cluster_handoff", "tp": tp, **times.rows[rid]})
+
+    # one payload, framed, decoded, implanted into fresh blocks of the
+    # decode pool and extracted again: the same bits
+    payload = times.first_payload
+    frame = TR.encode_frame("handoff", payload)
+    _, got = TR.decode_frame(frame)
+    dec = engines[1]
+    mgr = dec.block_mgr
+    n = times.rows[0]["blocks"]
+    ids = [mgr.alloc.alloc() for _ in range(n)]
+    PG.implant_blocks(dec.cache, got, ids)
+    back = PG.extract_blocks(dec.cache, ids, stacked=dec._stacked_payload)
+    for b in ids:
+        mgr.alloc.decref(b, cached=False)
+    if list(back) != list(payload) or not all(
+            same_bits(torch, back[k], payload[k]) for k in payload) \
+            or payload["k"].dtype != torch.bfloat16:
+        raise AssertionError(f"tp={tp}: the payload's round trip changed "
+                             f"its bits")
+    emit({"phase": "cluster_roundtrip", "tp": tp, "blocks": n,
+          "payload_nbytes": PG.payload_nbytes(payload),
+          "frame_bytes": len(frame), "dtype": "bfloat16",
+          "bit_identical": True})
+
+    # the same requests through one paged engine: tokens reported
+    single = Engine(api, params, scfg)
+    for i, p in enumerate(prompts):
+        single.add_request(Request(rid=i, prompt=p,
+                                   max_new_tokens=NEW_TOKENS))
+    ref = {r.rid: r.output for r in single.run()}
+    out = {r.rid: r.output for r in done}
+    same = [sum(a == b for a, b in zip(out[i], ref[i])) for i in sorted(ref)]
+    rows = times.rows.values()
+    emit({"phase": "cluster", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": n_layers, "dtype": cfg.dtype,
+          "replicas": {"p0": "prefill", "d0": "decode"}, "wire": "loopback",
+          "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+          "migrations": cs.summary()["migrations"],
+          "wire_frames": cs.wire.frames, "wire_bytes": cs.wire.bytes,
+          "launches": launches, "expected_launches": want,
+          "param_init_s": init_s, "wall_s": wall_s,
+          "handoff_ms": {k: sum(r[k] for r in rows) for k in (
+              "extract_ms", "encode_ms", "decode_ms", "implant_ms")},
+          "tokens_matching_single": same,
+          "requests_matching_single": sum(s == NEW_TOKENS for s in same),
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+    del cs, reps, engines, dec, single, params, payload, got, back
+    times.first_payload = None
+    torch.cuda.empty_cache()
+    return launches, check_main_path_k3(torch, k3_inputs, "cluster", tp), peak
+
+
+def small_spec(seed: int) -> dict:
+    """The identity checks' small float32 model as a server spec (the
+    kernels on: ``attn_impl="pallas"``, ``use_pallas_norm``), paged."""
+    return {"model": {"name": "small", "family": "dense", "num_layers": 2,
+                      "d_model": 256, "num_heads": 8, "num_kv_heads": 2,
+                      "head_dim": 32, "d_ff": 512, "vocab_size": 512,
+                      "dtype": "float32"},
+            "parallel": {"comm_mode": "fused", "attn_impl": "pallas",
+                         "use_pallas_norm": True, "split_unit": 16,
+                         "tokenweave_min_tokens": 32},
+            "scheduler": {"max_batch": 4, "chunk_tokens": 64,
+                          "max_len": 128, "prefill_bucket": 16,
+                          "paged": True, "block_size": 16},
+            "seed": seed}
+
+
+def start_server(module: str, spec: dict, log: Path, *args):
+    """``python -m <module> --port 0 --spec <spec>`` on the card (no
+    device in the spec), from src/ with no PYTHONPATH, its stderr to
+    ``log``."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    log.parent.mkdir(parents=True, exist_ok=True)
+    err = open(log, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", module, "--port", "0", "--spec",
+             json.dumps(spec), *args], cwd=SRC, env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True), err
+    except BaseException:
+        err.close()
+        raise
+
+
+def listening(proc, log: Path):
+    """(host, port) from the server's ``LISTENING`` line, waiting at most
+    SERVER_TIMEOUT_S; raises with its log when it exits or hangs."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], SERVER_TIMEOUT_S)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("LISTENING"):
+        raise AssertionError(f"server {proc.args[2]} did not start: "
+                             f"{line!r} {log.read_text()[-3000:]}")
+    _, host, port = line.split()
+    return host, int(port)
+
+
+def sse_tokens(host: str, port: int, body: dict) -> list:
+    """One streamed completion over a raw socket: its tokens, in order."""
+    import socket
+    payload = json.dumps({**body, "stream": True}).encode("utf-8")
+    with socket.create_connection((host, port),
+                                  timeout=SERVER_TIMEOUT_S) as s:
+        s.sendall((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                   f"Content-Type: application/json\r\n"
+                   f"Content-Length: {len(payload)}\r\n\r\n"
+                   ).encode("ascii") + payload)
+        with s.makefile("rb") as f:
+            if b"200" not in f.readline():
+                raise AssertionError("the completion was refused")
+            toks, done = [], False
+            for line in f:
+                if not line.startswith(b"data: "):
+                    continue
+                data = line[6:].strip()
+                if data == b"[DONE]":
+                    break
+                ev = json.loads(data)
+                if "token" in ev:
+                    toks.append(ev["token"])
+                done = done or bool(ev.get("done"))
+    if not done:
+        raise AssertionError("the stream ended without its done event")
+    return toks
+
+
+def http_stats(host: str, port: int) -> dict:
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=SERVER_TIMEOUT_S)
+    try:
+        conn.request("GET", "/v1/stats")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def cluster_small_phase(torch, np, seed: int):
+    """The small float32 model (TF32 off) on the card, every engine built
+    by ``build_engine_from_spec`` (CUDA by default): 8 requests with
+    Poisson arrivals through a two-replica cluster under each router, the
+    disaggregated loopback cluster, and a kill of replica r0 mid-decode
+    followed by the requeue; then ``python -m
+    repro_torch.runtime.transport`` as a socket replica beside a local
+    one, hard-killed after a few steps, and ``python -m
+    repro_torch.runtime.http_api`` streaming one SSE completion.  Every
+    run's tokens must equal one offline engine's (gate); pools drained;
+    the in-process runs launched K2 and K3.  The servers start first and
+    boot while the in-process runs go."""
+    from repro_torch.runtime import cluster as CL
+    from repro_torch.runtime import transport as TR
+    from repro_torch.runtime.requests import Request, poisson_arrivals
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = small_spec(seed)
+    logs = ROOT / "build" / "servers"
+    procs, files = [], []
+    try:
+        for module, args in (("repro_torch.runtime.transport",
+                              ("--name", "w0")),
+                             ("repro_torch.runtime.http_api", ())):
+            proc, err = start_server(module, spec,
+                                     logs / f"{module.split('.')[-1]}.log",
+                                     *args)
+            procs.append(proc)
+            files.append(err)
+
+        rng = np.random.RandomState(seed + 31)
+        prompts = [rng.randint(0, 512, int(n)).tolist()
+                   for n in rng.randint(5, 100, size=CLUSTER_SMALL_N)]
+
+        def trace():
+            return poisson_arrivals(
+                [Request(rid=i, prompt=list(p),
+                         max_new_tokens=CLUSTER_SMALL_NEW)
+                 for i, p in enumerate(prompts)], rate=0.5, seed=seed)
+
+        reset_launches()
+        single = TR.build_engine_from_spec(spec)
+        if single.device.type != "cuda":
+            raise AssertionError(f"the spec's engine is on {single.device}")
+        for r in trace():
+            single.add_request(r)
+        want = {r.rid: r.output for r in single.run()}
+
+        def serve(name, replicas, cfg, kill=None):
+            cs = CL.ClusterServer(replicas, cfg)
+            for r in trace():
+                cs.submit(r)
+            if kill is not None:
+                cs.kill_replica(*kill)
+            got = {r.rid: r.output for r in cs.run()}
+            if got != want:
+                raise AssertionError(f"cluster {name}: tokens {got} != "
+                                     f"the single engine's {want}")
+            cs.check_quiescent()
+            row = {"phase": "cluster_small", "run": name,
+                   "requests": len(got), "tokens_identical": True,
+                   "migrations": cs.summary()["migrations"],
+                   "replica_deaths": cs.stats.replica_deaths,
+                   "requeued": cs.stats.requeued}
+            emit(row)
+            return row
+
+        def local(role="mixed", name="r"):
+            return CL.Replica(name, TR.build_engine_from_spec(spec),
+                              role=role)
+
+        for router in sorted(CL.ROUTERS):
+            serve(f"router={router}", [local(name="r0"), local(name="r1")],
+                  CL.ClusterConfig(router=router))
+        row = serve("disagg_loopback",
+                    [local("prefill", "p0"), local("decode", "d0")],
+                    CL.ClusterConfig(wire="loopback"))
+        if row["migrations"] != CLUSTER_SMALL_N:
+            raise AssertionError(f"disaggregated: {row}")
+        row = serve("kill_requeue", [local(name="r0"), local(name="r1")],
+                    CL.ClusterConfig(), kill=("r0", CLUSTER_KILL_AT))
+        if row["replica_deaths"] != 1 or not row["requeued"]:
+            raise AssertionError(f"kill: {row}")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if 0 in (launches["fused_residual_rmsnorm"],
+                 launches["flash_attention"]):
+            raise AssertionError(f"small clusters: launches {launches}")
+        emit({"phase": "cluster_small_launches", "launches": launches})
+
+        # a socket replica (its own process, CUDA by default) beside a
+        # local one, hard-killed after SOCKET_DIE_AFTER steps
+        host, port = listening(procs[0], logs / "transport.log")
+        remote = TR.RemoteEngine(host, port, name="w0",
+                                 timeout=SERVER_TIMEOUT_S)
+        try:
+            remote.die_after(SOCKET_DIE_AFTER)
+            cs_row = serve("socket_kill",
+                           [CL.Replica("w0", remote), local(name="r1")],
+                           CL.ClusterConfig())
+        finally:
+            remote.close()
+        code = procs[0].wait(timeout=SERVER_TIMEOUT_S)
+        if code != 17 or cs_row["replica_deaths"] != 1:
+            raise AssertionError(f"socket replica exit {code}, {cs_row}")
+
+        # the HTTP API (its own process, CUDA by default): one SSE stream
+        host, port = listening(procs[1], logs / "http_api.log")
+        toks = sse_tokens(host, port, {"prompt": prompts[0],
+                                       "max_new_tokens": CLUSTER_SMALL_NEW})
+        stats = http_stats(host, port)
+        if toks != want[0] or stats["leaked_blocks"] or stats["tables"]:
+            raise AssertionError(f"http: tokens {toks} != {want[0]}, "
+                                 f"stats {stats}")
+        emit({"phase": "cluster_http", "tokens_identical": True,
+              "tokens": len(toks), "stats": stats})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+        for f in files:
+            f.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2325,6 +2776,13 @@ def main() -> int:
     # the MoE family, and the MoE layer free of host syncs
     paths += moe_phases(**kw, trace_dir=args.trace_dir)
     moe_sync_phase(torch, args.seed)
+    # the cluster: disaggregated handoff at full width, then the small
+    # model's clusters, a socket replica and the HTTP API
+    t0 = time.perf_counter()
+    paths += [cluster_phase(**kw, tp=1, comm_mode="fused"),
+              cluster_phase(**kw, tp=8, comm_mode="ring")]
+    cluster_small_phase(torch, np, args.seed)
+    emit({"phase": "cluster_seconds", "seconds": time.perf_counter() - t0})
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too

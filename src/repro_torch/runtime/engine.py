@@ -48,8 +48,15 @@ call and its sampling up to the host copy of the tokens) between two
 fences on the device and joins it to the same attribution record.
 Neither changes a token or a step.  ``EngineStats.latency`` holds the
 per-request latencies the online server (``runtime/server.py``) stamps.
-Not ported yet, and refused with NotImplementedError: ``evacuate`` and
-the disaggregated KV handoff (ROADMAP.md A6).
+
+Disaggregated serving (``runtime/cluster.py``): a request marked
+``handoff_after_prefill`` is parked once its prefill completes
+(``_park_for_handoff``: its KV payload copied to the host, its blocks and
+slot released) and waits in ``handoff_ready`` until the cluster moves it
+to a decode replica, whose ``adopt_request`` implants the payload and
+resumes decoding with no re-prefill.  ``evacuate`` releases everything a
+dead replica's engine holds and returns its requests reset for a
+recompute requeue.
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
@@ -81,10 +88,21 @@ from repro_torch.runtime import kv_cache as KC
 from repro_torch.runtime import paging as PG
 from repro_torch.runtime import spec as SP
 from repro_torch.runtime.paging import BlockManager
-from repro_torch.runtime.requests import Request, State
+from repro_torch.runtime.requests import Request, State, reset_for_requeue
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.scheduler import (PackedPlan, Scheduler,
                                            SchedulerConfig)
+
+
+@dataclasses.dataclass
+class Handoff:
+    """A request parked for prefill->decode migration: the request object
+    plus the KV it computed, ``n_tokens`` committed context positions
+    whose block payload was extracted (to the host) before the exporter
+    released its references."""
+    req: Request
+    n_tokens: int
+    payload: dict
 
 
 class LatencyStats:
@@ -302,6 +320,10 @@ class Engine:
             scfg, block_mgr=self.block_mgr,
             on_admit=self._obs_admit if obs is not None else None,
             overlap_hint=self._overlap_hint if self.packed else None)
+        # requests parked by ``_park_for_handoff`` wait here for the
+        # cluster to migrate them
+        self.handoff_ready: List[Handoff] = []
+        self._stacked_payload = PG.payload_stacked(api.cfg, api.pcfg)
 
     # ------------------------------------------------------------------
     # per-site overlap policy
@@ -396,6 +418,13 @@ class Engine:
             self.sched.remove_waiting(req)
             req.state = State.DONE
             return True
+        if req.slot is None:
+            # parked for handoff: the exporter already released its blocks
+            # and slot; only the handoff queue holds it
+            self.handoff_ready = [h for h in self.handoff_ready
+                                  if h.req is not req]
+            req.state = State.DONE
+            return True
         if self.paged:
             # cached blocks park in the LRU, still hittable
             self.block_mgr.free_request(req.rid)
@@ -406,8 +435,100 @@ class Engine:
         req.state = State.DONE
         return True
 
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode KV handoff (runtime/cluster.py)
+    # ------------------------------------------------------------------
+    def _park_for_handoff(self, r: Request):
+        """Export the request's KV and detach it from this engine: the
+        payload is copied to the host (the migration's network copy), then
+        every exporter-side reference is released (shared prefix blocks
+        keep their other readers, private ones recycle) and the slot frees
+        for the next prefill.  The request (DECODE, its first token
+        committed) waits in ``handoff_ready``."""
+        if not self.paged:
+            raise ValueError("KV handoff requires the paged backend "
+                             "(legacy slot rows cannot be exported)")
+        n_tokens = r.prefill_pos          # committed context now in cache
+        blocks = self.block_mgr.export_blocks(r.rid, n_tokens)
+        payload = PG.extract_blocks(self.cache, blocks,
+                                    stacked=self._stacked_payload)
+        self.block_mgr.free_request(r.rid)
+        self.sched.active[r.slot] = None
+        r.slot = None
+        self.handoff_ready.append(Handoff(req=r, n_tokens=n_tokens,
+                                          payload=payload))
+        if self.obs is not None:
+            self.obs.request_event(r.rid, "handoff_export",
+                                   args={"n_tokens": n_tokens})
+
+    def take_handoffs(self) -> List[Handoff]:
+        out, self.handoff_ready = self.handoff_ready, []
+        return out
+
     def evacuate(self) -> List[Request]:
-        raise NotImplementedError("evacuate is not ported yet (ROADMAP.md A6)")
+        """Dead-replica recovery: release every resource of every live
+        request this engine owns (paged blocks with their prefix-shared
+        references, legacy slots, parked handoffs, scheduler entries) and
+        return the requests reset for re-admission elsewhere (WAITING,
+        recompute semantics like preemption).  Sweeping the pool back to
+        empty is what makes a requeue that skips the release visible to
+        ``ClusterServer.check_quiescent``."""
+        out: List[Request] = []
+        for h in self.take_handoffs():
+            # exporter-side references were released at park
+            out.append(reset_for_requeue(h.req))
+        for r in list(self.sched.waiting):
+            self.sched.remove_waiting(r)
+            out.append(reset_for_requeue(r))
+        for slot, r in enumerate(self.sched.active):
+            if r is None:
+                continue
+            if self.paged:
+                self.block_mgr.free_request(r.rid)
+            else:
+                KC.reset_slots(self.cache, [r.slot])
+            self.sched.active[slot] = None
+            out.append(reset_for_requeue(r))
+        return out
+
+    def adopt_request(self, req: Request, n_tokens: int, payload) -> bool:
+        """Adopt a migrated DECODE request: rebuild its block table here
+        (sharing this pool's prefix-cache hits, implanting the payload into
+        the rest), re-register its prefix-cache entries and place it in a
+        free slot; decoding resumes from the migrated KV.  Returns False
+        (nothing changed, retry later) when no slot is free or the pool
+        cannot cover it."""
+        if not self.paged:
+            raise ValueError("adopt_request requires the paged backend")
+        if req.state != State.DECODE:
+            raise ValueError(f"rid={req.rid} is {req.state}, not DECODE")
+        free = [i for i, r in enumerate(self.sched.active) if r is None]
+        if not free:
+            return False
+        ctx = req.prompt + req.output[:-1]
+        assert n_tokens <= len(ctx), (req.rid, n_tokens, len(ctx))
+        imported = self.block_mgr.import_blocks(req.rid, ctx[:n_tokens],
+                                                n_tokens)
+        if imported is None:
+            return False
+        table, copy_idx = imported
+        # drain queued pool maintenance first: a freshly allocated table
+        # entry may still carry a pending pos reset from its previous
+        # owner, which would clobber the implant if applied after it
+        self._apply_fixups()
+        if copy_idx:
+            PG.implant_blocks(self.cache, PG.select_payload(payload, copy_idx),
+                              [table[i] for i in copy_idx])
+        self.block_mgr.register_filled(req.rid, ctx, n_tokens)
+        req.handoff_after_prefill = False
+        req.migrations += 1
+        req.slot = free[0]
+        req.arrival_step = self._step_count
+        self.sched.active[req.slot] = req
+        if self.obs is not None:
+            self.obs.request_event(req.rid, "handoff_adopt",
+                                   args={"slot": req.slot})
+        return True
 
     def step(self) -> bool:
         """Run one engine iteration.  Returns False when idle."""
@@ -602,9 +723,6 @@ class Engine:
             self.block_mgr.register_filled(r.rid, r.context_tokens,
                                            r.prefill_pos)
         if r.prefill_done:
-            if r.handoff_after_prefill:
-                raise NotImplementedError("KV handoff is not ported yet "
-                                          "(ROADMAP.md A6)")
             if r.resumed:
                 r.resumed = False
             else:
@@ -615,6 +733,8 @@ class Engine:
                 self.obs.request_event(r.rid, "prefill_done",
                                        args={"tokens": r.prefill_pos})
             self._maybe_finish(r)
+            if r.state != State.DONE and r.handoff_after_prefill:
+                self._park_for_handoff(r)
 
     def _commit_decode(self, r: Request, tok: int):
         n_written = r.length  # positions [0, length-1] now in cache

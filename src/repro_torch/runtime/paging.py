@@ -33,10 +33,18 @@ Host side (pure Python, the reference's code): ``BlockManager`` composes
   copy is queued for the engine to apply.
 
 Preemption policy lives in the engine (latest-arrival victim, recompute
-readmission); the manager only provides alloc/free/reset primitives.  The
-KV migration of disaggregated serving (``export_blocks``,
-``import_blocks``, ``extract_blocks``, ``implant_blocks``) is not ported
-yet (ROADMAP.md A6).
+readmission); the manager only provides alloc/free/reset primitives.
+
+KV migration (disaggregated serving, ``runtime/cluster.py``):
+``export_blocks``/``import_blocks`` move a request's block table and
+refcounts between managers, ``extract_blocks``/``implant_blocks`` its
+cells between pools.  The payload between them has the reference's layout,
+not this pool's: ``{"k": (L, n, bs, H, dh), "v": ..., "pos": (L, n, bs)}``
+when the reference's pool is stacked (``scan_layers`` with uniform layer
+kinds, ``payload_stacked``), else ``{"layer_i": {"k": (n, bs, H, dh), ...}}``,
+the rank axis folded back into the global head axis H = R·kv_store.  So a
+payload, its byte count and its wire frame equal the reference's, and
+either package's engine adopts the other's.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.prefix_cache import PrefixCache, chain_hashes
+from repro_torch.weights import to_torch
 
 
 # ==========================================================================
@@ -178,6 +187,93 @@ def copy_blocks(pool, copies: Sequence[Tuple[int, int]]):
     return pool
 
 
+def payload_stacked(cfg, pcfg) -> bool:
+    """The reference's pool, and so the payload, is stacked along a layer
+    axis when ``pcfg.scan_layers`` and every layer has the same kind."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    return bool(pcfg.scan_layers) and all(k == kinds[0] for k in kinds)
+
+
+def _block_ids(pool, block_ids) -> torch.Tensor:
+    return torch.as_tensor(list(block_ids), dtype=torch.long,
+                           device=pool[0]["pos"].device)
+
+
+def extract_blocks(pool, block_ids: Sequence[int], *, stacked: bool):
+    """The (k, v, pos) payload of the given physical blocks, on the host:
+    the device half of a KV-migration export.  One gather per leaf on the
+    device, then one copy to the host per leaf; the block axis shrinks to
+    ``len(block_ids)`` and ``pos`` rides along, so the importer's blocks
+    are fully initialized."""
+    ids = _block_ids(pool, block_ids)
+
+    def leaf(layer, name):
+        a = layer[name].index_select(0 if name == "pos" else 1, ids)
+        if name == "pos":
+            return a
+        r, n, bs, h, dh = a.shape        # ranks back into the head axis
+        return a.permute(1, 2, 0, 3, 4).reshape(n, bs, r * h, dh)
+
+    # keys in sorted order at every level, as the reference's payload comes
+    # back from ``jax.device_get`` (so its frames are the same bytes)
+    names = ("k", "pos", "v")
+    if stacked:
+        return {name: torch.stack([leaf(layer, name) for layer in pool]).cpu()
+                for name in names}
+    return dict(sorted(
+        (f"layer_{i}", {name: leaf(layer, name).cpu() for name in names})
+        for i, layer in enumerate(pool)))
+
+
+def implant_blocks(pool, payload, block_ids: Sequence[int]):
+    """Write a payload (either form; torch tensors or numpy arrays) into
+    the pool at ``block_ids``: the device half of a KV-migration import.
+    Every cell of each target block (k, v and pos) is overwritten, so the
+    importer needs no separate reset; one copy to the device per leaf."""
+    ids = _block_ids(pool, block_ids)
+    dev = ids.device
+
+    def on_device(a, dtype):
+        t = a if isinstance(a, torch.Tensor) else to_torch(a)
+        return t.to(device=dev, dtype=dtype)
+
+    stacked = "k" in payload
+    if stacked:
+        leaves = {name: on_device(a, pool[0][name].dtype)
+                  for name, a in payload.items()}
+    for i, layer in enumerate(pool):
+        for name, dst in layer.items():
+            src = (leaves[name][i] if stacked else
+                   on_device(payload[f"layer_{i}"][name], dst.dtype))
+            if name == "pos":
+                dst.index_copy_(0, ids, src)
+                continue
+            r, _, bs, h, dh = dst.shape
+            src = src.reshape(len(ids), bs, r, h, dh).permute(2, 0, 1, 3, 4)
+            dst.index_copy_(1, ids, src.contiguous())
+    return pool
+
+
+def select_payload(payload, idx: Sequence[int]):
+    """Subset a payload along its block axis (the importer implants only
+    the blocks it could not share from its own prefix cache)."""
+    sel = list(idx)
+    if "k" not in payload:
+        return {name: {k: a[sel] for k, a in layer.items()}
+                for name, layer in payload.items()}
+    return {k: a[:, sel] for k, a in payload.items()}
+
+
+def payload_nbytes(payload) -> int:
+    """Raw KV bytes of a payload tree, either form: what the wire
+    transport prices."""
+    if "k" not in payload:
+        return sum(int(a.nbytes) for layer in payload.values()
+                   for a in layer.values())
+    return sum(int(a.nbytes) for a in payload.values())
+
+
 # ==========================================================================
 # host side: allocator + manager
 # ==========================================================================
@@ -253,7 +349,7 @@ class PagingStats:
     preemptions: int = 0
     cow_copies: int = 0
     registered_blocks: int = 0
-    # --- disaggregated KV migration (not ported yet; stay 0) ---
+    # --- disaggregated KV migration (runtime/cluster.py) ---
     migrations_out: int = 0      # requests exported off this manager
     migrations_in: int = 0       # requests adopted by this manager
     import_shared_blocks: int = 0  # import hits served from the prefix cache
@@ -434,6 +530,52 @@ class BlockManager:
             freed = self.alloc.decref(b, cached=cached)
             if freed and not cached:
                 self._pending_resets.append(b)
+
+    # ---- disaggregated KV migration --------------------------------------
+    def export_blocks(self, rid: int, n_tokens: int) -> List[int]:
+        """Begin a KV migration: the physical blocks covering the request's
+        first ``n_tokens`` committed positions, in table order.  The table
+        stays intact: the caller extracts the payload from these blocks
+        (``extract_blocks``), then releases the exporter's references with
+        ``free_request`` (shared prefix blocks keep their other readers,
+        private blocks recycle)."""
+        table = self.tables[rid]
+        keep = self.blocks_needed(n_tokens)
+        assert keep <= len(table), (rid, n_tokens, len(table))
+        self.stats.migrations_out += 1
+        return list(table[:keep])
+
+    def import_blocks(self, rid: int, context: Sequence[int],
+                      n_tokens: int, *, headroom: int = 1
+                      ) -> Optional[Tuple[List[int], List[int]]]:
+        """Adopt a migrated request: build its block table here.  Full
+        blocks whose chain hash this manager's prefix cache holds are
+        shared (the hash chain guarantees the same content); the rest are
+        allocated private.  A 100% full-block match is fine: the next input
+        token was already sampled by the exporter.
+
+        Returns ``(table, copy_idx)``, ``copy_idx`` the table positions that
+        need a payload implant, or ``None`` with every acquired reference
+        rolled back when the pool cannot cover ``blocks_needed(n_tokens)``
+        plus ``headroom``.  The caller re-registers the prefix-cache entries
+        afterwards (``register_filled``)."""
+        assert rid not in self.tables, rid
+        bs = self.block_size
+        n_full = n_tokens // bs
+        hit_blocks: List[int] = []
+        if self.prefix_caching:
+            hit_blocks = self.prefix.match(
+                chain_hashes(context[:n_full * bs], bs))
+        built = self._build_table(hit_blocks, self.blocks_needed(n_tokens),
+                                  headroom)
+        if built is None:
+            return None
+        table, copy_idx = built
+        self.tables[rid] = table
+        self.stats.migrations_in += 1
+        self.stats.import_shared_blocks += len(hit_blocks)
+        self.stats.import_copied_blocks += len(copy_idx)
+        return table, copy_idx
 
     # ---- release ---------------------------------------------------------
     def free_request(self, rid: int) -> None:

@@ -34,8 +34,10 @@ Lifecycle events between steps (engine steps are atomic):
                 ``expire_on_deadline``) or allowed to finish late; either
                 way it counts against goodput, never as a server failure.
 
-The cluster layer that runs N engines behind a router on the same clock
-is not ported yet (ROADMAP.md A8).
+Scaling past one engine is the cluster layer's job: runtime/cluster.py
+runs N engines on the same virtual-clock axis behind a router, reusing
+``StepCost`` for per-replica step timing; runtime/http_api.py serves one
+``OnlineServer`` over HTTP.
 """
 from __future__ import annotations
 

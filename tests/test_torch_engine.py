@@ -134,48 +134,44 @@ UNSERVED = {"qwen3-moe-235b-a22b": "A10.*A4", "falcon-mamba-7b": "A10",
             "zamba2-7b": "A10", "whisper-base": "A10", "qwen2-vl-7b": "A10"}
 
 
-@pytest.mark.parametrize("what", ["evacuate", "handoff_two",
-                                  "handoff_packed", *UNSERVED])
+@pytest.mark.parametrize("what", list(UNSERVED))
 def test_engine_refuses_unported_modes(torch_model, what):
-    """What stays unported is refused (ROADMAP.md A6): ``evacuate`` when
-    called, and a request marked for the disaggregated KV handoff once
-    its prefill completes, in both dispatch schemes (tracing and
-    profiling are ported, tests/test_torch_obs.py and
-    tests/test_torch_profiler.py).  The families other than dense and MoE
-    (ssm, hybrid, encdec, vlm) and the MoE ``ep2d`` partitioning are
-    refused when the model is built or initialised (ROADMAP.md A10, and
-    A4 for ep2d's data rank axis), as is ``ep > 1`` for any model."""
-    if what in UNSERVED:
-        cfg = t_get_config(what).reduced()
-        pcfg = tbase.ParallelConfig()
-        for make in (lambda: t_build_model(cfg, pcfg),
-                     lambda: TT.init_params(cfg, device="cpu")):
-            with pytest.raises(NotImplementedError, match=UNSERVED[what]):
-                make()
-        if cfg.is_moe:
-            with pytest.raises(NotImplementedError, match="A10.*A4"):
-                TM.moe_forward({}, torch.zeros(1, 1, 4, cfg.d_model), cfg)
-            with pytest.raises(NotImplementedError, match="A10.*A4"):
-                t_build_model(t_get_config("mixtral-8x22b").reduced(), pcfg,
-                              ep=2)
-        return
-    api, tparams = torch_model
-    scfg = tsched.SchedulerConfig(**SCHED, spec_gamma=2, paged=True,
-                                  packed=what == "handoff_packed")
-    eng = TEngine(api, tparams, scfg, temperature=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        if what == "evacuate":
-            eng.evacuate()
-        else:
-            eng.add_request(TRequest(rid=0, prompt=list(range(1, 20)),
-                                     max_new_tokens=3,
-                                     handoff_after_prefill=True))
-            eng.run()
+    """What stays unported is refused: the families other than dense and
+    MoE (ssm, hybrid, encdec, vlm) and the MoE ``ep2d`` partitioning, when
+    the model is built or initialised (ROADMAP.md A10, and A4 for ep2d's
+    data rank axis), as is ``ep > 1`` for any model.  (``evacuate`` and
+    the KV handoff are ported: tests/test_torch_handoff.py and
+    tests/test_torch_cluster.py.)"""
+    cfg = t_get_config(what).reduced()
+    pcfg = tbase.ParallelConfig()
+    for make in (lambda: t_build_model(cfg, pcfg),
+                 lambda: TT.init_params(cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match=UNSERVED[what]):
+            make()
+    if cfg.is_moe:
+        with pytest.raises(NotImplementedError, match="A10.*A4"):
+            TM.moe_forward({}, torch.zeros(1, 1, 4, cfg.d_model), cfg)
+        with pytest.raises(NotImplementedError, match="A10.*A4"):
+            t_build_model(t_get_config("mixtral-8x22b").reduced(), pcfg,
+                          ep=2)
+
+
+def test_engine_from_spec_without_device_raises_when_cuda_absent(
+        monkeypatch):
+    """``build_engine_from_spec`` (both servers' entry) builds on CUDA
+    unless the spec says ``"device": "cpu"``, and raises without CUDA."""
+    from repro_torch.runtime.transport import build_engine_from_spec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine_from_spec()
+    eng = build_engine_from_spec({"device": "cpu"})
+    assert eng.device.type == "cpu" and eng.paged
 
 
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the sim, calibration, tracing, profiler,
-    online server, MoE layer and config registry among them), and
+    online server, MoE layer, config registry, wire transport, cluster
+    and HTTP API among them), and
     chip_smoke.py's imports, load with ``jax`` and ``repro`` made
     unimportable."""
     code = r"""
@@ -190,8 +186,9 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.analysis.calibration", "repro_torch.sim.overlap_sim",
         "repro_torch.obs.trace", "repro_torch.obs.attribution",
         "repro_torch.obs.profiler", "repro_torch.runtime.server",
-        "repro_torch.layers.moe", "repro_torch.configs.mixtral_8x22b"
-        } <= set(names), names
+        "repro_torch.layers.moe", "repro_torch.configs.mixtral_8x22b",
+        "repro_torch.runtime.transport", "repro_torch.runtime.cluster",
+        "repro_torch.runtime.http_api"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
