@@ -113,7 +113,29 @@ Phases, each printing one JSON line:
             repro_torch.runtime.transport`` replica hard-killed mid-run
             beside a local one, and one SSE stream from a spawned ``python
             -m repro_torch.runtime.http_api``, each token-identical to the
-            offline engine (a failed server fails the script).
+            offline engine (a failed server fails the script);
+12. engine_ssm  Falcon-Mamba-7B at full width and depth (64 layers, bf16,
+            random weights from the seed) serves the engine phases' 4
+            requests through the two-dispatch engine over legacy slots at
+            tp=1 ``fused`` and tp=8 ``ring``: K2/K1 launches equal
+            splits·(1+L) and K3's none; request 0's first token equals a
+            direct prefill's argmax; one traced prefill and one traced
+            decode call split by the SSM layer's ranges (in/out
+            projections, conv, x_proj's rank sum, scan);
+13. hybrid  Zamba2-7B at full width and depth (81 Mamba-2 layers, 13
+            shared-attention calls at head dim 224, bf16) through
+            ``ModelApi``: 4 rows, two 512-token prefill chunks through
+            the cache (the second reads the first's shared KV and resumes
+            its SSD state), 16 greedy decode steps, at tp=1 and tp=8; K3
+            launches equal 13 per split per chunk, K2/K1 splits·(1+81+13)
+            per forward; K3 held on the run's inputs; one traced chunk
+            and decode step; then small float32 ssm and hybrid models give
+            equal greedy tokens on the card and the CPU at tp=1 and tp=2
+            ``ring`` (``identity_ssm``, ``identity_hybrid``).
+
+The kernels phase holds K2 and K1 at the two families' widths too (d
+4096 and 3584) and K3 at bf16 head dims 224 and 256 (``hybrid_d224``,
+``gemma_d256`` timed beside SDPA, ``g2_d224`` ragged and windowed).
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -308,7 +330,7 @@ def check_k3(torch, name, q, k, v, qpos, kpos, *, causal, window=0,
             "rms_plain": rms, "max_abs_err": err, "atol": atol,
             "rtol": K3_RTOL, "rel_fro_err": fro, "rel_fro_tol": K3_REL_FRO}
     if q.dtype == torch.bfloat16:
-        rows, keys, _ = K3.tiling()
+        rows, keys, _ = K3.tiling(dh)
         live = K3.live_tiles(qpos, kpos, causal=causal, window=window,
                              queries_per_cta=rows // g, keys_per_tile=keys)
         case.update(key_tiles_visited=int((live > 0).sum()) * kvh,
@@ -336,9 +358,10 @@ def kernel_phase(torch, seed: int, probe):
     dev, bf16 = "cuda", torch.bfloat16
     rows = {}
 
-    d = 8192
     k2_err = 0.0
-    for t in (8, 32, 1000, 2048):
+    # Llama's d 8192, then Falcon-Mamba's 4096 and Zamba2's 3584 (held)
+    for t, d in ((8, 8192), (32, 8192), (1000, 8192), (2048, 8192),
+                 (2048, 4096), (1000, 3584), (2048, 3584)):
         x = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         r = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         w = (torch.randn(d, generator=gen, device=dev).abs() + 0.5).to(bf16)
@@ -352,7 +375,7 @@ def kernel_phase(torch, seed: int, probe):
         case = {"phase": "kernels", "kernel": "fused_residual_rmsnorm",
                 "T": t, "d": d, "dtype": "bfloat16", "max_abs_err": err,
                 "tol": K2_TOL}
-        if t == 2048:
+        if (t, d) == (2048, 8192):
             nbytes = 4 * t * d * 2 + d * 2
             case.update(
                 ms=time_ms(torch, lambda: K2.fused_residual_rmsnorm(x, r, w)),
@@ -371,7 +394,8 @@ def kernel_phase(torch, seed: int, probe):
     gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
     k1_err = 0.0
     for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
-                     + [(8, 32, 8192), (8, 1000, 8190)]):
+                     + [(8, 32, 8192), (8, 1000, 8190), (8, 2048, 4096),
+                        (8, 2048, 3584), (8, 1000, 3584)]):
         x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
         r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
                         dtype=bf16)
@@ -471,7 +495,18 @@ def kernel_phase(torch, seed: int, probe):
         ("g1_d64", 2, 300, 1000, 2, 1, 64, 0, 700, 600, 0, 20),
         ("g5_d128", 1, 257, 1000, 3, 5, 128, 300, 743, 743, 0, 0),
         ("g16_d64", 1, 100, 4096 + 100, 2, 16, 64, 0, 0, 0, 0, 7),
+        # Zamba2's shared attention (2·3584 wide, 32 heads of 224) at the
+        # hybrid phase's second chunk: a 256-token split of 4 rows behind
+        # its 1040-cell cache rows (768 earlier tokens valid) and the
+        # first split
+        ("hybrid_d224", 4, 256, 1040 + 256, 32, 1, 224, 0, 768, 768, 0, 0),
+        # gemma3-1b's global layers (4 heads on 1 KV head of 256) behind
+        # 2048 cached keys, and a ragged, windowed, padded case at 224
+        ("gemma_d256", 1, 1024, 2048 + 1024, 1, 4, 256, 0, 2048, 2048, 0,
+         0),
+        ("g2_d224", 2, 300, 1000, 3, 2, 224, 128, 700, 600, 0, 20),
     ]
+    timed = ("main", "engine", "engine_tp", "hybrid_d224", "gemma_d256")
     for (name, b, sq, sk, kvh, g, dh, window, q0, k_valid, k_at,
          pad) in cases:
         qpos, kpos = positions(sq, sk, q0, k_valid, b, k_at)
@@ -489,7 +524,7 @@ def kernel_phase(torch, seed: int, probe):
         if name.startswith("engine") and not (case["key_tiles_visited"]
                                               < case["key_tiles_total"]):
             raise AssertionError(f"K3 {name}: no key tile skipped ({case})")
-        if name in ("main", "engine", "engine_tp"):
+        if name in timed:
             qs = q.reshape(b, sq, kvh * g, dh).transpose(1, 2).contiguous()
             ks = k.transpose(1, 2).contiguous()
             vs = v.transpose(1, 2).contiguous()
@@ -514,7 +549,7 @@ def kernel_phase(torch, seed: int, probe):
                         enable_gqa=True)))
             # what the host spends per call: the wrapper, and the
             # live-tile table's torch ops alone
-            rows_cta, keys, _ = K3.tiling()
+            rows_cta, keys, _ = K3.tiling(dh)
             case.update(
                 host_ms=host_ms(torch, lambda: K3.flash_attention(
                     q, k, v, qpos, kpos, **kw)),
@@ -1698,14 +1733,7 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
     scfg = SchedulerConfig(max_batch=16, chunk_tokens=64, max_len=128,
                            prefill_bucket=16)
     p_cpu = api.init(seed, device="cpu")
-
-    def to_cuda(tree):
-        if isinstance(tree, dict):
-            return {k: to_cuda(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cuda(v) for v in tree]
-        return tree.cuda()
-    p_gpu = to_cuda(p_cpu)
+    p_gpu = to_device(p_cpu, "cuda")
 
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
@@ -1743,7 +1771,7 @@ def identity_phase(torch, np, seed: int, *, tp: int, comm_mode: str,
         dapi = build_model(dataclasses.replace(cfg, num_layers=1), pcfg,
                            tp=tp)
         d_cpu = dapi.init(seed + 7, device="cpu")
-        d_params = {"cpu": d_cpu, "cuda": to_cuda(d_cpu)}
+        d_params = {"cpu": d_cpu, "cuda": to_device(d_cpu, "cuda")}
 
     def spec_identity(engine, base, serve, want):
         """The spec engines over ``base``'s scheduler give the spec-off
@@ -2711,6 +2739,410 @@ def cluster_small_phase(torch, np, seed: int):
             f.close()
 
 
+# --------------------------------------------------------------------------
+# the ssm and hybrid families at full width: Falcon-Mamba-7B through the
+# engine, Zamba2-7B through direct prefill and decode calls
+# --------------------------------------------------------------------------
+
+SSM_LAYERS = 64                    # all of Falcon-Mamba-7B's
+HYBRID_LAYERS = 81                 # all of Zamba2-7B's (13 shared calls)
+HYBRID_ROWS, HYBRID_CHUNK = 4, 512  # two chunks of 4 x 512 tokens
+
+
+def ssm_ranges() -> dict:
+    """The SSM layers' named ranges (label -> range) for
+    ``device_breakdown``."""
+    from repro_torch.layers import ssm
+    return dict(ssm.RANGES)
+
+
+def norm_launches(api, b: int, s: int, *, decode: bool, slots: int) -> int:
+    """The add+norm kernel launches of one (b, s) forward: per split one
+    entry norm and one slot per block (``slots``: layers, plus the
+    hybrid's shared-block calls); none when the forward's tokens do not
+    divide over the ranks, where ``comm_norm`` takes the reference's
+    vanilla fallback (a 4-row decode, an exact 700-token ssm chunk at
+    tp=8)."""
+    from repro_torch.models import transformer as TR
+    if TR._comm_ctx(api.pcfg, api.cfg, b * s, api.tp).mode == "vanilla":
+        return 0
+    return (1 + TR.weave_decision_info(b, s, tp=api.tp, pcfg=api.pcfg,
+                                       decode=decode).weave) * (1 + slots)
+
+
+def recurrent_launches(norm: int, *, norm_kernel: str, k3: int = 0) -> dict:
+    """What a run launches: ``norm`` add+norm kernels of the mode's kind,
+    K3 ``k3`` times."""
+    want = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
+            "flash_attention": k3}
+    want[norm_kernel] = norm
+    return want
+
+
+def engine_ssm_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                     comm_mode: str):
+    """Falcon-Mamba-7B at full width and depth (bf16, random weights from
+    the seed) serves the engine phases' 4 requests through the two-
+    dispatch engine over legacy slots: K2 (``fused``) or K1 (``ring``)
+    launches equal splits·(1+L), K3 none; request 0's first token equals
+    the argmax of a direct prefill of its prompt (the engine prefills it
+    alone, one exact chunk); one traced prefill and one traced decode
+    call split by the SSM layer's ranges.  Returns (launches, 0.0, peak
+    GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    t_phase = time.perf_counter()
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, prompts, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=SSM_LAYERS,
+        config=get_config("falcon-mamba-7b"))
+    n0 = PROMPT_LENS[0]
+    tokens = torch.tensor([prompts[0]], device="cuda")
+    with torch.no_grad():
+        logits, _ = api.prefill(params, tokens,
+                                api.init_cache(1, 1, device="cuda"), None)
+    v_loc = params["embedding"]["embed"].shape[1]
+    if logits.shape != (tp, 1, 1, v_loc) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"not finite / wrong shape")
+    first_tok = int(sharded_argmax(logits, vocab_size=cfg.vocab_size)[0, 0])
+    del logits
+
+    eng = Engine(api, params, SchedulerConfig())
+    times = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t) * 1e3)
+        return run
+
+    eng._run_prefill = timed("prefill", eng._run_prefill)
+    eng._run_decode = timed("decode", eng._run_decode)
+    note, shapes = eng._note_forward, []
+
+    def noted(b, s, n_real, **kw):
+        shapes.append((b, s, kw.get("decode", False)))
+        return note(b, s, n_real, **kw)
+    eng._note_forward = noted
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    run_start_gb = reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
+    out0 = next(r for r in done if r.rid == 0).output[0]
+    if out0 != first_tok:
+        raise AssertionError(f"engine's first token {out0} != direct "
+                             f"prefill argmax {first_tok}")
+    st = eng.stats
+    want = recurrent_launches(
+        sum(norm_launches(api, b, s_, decode=dec, slots=SSM_LAYERS)
+            for b, s_, dec in shapes), norm_kernel=norm_kernel)
+    if launches != want or not launches[norm_kernel]:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    emit({"phase": "engine_ssm", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": SSM_LAYERS,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_state": cfg.ssm_state, "dtype": cfg.dtype,
+          "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+          "forwards": st.forwards, "weave_forwards": st.weave_forwards,
+          "prefill_chunks": [s_ for _, s_, dec in shapes if not dec],
+          "launches": launches, "expected_launches": want,
+          "param_init_s": init_s, "wall_s": wall_s,
+          "prefill_ms": times["prefill"], "decode_ms": times["decode"],
+          "prefill_ms_median": statistics.median(times["prefill"]),
+          "decode_ms_median": statistics.median(times["decode"]),
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+
+    # where a step's time goes: request 0's prefill, one decode step over
+    # the 8 slots (4 of them finished requests' rows), warm after the run
+    dtok = torch.zeros(eng.scfg.max_batch, 1, dtype=torch.long,
+                       device="cuda")
+    with torch.no_grad():
+        for step, fn in (
+                ("prefill", lambda: api.prefill(
+                    params, tokens, api.init_cache(1, 1, device="cuda"),
+                    None)),
+                ("decode", lambda: api.decode_step(params, dtok, eng.cache,
+                                                   None))):
+            trace = trace_dir / f"engine_ssm_tp{tp}_{step}_trace.json"
+            brk = device_breakdown(torch, fn, trace, ranges=ssm_ranges())
+            if tp > 1 and step == "prefill" and not brk["k1_launches"]:
+                raise AssertionError("no K1 kernel in the traced prefill")
+            emit({"phase": "breakdown", "engine": "engine_ssm", "tp": tp,
+                  "step": step, "tokens":
+                  n0 if step == "prefill" else eng.scfg.max_batch, **brk})
+    del eng, params
+    torch.cuda.empty_cache()
+    emit({"phase": "engine_ssm_seconds", "tp": tp,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, 0.0, peak
+
+
+def hybrid_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                 comm_mode: str):
+    """Zamba2-7B at full width and depth (bf16, random weights from the
+    seed) through ``ModelApi``: 4 rows, two 512-token prefill chunks
+    through the cache (the second attends the first's shared KV, which
+    ``kv_cache.insert_chunk`` wrote, and resumes its SSD state), then
+    NEW_TOKENS greedy decode steps.  K3 runs 13 times per split of each
+    chunk (the shared block's prefill at head dim 224), K2 or K1
+    splits·(1 + 81 + 13) times per forward; K3 is held on the inputs the
+    run gave it; one traced prefill chunk and one traced decode step split
+    by the SSM ranges.  Returns (launches, K3's max error on the run's
+    inputs, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models import transformer as TR
+    from repro_torch.runtime import kv_cache as KC
+
+    t_phase = time.perf_counter()
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, _, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode,
+        n_layers=HYBRID_LAYERS, config=get_config("zamba2-7b"))
+    n_inv = cfg.num_layers // cfg.shared_attn_period
+    b, chunk = HYBRID_ROWS, HYBRID_CHUNK
+    max_len = 2 * chunk + NEW_TOKENS
+    cache = api.init_cache(b, max_len, device="cuda")
+    rng = np.random.RandomState(seed + 19)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (b, 2 * chunk))).to("cuda")
+    rows = torch.arange(b, device="cuda")
+    v_loc = params["embedding"]["embed"].shape[1]
+    times = {"prefill": [], "decode": []}
+    k3_inputs, splits, outs = {}, [], []
+
+    def prefill(c):
+        pos = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32,
+                           device="cuda")[None].repeat(b, 1)
+        logits, out = api.prefill(params, tokens[:, c * chunk:
+                                                 (c + 1) * chunk],
+                                  cache, pos)
+        return logits, out
+
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        with torch.no_grad():
+            for c in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, out = prefill(c)
+                KC.insert_chunk(cache["shared"], out["shared"],
+                                torch.full((b,), c * chunk, device="cuda"),
+                                rows)
+                torch.cuda.synchronize()
+                times["prefill"].append((time.perf_counter() - t) * 1e3)
+                offload(k3_inputs)
+                splits.append(1 + TR.weave_decision_info(
+                    b, chunk, tp=tp, pcfg=api.pcfg).weave)
+                if logits.shape != (tp, b, 1, v_loc) or \
+                        not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(f"chunk {c}: logits "
+                                         f"{tuple(logits.shape)} not finite"
+                                         f" / wrong shape")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+            for step in range(NEW_TOKENS):
+                outs.append(tok[:, 0].tolist())
+                pos = torch.full((b, 1), 2 * chunk + step, dtype=torch.int32,
+                                 device="cuda")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = api.decode_step(params, tok, cache, pos)
+                tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                torch.cuda.synchronize()
+                times["decode"].append((time.perf_counter() - t) * 1e3)
+        launches = read_launches()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode tokens {outs} or logits out of range")
+    slots = cfg.num_layers + n_inv
+    want = recurrent_launches(
+        2 * norm_launches(api, b, chunk, decode=False, slots=slots)
+        + NEW_TOKENS * norm_launches(api, b, 1, decode=True, slots=slots),
+        norm_kernel=norm_kernel, k3=n_inv * sum(splits))
+    if launches != want or not launches[norm_kernel]:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    emit({"phase": "hybrid", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": HYBRID_LAYERS,
+          "shared_invocations": n_inv, "d_model": cfg.d_model,
+          "shared_head_dim": 2 * cfg.d_model // cfg.num_heads,
+          "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
+          "dtype": cfg.dtype, "rows": b, "chunk": chunk,
+          "prefill_splits": splits, "decode_steps": NEW_TOKENS,
+          "launches": launches, "expected_launches": want,
+          "param_init_s": init_s, "prefill_ms": times["prefill"],
+          "decode_ms": times["decode"],
+          "decode_ms_median": statistics.median(times["decode"]),
+          "tokens_row0": [row[0] for row in outs],
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+
+    # where a chunk's time goes: the second chunk again (its SSD state
+    # and KV are rewritten, which no later check reads), and one decode
+    # step
+    pos = torch.full((b, 1), max_len - 1, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for step, fn in (("prefill", lambda: prefill(1)),
+                         ("decode", lambda: api.decode_step(
+                             params, tok, cache, pos))):
+            trace = trace_dir / f"hybrid_tp{tp}_{step}_trace.json"
+            brk = device_breakdown(torch, fn, trace, ranges=ssm_ranges())
+            if step == "prefill" and brk["k3_calls"] != n_inv * splits[1]:
+                raise AssertionError(f"traced chunk: {brk['k3_calls']} K3 "
+                                     f"kernels")
+            emit({"phase": "breakdown", "engine": "hybrid", "tp": tp,
+                  "step": step,
+                  "tokens": b * chunk if step == "prefill" else b, **brk})
+    del params, cache, out, logits
+    torch.cuda.empty_cache()
+    err = check_main_path_k3(torch, k3_inputs, "hybrid", tp)
+    emit({"phase": "hybrid_seconds", "tp": tp,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, err, peak
+
+
+def to_device(tree, dev):
+    """A parameter tree (dicts, lists, tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def identity_recurrent_phase(torch, np, seed: int, *, tp: int,
+                             comm_mode: str):
+    """Small float32 ssm and hybrid models on the card (kernels) and on
+    the CPU (plain versions): the ssm engine's greedy tokens over slots
+    equal, the weave firing; the hybrid's direct calls (two prefill
+    chunks of 2 x 32 through the cache, 4 greedy decode steps) give equal
+    tokens and logits within IDENTITY_LOGIT_TOL."""
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import kv_cache as KC
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
+                          use_pallas_norm=True, split_unit=16,
+                          tokenweave_min_tokens=32)
+    rng = np.random.RandomState(seed + 3)
+
+    # the ssm engine over slots
+    cfg = ModelConfig(name="small-ssm", family="ssm", num_layers=2,
+                      d_model=256, num_heads=0, num_kv_heads=0, d_ff=0,
+                      vocab_size=512, ssm_state=16, ssm_dt_rank=16,
+                      dtype="float32")
+    api = build_model(cfg, pcfg, tp=tp)
+    p_cpu = api.init(seed, device="cpu")
+    params = {"cpu": p_cpu, "cuda": to_device(p_cpu, "cuda")}
+    prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.randint(5, 100, size=16)]
+    scfg = SchedulerConfig(max_batch=16, chunk_tokens=64, max_len=128,
+                           prefill_bucket=16)
+    outs, launches, weave = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        eng = Engine(api, params[dev], scfg, device=dev)
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=6))
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        torch.cuda.synchronize()
+        launches[dev] = read_launches()
+        weave[dev] = eng.stats.weave_forwards
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"tp={tp} {cfg.name}: cuda tokens "
+                             f"{outs['cuda']} != cpu {outs['cpu']}")
+    if (not launches["cuda"][norm_kernel]
+            or launches["cuda"]["flash_attention"]
+            or any(launches["cpu"].values()) or not weave["cuda"]):
+        raise AssertionError(f"tp={tp} {cfg.name}: launches {launches}, "
+                             f"weave forwards {weave}")
+    emit({"phase": "identity_ssm", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "requests": len(prompts),
+          "tokens_identical": True, "weave_forwards": weave["cuda"],
+          "cuda_launches": launches["cuda"]})
+
+    # the hybrid by direct calls
+    cfg = ModelConfig(name="small-hybrid", family="hybrid", num_layers=4,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=0,
+                      vocab_size=512, ssm_state=16, ssm_heads=4,
+                      shared_attn_period=2, dtype="float32")
+    api = build_model(cfg, pcfg, tp=tp)
+    p_cpu = api.init(seed, device="cpu")
+    params = {"cpu": p_cpu, "cuda": to_device(p_cpu, "cuda")}
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 64)))
+    got, first, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        cache = api.init_cache(2, 80, device=dev)
+        with torch.no_grad():
+            for c in range(2):
+                pos = torch.arange(32 * c, 32 * (c + 1), dtype=torch.int32,
+                                   device=dev)[None].repeat(2, 1)
+                logits, out = api.prefill(
+                    params[dev], tokens[:, 32 * c:32 * (c + 1)].to(dev),
+                    cache, pos)
+                KC.insert_chunk(cache["shared"], out["shared"],
+                                torch.full((2,), 32 * c, device=dev),
+                                torch.arange(2, device=dev))
+            first[dev] = logits.cpu()
+            tok, got[dev] = sharded_argmax(logits, vocab_size=512), []
+            for step in range(4):
+                got[dev].append(tok[:, 0].tolist())
+                pos = torch.full((2, 1), 64 + step, dtype=torch.int32,
+                                 device=dev)
+                logits, cache = api.decode_step(params[dev], tok, cache, pos)
+                tok = sharded_argmax(logits, vocab_size=512)
+        torch.cuda.synchronize()
+        launches[dev] = read_launches()
+    err = max_err(first["cuda"], first["cpu"])
+    if got["cuda"] != got["cpu"] or not err <= IDENTITY_LOGIT_TOL:
+        raise AssertionError(f"tp={tp} {cfg.name}: cuda tokens "
+                             f"{got['cuda']} != cpu {got['cpu']} or logits "
+                             f"differ by {err}")
+    if (0 in (launches["cuda"][norm_kernel],
+              launches["cuda"]["flash_attention"])
+            or any(launches["cpu"].values())):
+        raise AssertionError(f"tp={tp} {cfg.name}: launches {launches}")
+    emit({"phase": "identity_hybrid", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "tokens_identical": True,
+          "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL,
+          "cuda_launches": launches["cuda"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2783,6 +3215,12 @@ def main() -> int:
               cluster_phase(**kw, tp=8, comm_mode="ring")]
     cluster_small_phase(torch, np, args.seed)
     emit({"phase": "cluster_seconds", "seconds": time.perf_counter() - t0})
+    # the ssm family through the engine, the hybrid through direct calls
+    kw["trace_dir"] = args.trace_dir
+    for tp, mode in ((1, "fused"), (8, "ring")):
+        paths += [engine_ssm_phase(**kw, tp=tp, comm_mode=mode),
+                  hybrid_phase(**kw, tp=tp, comm_mode=mode)]
+    kw.pop("trace_dir")
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too
@@ -2795,6 +3233,8 @@ def main() -> int:
                        moe=moe)
         identity_phase(torch, np, args.seed, tp=2, comm_mode="ring",
                        moe=moe)
+    for tp, mode in ((1, "fused"), (2, "ring")):
+        identity_recurrent_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",

@@ -6,8 +6,8 @@
 // multihead_attention(impl="pallas") in the prefill path.
 //
 //   q (B, Sq, KVH, G, D), k/v (B, Sk, KVH, D), qpos (B, Sq), kpos (B, Sk)
-//   int32; out (B, Sq, KVH, G, D) in q's dtype.  bfloat16: D in {64, 128};
-//   float32: D in {16, 32, 64, 128}.
+//   int32; out (B, Sq, KVH, G, D) in q's dtype.  bfloat16: D in {64, 128,
+//   224, 256}; float32: D in {16, 32, 64, 128}.
 //
 // What bounds it: operations, 4 * D * (query head, key) pairs the mask lets
 // through, far above the card's 295 operations per byte.  Three things keep
@@ -38,6 +38,18 @@
 // live-tile table and the side pass included; the main path's first
 // prefill split, behind an empty 4096-slot row, visits 11 % of its key
 // tiles and takes 0.15 ms.
+//
+// Head dims above 128 (gemma3's 256, the 224 of zamba2's shared 2d-wide
+// attention) hit the SM's limits: a 128-row Q tile and two stages of
+// 128-key K/V tiles at D = 256 would need 320 KB of shared memory against
+// 227 KB, and the fp32 O accumulator of a 64-row warpgroup is D / 2
+// registers a thread.  So above 128 the K/V tiles hold 64 keys (Q 64 KB
+// plus two stages of K and V, 128 KB), which also halves S (32 registers)
+// and P's fragments (16), leaving the 128 of O within the consumers' 240.
+// D = 224 runs as D = 256 with the head dim's last 32 columns zero: the
+// tensor maps end at D, so TMA fills the last 64-column box's tail with
+// zeros, which add nothing to Q K^T and make O's tail columns zero, and
+// the epilogue stores the first D columns only.
 //
 // Numerics traps, all as the model path's _attn_ref
 // (src/repro/layers/attention.py):
@@ -275,24 +287,27 @@ __global__ void __launch_bounds__(kVsumThreads)
 vsum_kernel(const __nv_bfloat16* __restrict__ v, float* __restrict__ vsum,
             int Sk, int KVH) {
   constexpr int TPK = D / 8;                  // threads per key, 16 B each
-  constexpr int KPP = kVsumThreads / TPK;     // keys per pass
+  constexpr int KPP = kVsumThreads / TPK;     // keys per pass (D = 224: 4,
+                                              // threads 112.. stay idle)
   __shared__ float red[KPP][D];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tk = threadIdx.x / TPK, c8 = (threadIdx.x % TPK) * 8;
-  float acc[8];
+  if (tk < KPP) {
+    float acc[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  const int k_end = min(Sk, (c + 1) * kVsumKeys);
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    const int k_end = min(Sk, (c + 1) * kVsumKeys);
 #pragma unroll 4
-  for (int key = c * kVsumKeys + tk; key < k_end; key += KPP) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        v + (((int64_t)b * Sk + key) * KVH + h) * D + c8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    for (int key = c * kVsumKeys + tk; key < k_end; key += KPP) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          v + (((int64_t)b * Sk + key) * KVH + h) * D + c8);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] += __bfloat162float(e[j]);
+      for (int j = 0; j < 8; ++j) acc[j] += __bfloat162float(e[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[tk][c8 + j] = acc[j];
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) red[tk][c8 + j] = acc[j];
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kVsumThreads) {
     float s = 0.f;
@@ -326,29 +341,31 @@ __device__ __forceinline__ void store_mean_v(__nv_bfloat16* orow,
 // One CTA per (KV head, q tile, batch): kTcRows = 128 query rows (qt = 128 / G
 // queries x G heads of the group), held by two consumer warpgroups of 64
 // rows each, and a producer warpgroup of which one warp loads.  The producer walks the CTA's live key
-// tiles (the wrapper's table) and keeps kStages K/V tiles of kTcKeys keys in
+// tiles (the wrapper's table) and keeps kStages K/V tiles of tc_keys(D) keys in
 // flight with TMA, each stage completing on an mbarrier ("full"); the
 // consumers hand a stage back on a second mbarrier ("empty") once both
 // products have read it.  Per tile and warpgroup:
-//   S = Q K^T   wgmma m64n128k16, Q and K from shared memory, both K-major;
+//   S = Q K^T   wgmma m64nKk16, Q and K from shared memory, both K-major;
 //   online softmax on S in registers (mask from positions, fp32 m and l);
-//   O += P V    wgmma m64nDk16, P from registers (S rounded to bf16, the
+//   O += P V    wgmma m64nDPk16, P from registers (S rounded to bf16, the
 //               accumulator layout reused as A fragments), V from shared
 //               memory through the descriptor's transpose bit (MN-major).
 // Every tile is loaded with a 128-byte swizzle: rows of 64 bf16 (128 B), one
 // box per 64 columns of the head dim, so a D = 128 tile is two column
-// blocks.  Rows past qt * G and keys past Sk are zero-filled or ignored.
+// blocks and DP, the head dim rounded up to 64, is what the products span.
+// Rows past qt * G, keys past Sk and columns past D are zero-filled or
+// ignored.
 
 constexpr int kTcRows = 128;     // query rows per CTA (q tile * G)
-constexpr int kTcKeys = 128;     // keys per K/V tile
+// keys per K/V tile: 128, or 64 above D = 128 (shared memory, registers)
+__host__ __device__ constexpr int tc_keys(int D) { return D > 128 ? 64 : 128; }
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;  // two warpgroups
 // and a producer warpgroup, of which one warp works: registers are
 // allocated per warpgroup, and the producer hands its share to the
 // consumers (setmaxnreg: 24 each for the producer, 240 for a consumer)
 constexpr int kTcThreads = kConsumers + 128;
-constexpr int kBlockBytes = kTcRows * 128;  // 128 rows x 64 bf16: one box
-static_assert(kTcRows == kTcKeys, "one box shape for Q, K and V tiles");
+constexpr int kQBlockBytes = kTcRows * 128;  // 128 rows x 64 bf16: one Q box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -468,6 +485,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared,
+// K-major)^T; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major:
 // the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n128_t(float (&d)[64],
@@ -508,40 +542,80 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+// D (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major:
+// the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256_t(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128_t(o, a, db);
+  if constexpr (DP == 256) wgmma_rs_n256_t(o, a, db);
+  else if constexpr (DP == 128) wgmma_rs_n128_t(o, a, db);
   else wgmma_rs_n64_t(o, a, db);
 }
 
-// S = Q K^T over the head dim, 16 at a time: q_rows is this warpgroup's
-// 64 rows of the Q tile, k the K tile.
-template <int D>
-__device__ __forceinline__ void tc_issue_s(float (&s)[kTcKeys / 2], uint32_t q_rows,
+template <int K>
+__device__ __forceinline__ void wgmma_qk(float (&s)[K / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (K == 128) wgmma_ss_n128(s, da, db, scale_d);
+  else wgmma_ss_n64(s, da, db, scale_d);
+}
+
+// S = Q K^T over the head dim's D columns, 16 at a time (a zero-filled
+// tail past D needs none): q_rows is this warpgroup's 64 rows of the Q
+// tile, k the K tile of K keys; each one's 64-column blocks are one box
+// apart.
+template <int D, int K>
+__device__ __forceinline__ void tc_issue_s(float (&s)[K / 2], uint32_t q_rows,
                                            uint32_t k) {
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
-    wgmma_ss_n128(s, sw128_desc(q_rows + col, 16, 1024), sw128_desc(k + col, 16, 1024),
-                  kk > 0);
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_qk<K>(s, sw128_desc(q_rows + (kk >> 2) * kQBlockBytes + col, 16, 1024),
+                sw128_desc(k + (kk >> 2) * K * 128 + col, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P V: V's k-rows (keys) are 128 bytes apart, its column blocks (64
-// dims) kBlockBytes apart.
-template <int D>
-__device__ __forceinline__ void tc_issue_pv(float (&o)[D / 2],
-                                            const uint32_t (&pa)[kTcKeys / 16][4],
+// dims) K * 128 bytes apart.
+template <int DP, int K>
+__device__ __forceinline__ void tc_issue_pv(float (&o)[DP / 2],
+                                            const uint32_t (&pa)[K / 16][4],
                                             uint32_t v) {
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk], sw128_desc(v + kk * 16 * 128, kBlockBytes, 1024));
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_pv<DP>(o, pa[kk], sw128_desc(v + kk * 16 * 128, K * 128, 1024));
   wgmma_commit();
 }
 
@@ -551,8 +625,8 @@ __device__ __forceinline__ void tc_issue_pv(float (&o)[D / 2],
 // correction of O.  A full tile (every pair visible) skips the mask and
 // takes its max on S before scaling (c > 0, so the max commutes).  A row
 // lives in the 4 lanes of a quad; kp holds the tile's key positions.
-template <bool full>
-__device__ __forceinline__ void tc_softmax(float (&s)[kTcKeys / 2], float (&m)[2],
+template <bool full, int K>
+__device__ __forceinline__ void tc_softmax(float (&s)[K / 2], float (&m)[2],
                                            float (&l)[2], const int (&qp)[2],
                                            const int* kp, int t, int causal,
                                            int window, float c, float (&corr)[2]) {
@@ -560,14 +634,14 @@ __device__ __forceinline__ void tc_softmax(float (&s)[kTcKeys / 2], float (&m)[2
   if constexpr (full) {
     mx[0] = mx[1] = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kTcKeys / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+    for (int j = 0; j < K / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) mx[i] = fmaxf(m[i], mx[i] * c);
   } else {
     mx[0] = m[0];
     mx[1] = m[1];
 #pragma unroll
-    for (int n = 0; n < kTcKeys / 8; ++n) {
+    for (int n = 0; n < K / 8; ++n) {
       const int2 kp2 = *reinterpret_cast<const int2*>(kp + n * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -596,14 +670,14 @@ __device__ __forceinline__ void tc_softmax(float (&s)[kTcKeys / 2], float (&m)[2
   }
   if constexpr (full) {
 #pragma unroll
-    for (int j = 0; j < kTcKeys / 2; ++j) {
+    for (int j = 0; j < K / 2; ++j) {
       const int i = (j >> 1) & 1;
       s[j] = ex2(fmaf(s[j], c, -m[i]));
       sum[i] += s[j];
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kTcKeys / 2; ++j) {
+    for (int j = 0; j < K / 2; ++j) {
       const int i = (j >> 1) & 1;
       s[j] = ex2(s[j] - m[i]);
       sum[i] += s[j];
@@ -619,20 +693,20 @@ __device__ __forceinline__ void tc_softmax(float (&s)[kTcKeys / 2], float (&m)[2
 
 // O *= corr, then P's accumulator fragments become A fragments (rounded to
 // bf16), 16 keys per k-step.
-template <int D>
-__device__ __forceinline__ void tc_rescale_pack(float (&o)[D / 2],
-                                                const float (&s)[kTcKeys / 2],
-                                                uint32_t (&pa)[kTcKeys / 16][4],
+template <int DP, int K>
+__device__ __forceinline__ void tc_rescale_pack(float (&o)[DP / 2],
+                                                const float (&s)[K / 2],
+                                                uint32_t (&pa)[K / 16][4],
                                                 const float (&corr)[2]) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DP / 8; ++n) {
     o[4 * n + 0] *= corr[0];
     o[4 * n + 1] *= corr[0];
     o[4 * n + 2] *= corr[1];
     o[4 * n + 3] *= corr[1];
   }
 #pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+  for (int kk = 0; kk < K / 16; ++kk) {
     pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
     pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -642,12 +716,14 @@ __device__ __forceinline__ void tc_rescale_pack(float (&o)[D / 2],
 
 template <int D>
 constexpr int tc_smem_bytes() {
+  constexpr int CB = (D + 63) / 64, K = tc_keys(D);
   return 1024                                       // alignment slack
-         + (D / 64) * kBlockBytes                   // Q
-         + kStages * 2 * (D / 64) * kBlockBytes     // K and V stages
-         + kStages * kTcKeys * 4                    // key positions
+         + CB * kQBlockBytes                        // Q
+         + kStages * 2 * CB * K * 128               // K and V stages
+         + kStages * K * 4                          // key positions
          + (1 + 2 * kStages) * 8;                   // mbarriers
 }
+static_assert(tc_smem_bytes<256>() <= 232448, "D = 256 tiles exceed 227 KB");
 
 // Accumulator layout of wgmma m64nN (f32), per warpgroup: warp w, lane
 // l = 4 g + t holds rows 16 w + g (elements 4 i + 0, 1) and 16 w + g + 8
@@ -664,14 +740,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ vsum, int Sq, int Sk, int KVH, int G,
                     int causal, int window, int n_kt, int n_chunks,
                     float sm_scale) {
-  constexpr int CB = D / 64;                 // column blocks of the head dim
-  constexpr int kTileBytes = CB * kBlockBytes;
+  constexpr int CB = (D + 63) / 64;          // column blocks of the head dim
+  constexpr int DP = CB * 64;                // the head dim the products span
+  constexpr int K = tc_keys(D);              // keys per K/V tile
+  constexpr int kTileBytes = CB * K * 128;   // one K or V tile
+  constexpr int kQBytes = CB * kQBlockBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t s_q = smem_u32(smem);
-  const uint32_t s_kv = s_q + kTileBytes;    // stage s: K at +2s, V at +2s+1
-  int* kp_s = reinterpret_cast<int*>(smem + (1 + 2 * kStages) * kTileBytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(kp_s + kStages * kTcKeys);
+  const uint32_t s_kv = s_q + kQBytes;       // stage s: K at +2s, V at +2s+1
+  int* kp_s = reinterpret_cast<int*>(smem + kQBytes + 2 * kStages * kTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kp_s + kStages * K);
   const uint32_t bar_q = smem_u32(bars);
   const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 8 + 8 * kStages;
 
@@ -704,25 +783,24 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) {
       mbar_arrive_tx(bar_q, CB * nrows * 128);
       for (int c = 0; c < CB; ++c)
-        tma_load_5d(s_q + c * kBlockBytes, &tm_q, bar_q, c * 64, 0, h, q0, b);
+        tma_load_5d(s_q + c * kQBlockBytes, &tm_q, bar_q, c * 64, 0, h, q0, b);
     }
     int stage = 0;
     uint32_t phase = 0;
     for (int kt = 0; kt < n_kt; ++kt) {
       if (!lrow[kt]) continue;
       mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-      for (int j = lane; j < kTcKeys; j += 32) {
-        const int key = kt * kTcKeys + j;
-        kp_s[stage * kTcKeys + j] = key < Sk ? kpos[(int64_t)b * Sk + key] : kPastEnd;
+      for (int j = lane; j < K; j += 32) {
+        const int key = kt * K + j;
+        kp_s[stage * K + j] = key < Sk ? kpos[(int64_t)b * Sk + key] : kPastEnd;
       }
       const uint32_t full = bar_full + 8 * stage;
       if (lane == 0) {
         mbar_arrive_tx(full, 2 * kTileBytes);
         const uint32_t dk = s_kv + 2 * stage * kTileBytes;
         for (int c = 0; c < CB; ++c) {
-          tma_load_4d(dk + c * kBlockBytes, &tm_k, full, c * 64, h, kt * kTcKeys, b);
-          tma_load_4d(dk + kTileBytes + c * kBlockBytes, &tm_v, full, c * 64, h,
-                      kt * kTcKeys, b);
+          tma_load_4d(dk + c * K * 128, &tm_k, full, c * 64, h, kt * K, b);
+          tma_load_4d(dk + kTileBytes + c * K * 128, &tm_v, full, c * 64, h, kt * K, b);
         }
       } else {
         mbar_arrive(full);
@@ -749,16 +827,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     qp[i] = valid[i] ? qpos[(int64_t)b * Sq + qi] : -1;
     orow_off[i] = ((((int64_t)b * Sq + qi) * KVH + h) * G + r % G) * D;
   }
-  float o[D / 2], s[kTcKeys / 2];
+  float o[DP / 2], s[K / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kTcKeys / 2; ++i) s[i] = 0.f;
+  for (int i = 0; i < K / 2; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float c = sm_scale * 1.4426950408889634f;  // log2(e)
   const uint32_t q_rows = s_q + wg * 64 * 128;   // this warpgroup's 64 rows
 
-  uint32_t pa[kTcKeys / 16][4];
+  uint32_t pa[K / 16][4];
   auto next_live = [&](int kt) {
     for (++kt; kt < n_kt && !lrow[kt]; ++kt) {
     }
@@ -770,7 +848,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto tile_k = [&](int st) { return s_kv + 2 * st * kTileBytes; };
   auto tile_v = [&](int st) { return s_kv + (2 * st + 1) * kTileBytes; };
-  auto tile_kp = [&](int st) { return kp_s + st * kTcKeys; };
+  auto tile_kp = [&](int st) { return kp_s + st * K; };
 
   mbar_wait(bar_q, 0);
   __syncwarp();
@@ -785,17 +863,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     float corr[2];
     wait_full(it);
     named_sync(1 + wg, kConsumers);
-    tc_issue_s<D>(s, q_rows, tile_k(st));
+    tc_issue_s<D, K>(s, q_rows, tile_k(st));
     named_arrive(2 - wg, kConsumers);
     wgmma_wait<0>();
     fence_regs(s);
     if (lrow[kt] == 2)
-      tc_softmax<true>(s, m, l, qp, nullptr, t, causal, window, c, corr);
+      tc_softmax<true, K>(s, m, l, qp, nullptr, t, causal, window, c, corr);
     else
-      tc_softmax<false>(s, m, l, qp, tile_kp(st), t, causal, window, c, corr);
-    tc_rescale_pack<D>(o, s, pa, corr);
+      tc_softmax<false, K>(s, m, l, qp, tile_kp(st), t, causal, window, c, corr);
+    tc_rescale_pack<DP, K>(o, s, pa, corr);
     named_sync(1 + wg, kConsumers);
-    tc_issue_pv<D>(o, pa, tile_v(st));
+    tc_issue_pv<DP, K>(o, pa, tile_v(st));
     named_arrive(2 - wg, kConsumers);
     wgmma_wait<0>();
     fence_regs(o);
@@ -895,7 +973,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qp
   if (e != cudaSuccess) return e;
 
   // q (B, Sq, KVH, G, D): a box of qt queries x G heads x 64 columns;
-  // k, v (B, Sk, KVH, D): a box of kTcKeys keys x 64 columns
+  // k, v (B, Sk, KVH, D): a box of tc_keys(D) keys x 64 columns
   const int qt = kTcRows / G;
   const cuuint64_t el = sizeof(__nv_bfloat16);
   const cuuint64_t qdims[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)KVH,
@@ -908,7 +986,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qp
                                (cuuint64_t)B};
   const cuuint64_t kstr[3] = {D * el, (cuuint64_t)KVH * D * el,
                               (cuuint64_t)Sk * KVH * D * el};
-  const cuuint32_t kbox[4] = {64, 1, kTcKeys, 1};
+  const cuuint32_t kbox[4] = {64, 1, (cuuint32_t)tc_keys(D), 1};
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, 5, qdims, qstr, qbox) ||
       !make_map(&tm_k, k, 4, kdims, kstr, kbox) ||
@@ -935,9 +1013,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qp
 extern "C" {
 
 // dtype: 0 = float32 (FMA body, D in {16, 32, 64, 128}, every key visited),
-// 1 = bfloat16 (TMA + wgmma body, D in {64, 128}, only the key tiles that
-// live marks: (B, ceil(Sq / (kTcRows / G)), n_kt) bytes, n_kt =
-// ceil(Sk / kTcKeys); vsum: B * KVH * ceil(Sk / kVsumKeys) * D floats of
+// 1 = bfloat16 (TMA + wgmma body, D in {64, 128, 224, 256}, only the key
+// tiles that live marks: (B, ceil(Sq / (kTcRows / G)), n_kt) bytes, n_kt =
+// ceil(Sk / tc_keys(D)); vsum: B * KVH * ceil(Sk / kVsumKeys) * D floats of
 // scratch for the side pass; flash_attention_tiling gives the three).
 // q, k, v and out all of dtype.  Requires 1 <= G <= 64, Sq >= 1, Sk >= 1;
 // for bfloat16 also q, k and v 16-byte aligned and out 4-byte aligned.
@@ -962,21 +1040,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 128: return launch_fma<128>(FLASH_ARGS);
     }
   } else if (dtype == 1 && lv != nullptr && vs != nullptr &&
-             n_kt == (Sk + kTcKeys - 1) / kTcKeys) {
+             n_kt == (Sk + tc_keys(D) - 1) / tc_keys(D)) {
     switch (D) {
       case 64: return launch_tc<64>(TC_ARGS);
       case 128: return launch_tc<128>(TC_ARGS);
+      case 224: return launch_tc<224>(TC_ARGS);
+      case 256: return launch_tc<256>(TC_ARGS);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bfloat16 body's tiling, which the wrapper reads: query rows per CTA
-// and keys per K/V tile (its live-tile table) and keys per chunk of the
-// side pass over V (its vsum scratch).
-void flash_attention_tiling(int* rows, int* keys, int* vsum_keys) {
+// The bfloat16 body's tiling at head dim D, which the wrapper reads: query
+// rows per CTA and keys per K/V tile (its live-tile table) and keys per
+// chunk of the side pass over V (its vsum scratch).
+void flash_attention_tiling(int D, int* rows, int* keys, int* vsum_keys) {
   *rows = kTcRows;
-  *keys = kTcKeys;
+  *keys = tc_keys(D);
   *vsum_keys = kVsumKeys;
 }
 

@@ -6,11 +6,12 @@ through ``multihead_attention(impl="pallas")``.  It is bound by operations
 (4·B·Sq·Sk·Hq·dh FLOPs over the visible pairs).  The CUDA kernel runs one
 CTA per (batch, KV head, q tile) so one K/V tile in shared memory serves
 the whole GQA group, with a running (m, l, acc) in fp32.  bfloat16 inputs
-(head dim 64 or 128) go through a Hopper body: 128 query rows per CTA in
-two consumer warpgroups running ``wgmma``, K/V tiles of 128 keys brought
-by a producer warp with TMA through a ring of stages on ``mbarrier``s;
-float32 inputs go through plain FMA.  The source note names the numerics
-traps and why the design is what it is.
+(head dim 64, 128, 224 or 256) go through a Hopper body: 128 query rows
+per CTA in two consumer warpgroups running ``wgmma``, K/V tiles of 128
+keys (64 above head dim 128) brought by a producer warp with TMA through a
+ring of stages on ``mbarrier``s; float32 inputs (head dim 16 to 128) go
+through plain FMA.  The source note names the numerics traps and why the
+design is what it is.
 
 Masked-tile skipping (bfloat16 body).  On the serving path most keys a
 prefill chunk attends are hidden: the legacy cache slot of a fresh request
@@ -39,8 +40,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# bfloat16 runs the wgmma body, whose tiles are rows of 64 bf16 (128 bytes)
-_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+# bfloat16 runs the wgmma body, whose tiles are rows of 64 bf16 (128 bytes);
+# head dim 224 runs as 256 with a zero tail the kernel's TMA fills.  No
+# model runs float32 on the card, so its FMA body stops at 128.
+_HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+              torch.bfloat16: (64, 128, 224, 256)}
 _MAX_GROUP = 64
 # named range around the live-tile table's ops, so a profile can count
 # them as K3's
@@ -135,8 +139,10 @@ def check_inputs(q, k, v, qpos, kpos) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype} unsupported (float32, bfloat16)")
     if dh not in _HEAD_DIMS[q.dtype]:
+        hint = (": no model runs float32 on the card; use bfloat16"
+                if q.dtype == torch.float32 and dh > 128 else "")
         raise ValueError(f"head dim {dh} unsupported for {q.dtype} (one of "
-                         f"{_HEAD_DIMS[q.dtype]})")
+                         f"{_HEAD_DIMS[q.dtype]}){hint}")
     if not 1 <= g <= _MAX_GROUP:
         raise ValueError(f"GQA group {g} outside [1, {_MAX_GROUP}]")
     if k.shape[1] < 1:
@@ -155,11 +161,10 @@ def check_inputs(q, k, v, qpos, kpos) -> None:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-_tiling: tuple[int, int, int] | None = None
+_tilings: dict[int, tuple[int, int, int]] = {}
 
 
 def _lib():
-    global _tiling
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
@@ -167,18 +172,21 @@ def _lib():
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = i
-        t = [ctypes.c_int() for _ in range(3)]
-        lib.flash_attention_tiling(*(ctypes.byref(x) for x in t))
-        _tiling = tuple(x.value for x in t)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.flash_attention_tiling.argtypes = [i, ip, ip, ip]
+        for dh in _HEAD_DIMS[torch.bfloat16]:
+            t = [ctypes.c_int() for _ in range(3)]
+            lib.flash_attention_tiling(dh, *(ctypes.byref(x) for x in t))
+            _tilings[dh] = tuple(x.value for x in t)
     return lib
 
 
-def tiling() -> tuple[int, int, int]:
-    """The bfloat16 body's tiling, as the CUDA source sets it: query rows
-    (queries x G) per CTA, keys per K/V tile, and keys per chunk of the
-    side pass over V.  Builds or loads the library."""
+def tiling(head_dim: int) -> tuple[int, int, int]:
+    """The bfloat16 body's tiling at ``head_dim``, as the CUDA source
+    sets it: query rows (queries x G) per CTA, keys per K/V tile, and keys
+    per chunk of the side pass over V.  Builds or loads the library."""
     _lib()
-    return _tiling
+    return _tilings[head_dim]
 
 
 def flash_attention(q, k, v, qpos, kpos, *, causal: bool, window: int = 0,
@@ -200,7 +208,7 @@ def flash_attention(q, k, v, qpos, kpos, *, causal: bool, window: int = 0,
     lib = _lib()
     live = vsum = None
     if q.dtype == torch.bfloat16:
-        rows, keys, vsum_keys = _tiling
+        rows, keys, vsum_keys = _tilings[dh]
         with torch.profiler.record_function(LIVE_TILES_RANGE):
             live = live_tiles(qpos, kpos, causal=causal, window=window,
                               queries_per_cta=rows // g, keys_per_tile=keys)

@@ -1,6 +1,9 @@
-"""Uniform model API, as ``repro.models.build``; the dense and MoE
-(``expert``, ``ffn``) families of the transformer, at any tp (the ranks on
-one device's rank axis)."""
+"""Uniform model API, as ``repro.models.build``: the dense and MoE
+(``expert``, ``ffn``) families of the transformer, the ssm family
+(``mamba_model``) and the hybrid one (``hybrid``), at any tp (the ranks on
+one device's rank axis).  encdec and vlm are not ported (ROADMAP.md A10).
+The ssm and hybrid modules have no verify, packed or paged step: the
+engine refuses those modes for them, as the reference's does."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +11,10 @@ from typing import Any
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.layers.moe import EP2D_REFUSAL
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba_model, transformer
+
+FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba_model,
+            "hybrid": hybrid}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +67,11 @@ class ModelApi:
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
                 ep: int = 1) -> ModelApi:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
     if ep > 1 or (cfg.is_moe and cfg.moe_partition == "ep2d"):
         raise NotImplementedError(EP2D_REFUSAL)
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    return ModelApi(cfg=cfg, pcfg=pcfg, mod=transformer, tp=tp)
+    return ModelApi(cfg=cfg, pcfg=pcfg, mod=FAMILIES[cfg.family], tp=tp)

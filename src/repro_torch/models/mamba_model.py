@@ -1,0 +1,188 @@
+"""Falcon-Mamba: an attention-free Mamba-1 stack with the TokenWeave weave,
+as ``repro.models.mamba_model``.
+
+TokenWeave carries over in its own way: every block is token-level except
+the recurrence, whose split dependency is the prefix split's final (conv,
+ssm) state -- the suffix split starts its scan there, as a transformer's
+suffix attends the prefix's KV.  Each block ends in a row-parallel
+``out_proj``, so the fused AllReduce-RMSNorm slot (K2 at tp=1, K1 at tp>1)
+follows it once per layer, through the transformer's ``_Weave`` (its comm
+stream at tp>1 on CUDA).
+
+Parameters: {"embedding", "norm_first" (d,), "layers": [{"mamba": Mamba-1
+weights (``layers/ssm.py``), "norm_out" (d,)}]}; ``norm_out`` of layer i is
+layer i+1's input norm, the last one the final norm.  The state cache is
+``layers.ssm.init_mamba1_state``'s, stacked over layers with the batch on
+dim 2: (conv (L, R, B, K-1, dil), h (L, R, B, dil, state)); it serves as
+the decode state and as the chunked-prefill carry, and ``forward`` writes
+the new state into it in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core.splitting import pad_to_multiple
+from repro_torch.device import resolve_device
+from repro_torch.layers import embedding as E
+from repro_torch.layers import ssm as S
+from repro_torch.models import transformer as TR
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
+                tp: int = 1):
+    """Random weights for ``tp`` ranks from a seeded ``torch.Generator``
+    on ``device`` (CUDA unless given), with the reference's scales and
+    shapes; tests move the reference's weights over with
+    ``weights.from_jax_params`` instead."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    layers = [{"mamba": S.init_mamba1_params(gen, cfg, tp, device=device,
+                                             dtype=dtype),
+               "norm_out": torch.ones(cfg.d_model, dtype=dtype,
+                                      device=device)}
+              for _ in range(cfg.num_layers)]
+    return {"embedding": embedding_params(gen, cfg, tp, device=device,
+                                          dtype=dtype),
+            "norm_first": torch.ones(cfg.d_model, dtype=dtype, device=device),
+            "layers": layers}
+
+
+def embedding_params(gen, cfg: ModelConfig, tp: int, *, device, dtype):
+    """The vocab-sharded embedding and LM head (scales 0.02 and d^-0.5)."""
+    v_loc = pad_to_multiple(cfg.vocab_size, tp) // tp
+    d = cfg.d_model
+
+    def rnd(shape, scale):
+        return (torch.randn((tp,) + shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+    emb = {"embed": rnd((v_loc, d), 0.02)}
+    if not cfg.tie_embeddings:
+        emb["lm_head"] = rnd((d, v_loc), d ** -0.5)
+    return emb
+
+
+# --------------------------------------------------------------------------
+# the weave: one recurrent layer over one or two splits
+# --------------------------------------------------------------------------
+
+def layer_state(cache, i: int):
+    """Layer i of a stacked state cache (nested tuples), as views."""
+    if isinstance(cache, tuple):
+        return tuple(layer_state(c, i) for c in cache)
+    return cache[i]
+
+
+def write_layer_state(cache, i: int, state) -> None:
+    """Copy one layer's state into layer i of the stacked cache."""
+    if isinstance(cache, tuple):
+        for c, st in zip(cache, state):
+            write_layer_state(c, i, st)
+    else:
+        cache[i].copy_(state)
+
+
+def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
+                split_rows, chunk: int):
+    """One recurrent layer over every split, as the reference's weave
+    (``mamba_model.forward``'s body, ``hybrid._mamba_weave``): ``block``
+    is ``layers.ssm.mamba1_forward`` or ``mamba2_forward``, ``st`` the
+    layer's state rows.  Prefill: split 0 starts from ``st``, the suffix
+    split resumes from split 0's final state, and the layer's new state is
+    the last split's.  Decode: the batch splits, each split's state rows
+    are cut from ``st`` and the new states re-joined.  Each split's output
+    goes through its AllReduce-norm slot.  Returns (hs, ress, state)."""
+    n = len(hs)
+    sts = ([S._split_rows(st, 0, split_rows),
+            S._split_rows(st, split_rows, hs[0].shape[1] + hs[1].shape[1])]
+           if decode and n == 2 else [st] * n)
+    out_states, prev_final = [], None
+    for i in range(n):
+        weave.wait(i)
+        init_state = prev_final if (not decode and i > 0) else sts[i]
+        partial, state_i = block(lp["mamba"], hs[i], init_state=init_state,
+                                 chunk=chunk)
+        hs[i], ress[i] = weave.comm_norm(i, partial, ress[i], lp["norm_out"])
+        prev_final = state_i
+        out_states.append(state_i)
+    if n == 2 and decode:
+        return hs, ress, S._cat_rows(out_states)
+    return hs, ress, out_states[-1]
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
+            positions=None, cache=None, decode: bool = False,
+            ssm_chunk: int = 256):
+    """Returns (hidden (R, B, S, d), the same on every rank, the state
+    cache).  ``cache``: the state rows of this batch, read as the start
+    state (decode, or a chunk after the first) and updated in place; with
+    none, the recurrence starts from zero and a fresh cache is returned.
+    ``positions`` are not read: a recurrence has no positions (padding
+    would enter the state, so chunks must be exact)."""
+    tp = params["embedding"]["embed"].shape[0]
+    b, s = tokens.shape
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
+    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
+    embs = [emb[:, lo:hi] if decode else emb[:, :, lo:hi]
+            for lo, hi in TR._split_cuts(split, b if decode else s)]
+    weave = TR._Weave(len(embs), ctx, emb.device)
+    hs, ress = map(list, zip(*(TR._entry_norm(weave, i, e,
+                                              params["norm_first"])
+                               for i, e in enumerate(embs))))
+    if cache is None:
+        cache = S.init_mamba1_state(b, cfg, tp, cfg.num_layers,
+                                    device=emb.device, dtype=emb.dtype)
+    for i, lp in enumerate(params["layers"]):
+        hs, ress, st = mamba_weave(
+            lambda p, x, **kw: S.mamba1_forward(p, x, cfg=cfg, **kw), lp,
+            hs, ress, layer_state(cache, i), weave=weave, decode=decode,
+            split_rows=split[0] if split else 0,
+            chunk=1 if decode else ssm_chunk)
+        write_layer_state(cache, i, st)
+    for i in range(len(hs)):
+        weave.wait(i)
+    h_out = torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2 else hs[0]
+    return h_out, cache
+
+
+def lm_logits_at(params, h, last_idx=None):
+    """Local logits (R, B, 1, V_loc) at each row's last token, or at its
+    ``last_idx``."""
+    if last_idx is None:
+        h_last = h[:, :, -1:]
+    else:
+        r, _, _, d = h.shape
+        idx = last_idx.to(h.device).long()[None, :, None, None].expand(
+            r, -1, 1, d)
+        h_last = torch.gather(h, 2, idx)
+    return E.lm_head_logits(params["embedding"], h_last)
+
+
+def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,
+            last_idx=None):
+    """One (chunked) prefill step.  Returns (local logits at each row's
+    last token, or at ``last_idx`` (R, B, 1, V_loc), the state cache)."""
+    h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache)
+    return lm_logits_at(params, h, last_idx), states
+
+
+def decode_step(params, tokens, cache, *, cfg, pcfg, positions=None):
+    """One token per row.  Returns (local logits (R, B, 1, V_loc), the
+    state cache, updated in place)."""
+    h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache,
+                        decode=True)
+    return E.lm_head_logits(params["embedding"], h), states
+
+
+def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
+               device=None, dtype=None):
+    """Zero state for ``batch`` rows on ``device`` (CUDA unless given);
+    ``max_len`` is not needed by a recurrence."""
+    return S.init_mamba1_state(batch, cfg, tp, cfg.num_layers,
+                               device=resolve_device(device), dtype=dtype)

@@ -1,5 +1,7 @@
 """Decoder-only transformer (dense and MoE families) with the TokenWeave
-two-split weave, as ``repro.models.transformer``.
+two-split weave, as ``repro.models.transformer``; its weave helpers
+(``_Weave``, ``_decide_split``, ``_comm_ctx``, ``_entry_norm``) serve the
+ssm and hybrid models too.
 
 The tp ranks sit on a leading rank axis R of one device
 (``distributed/context.py``): every sharded weight is ``(R, ...)`` as in
@@ -85,6 +87,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     shapes (every sharded weight (tp, ...)).  The values differ from the
     reference's jax.random ones; tests move the reference's weights over
     with ``weights.from_jax_params`` instead."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r} has its own model module "
+                         f"(models.build.build_model picks it)")
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
@@ -370,6 +375,20 @@ def weave_decision_info(b: int, s: int, *, tp: int, pcfg: ParallelConfig,
                      budget=budget, sim_method=sim, comm_mode=cm)
 
 
+def _decide_split(b: int, s: int, *, tp: int, pcfg: ParallelConfig,
+                  decode: bool, packed: bool = False,
+                  family: str = "dense") -> Optional[Tuple[int, int]]:
+    """The weave's split (per-dim sizes) or None: a thin view over
+    ``weave_decision_info``, as the reference's."""
+    return weave_decision_info(b, s, tp=tp, pcfg=pcfg, decode=decode,
+                               packed=packed, family=family).split
+
+
+def _split_cuts(split: Optional[Tuple[int, int]], n: int):
+    """The splits' [lo, hi) along an axis of length n."""
+    return [(0, n)] if split is None else [(0, split[0]), (split[0], n)]
+
+
 def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
               tp: int, *, mode: Optional[str] = None,
               budget: float = 1.0) -> CommCtx:
@@ -385,6 +404,15 @@ def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
     return CommCtx(mode=mode, eps=cfg.norm_eps,
                    use_pallas=pcfg.use_pallas_norm, tp=tp,
                    comm_budget=budget)
+
+
+def _entry_norm(weave: _Weave, i: int, emb, w_first):
+    """Split i's partial embedding (R, B, S, d) -> residual birth + the
+    first input norm: the embedding's partial rows are completed by this
+    first AllReduce.  Returns (normed (R, B, S, d), residual)."""
+    res0 = fc.fresh_residual(emb.shape[1] * emb.shape[2], emb.shape[3],
+                             emb.dtype, ctx=weave.ctx, device=emb.device)
+    return weave.comm_norm(i, emb, res0, w_first)
 
 
 # --------------------------------------------------------------------------
@@ -428,9 +456,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
                     budget=winfo.budget)
 
     # the splits' [lo, hi) along the batch (decode) or the sequence
-    split = winfo.split
-    n = b if decode else s
-    cuts = [(0, n)] if split is None else [(0, split[0]), (split[0], n)]
+    cuts = _split_cuts(winfo.split, b if decode else s)
     state_extra = {}
     if packed and pcfg.attn_impl == "pallas":
         host_pos = positions.cpu().numpy()[0]
@@ -462,16 +488,10 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         embs = [emb[:, :, lo:hi] for lo, hi in cuts]
         poss = [positions[:, lo:hi] for lo, hi in cuts]
 
-    # residual birth + layer 0's input norm, split-local: the embedding's
-    # partial rows are completed by this first AllReduce
+    # residual birth + layer 0's input norm, split-local
     weave = _Weave(len(embs), ctx, emb.device)
-    hs, ress = [], []
-    for i, e in enumerate(embs):
-        res0 = fc.fresh_residual(e.shape[1] * e.shape[2], e.shape[3],
-                                 e.dtype, ctx=ctx, device=e.device)
-        h_i, r_i = weave.comm_norm(i, e, res0, params["norm_first"])
-        hs.append(h_i)
-        ress.append(r_i)
+    hs, ress = map(list, zip(*(_entry_norm(weave, i, e, params["norm_first"])
+                               for i, e in enumerate(embs))))
     state = {"h": hs, "res": ress, "positions": poss, **state_extra}
 
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,

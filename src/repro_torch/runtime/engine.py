@@ -58,6 +58,15 @@ resumes decoding with no re-prefill.  ``evacuate`` releases everything a
 dead replica's engine holds and returns its requests reset for a
 recompute requeue.
 
+Families: the transformer's (dense, MoE) on every path above, and ssm
+over legacy slots with the two-dispatch scheme only (its state has no
+token axis: packed, speculative and paged runs are refused with the
+reference's messages); an ssm prefill chunk is exact (no padding enters
+the recurrence), reads its rows of the state cache (zeroed for a fresh
+request) and writes them back, and a finished slot needs no reset.  The
+hybrid family is served by direct ``ModelApi.prefill`` / ``decode_step``
+calls, as the reference serves it; the engine refuses it.
+
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
 axis.  It runs on CUDA unless it is given ``device="cpu"``; with no device
@@ -270,9 +279,19 @@ class Engine:
                             else None)
         self._step_forwards: List[WeaveAttribution] = []
         self._step_count = 0
+        if api.cfg.family == "hybrid":
+            raise NotImplementedError(
+                "the hybrid family is served by direct ModelApi.prefill / "
+                "decode_step calls, as the reference serves it: the engine "
+                "cannot hold its {'mamba', 'shared'} cache")
+        self._is_ssm = api.cfg.family == "ssm"
         self.paged = bool(scfg.paged)
         self.packed = bool(scfg.packed)
         if self.packed:
+            if self._is_ssm:
+                raise ValueError("packed hybrid batching scatters per-token "
+                                 "KV; ssm state has no token axis — use the "
+                                 "two-dispatch path")
             if api.pcfg.seq_shard_kv:
                 raise ValueError("packed steps gather full cache rows "
                                  "locally; disable seq_shard_kv")
@@ -285,6 +304,9 @@ class Engine:
         self.spec_gamma = int(scfg.spec_gamma)
         self.draft = None
         if self.spec_gamma:
+            if self._is_ssm:
+                raise ValueError("speculative decoding rolls back KV "
+                                 "positions; ssm state has no token axis")
             if api.pcfg.seq_shard_kv:
                 raise ValueError("speculative verify writes full KV rows "
                                  "locally; disable seq_shard_kv")
@@ -302,6 +324,9 @@ class Engine:
         # one stream of draws, seeded here, feeds prefill, decode and
         # verify sampling alike; greedy steps draw nothing
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self.paged and self._is_ssm:
+            raise ValueError("paged KV cache requires attention layers; "
+                             "ssm state caches stay on the slot path")
         if self.paged:
             self.block_mgr = BlockManager(
                 scfg.effective_num_blocks, scfg.block_size,
@@ -428,7 +453,7 @@ class Engine:
         if self.paged:
             # cached blocks park in the LRU, still hittable
             self.block_mgr.free_request(req.rid)
-        else:
+        elif not self._is_ssm:
             KC.reset_slots(self.cache, [req.slot])
         self.sched.active[req.slot] = None
         req.slot = None
@@ -485,7 +510,7 @@ class Engine:
                 continue
             if self.paged:
                 self.block_mgr.free_request(r.rid)
-            else:
+            elif not self._is_ssm:
                 KC.reset_slots(self.cache, [r.slot])
             self.sched.active[slot] = None
             out.append(reset_for_requeue(r))
@@ -771,6 +796,10 @@ class Engine:
     # ------------------------------------------------------------------
     def _run_prefill(self, group: List[Request], chunk: int):
         b_sel = len(group)
+        if self._is_ssm:
+            # ssm chunks must be exact (no pads): shrink to min remainder
+            chunk = min(min(len(r.context_tokens) - r.prefill_pos
+                            for r in group), chunk)
         tokens = np.zeros((b_sel, chunk), np.int64)
         positions = np.full((b_sel, chunk), -1, np.int32)
         offsets = np.zeros(b_sel, np.int64)
@@ -800,11 +829,16 @@ class Engine:
             else:
                 slot_ids = self._tensor(np.array([r.slot for r in group],
                                                  np.int64))
-                rows = KC.gather_slots(self.cache, slot_ids)
+                rows = (KC.gather_state_rows(self.cache, slot_ids,
+                                             fresh=self._tensor(offsets == 0))
+                        if self._is_ssm else
+                        KC.gather_slots(self.cache, slot_ids))
             logits, kv = self.api.prefill(
                 self.params, self._tensor(tokens), rows,
                 self._tensor(positions), last_idx=self._tensor(last_idx))
-            if self.paged:
+            if self._is_ssm:
+                KC.scatter_state_rows(self.cache, slot_ids, kv)
+            elif self.paged:
                 PG.insert_chunk_paged(self.cache, kv, torch.from_numpy(bt),
                                       positions=torch.from_numpy(positions))
             else:
@@ -1036,9 +1070,9 @@ class Engine:
             self.block_mgr.register_filled(
                 r.rid, r.prompt + r.output[:-1], r.length - 1)
             self.block_mgr.free_request(r.rid)
-        else:
+        elif not self._is_ssm:
             # stale positions of a finished request must not leak into
-            # the slot's next owner
+            # the slot's next owner (ssm: the next prefill zeroes its row)
             KC.reset_slots(self.cache, [r.slot])
         r.finish_reason = r.finish_reason or "stop"
         self.sched.finish(r, self._step_count)

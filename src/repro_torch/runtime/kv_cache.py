@@ -4,6 +4,11 @@ layers (C = window).  The cache is a list with one {"k", "v", "pos"} dict
 per layer: k and v are (R, B, C, kv_store, dh), one slab per rank of the
 rank axis, and pos is (B, C), the same on every rank.  ``insert_chunk``
 and ``reset_slots`` update it in place, across all ranks.
+
+The ssm family's slot cache is its stacked recurrent state instead
+(``layers/ssm.py``: nested tuples of (L, R or 1, B, ...) leaves, the slot
+on dim 2); ``gather_state_rows`` and ``scatter_state_rows`` move a
+prefill group's rows out of it and back.
 """
 from __future__ import annotations
 
@@ -51,3 +56,24 @@ def reset_slots(cache, slot_ids):
     for layer in cache:
         layer["pos"][idx.to(layer["pos"].device)] = -1
     return cache
+
+
+def gather_state_rows(cache, slot_ids, fresh):
+    """Copies of the state rows of the given slots (dim 2 of every leaf);
+    rows where ``fresh`` (B_sel,) is True start from zero state (a request
+    whose prefill starts at offset 0)."""
+    if isinstance(cache, tuple):
+        return tuple(gather_state_rows(c, slot_ids, fresh) for c in cache)
+    rows = cache[:, :, slot_ids.long()]
+    m = fresh.to(rows.device).reshape(1, 1, -1, *([1] * (rows.dim() - 3)))
+    return torch.where(m, torch.zeros((), dtype=rows.dtype,
+                                      device=rows.device), rows)
+
+
+def scatter_state_rows(cache, slot_ids, rows) -> None:
+    """Write ``gather_state_rows``' rows (updated) back to their slots."""
+    if isinstance(cache, tuple):
+        for c, r in zip(cache, rows):
+            scatter_state_rows(c, slot_ids, r)
+        return
+    cache[:, :, slot_ids.long()] = rows

@@ -1,18 +1,23 @@
 """Weight bridge: the reference package's parameter pytree, as numpy
 arrays, to this package's parameter dict.
 
-``params_np`` is ``jax.tree.map(np.asarray, params)`` of
-``repro.models.transformer.init_params`` at any tp.  Three layouts need
-care:
+``params_np`` is ``jax.tree.map(np.asarray, params)`` of the reference's
+``init_params`` (``models.transformer``, ``models.mamba_model`` or
+``models.hybrid``) at any tp.  These layouts need care:
 
 * layers are either stacked with a leading layer axis (``scan_layers``
-  with uniform layer kinds) or a ``{"layer_i": ...}`` dict;
+  with uniform layer kinds, and always for the ssm and hybrid families)
+  or a ``{"layer_i": ...}`` dict;
 * every sharded weight carries a per-shard leading axis of size tp, kept
   as the port's rank axis (a MoE layer's expert weights too); the
   replicated weights (norm gains, q/k norms, the row-parallel output bias,
-  the MoE router) carry an axis of size 1 and drop it;
-* the MoE router stays float32 whatever ``dtype`` asks for, as routing
-  runs in float32;
+  the MoE router, Mamba-2's B/C projection and conv) carry an axis of size
+  1 and drop it;
+* the hybrid's shared block carries a per-invocation axis in front of the
+  size-1 axis of its replicated ``norm_out`` (n_inv, 1, d) and ``lora_a``
+  (n_inv, 1, 2d, 16), so that axis 1 is the one dropped there;
+* the MoE router and the SSM's A_log, D and dt_bias stay float32 whatever
+  ``dtype`` asks for, as routing and the recurrences run in float32;
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
 """
@@ -36,7 +41,9 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
 # leaves the reference replicates (PartitionSpec None): (1, ...) -> (...)
 REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_attn_post",
                         "norm_ffn_post", "q_norm", "k_norm", "b_out",
-                        "router"})
+                        "router", "norm_out", "in_proj_bc", "conv_bc"})
+# leaves kept in float32 whatever dtype the caller asks for
+FLOAT32 = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
 def _convert(tree, device, dtype):
@@ -44,7 +51,7 @@ def _convert(tree, device, dtype):
     the size-1 axis of replicated ones."""
     return {k: (_convert(v, device, dtype) if isinstance(v, dict)
                 else to_torch(v[0] if k in REPLICATED else v, device,
-                              torch.float32 if k == "router" else dtype))
+                              torch.float32 if k in FLOAT32 else dtype))
             for k, v in tree.items()}
 
 
@@ -60,8 +67,17 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
             return {k: take(v, i) if isinstance(v, dict) else v[i]
                     for k, v in tree.items()}
         per_layer = [take(layers_np, i) for i in range(cfg.num_layers)]
-    return {
+    out = {
         "embedding": _convert(params_np["embedding"], device, dtype),
         "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
         "layers": [_convert(lp, device, dtype) for lp in per_layer],
     }
+    if "shared" in params_np:
+        sh = params_np["shared"]
+        out["shared"] = {
+            "attn": _convert(sh["attn"], device, dtype),
+            "norm_in": to_torch(sh["norm_in"][0], device, dtype),
+            "norm_out": to_torch(sh["norm_out"][:, 0], device, dtype),
+            "lora_a": to_torch(sh["lora_a"][:, 0], device, dtype),
+            "lora_b": to_torch(sh["lora_b"], device, dtype)}
+    return out

@@ -10,7 +10,12 @@ for the MoE configs so does the hidden state entering each MoE layer at
 every row, padding rows and free slots included (a padding row that
 routes differently could take a real token's place in an expert).  This
 covers local/global layers with two rope thetas, QKV bias, q/k norms,
-sandwich norms, GEGLU and tied, scaled embeddings.
+sandwich norms, GEGLU and tied, scaled embeddings.  The ssm and hybrid
+configs (falcon-mamba-7b, zamba2-7b) run the same way through their own
+model modules, a prefill then a decode step of its rows, with logits
+within 1e-4 and states and KV within 1e-5 (``test_torch_ssm.py``'s
+``close_state``); ``test_torch_ssm.py`` and ``test_torch_hybrid.py``
+add chunked prefill, the weave off and tp=2.
 
 The reference runs under ``shard_map`` on the 1x1 mesh with its layers
 unrolled (``scan_layers=False``), so that a host callback labelled at
@@ -301,3 +306,64 @@ def test_reduced_config_prefill_and_decode_match(name, mesh11, monkeypatch):
     for phase, seed in (("prefill", 11), ("decode", 12)):
         check_model_step(mesh11, pair, phase=phase, weave=True, seed=seed,
                          monkeypatch=monkeypatch)
+
+
+# --------------------------------------------------------------------------
+# the ssm and hybrid configs, reduced and perturbed
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ("falcon-mamba-7b", "zamba2-7b"))
+def test_reduced_recurrent_config_prefill_and_decode_match(name, mesh11):
+    """A 2x48 prefill from an empty cache (the weave splitting the
+    sequence), then one decode step of its two rows from the prefill's
+    state (and, hybrid, its shared KV inserted by each package's own cache
+    code): logits, states and KV."""
+    from repro_torch.models.build import build_model as t_build_model
+    from repro_torch.runtime import kv_cache as TKC
+    from test_torch_hybrid import check_chunk_kv, check_shared_cache
+    from test_torch_ssm import (check_state, local_logits, shard_call)
+    from test_torch_ssm import model_pair as ssm_model_pair
+
+    cfg, api, jp, jpcfg, tcfg, tparams, tpcfg = ssm_model_pair(name, seed=3)
+    tapi = t_build_model(tcfg, tpcfg)
+    hybrid = cfg.family == "hybrid"
+    rng = np.random.RandomState(13)
+    b, s, c = 2, PREFILL[True], 64
+    tokens = rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    j_logits, j_out = shard_call(
+        mesh11, lambda p, t, cc: api.mod.prefill(p, t, cc, cfg=cfg,
+                                                 pcfg=jpcfg)[:2],
+        jp, jnp.asarray(tokens), api.init_cache(b, c), out_specs=(P(), P()))
+    with torch.no_grad():
+        tcache = tapi.init_cache(b, c, device="cpu")
+        t_logits, t_out = tapi.prefill(tparams, torch.from_numpy(tokens),
+                                       tcache, None)
+    _close(local_logits(t_logits), j_logits)
+    family = cfg.family
+    check_state(t_out["mamba"] if hybrid else t_out,
+                j_out["mamba"] if hybrid else j_out, family)
+    jcache = jax.tree.map(np.asarray, j_out)
+    if hybrid:
+        check_chunk_kv(t_out["shared"], j_out["shared"])
+        shared = jax.tree.map(np.array, api.init_cache(b, c)["shared"])
+        for n, a in zip(("k", "v", "pos"), jcache["shared"]):
+            shared[n][:, :, :s] = a
+        jcache = {"mamba": jcache["mamba"], "shared": shared}
+        TKC.insert_chunk(tcache["shared"], t_out["shared"],
+                         torch.zeros(b, dtype=torch.long), torch.arange(b))
+    dtok = rng.randint(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    dpos = np.full((b, 1), s, np.int32)
+    j_logits, j_out = shard_call(
+        mesh11, lambda p, t, cc, ps: api.mod.decode_step(
+            p, t, cc, cfg=cfg, pcfg=jpcfg, positions=ps),
+        jp, jnp.asarray(dtok), jcache, jnp.asarray(dpos),
+        out_specs=(P(), P()))
+    with torch.no_grad():
+        t_logits, t_out = tapi.decode_step(
+            tparams, torch.from_numpy(dtok), tcache,
+            torch.from_numpy(dpos))
+    _close(local_logits(t_logits), j_logits)
+    check_state(t_out["mamba"] if hybrid else t_out,
+                j_out["mamba"] if hybrid else j_out, family)
+    if hybrid:
+        check_shared_cache(t_out["shared"], j_out["shared"])
