@@ -131,11 +131,30 @@ Phases, each printing one JSON line:
             per forward; K3 held on the run's inputs; one traced chunk
             and decode step; then small float32 ssm and hybrid models give
             equal greedy tokens on the card and the CPU at tp=1 and tp=2
-            ``ring`` (``identity_ssm``, ``identity_hybrid``).
+            ``ring`` (``identity_ssm``, ``identity_hybrid``);
+14. vlm     Qwen2-VL-7B at full width and depth (28 layers, bf16) through
+            ``ModelApi``: 4 rows of 256 patch embeddings (a 448x448
+            image) and 768 text tokens with M-RoPE ids, one 4096-token
+            prefill (the weave splits the sequence; K3 at G 7) and 32
+            greedy decode steps, at tp=1 and tp=8; launches equal
+            splits·28 (K3) and ``norm_launches``; K3 held on the run's
+            inputs; one traced prefill and decode step;
+15. encdec  Whisper-base at full width and depth (6 + 6 layers, bf16):
+            16 rows of 1500 stub frames through the encoder (its batch
+            split; K3 bidirectional), a 4-token decoder prompt, the self
+            and cross caches written, 64 greedy decode steps, at tp=1
+            and tp=8 (the vocabulary padded to 51,872); launches equal
+            ``encdec_launches``; K3 held on the run's inputs; the
+            encoder timed alone; then small float32 vlm and encdec twins
+            give equal greedy tokens on the card and the CPU at tp=1 and
+            tp=2 ``ring`` (``identity_vlm``, ``identity_encdec``).
 
-The kernels phase holds K2 and K1 at the two families' widths too (d
-4096 and 3584) and K3 at bf16 head dims 224 and 256 (``hybrid_d224``,
-``gemma_d256`` timed beside SDPA, ``g2_d224`` ragged and windowed).
+The kernels phase holds K2 and K1 at the families' widths too (d 4096,
+3584 and 512, K1 timed at Whisper's 8 x 1500-row split) and K3 at bf16
+head dims 224 and 256 (``hybrid_d224``, ``gemma_d256`` timed beside
+SDPA, ``g2_d224`` ragged and windowed), bidirectional (``whisper_enc``,
+timed) and at G 7 (``qwen2vl``, timed; ``bidir_padded`` ragged with
+padded keys).
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -359,9 +378,10 @@ def kernel_phase(torch, seed: int, probe):
     rows = {}
 
     k2_err = 0.0
-    # Llama's d 8192, then Falcon-Mamba's 4096 and Zamba2's 3584 (held)
+    # Llama's d 8192, then Falcon-Mamba's 4096, Zamba2's and Qwen2-VL's
+    # 3584 and Whisper-base's 512 at an encoder split's 8 x 1500 (held)
     for t, d in ((8, 8192), (32, 8192), (1000, 8192), (2048, 8192),
-                 (2048, 4096), (1000, 3584), (2048, 3584)):
+                 (2048, 4096), (1000, 3584), (2048, 3584), (12000, 512)):
         x = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         r = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         w = (torch.randn(d, generator=gen, device=dev).abs() + 0.5).to(bf16)
@@ -395,7 +415,7 @@ def kernel_phase(torch, seed: int, probe):
     k1_err = 0.0
     for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
                      + [(8, 32, 8192), (8, 1000, 8190), (8, 2048, 4096),
-                        (8, 2048, 3584), (8, 1000, 3584)]):
+                        (8, 2048, 3584), (8, 1000, 3584), (8, 12000, 512)]):
         x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
         r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
                         dtype=bf16)
@@ -457,6 +477,13 @@ def kernel_phase(torch, seed: int, probe):
             case["achieved_gb_per_s_1cta"] = nbytes / ms_ctas[1] / 1e6
             case["budget_gb_per_s"] = nbytes / case["budget_bound_ms"] / 1e6
             rows["ar_rmsnorm"] = case
+        elif d1 == 512:
+            # Whisper's encoder split: short rows (1 KB a rank), timed
+            nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
+            case.update(ms=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w)),
+                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes")
+            case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
         emit(case)
         del x, r, out, out1, p_out, p_res
     torch.cuda.empty_cache()
@@ -475,39 +502,52 @@ def kernel_phase(torch, seed: int, probe):
         return (qpos[None].repeat(b, 1).contiguous(),
                 kpos[None].repeat(b, 1).contiguous())
 
-    # (name, B, Sq, Sk, KVH, G, dh, window, q0, cache keys valid, index of
-    # the first valid one, padded query rows); every case causal, bf16
+    # (name, B, Sq, Sk, KVH, G, dh, causal, window, q0, cache keys valid,
+    # index of the first valid one, padded query rows); bf16
     cases = [
         # a 1024-token split behind a full 4096-slot row
-        ("main", 1, 1024, 4096 + 1024, 8, 8, 128, 0, 4096, 4096, 0, 0),
+        ("main", 1, 1024, 4096 + 1024, 8, 8, 128, True, 0, 4096, 4096, 0,
+         0),
         # the main path's first prefill split: a fresh request's empty
         # 4096-slot row, then the chunk's own keys
-        ("engine", 1, 1024, 4096 + 1024, 8, 8, 128, 0, 0, 0, 0, 0),
+        ("engine", 1, 1024, 4096 + 1024, 8, 8, 128, True, 0, 0, 0, 0, 0),
         # its second split at tp=8, the ranks folded into the batch (one
         # KV head each): the empty row, the first split's 1024 keys, then
         # its own 776 tokens and the chunk's 56 padded rows
-        ("engine_tp", 8, 832, 4096 + 1024 + 832, 1, 8, 128, 0, 1024, 1024,
-         4096, 56),
+        ("engine_tp", 8, 832, 4096 + 1024 + 832, 1, 8, 128, True, 0, 1024,
+         1024, 4096, 56),
         # ragged Sk, empty cache slots, padded prefill rows (qpos -1)
-        ("padded", 1, 1000, 4096 + 1000, 8, 8, 128, 0, 1000, 1000, 0, 56),
-        ("window", 1, 512, 1536, 8, 8, 128, 256, 1024, 1024, 0, 0),
+        ("padded", 1, 1000, 4096 + 1000, 8, 8, 128, True, 0, 1000, 1000, 0,
+         56),
+        ("window", 1, 512, 1536, 8, 8, 128, True, 256, 1024, 1024, 0, 0),
         # the other GQA groups and head dims of the configs, ragged
-        ("g1_d64", 2, 300, 1000, 2, 1, 64, 0, 700, 600, 0, 20),
-        ("g5_d128", 1, 257, 1000, 3, 5, 128, 300, 743, 743, 0, 0),
-        ("g16_d64", 1, 100, 4096 + 100, 2, 16, 64, 0, 0, 0, 0, 7),
+        ("g1_d64", 2, 300, 1000, 2, 1, 64, True, 0, 700, 600, 0, 20),
+        ("g5_d128", 1, 257, 1000, 3, 5, 128, True, 300, 743, 743, 0, 0),
+        ("g16_d64", 1, 100, 4096 + 100, 2, 16, 64, True, 0, 0, 0, 0, 7),
         # Zamba2's shared attention (2·3584 wide, 32 heads of 224) at the
         # hybrid phase's second chunk: a 256-token split of 4 rows behind
         # its 1040-cell cache rows (768 earlier tokens valid) and the
         # first split
-        ("hybrid_d224", 4, 256, 1040 + 256, 32, 1, 224, 0, 768, 768, 0, 0),
+        ("hybrid_d224", 4, 256, 1040 + 256, 32, 1, 224, True, 0, 768, 768,
+         0, 0),
         # gemma3-1b's global layers (4 heads on 1 KV head of 256) behind
         # 2048 cached keys, and a ragged, windowed, padded case at 224
-        ("gemma_d256", 1, 1024, 2048 + 1024, 1, 4, 256, 0, 2048, 2048, 0,
-         0),
-        ("g2_d224", 2, 300, 1000, 3, 2, 224, 128, 700, 600, 0, 20),
+        ("gemma_d256", 1, 1024, 2048 + 1024, 1, 4, 256, True, 0, 2048, 2048,
+         0, 0),
+        ("g2_d224", 2, 300, 1000, 3, 2, 224, True, 128, 700, 600, 0, 20),
+        # Whisper-base's encoder, bidirectional: one batch split of 8
+        # rows of 1500 frames, 8 heads of 64
+        ("whisper_enc", 8, 1500, 1500, 8, 1, 64, False, 0, 0, 0, 0, 0),
+        # Qwen2-VL-7B's prefill, second split: 4 rows of 512 tokens behind
+        # the first split's 512 keys, 28 heads on 4 KV heads (G 7)
+        ("qwen2vl", 4, 512, 1024, 4, 7, 128, True, 0, 512, 512, 0, 0),
+        # bidirectional with padded keys (kpos -1 between the cache's
+        # valid keys and the chunk's own) and padded query rows, ragged
+        ("bidir_padded", 2, 300, 1000, 3, 7, 64, False, 0, 700, 600, 0, 20),
     ]
-    timed = ("main", "engine", "engine_tp", "hybrid_d224", "gemma_d256")
-    for (name, b, sq, sk, kvh, g, dh, window, q0, k_valid, k_at,
+    timed = ("main", "engine", "engine_tp", "hybrid_d224", "gemma_d256",
+             "whisper_enc", "qwen2vl")
+    for (name, b, sq, sk, kvh, g, dh, causal, window, q0, k_valid, k_at,
          pad) in cases:
         qpos, kpos = positions(sq, sk, q0, k_valid, b, k_at)
         if pad:
@@ -517,7 +557,7 @@ def kernel_phase(torch, seed: int, probe):
                         dtype=bf16)
         k = torch.randn(b, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
         v = torch.randn(b, sk, kvh, dh, generator=gen, device=dev, dtype=bf16)
-        kw = dict(causal=True, window=window)
+        kw = dict(causal=causal, window=window)
         case = {"phase": "kernels", "kernel": "flash_attention", "case": name,
                 **check_k3(torch, f"K3 {name}", q, k, v, qpos, kpos, **kw)}
         k3_err = max(k3_err, case["max_abs_err"])
@@ -528,9 +568,12 @@ def kernel_phase(torch, seed: int, probe):
             qs = q.reshape(b, sq, kvh * g, dh).transpose(1, 2).contiguous()
             ks = k.transpose(1, 2).contiguous()
             vs = v.transpose(1, 2).contiguous()
-            mask = K3.attention_mask(qpos, kpos, True, window)[:, None]
+            mask = K3.attention_mask(qpos, kpos, causal, window)[:, None]
             # only the (query, key) pairs the mask lets through need work
             pairs = int(mask.sum())
+            # with every pair visible SDPA computes the same function
+            # with no mask, on its fastest (flash) path
+            sdpa_mask = None if pairs == b * sq * sk else mask
             flops = 4 * dh * kvh * g * pairs
             nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * (sq + sk)
             case.update(
@@ -545,7 +588,7 @@ def kernel_phase(torch, seed: int, probe):
                           > nbytes / HBM_BYTES_PER_S else "bytes"),
                 library_ms=time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
-                        qs, ks, vs, attn_mask=mask, scale=dh ** -0.5,
+                        qs, ks, vs, attn_mask=sdpa_mask, scale=dh ** -0.5,
                         enable_gqa=True)))
             # what the host spends per call: the wrapper, and the
             # live-tile table's torch ops alone
@@ -3143,6 +3186,404 @@ def identity_recurrent_phase(torch, np, seed: int, *, tp: int,
           "cuda_launches": launches["cuda"]})
 
 
+# --------------------------------------------------------------------------
+# the vlm and encdec families at full width: Qwen2-VL-7B and Whisper-base
+# through direct ModelApi calls
+# --------------------------------------------------------------------------
+
+VLM_LAYERS = 28                    # all of Qwen2-VL-7B's
+# a 448x448 image: 14-px patches merged 2x2, a 16x16 grid of 256 patch
+# embeddings, then 768 text tokens, in each of 4 rows
+VLM_ROWS, VLM_GRID, VLM_TEXT, VLM_DECODE = 4, 16, 768, 32
+# 16 windows of 30 s (1500 frames), Whisper's 4-token start-of-transcript
+# prompt, 64 greedy tokens
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_DECODE = 16, 4, 64
+
+
+def vlm_inputs(torch, np, seed: int, cfg, b: int, grid: int, n_text: int,
+               dev, dtype):
+    """Text tokens (B, n_text), patch embeddings (B, grid², d) at 0.02
+    scale as the reference's input stub, and M-RoPE ids (B, 3, grid² +
+    n_text): patch (i, j) gets (t, h, w) = (0, i, j), text token k gets
+    t = h = w = grid + k."""
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (b, n_text))
+    img = 0.02 * rng.randn(b, grid * grid, cfg.d_model).astype(np.float32)
+    i, j = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    ids = np.concatenate([np.stack([0 * i.ravel(), i.ravel(), j.ravel()]),
+                          np.tile(grid + np.arange(n_text), (3, 1))], axis=1)
+    ids = np.tile(ids[None], (b, 1, 1)).astype(np.int32)
+    return (torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(img).to(dev, dtype),
+            torch.from_numpy(ids).to(dev))
+
+
+def timed_ms(torch, fn):
+    """(fn's result, its wall ms between two device syncs)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def vlm_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+              comm_mode: str):
+    """Qwen2-VL-7B at full width and depth (bf16, random weights from the
+    seed) through ``ModelApi``: one prefill of 4 rows of 256 patch
+    embeddings and 768 text tokens with M-RoPE ids (4096 tokens, the
+    weave splitting the sequence), its KV written into a slot cache, then
+    VLM_DECODE greedy decode steps at positions 1024 + j and M-RoPE ids
+    784 + j.  K3 runs splits·28 times (G 7), K2 or K1 per
+    ``norm_launches`` (two slots a layer); K3 is held on the run's
+    inputs; one traced prefill and one traced decode step.  Returns
+    (launches, K3's max error on the run's inputs, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models import transformer as TR
+    from repro_torch.runtime import kv_cache as KC
+
+    t_phase = time.perf_counter()
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, _, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode, n_layers=VLM_LAYERS,
+        config=get_config("qwen2-vl-7b"))
+    b, grid, n_text = VLM_ROWS, VLM_GRID, VLM_TEXT
+    s = grid * grid + n_text
+    tokens, img, ids = vlm_inputs(torch, np, seed + 20, cfg, b, grid,
+                                  n_text, "cuda", torch.bfloat16)
+    cache = api.init_cache(b, s + VLM_DECODE, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    v_loc = params["embedding"]["embed"].shape[1]
+    decode_ms, outs, k3_inputs = [], [], {}
+
+    def prefill():
+        return api.prefill(params, tokens, None, None, mrope_positions=ids,
+                           extra_embeds=img)
+
+    def step_ids(j):
+        """Decode step j's 1-D positions and M-RoPE ids."""
+        return (torch.full((b, 1), s + j, dtype=torch.int32, device="cuda"),
+                torch.full((b, 3, 1), grid + n_text + j, dtype=torch.int32,
+                           device="cuda"))
+
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        with torch.no_grad():
+            (logits, kv), prefill_ms = timed_ms(torch, prefill)
+            KC.insert_chunk(cache, kv, torch.zeros(b, device="cuda"), rows)
+            del kv
+            offload(k3_inputs)
+            if logits.shape != (tp, b, 1, v_loc) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"prefill logits {tuple(logits.shape)}"
+                                     f" not finite / wrong shape")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+            for j in range(VLM_DECODE):
+                outs.append(tok[:, 0].tolist())
+                pos, mr = step_ids(j)
+                (logits, cache), ms = timed_ms(
+                    torch, lambda: api.decode_step(params, tok, cache, pos,
+                                                   mrope_positions=mr))
+                tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                decode_ms.append(ms)
+        launches = read_launches()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode tokens {outs} or logits out of range")
+    splits = 1 + TR.weave_decision_info(b, s, tp=tp, pcfg=api.pcfg).weave
+    want = recurrent_launches(
+        norm_launches(api, b, s, decode=False, slots=2 * VLM_LAYERS)
+        + VLM_DECODE * norm_launches(api, b, 1, decode=True,
+                                     slots=2 * VLM_LAYERS),
+        norm_kernel=norm_kernel, k3=splits * VLM_LAYERS)
+    if launches != want or not launches[norm_kernel]:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    emit({"phase": "vlm", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "layers": VLM_LAYERS,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "mrope_sections":
+          list(cfg.mrope_sections), "dtype": cfg.dtype, "rows": b,
+          "patches": grid * grid, "text_tokens": n_text,
+          "prefill_splits": splits, "decode_steps": VLM_DECODE,
+          "launches": launches, "expected_launches": want,
+          "param_init_s": init_s, "prefill_ms": prefill_ms,
+          "decode_ms": decode_ms,
+          "decode_ms_median": statistics.median(decode_ms),
+          "tokens_row0": [row[0] for row in outs],
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+
+    # where the time goes: the prefill again (its KV is dropped) and one
+    # decode step into the cache's last cell
+    pos, mr = step_ids(VLM_DECODE - 1)
+    with torch.no_grad():
+        for step, fn in (("prefill", prefill),
+                         ("decode", lambda: api.decode_step(
+                             params, tok, cache, pos, mrope_positions=mr))):
+            trace = trace_dir / f"vlm_tp{tp}_{step}_trace.json"
+            brk = device_breakdown(torch, fn, trace)
+            if step == "prefill" and brk["k3_calls"] != splits * VLM_LAYERS:
+                raise AssertionError(f"traced prefill: {brk['k3_calls']} K3 "
+                                     f"kernels")
+            emit({"phase": "breakdown", "engine": "vlm", "tp": tp,
+                  "step": step, "tokens": b * s if step == "prefill" else b,
+                  **brk})
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    err = check_main_path_k3(torch, k3_inputs, "vlm", tp)
+    emit({"phase": "vlm_seconds", "tp": tp,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, err, peak
+
+
+def encdec_launches(api, b: int, s_enc: int, prompt: int, steps: int, *,
+                    norm_kernel: str) -> dict:
+    """What one encdec run launches: the encoder's batch splits each an
+    entry norm and two slots a layer, and one K3 call a layer; the
+    decoder prompt's splits (``norm_launches``, three slots a layer) and
+    one K3 call a layer each; ``steps`` decode steps' slots."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TR
+    cfg = api.cfg
+    enc_splits = 1 + (ED.encoder_split(b, s_enc, tp=api.tp, pcfg=api.pcfg)
+                      is not None)
+    enc_norm = (0 if TR._comm_ctx(api.pcfg, cfg, b * s_enc, api.tp).mode
+                == "vanilla" else enc_splits * (1 + 2 * cfg.encoder_layers))
+    dec_splits = 1 + TR.weave_decision_info(b, prompt, tp=api.tp,
+                                            pcfg=api.pcfg).weave
+    slots = 3 * cfg.num_layers
+    return recurrent_launches(
+        enc_norm + norm_launches(api, b, prompt, decode=False, slots=slots)
+        + steps * norm_launches(api, b, 1, decode=True, slots=slots),
+        norm_kernel=norm_kernel,
+        k3=enc_splits * cfg.encoder_layers + dec_splits * cfg.num_layers)
+
+
+def encdec_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
+                 comm_mode: str):
+    """Whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, bf16, random weights from the seed) through ``ModelApi``: one
+    prefill of 16 rows of 1500 stub frames (the encoder's batch split, K3
+    bidirectional) and a 4-token decoder prompt, its self KV and cross
+    caches written into the cache, then WHISPER_DECODE greedy decode steps
+    over both caches.  Launches equal ``encdec_launches``; K3 is held on
+    the run's inputs; ids lie within the unpadded vocabulary (51,865,
+    padded to 51,872 at tp=8); one traced prefill and one traced decode
+    step; the encoder alone timed after the run.  Returns (launches, K3's
+    max error on the run's inputs, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.runtime import kv_cache as KC
+
+    t_phase = time.perf_counter()
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    cfg, api, params, _, init_s, start_gb = full_width_model(
+        torch, np, seed, tp=tp, comm_mode=comm_mode,
+        n_layers=get_config("whisper-base").num_layers,
+        config=get_config("whisper-base"))
+    b, s_enc, n = WHISPER_ROWS, cfg.max_source_positions, WHISPER_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    frames = torch.randn(b, s_enc, cfg.d_model, generator=gen,
+                         device="cuda").to(getattr(torch, cfg.dtype))
+    rng = np.random.RandomState(seed + 21)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, n))
+                              ).to("cuda")
+    cache = api.init_cache(b, n + WHISPER_DECODE, device="cuda",
+                           enc_len=s_enc)
+    rows = torch.arange(b, device="cuda")
+    v_loc = params["embedding"]["embed"].shape[1]
+    decode_ms, outs, k3_inputs = [], [], {}
+
+    def prefill():
+        return api.prefill(params, prompt, None, None, frames=frames)
+
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        with torch.no_grad():
+            (logits, out), prefill_ms = timed_ms(torch, prefill)
+            KC.insert_chunk(cache["self"], out["self"],
+                            torch.zeros(b, device="cuda"), rows)
+            KC.write_rows(cache["cross"], out["cross"], rows)
+            del out
+            offload(k3_inputs)
+            if logits.shape != (tp, b, 1, v_loc) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"prefill logits {tuple(logits.shape)}"
+                                     f" not finite / wrong shape")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+            for j in range(WHISPER_DECODE):
+                outs.append(tok[:, 0].tolist())
+                pos = torch.full((b, 1), n + j, dtype=torch.int32,
+                                 device="cuda")
+                (logits, cache), ms = timed_ms(
+                    torch, lambda: api.decode_step(params, tok, cache, pos))
+                tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                decode_ms.append(ms)
+        launches = read_launches()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode tokens {outs} outside the vocabulary "
+                             f"{cfg.vocab_size} or logits not finite")
+    want = encdec_launches(api, b, s_enc, n, WHISPER_DECODE,
+                           norm_kernel=norm_kernel)
+    if launches != want or not launches[norm_kernel]:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    with torch.no_grad():
+        encoder_ms = statistics.median(
+            timed_ms(torch, lambda: api.mod.encode(
+                params, frames, cfg=cfg, pcfg=api.pcfg))[1]
+            for _ in range(3))
+    emit({"phase": "encdec", "model": cfg.name, "tp": tp,
+          "comm_mode": comm_mode, "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "vocab_padded": v_loc * tp,
+          "dtype": cfg.dtype, "rows": b, "frames": s_enc,
+          "prompt_tokens": n, "decode_steps": WHISPER_DECODE,
+          "launches": launches, "expected_launches": want,
+          "param_init_s": init_s, "encoder_ms": encoder_ms,
+          "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+          "decode_ms_median": statistics.median(decode_ms),
+          "tokens_row0": [row[0] for row in outs],
+          "allocated_at_start_gb": start_gb,
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+
+    pos = torch.full((b, 1), n + WHISPER_DECODE - 1, dtype=torch.int32,
+                     device="cuda")
+    k3_prefill = want["flash_attention"]
+    with torch.no_grad():
+        for step, fn in (("prefill", prefill),
+                         ("decode", lambda: api.decode_step(params, tok,
+                                                            cache, pos))):
+            trace = trace_dir / f"encdec_tp{tp}_{step}_trace.json"
+            brk = device_breakdown(torch, fn, trace)
+            if step == "prefill" and brk["k3_calls"] != k3_prefill:
+                raise AssertionError(f"traced prefill: {brk['k3_calls']} K3 "
+                                     f"kernels")
+            emit({"phase": "breakdown", "engine": "encdec", "tp": tp,
+                  "step": step,
+                  "tokens": b * (s_enc + n) if step == "prefill" else b,
+                  **brk})
+    del params, cache, logits, frames
+    torch.cuda.empty_cache()
+    err = check_main_path_k3(torch, k3_inputs, "encdec", tp)
+    emit({"phase": "encdec_seconds", "tp": tp,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, err, peak
+
+
+def identity_family_phase(torch, np, seed: int, *, tp: int,
+                          comm_mode: str):
+    """Small float32 vlm and encdec twins on the card (kernels) and on the
+    CPU (plain versions), TF32 off, by direct calls: a vlm prefill of 16
+    rows of 16 patch embeddings and 48 text tokens with M-RoPE ids and 4
+    greedy decode steps; an encdec prefill of 16 rows of 40 frames and a
+    4-token prompt, its caches written, and 4 greedy decode steps.  The
+    weaves fire (sequence, encoder batch and decode batch splits); the
+    vocabulary, 509, does not divide over 2 ranks.  Greedy tokens equal,
+    prefill logits within IDENTITY_LOGIT_TOL."""
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import kv_cache as KC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    norm_kernel = {"fused": "fused_residual_rmsnorm",
+                   "ring": "ar_rmsnorm"}[comm_mode]
+    pcfg = ParallelConfig(comm_mode=comm_mode, attn_impl="pallas",
+                          use_pallas_norm=True, split_unit=16,
+                          tokenweave_min_tokens=32)
+    rng = np.random.RandomState(seed + 5)
+    b, vocab, steps = 16, 509, 4
+    small = dict(num_layers=2, d_model=64, num_heads=4, head_dim=16,
+                 d_ff=128, vocab_size=vocab, dtype="float32")
+    cfgs = {"vlm": ModelConfig(name="small-vlm", family="vlm",
+                               num_kv_heads=2, mrope_sections=(2, 3, 3),
+                               **small),
+            "encdec": ModelConfig(name="small-whisper", family="encdec",
+                                  num_kv_heads=4, encoder_layers=2,
+                                  act="gelu", learned_positions=True,
+                                  max_source_positions=64, **small)}
+    tokens, img, ids = vlm_inputs(torch, np, seed + 6, cfgs["vlm"], b, 4, 48,
+                                  "cpu", torch.float32)
+    frames = torch.from_numpy(rng.randn(b, 40, 64).astype(np.float32))
+    prompt = torch.from_numpy(rng.randint(0, vocab, (b, 4)))
+    for family, cfg in cfgs.items():
+        api = build_model(cfg, pcfg, tp=tp)
+        p_cpu = api.init(seed, device="cpu")
+        params = {"cpu": p_cpu, "cuda": to_device(p_cpu, "cuda")}
+        got, first, launches = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            rows = torch.arange(b, device=dev)
+            with torch.no_grad():
+                if family == "vlm":
+                    s = ids.shape[2]
+                    cache = api.init_cache(b, s + steps, device=dev)
+                    logits, kv = api.prefill(
+                        params[dev], tokens.to(dev), None, None,
+                        mrope_positions=ids.to(dev),
+                        extra_embeds=img.to(dev))
+                    KC.insert_chunk(cache, kv, torch.zeros(b, device=dev),
+                                    rows)
+                else:
+                    s = prompt.shape[1]
+                    cache = api.init_cache(b, s + steps, device=dev,
+                                           enc_len=frames.shape[1])
+                    logits, out = api.prefill(params[dev], prompt.to(dev),
+                                              None, None,
+                                              frames=frames.to(dev))
+                    KC.insert_chunk(cache["self"], out["self"],
+                                    torch.zeros(b, device=dev), rows)
+                    KC.write_rows(cache["cross"], out["cross"], rows)
+                first[dev] = logits.cpu()
+                tok, got[dev] = sharded_argmax(logits, vocab_size=vocab), []
+                for j in range(steps):
+                    got[dev].append(tok[:, 0].tolist())
+                    pos = torch.full((b, 1), s + j, dtype=torch.int32,
+                                     device=dev)
+                    kw = ({"mrope_positions": torch.full(
+                        (b, 3, 1), int(ids.max()) + 1 + j, dtype=torch.int32,
+                        device=dev)}
+                        if family == "vlm" else {})
+                    logits, cache = api.decode_step(params[dev], tok, cache,
+                                                    pos, **kw)
+                    tok = sharded_argmax(logits, vocab_size=vocab)
+            torch.cuda.synchronize()
+            launches[dev] = read_launches()
+        err = max_err(first["cuda"], first["cpu"])
+        if got["cuda"] != got["cpu"] or not err <= IDENTITY_LOGIT_TOL:
+            raise AssertionError(f"tp={tp} {cfg.name}: cuda tokens "
+                                 f"{got['cuda']} != cpu {got['cpu']} or "
+                                 f"logits differ by {err}")
+        if not all(0 <= t < vocab for row in got["cuda"] for t in row):
+            raise AssertionError(f"tp={tp} {cfg.name}: ids outside the "
+                                 f"vocabulary {vocab}")
+        if (0 in (launches["cuda"][norm_kernel],
+                  launches["cuda"]["flash_attention"])
+                or any(launches["cpu"].values())):
+            raise AssertionError(f"tp={tp} {cfg.name}: launches {launches}")
+        emit({"phase": f"identity_{family}", "model": cfg.name, "tp": tp,
+              "comm_mode": comm_mode, "tokens_identical": True,
+              "prefill_logits_max_abs_err": err, "tol": IDENTITY_LOGIT_TOL,
+              "cuda_launches": launches["cuda"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3220,6 +3661,10 @@ def main() -> int:
     for tp, mode in ((1, "fused"), (8, "ring")):
         paths += [engine_ssm_phase(**kw, tp=tp, comm_mode=mode),
                   hybrid_phase(**kw, tp=tp, comm_mode=mode)]
+    # the vlm and encdec families through direct calls
+    for tp, mode in ((1, "fused"), (8, "ring")):
+        paths += [vlm_phase(**kw, tp=tp, comm_mode=mode),
+                  encdec_phase(**kw, tp=tp, comm_mode=mode)]
     kw.pop("trace_dir")
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
@@ -3235,6 +3680,7 @@ def main() -> int:
                        moe=moe)
     for tp, mode in ((1, "fused"), (2, "ring")):
         identity_recurrent_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
+        identity_family_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",

@@ -55,7 +55,7 @@ _INT_MIN, _INT_MAX = -2 ** 31, 2 ** 31 - 1
 def attention_mask(qpos, kpos, causal: bool, window: int):
     """(B, Sq, Sk) bool: key visible to query.  kpos < 0 marks padding;
     window <= 0 means full attention."""
-    m = (kpos[:, None, :] >= 0)
+    m = (kpos[:, None, :] >= 0).expand(-1, qpos.shape[1], -1)
     if causal:
         m = m & (qpos[:, :, None] >= kpos[:, None, :])
     if window > 0:

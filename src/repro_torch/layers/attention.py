@@ -14,7 +14,8 @@ by ``o_scale``).  The output is partial over the ranks; its reduction is
 Implementations of prefill attention: ``impl="pallas"`` runs kernel K3
 (``kernels/flash_attention.py``) with R folded into the batch; ``"ref"``
 and ``"chunked"`` compute the same function with the plain version.
-Decode attention is plain tensor code, as in the reference (no Pallas
+Decode attention and the encdec decoder's cross attention
+(``attn_cross``) are plain tensor code, as in the reference (no Pallas
 kernel there).  Packed steps have no Pallas kernel in the reference
 either; its form gathers every token's whole cache row.  Under
 ``attn_impl="pallas"`` the port gathers each segment's row once instead
@@ -40,7 +41,7 @@ from repro_torch.kernels.flash_attention import attention_mask as _mask
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain as _attn_ref
 from repro_torch.layers.norms import rms_norm
-from repro_torch.layers.rotary import apply_rope
+from repro_torch.layers.rotary import apply_mrope, apply_rope
 from repro_torch.runtime import paging as PG
 
 
@@ -103,9 +104,12 @@ def multihead_attention(q, k, v, qpos, kpos, *, causal: bool, window: int = 0,
 def _project_qkv(params, x, cfg, lay: AttnLayout, *, positions, theta,
                  mrope_positions=None):
     """x (R, B, S, d) -> q (R, B, S, h_loc, dh), k and v (R, B, S,
-    kv_store, dh), roped at ``positions`` (B, S)."""
-    if cfg.mrope_sections and mrope_positions is not None:
-        raise NotImplementedError("M-RoPE is not ported (ROADMAP.md A10)")
+    kv_store, dh), rotated by M-RoPE at ``mrope_positions`` (B, 3, S) when
+    the config has sections and the caller gives them, else by RoPE at
+    ``positions`` (B, S) unless the model learns its positions.  The 1-D
+    ``positions`` still place the keys in the cache and mask them: after
+    an image the two differ (a 256-patch image takes 256 positions but 16
+    M-RoPE ids)."""
     r, b, s, d = x.shape
     dh = cfg.head_dim
     xf = x.reshape(r, b * s, d)
@@ -122,7 +126,10 @@ def _project_qkv(params, x, cfg, lay: AttnLayout, *, positions, theta,
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    if not cfg.learned_positions:
+    if cfg.mrope_sections and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections, theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections, theta)
+    elif not cfg.learned_positions:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
@@ -485,6 +492,45 @@ def attn_packed_paged(params, x, pool_layer, block_tables, *, positions,
                                 x_dtype=x.dtype, cfg=cfg, lay=lay,
                                 window=window)                # (R, T, 1, d)
     return partial.transpose(1, 2), pool_layer
+
+
+# --------------------------------------------------------------------------
+# cross attention (the encdec decoder over the encoder's output)
+# --------------------------------------------------------------------------
+
+def attn_cross(params, x, enc_kv, *, cfg, lay: AttnLayout):
+    """Whisper-style cross attention: queries from the decoder's x (R, B,
+    S, d), keys and values precomputed from the encoder's output (enc_kv =
+    (k, v (R, B, S_enc, kv_store, dh), kpos (B, S_enc))), no rotation, no
+    mask but padded keys.  Returns the partial output (R, B, S, d).  The
+    reference computes it in jnp (``impl="ref"``/``"chunked"``), not in a
+    Pallas kernel; so does the port, with K3's plain version: its S is
+    the decoder's few prompt tokens or one decode token."""
+    r, b, s, d = x.shape
+    dh = cfg.head_dim
+    k, v, kpos = enc_kv
+    q = (x.reshape(r, b * s, d) @ params["wq"]).reshape(r * b, s, lay.h_loc,
+                                                        dh)
+    sk = k.shape[2]
+    qpos = torch.zeros(r * b, s, dtype=torch.int32, device=x.device)
+    out = multihead_attention(
+        q, k.reshape(r * b, sk, lay.kv_store, dh),
+        v.reshape(r * b, sk, lay.kv_store, dh), qpos, kpos.repeat(r, 1),
+        causal=False, impl="ref")
+    return _out_proj(params, out.reshape(r, b, s, -1), lay, x.dtype)
+
+
+def project_cross_kv(params, enc_out, *, cfg, lay: AttnLayout):
+    """The encoder's output (R, B, S_enc, d) -> one decoder layer's cross
+    (k, v (R, B, S_enc, kv_store, dh), kpos (B, S_enc) = 0..S_enc-1)."""
+    r, b, s, d = enc_out.shape
+    dh = cfg.head_dim
+    xf = enc_out.reshape(r, b * s, d)
+    k = (xf @ params["wk"]).reshape(r, b, s, lay.kv_store, dh)
+    v = (xf @ params["wv"]).reshape(r, b, s, lay.kv_store, dh)
+    kpos = torch.arange(s, dtype=torch.int32,
+                        device=enc_out.device)[None].expand(b, s)
+    return k, v, kpos
 
 
 def cache_rows(cache_layer, off: int, rows: int):

@@ -1,9 +1,13 @@
-"""Uniform model API, as ``repro.models.build``: the dense and MoE
-(``expert``, ``ffn``) families of the transformer, the ssm family
-(``mamba_model``) and the hybrid one (``hybrid``), at any tp (the ranks on
-one device's rank axis).  encdec and vlm are not ported (ROADMAP.md A10).
-The ssm and hybrid modules have no verify, packed or paged step: the
-engine refuses those modes for them, as the reference's does."""
+"""Uniform model API, as ``repro.models.build``: the dense, MoE
+(``expert``, ``ffn``) and vlm families of the transformer, the ssm family
+(``mamba_model``), the hybrid one (``hybrid``) and the encoder-decoder
+(``encdec``), at any tp (the ranks on one device's rank axis).  The ssm,
+hybrid and encdec modules have no verify, packed or paged step: the
+engine refuses those modes for them, as the reference's does.
+
+``prefill`` passes its keywords on: ``frames`` (encdec), and
+``mrope_positions`` and ``extra_embeds`` (vlm); ``init_cache`` passes
+``enc_len`` (encdec)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,10 +15,10 @@ from typing import Any
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.layers.moe import EP2D_REFUSAL
-from repro_torch.models import hybrid, mamba_model, transformer
+from repro_torch.models import encdec, hybrid, mamba_model, transformer
 
-FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba_model,
-            "hybrid": hybrid}
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": mamba_model, "hybrid": hybrid, "encdec": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,9 +33,9 @@ class ModelApi:
         return self.mod.init_params(self.cfg, seed=seed, device=device,
                                     dtype=dtype, tp=self.tp)
 
-    def init_cache(self, batch: int, max_len: int, *, device=None):
+    def init_cache(self, batch: int, max_len: int, *, device=None, **kw):
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
-                                   device=device)
+                                   device=device, **kw)
 
     def forward(self, params, tokens, positions, **kw):
         """The shared forward with no cache: (hidden (R, B, S, d), chunk
@@ -68,8 +72,7 @@ class ModelApi:
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
                 ep: int = 1) -> ModelApi:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
+        raise KeyError(f"unknown family {cfg.family!r}")
     if ep > 1 or (cfg.is_moe and cfg.moe_partition == "ep2d"):
         raise NotImplementedError(EP2D_REFUSAL)
     if tp < 1:

@@ -1,0 +1,306 @@
+"""Whisper-style encoder-decoder, as ``repro.models.encdec``: the conv
+frontend is stubbed (the caller gives frame embeddings (B, S_enc, d)),
+positions are learned tables, the FFN is GELU with biases.
+
+Encoder: bidirectional self-attention (kernel K3 with ``causal=False``)
+and the FFN, two add+norm slots a layer.  Its weave splits the *batch*
+(a sequence split would make each half's keys depend on the other's),
+by its own rule: half the rows, shrunk until both halves' tokens divide
+over the ranks, when there are at least 2 rows and
+``tokenweave_min_tokens`` tokens.  Decoder: causal self-attention over
+the self cache (K3 for the prompt), cross-attention over the encoder's
+projected keys and values, and the FFN, three slots a layer, woven as
+the dense stack (``models.transformer``'s ``_Weave``, ``_decide_split``,
+``_comm_ctx`` and ``_entry_norm``): a prompt split along the sequence
+hands the suffix the prefix's KV, a decode split along the batch slices
+the cross caches' rows.  The port issues each layer in Fig. 8's order
+(every split's attention and slot, then every split's next block); the
+reference runs each split's whole layer in turn: the same function.
+
+Parameters: {"embedding", "pos_enc" (S_enc, d), "pos_dec" (P, d),
+"norm_first_enc" (d,), "norm_first" (d,), "enc_layers": [{"attn",
+"mlp", "norm_attn", "norm_ffn"}], "dec_layers": [{"attn", "cross" (no
+q/k/v bias), "mlp", "norm_attn", "norm_cross", "norm_ffn"}]}.  The
+decoder table is grown to ``max_positions`` (4096), the reference's
+documented deviation from Whisper's 448.
+
+Cache: {"self": one slot KV dict per decoder layer, as the
+transformer's; "cross": per decoder layer {"k", "v" (R, B, S_enc,
+kv_store, dh), "pos" (B, S_enc)}}.  ``prefill`` returns the prompt's
+self KV per layer, [(k, v, pos)], and the cross caches, for the caller to
+write into the cache (``runtime.kv_cache.insert_chunk`` and
+``write_rows``); ``decode_step`` updates the self cache in place.  The
+engine does not serve this family; the reference serves it by direct
+calls too.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as A
+from repro_torch.layers import embedding as E
+from repro_torch.layers import mlp as M
+from repro_torch.models import transformer as TR
+from repro_torch.models.mamba_model import embedding_params
+
+MAX_DECODER_POSITIONS = 4096
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
+                tp: int = 1, max_positions: int = MAX_DECODER_POSITIONS):
+    """Random weights for ``tp`` ranks from a seeded ``torch.Generator``
+    on ``device`` (CUDA unless given), with the reference's scales
+    (projections d^-0.5, FFN out d_ff^-0.5, position tables 0.02, biases
+    zero, norms ones) and shapes."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim)
+    d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    if f % tp:
+        raise ValueError(f"d_ff={f} is not a multiple of tp={tp}")
+    s = d ** -0.5
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def ones(n=d):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def attn(cross: bool):
+        p = {"wq": rnd((tp, d, lay.h_loc * dh), s),
+             "wk": rnd((tp, d, lay.kv_store * dh), s),
+             "wv": rnd((tp, d, lay.kv_store * dh), s),
+             "wo": rnd((tp, lay.h_loc * dh, d), s)}
+        if cfg.qkv_bias and not cross:
+            p.update(bq=zeros(tp, lay.h_loc * dh),
+                     bk=zeros(tp, lay.kv_store * dh),
+                     bv=zeros(tp, lay.kv_store * dh))
+        if cfg.qk_norm:
+            p.update(q_norm=ones(dh), k_norm=ones(dh))
+        return p
+
+    def mlp():
+        return {"w_in": rnd((tp, d, f // tp), s), "b_in": zeros(tp, f // tp),
+                "w_out": rnd((tp, f // tp, d), f ** -0.5), "b_out": zeros(d)}
+
+    enc = [{"attn": attn(False), "mlp": mlp(), "norm_attn": ones(),
+            "norm_ffn": ones()} for _ in range(cfg.encoder_layers)]
+    dec = [{"attn": attn(False), "cross": attn(True), "mlp": mlp(),
+            "norm_attn": ones(), "norm_cross": ones(), "norm_ffn": ones()}
+           for _ in range(cfg.num_layers)]
+    return {"embedding": embedding_params(gen, cfg, tp, device=device,
+                                          dtype=dtype),
+            "pos_enc": rnd((cfg.max_source_positions, d), 0.02),
+            "pos_dec": rnd((max_positions, d), 0.02),
+            "norm_first_enc": ones(), "norm_first": ones(),
+            "enc_layers": enc, "dec_layers": dec}
+
+
+def _layout(cfg: ModelConfig, tp: int) -> A.AttnLayout:
+    return A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim)
+
+
+def encoder_split(b: int, s: int, *, tp: int, pcfg: ParallelConfig):
+    """The encoder weave's cut along the batch (rows of the first split),
+    or None: half the rows, shrunk until both halves' b·s tokens divide
+    by tp, when b >= 2 and b·s >= ``tokenweave_min_tokens``."""
+    if not (pcfg.tokenweave and b >= 2
+            and b * s >= pcfg.tokenweave_min_tokens):
+        return None
+    half = b // 2
+    while half > 0 and ((half * s) % tp or ((b - half) * s) % tp):
+        half -= 1
+    return half or None
+
+
+def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig):
+    """frames (B, S_enc, d), stub embeddings -> the encoder's output (R,
+    B, S_enc, d), the same on every rank."""
+    tp = params["embedding"]["embed"].shape[0]
+    b, s, _ = frames.shape
+    dev = frames.device
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
+    x = frames + params["pos_enc"][:s].to(frames.dtype)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    b1 = encoder_split(b, s, tp=tp, pcfg=pcfg)
+    cuts = [(0, b)] if b1 is None else [(0, b1), (b1, b)]
+    weave = TR._Weave(len(cuts), ctx, dev)
+    # the frames are complete values: /tp, so the entry norm's sum over
+    # the ranks gives them back
+    hs, ress = map(list, zip(*(
+        TR._entry_norm(weave, i, (x[lo:hi] / tp).expand(tp, hi - lo, s, -1),
+                       params["norm_first_enc"])
+        for i, (lo, hi) in enumerate(cuts))))
+    lay = _layout(cfg, tp)
+    for lp in params["enc_layers"]:
+        for i, (lo, hi) in enumerate(cuts):
+            weave.wait(i)
+            a_part, _ = A.attn_prefill(
+                lp["attn"], hs[i], positions=positions.expand(hi - lo, s),
+                cfg=cfg, lay=lay, theta=cfg.rope_theta, causal=False,
+                impl=pcfg.attn_impl)
+            hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
+                                             lp["norm_attn"])
+        for i in range(len(cuts)):
+            weave.wait(i)
+            hs[i], ress[i] = weave.comm_norm(
+                i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+    for i in range(len(cuts)):
+        weave.wait(i)
+    return torch.cat(hs, dim=1) if len(hs) == 2 else hs[0]
+
+
+def project_cross_caches(params, enc_out, *, cfg: ModelConfig,
+                         pcfg: ParallelConfig):
+    """Each decoder layer's cross keys and values from the encoder's
+    output (R, B, S_enc, d): [{"k", "v" (R, B, S_enc, kv_store, dh),
+    "pos" (B, S_enc)}]."""
+    lay = _layout(cfg, enc_out.shape[0])
+    return [dict(zip(("k", "v", "pos"), A.project_cross_kv(
+        lp["cross"], enc_out, cfg=cfg, lay=lay)))
+        for lp in params["dec_layers"]]
+
+
+def decoder_forward(params, tokens, *, cfg: ModelConfig,
+                    pcfg: ParallelConfig, cross_kv, positions=None,
+                    cache=None, decode: bool = False):
+    """The causal decoder over ``cross_kv`` (``project_cross_caches``).
+    Returns (hidden (R, B, S, d), the same on every rank, the prompt's
+    self KV per layer [(k, v, pos)] (prefill: ``cache``, the self cache's
+    rows, is attended as prefix) or ``cache``, updated in place
+    (decode))."""
+    tp = params["embedding"]["embed"].shape[0]
+    b, s = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=dev)[None].expand(b, s)
+    positions = positions.to(dev)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
+    emb = E.embed_tokens(params["embedding"], tokens)
+    table = params["pos_dec"]
+    pos_emb = table[positions.long().clamp(0, table.shape[0] - 1)]
+    emb = emb + pos_emb.to(emb.dtype) / tp
+
+    split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
+    cuts = TR._split_cuts(split, b if decode else s)
+    if decode:
+        embs = [emb[:, lo:hi] for lo, hi in cuts]
+        poss = [positions[lo:hi] for lo, hi in cuts]
+    else:
+        embs = [emb[:, :, lo:hi] for lo, hi in cuts]
+        poss = [positions[:, lo:hi] for lo, hi in cuts]
+
+    def cross_of(i, c):
+        """Split i's rows of one layer's cross cache (a decode split
+        slices the batch; prompt splits share every row)."""
+        if decode and len(cuts) == 2:
+            lo, hi = cuts[i]
+            c = A.cache_rows(c, lo, hi - lo)
+        return c["k"], c["v"], c["pos"]
+
+    weave = TR._Weave(len(embs), ctx, dev)
+    hs, ress = map(list, zip(*(TR._entry_norm(weave, i, e,
+                                              params["norm_first"])
+                               for i, e in enumerate(embs))))
+    lay = _layout(cfg, tp)
+    kv_all = []
+    for li, lp in enumerate(params["dec_layers"]):
+        cache_l = None if cache is None else cache[li]
+        kv_prev = (None if decode or cache_l is None else
+                   (cache_l["k"], cache_l["v"], cache_l["pos"]))
+        kv_outs, off = [], 0
+        for i in range(len(hs)):
+            weave.wait(i)
+            geo = dict(positions=poss[i], cfg=cfg, lay=lay,
+                       theta=cfg.rope_theta)
+            if decode:
+                rows = hs[i].shape[1]
+                a_part, _ = A.attn_decode(lp["attn"], hs[i],
+                                          A.cache_rows(cache_l, off, rows),
+                                          **geo)
+                off += rows
+            else:
+                a_part, kv = A.attn_prefill(lp["attn"], hs[i],
+                                            kv_prefix=kv_prev,
+                                            impl=pcfg.attn_impl, **geo)
+                kv_outs.append(kv)
+                kv_prev = kv if kv_prev is None else TR.cat_kv(kv_prev, kv)
+            hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
+                                             lp["norm_attn"])
+        for i in range(len(hs)):
+            weave.wait(i)
+            c_part = A.attn_cross(lp["cross"], hs[i],
+                                  cross_of(i, cross_kv[li]), cfg=cfg, lay=lay)
+            hs[i], ress[i] = weave.comm_norm(i, c_part, ress[i],
+                                             lp["norm_cross"])
+        for i in range(len(hs)):
+            weave.wait(i)
+            hs[i], ress[i] = weave.comm_norm(
+                i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+        kv_all.append(cache_l if decode else
+                      kv_outs[0] if len(kv_outs) == 1 else
+                      TR.cat_kv(*kv_outs))
+    for i in range(len(hs)):
+        weave.wait(i)
+    h_out = (torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2
+             else hs[0])
+    return h_out, (cache if decode else kv_all)
+
+
+def prefill(params, tokens, cache, *, cfg: ModelConfig,
+            pcfg: ParallelConfig, frames, positions=None):
+    """Encode ``frames`` (B, S_enc, d), project the cross caches and run
+    the decoder prompt ``tokens`` (B, S) (attending ``cache["self"]``'s
+    rows as prefix when a cache is given).  Returns (local logits at the
+    last position (R, B, 1, V_loc), {"self": the prompt's KV per layer,
+    "cross": the cross caches})."""
+    enc_out = encode(params, frames, cfg=cfg, pcfg=pcfg)
+    cross = project_cross_caches(params, enc_out, cfg=cfg, pcfg=pcfg)
+    h, kv = decoder_forward(params, tokens, cfg=cfg, pcfg=pcfg,
+                            cross_kv=cross, positions=positions,
+                            cache=None if cache is None else cache["self"])
+    return (E.lm_head_logits(params["embedding"], h[:, :, -1:]),
+            {"self": kv, "cross": cross})
+
+
+def decode_step(params, tokens, cache, *, cfg: ModelConfig,
+                pcfg: ParallelConfig, positions):
+    """One token per row over the self and cross caches.  Returns (local
+    logits (R, B, 1, V_loc), the cache, its self part updated in
+    place)."""
+    h, _ = decoder_forward(params, tokens, cfg=cfg, pcfg=pcfg,
+                           cross_kv=cache["cross"], positions=positions,
+                           cache=cache["self"], decode=True)
+    return E.lm_head_logits(params["embedding"], h), cache
+
+
+def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
+               enc_len: int | None = None, device=None, dtype=None):
+    """Empty self caches of ``max_len`` slots and zero cross caches of
+    ``enc_len`` (the config's source length unless given) encoder
+    positions, per decoder layer, on ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
+    dt = dtype or getattr(torch, cfg.dtype)
+    s_enc = enc_len or cfg.max_source_positions
+    lay = _layout(cfg, tp)
+    shape = (tp, batch, s_enc, lay.kv_store, cfg.head_dim)
+
+    def cross():
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "pos": torch.zeros(batch, s_enc, dtype=torch.int32,
+                                   device=device)}
+    return {"self": [A.init_kv_cache(batch, max_len, cfg, tp, dtype=dtype,
+                                     device=device)
+                     for _ in range(cfg.num_layers)],
+            "cross": [cross() for _ in range(cfg.num_layers)]}

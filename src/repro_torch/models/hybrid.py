@@ -146,18 +146,12 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
             a_part, kv = A.attn_prefill(p_eff, u, kv_prefix=kv_prev,
                                         impl=pcfg.attn_impl, **geo)
             kv_outs.append(kv)
-            kv_prev = kv if kv_prev is None else (
-                torch.cat([kv_prev[0], kv[0]], dim=2),
-                torch.cat([kv_prev[1], kv[1]], dim=2),
-                torch.cat([kv_prev[2], kv[2]], dim=1))
+            kv_prev = kv if kv_prev is None else TR.cat_kv(kv_prev, kv)
         hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i], w_out)
     if decode:
         return hs, ress, cache_inv
-    if len(kv_outs) == 1:
-        return hs, ress, kv_outs[0]
-    (k0, v0, p0), (k1, v1, p1) = kv_outs
-    return hs, ress, (torch.cat([k0, k1], dim=2), torch.cat([v0, v1], dim=2),
-                      torch.cat([p0, p1], dim=1))
+    return hs, ress, (kv_outs[0] if len(kv_outs) == 1
+                      else TR.cat_kv(*kv_outs))
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,14 @@
-"""Decoder-only transformer (dense and MoE families) with the TokenWeave
-two-split weave, as ``repro.models.transformer``; its weave helpers
-(``_Weave``, ``_decide_split``, ``_comm_ctx``, ``_entry_norm``) serve the
-ssm and hybrid models too.
+"""Decoder-only transformer (dense, MoE and vlm families) with the
+TokenWeave two-split weave, as ``repro.models.transformer``; its weave
+helpers (``_Weave``, ``_decide_split``, ``_comm_ctx``, ``_entry_norm``)
+serve the ssm, hybrid and encdec models too.
+
+The vlm family (Qwen2-VL) is the dense stack with a stubbed vision
+frontend: ``extra_embeds`` (B, S_img, d), complete patch embeddings, go
+in front of the text rows, and M-RoPE ids ``mrope_positions`` (B, 3, S)
+rotate q and k where given (``layers/rotary.py``); the 1-D positions
+still place and mask the keys.  Without M-RoPE ids (the engine's
+text-only serving, packed steps) it rotates by plain RoPE.
 
 The tp ranks sit on a leading rank axis R of one device
 (``distributed/context.py``): every sharded weight is ``(R, ...)`` as in
@@ -87,12 +94,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     shapes (every sharded weight (tp, ...)).  The values differ from the
     reference's jax.random ones; tests move the reference's weights over
     with ``weights.from_jax_params`` instead."""
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has its own model module "
                          f"(models.build.build_model picks it)")
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md A10)")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -214,6 +218,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
         h, pos = hs[i], state["positions"][i]
         geo = dict(positions=pos, cfg=cfg, lay=lay, theta=kind.theta,
                    window=kind.window)
+        mrope = dict(mrope_positions=state["mrope"][i])
         if packed:
             segs = state["segs"][i]
             if block_tables is not None:
@@ -230,24 +235,22 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
             attn = (A.attn_verify_paged if h.shape[2] > 1
                     else A.attn_decode_paged)
             a_part, _ = attn(lp["attn"], h, cache_layer, block_tables,
-                             where=state["where"], **geo)
+                             where=state["where"], **geo, **mrope)
         elif decode:
             # batch split: each split updates its own rows of the cache in
             # place through views, so the full cache is the result
             rows = h.shape[1]
             attn = A.attn_verify if h.shape[2] > 1 else A.attn_decode
             a_part, _ = attn(lp["attn"], h,
-                             A.cache_rows(cache_layer, off, rows), **geo)
+                             A.cache_rows(cache_layer, off, rows), **geo,
+                             **mrope)
             off += rows
         else:
             a_part, kv = A.attn_prefill(lp["attn"], h, kv_prefix=kv_prev,
-                                        impl=pcfg.attn_impl, **geo)
+                                        impl=pcfg.attn_impl, **geo, **mrope)
             kv_outs.append(kv)
             # later splits attend to cache prefix + all earlier splits' kv
-            kv_prev = kv if kv_prev is None else (
-                torch.cat([kv_prev[0], kv[0]], dim=2),
-                torch.cat([kv_prev[1], kv[1]], dim=2),
-                torch.cat([kv_prev[2], kv[2]], dim=1))
+            kv_prev = kv if kv_prev is None else cat_kv(kv_prev, kv)
         hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i], lp["norm_attn"],
                                          lp.get("norm_attn_post"))
     for i in range(n):
@@ -261,11 +264,14 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     state = dict(state, h=hs, res=ress)
     if decode or packed:
         return state, cache_layer
-    if n == 1:
-        return state, kv_outs[0]
-    (k0, v0, p0), (k1, v1, p1) = kv_outs
-    return state, (torch.cat([k0, k1], dim=2), torch.cat([v0, v1], dim=2),
-                   torch.cat([p0, p1], dim=1))
+    return state, kv_outs[0] if n == 1 else cat_kv(*kv_outs)
+
+
+def cat_kv(a, b):
+    """Two (k, v (R, B, S, h, dh), pos (B, S)) chunks one after the other
+    along the sequence."""
+    return (torch.cat([a[0], b[0]], dim=2), torch.cat([a[1], b[1]], dim=2),
+            torch.cat([a[2], b[2]], dim=1))
 
 
 def _cache_prefix(cache_layer):
@@ -420,10 +426,17 @@ def _entry_norm(weave: _Weave, i: int, emb, w_first):
 # --------------------------------------------------------------------------
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
-            positions=None, cache=None, decode: bool = False,
-            block_tables=None, packed_slots=None):
+            positions=None, mrope_positions=None, extra_embeds=None,
+            cache=None, decode: bool = False, block_tables=None,
+            packed_slots=None):
     """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
     every rank, kv_or_cache).  tp is the rank axis of ``params``.
+
+    vlm: ``extra_embeds`` (B, S_img, d) are complete patch embeddings
+    that go in front of the text rows (S counts them; the default
+    positions are 0..S-1), ``mrope_positions`` (B, 3, S) the M-RoPE ids,
+    split with the sequence (prefill) or the batch (decode); a packed
+    step carries none.
 
     prefill chunk: ``cache`` = the request rows of the KV cache (attended
     as prefix); returns the chunk's new kv per layer, [(k, v, pos)], for
@@ -442,7 +455,9 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     tensors and nothing is read back from the device.
     """
     tp = params["embedding"]["embed"].shape[0]
-    b, s = tokens.shape
+    b = tokens.shape[0]
+    s = tokens.shape[1] + (0 if extra_embeds is None
+                           else extra_embeds.shape[1])
     dev = tokens.device
     packed = packed_slots is not None
     paged_decode = decode and block_tables is not None and not packed
@@ -481,18 +496,30 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         state_extra["pslots"] = [packed_slots[lo:hi] for lo, hi in cuts]
 
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    if extra_embeds is not None:
+        # complete values: divided by tp so that the entry norm's sum over
+        # the ranks gives them back beside the partial text rows
+        img = (extra_embeds.to(dev) / tp).to(emb.dtype)
+        emb = torch.cat([img.expand(tp, *img.shape), emb], dim=2)
+    if mrope_positions is not None:
+        mrope_positions = mrope_positions.to(dev)
     if decode:
         embs = [emb[:, lo:hi] for lo, hi in cuts]
         poss = [positions[lo:hi] for lo, hi in cuts]
+        mrs = [None if mrope_positions is None else mrope_positions[lo:hi]
+               for lo, hi in cuts]
     else:
         embs = [emb[:, :, lo:hi] for lo, hi in cuts]
         poss = [positions[:, lo:hi] for lo, hi in cuts]
+        mrs = [None if mrope_positions is None or packed
+               else mrope_positions[:, :, lo:hi] for lo, hi in cuts]
 
     # residual birth + layer 0's input norm, split-local
     weave = _Weave(len(embs), ctx, emb.device)
     hs, ress = map(list, zip(*(_entry_norm(weave, i, e, params["norm_first"])
                                for i, e in enumerate(embs))))
-    state = {"h": hs, "res": ress, "positions": poss, **state_extra}
+    state = {"h": hs, "res": ress, "positions": poss, "mrope": mrs,
+             **state_extra}
 
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
@@ -512,12 +539,15 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     return h_out, kv_all
 
 
-def prefill(params, tokens, cache, *, cfg, pcfg, positions, last_idx=None):
+def prefill(params, tokens, cache, *, cfg, pcfg, positions,
+            mrope_positions=None, extra_embeds=None, last_idx=None):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last valid token (R, B, 1, V_loc), chunk kv per layer).  ``last_idx``:
-    per-row index of the last unpadded token in the chunk."""
+    per-row index of the last unpadded token in the chunk (the patch rows
+    of ``extra_embeds`` counted)."""
     h, kv = forward(params, tokens, cfg=cfg, pcfg=pcfg, positions=positions,
-                    cache=cache)
+                    mrope_positions=mrope_positions,
+                    extra_embeds=extra_embeds, cache=cache)
     if last_idx is None:
         h_last = h[:, :, -1:]
     else:
@@ -528,18 +558,19 @@ def prefill(params, tokens, cache, *, cfg, pcfg, positions, last_idx=None):
 
 
 def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
-                block_tables=None):
+                mrope_positions=None, block_tables=None):
     """Single-token decode (or verify window).  Returns (local logits
     (R, B, S, V_loc), the cache, updated in place).  ``block_tables``
     (B, max_blocks) selects the paged pool (``runtime/paging.py``)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                           positions=positions, cache=cache, decode=True,
-                           block_tables=block_tables)
+                           positions=positions,
+                           mrope_positions=mrope_positions, cache=cache,
+                           decode=True, block_tables=block_tables)
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
 def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
-                block_tables=None):
+                mrope_positions=None, block_tables=None):
     """Speculative multi-token verify: tokens (B, gamma+1) are the
     pending decode input followed by the draft, positions -1 where a row
     has no (or a short) draft.  Returns (local logits (R, B, gamma+1,
@@ -547,7 +578,8 @@ def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
     with the whole window's KV written in place; the engine rolls back
     rejected positions on the host).  The decode path at S = gamma+1."""
     return decode_step(params, tokens, cache, cfg=cfg, pcfg=pcfg,
-                       positions=positions, block_tables=block_tables)
+                       positions=positions, mrope_positions=mrope_positions,
+                       block_tables=block_tables)
 
 
 def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,

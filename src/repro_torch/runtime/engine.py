@@ -58,14 +58,17 @@ resumes decoding with no re-prefill.  ``evacuate`` releases everything a
 dead replica's engine holds and returns its requests reset for a
 recompute requeue.
 
-Families: the transformer's (dense, MoE) on every path above, and ssm
+Families: the transformer's (dense, MoE, and vlm text-only: no M-RoPE
+ids are passed, so it rotates by plain RoPE, as the reference's engine
+serves it) on every path above, and ssm
 over legacy slots with the two-dispatch scheme only (its state has no
 token axis: packed, speculative and paged runs are refused with the
 reference's messages); an ssm prefill chunk is exact (no padding enters
 the recurrence), reads its rows of the state cache (zeroed for a fresh
 request) and writes them back, and a finished slot needs no reset.  The
-hybrid family is served by direct ``ModelApi.prefill`` / ``decode_step``
-calls, as the reference serves it; the engine refuses it.
+hybrid and encdec families are served by direct ``ModelApi.prefill`` /
+``decode_step`` calls, as the reference serves them; the engine refuses
+them.
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
@@ -284,6 +287,12 @@ class Engine:
                 "the hybrid family is served by direct ModelApi.prefill / "
                 "decode_step calls, as the reference serves it: the engine "
                 "cannot hold its {'mamba', 'shared'} cache")
+        if api.cfg.family == "encdec":
+            raise NotImplementedError(
+                "the encdec family is served by direct ModelApi.prefill / "
+                "decode_step calls, as the reference serves it: the engine "
+                "has no frames to encode and cannot hold its {'self', "
+                "'cross'} cache")
         self._is_ssm = api.cfg.family == "ssm"
         self.paged = bool(scfg.paged)
         self.packed = bool(scfg.packed)

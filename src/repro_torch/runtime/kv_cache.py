@@ -5,6 +5,10 @@ per layer: k and v are (R, B, C, kv_store, dh), one slab per rank of the
 rank axis, and pos is (B, C), the same on every rank.  ``insert_chunk``
 and ``reset_slots`` update it in place, across all ranks.
 
+The encdec family's cache is {"self": such a list, "cross": per decoder
+layer the encoder's projected keys and values, one whole row per slot},
+written by ``insert_chunk`` and ``write_rows``.
+
 The ssm family's slot cache is its stacked recurrent state instead
 (``layers/ssm.py``: nested tuples of (L, R or 1, B, ...) leaves, the slot
 on dim 2); ``gather_state_rows`` and ``scatter_state_rows`` move a
@@ -40,6 +44,21 @@ def insert_chunk(cache, kv_chunk, offsets, slot_ids):
             layer["k"][:, rows, cols] = ks[:, keep].to(layer["k"].dtype)
             layer["v"][:, rows, cols] = vs[:, keep].to(layer["v"].dtype)
             layer["pos"][rows, cols] = ps[keep].to(torch.int32)
+    return cache
+
+
+def write_rows(cache, rows, slot_ids):
+    """Write whole cache rows into the slots ``slot_ids``: ``rows`` per
+    layer {"k", "v" (R, B_sel, C, h, dh), "pos" (B_sel, C)} of the cache's
+    row length C (the encdec cross caches that ``prefill`` returns)."""
+    for layer, src in zip(cache, rows):
+        idx = slot_ids.to(layer["pos"].device).long()
+        for name, t in src.items():
+            dst = layer[name]
+            if name == "pos":
+                dst[idx] = t.to(dst.dtype)
+            else:
+                dst[:, idx] = t.to(dst.dtype)
     return cache
 
 

@@ -2,8 +2,9 @@
 arrays, to this package's parameter dict.
 
 ``params_np`` is ``jax.tree.map(np.asarray, params)`` of the reference's
-``init_params`` (``models.transformer``, ``models.mamba_model`` or
-``models.hybrid``) at any tp.  These layouts need care:
+``init_params`` (``models.transformer``, ``models.mamba_model``,
+``models.hybrid`` or ``models.encdec``) at any tp.  These layouts need
+care:
 
 * layers are either stacked with a leading layer axis (``scan_layers``
   with uniform layer kinds, and always for the ssm and hybrid families)
@@ -13,6 +14,9 @@ arrays, to this package's parameter dict.
   replicated weights (norm gains, q/k norms, the row-parallel output bias,
   the MoE router, Mamba-2's B/C projection and conv) carry an axis of size
   1 and drop it;
+* the encdec tree has two stacks, ``enc_layers`` and ``dec_layers``, and
+  replicated top-level leaves (``pos_enc`` and ``pos_dec`` (1, P, d),
+  ``norm_first_enc``, ``norm_first``), each losing its size-1 axis;
 * the hybrid's shared block carries a per-invocation axis in front of the
   size-1 axis of its replicated ``norm_out`` (n_inv, 1, d) and ``lora_a``
   (n_inv, 1, 2d, 16), so that axis 1 is the one dropped there;
@@ -39,7 +43,8 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
 
 
 # leaves the reference replicates (PartitionSpec None): (1, ...) -> (...)
-REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_attn_post",
+REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_cross",
+                        "norm_attn_post",
                         "norm_ffn_post", "q_norm", "k_norm", "b_out",
                         "router", "norm_out", "in_proj_bc", "conv_bc"})
 # leaves kept in float32 whatever dtype the caller asks for
@@ -59,19 +64,29 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
     """Reference pytree (numpy leaves) -> this package's parameter dict,
     on ``device`` (CUDA unless given)."""
     device = resolve_device(device)
-    layers_np = params_np["layers"]
-    if "layer_0" in layers_np:
-        per_layer = [layers_np[f"layer_{i}"] for i in range(cfg.num_layers)]
-    else:
-        def take(tree, i):
-            return {k: take(v, i) if isinstance(v, dict) else v[i]
-                    for k, v in tree.items()}
-        per_layer = [take(layers_np, i) for i in range(cfg.num_layers)]
+
+    def layers(tree, n):
+        if "layer_0" in tree:
+            per_layer = [tree[f"layer_{i}"] for i in range(n)]
+        else:
+            def take(t, i):
+                return {k: take(v, i) if isinstance(v, dict) else v[i]
+                        for k, v in t.items()}
+            per_layer = [take(tree, i) for i in range(n)]
+        return [_convert(lp, device, dtype) for lp in per_layer]
+
     out = {
         "embedding": _convert(params_np["embedding"], device, dtype),
         "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
-        "layers": [_convert(lp, device, dtype) for lp in per_layer],
     }
+    if "enc_layers" in params_np:
+        out.update({k: to_torch(params_np[k][0], device, dtype)
+                    for k in ("pos_enc", "pos_dec", "norm_first_enc")})
+        out["enc_layers"] = layers(params_np["enc_layers"],
+                                   cfg.encoder_layers)
+        out["dec_layers"] = layers(params_np["dec_layers"], cfg.num_layers)
+        return out
+    out["layers"] = layers(params_np["layers"], cfg.num_layers)
     if "shared" in params_np:
         sh = params_np["shared"]
         out["shared"] = {

@@ -130,17 +130,17 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
 
 # registry configs the port names but does not serve, and the ROADMAP.md
 # labels their refusals name
-UNSERVED = {"qwen3-moe-235b-a22b": "A10.*A4", "whisper-base": "A10",
-            "qwen2-vl-7b": "A10"}
+UNSERVED = {"qwen3-moe-235b-a22b": "A10.*A4"}
 
 
 @pytest.mark.parametrize("what", list(UNSERVED))
 def test_engine_refuses_unported_modes(torch_model, what):
-    """What stays unported is refused: the encdec and vlm families and the
-    MoE ``ep2d`` partitioning, when the model is built or initialised
-    (ROADMAP.md A10, and A4 for ep2d's data rank axis), as is ``ep > 1``
-    for any model.  (The ssm and hybrid families are ported:
-    tests/test_torch_ssm.py and tests/test_torch_hybrid.py.)  (``evacuate`` and
+    """What stays unported is refused: the MoE ``ep2d`` partitioning,
+    when the model is built or initialised (ROADMAP.md A10, and A4 for
+    ep2d's data rank axis), as is ``ep > 1`` for any model.  (The ssm,
+    hybrid, encdec and vlm families are ported: tests/test_torch_ssm.py,
+    tests/test_torch_hybrid.py, tests/test_torch_encdec.py and
+    tests/test_torch_vlm.py.)  (``evacuate`` and
     the KV handoff are ported: tests/test_torch_handoff.py and
     tests/test_torch_cluster.py.)"""
     cfg = t_get_config(what).reduced()
@@ -172,7 +172,8 @@ def test_engine_from_spec_without_device_raises_when_cuda_absent(
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the sim, calibration, tracing, profiler,
     online server, MoE layer, config registry, wire transport, cluster,
-    HTTP API, SSM layers and the mamba and hybrid models among them), and
+    HTTP API, SSM layers, rotary embeddings and the mamba, hybrid and
+    encdec models among them), and
     chip_smoke.py's imports, load with ``jax`` and ``repro`` made
     unimportable."""
     code = r"""
@@ -191,7 +192,8 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.runtime.transport", "repro_torch.runtime.cluster",
         "repro_torch.runtime.http_api", "repro_torch.layers.ssm",
         "repro_torch.models.mamba_model",
-        "repro_torch.models.hybrid"} <= set(names), names
+        "repro_torch.models.hybrid", "repro_torch.models.encdec",
+        "repro_torch.layers.rotary"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
