@@ -147,14 +147,36 @@ Phases, each printing one JSON line:
             ``encdec_launches``; K3 held on the run's inputs; the
             encoder timed alone; then small float32 vlm and encdec twins
             give equal greedy tokens on the card and the CPU at tp=1 and
-            tp=2 ``ring`` (``identity_vlm``, ``identity_encdec``).
+            tp=2 ``ring`` (``identity_vlm``, ``identity_encdec``);
+16. engine_moe_qwen3  Qwen3-MoE-235B-A22B at full width (4 of 94
+            layers, bf16, ``ep2d`` at data size 1: all 128 experts on the
+            one data shard, expert d_ff over the ranks) serves the engine
+            phases' 4 requests through the two-dispatch engine at tp=1
+            ``fused`` and tp=8 ``ring``, gated as the other engine phases;
+17. ep2d    the same model by direct calls at D = 2 data shards x R = 4
+            ranks (experts over D, its all-to-alls index ops on the card,
+            K1 once a slot per data shard) and at D = 1 x R = 4: 4 rows of
+            1024 tokens (the batch over D), 16 decode steps; launches equal
+            their formulas, K3 held on the run's inputs, drop shares, a
+            traced prefill and decode with the MoE ranges (dispatch and
+            combine device ms);
+18. cp_decode  Gemma3-1B at full width and depth at the ``long_500k``
+            shape (one row, 524,288 positions, its caches filled from the
+            seed): 16 bf16 decode steps under ``seq_shard_kv`` at D = 4
+            beside D = 1 (greedy tokens equal; each step's logits against
+            D = 1 on the same cache reported) and 4 float32 steps (logits
+            within 1e-3); then small float32 twins, ep2d at D = 2 x R = 2
+            and the reduced Gemma3-1B at D = 4, give equal greedy tokens on
+            the card and the CPU (``identity_ep2d``, ``identity_cp``).
 
 The kernels phase holds K2 and K1 at the families' widths too (d 4096,
-3584 and 512, K1 timed at Whisper's 8 x 1500-row split) and K3 at bf16
-head dims 224 and 256 (``hybrid_d224``, ``gemma_d256`` timed beside
-SDPA, ``g2_d224`` ragged and windowed), bidirectional (``whisper_enc``,
-timed) and at G 7 (``qwen2vl``, timed; ``bidir_padded`` ragged with
-padded keys).
+3584, 1152 and 512, K1 timed at Whisper's 8 x 1500-row split and at one
+data shard's 4 x 2048 rows of d 4096, and on a data shard's views of a
+two-shard tensor, bit-equal to copies) and K3 at bf16 head dims 224 and
+256 (``hybrid_d224``, ``gemma_d256`` timed beside SDPA, ``g2_d224``
+ragged and windowed), bidirectional (``whisper_enc``, timed), at G 7
+(``qwen2vl``, timed; ``bidir_padded`` ragged with padded keys) and at
+Qwen3-MoE's G 16 and 8 (``qwen3``, ``qwen3_tp8``, ``qwen3_ep2d``, timed).
 
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
@@ -379,9 +401,11 @@ def kernel_phase(torch, seed: int, probe):
 
     k2_err = 0.0
     # Llama's d 8192, then Falcon-Mamba's 4096, Zamba2's and Qwen2-VL's
-    # 3584 and Whisper-base's 512 at an encoder split's 8 x 1500 (held)
+    # 3584, Whisper-base's 512 at an encoder split's 8 x 1500 and
+    # Gemma3-1B's one-row context-parallel decode at 1152 (held)
     for t, d in ((8, 8192), (32, 8192), (1000, 8192), (2048, 8192),
-                 (2048, 4096), (1000, 3584), (2048, 3584), (12000, 512)):
+                 (2048, 4096), (1000, 3584), (2048, 3584), (12000, 512),
+                 (1, 1152)):
         x = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         r = torch.randn(t, d, generator=gen, device=dev, dtype=bf16)
         w = (torch.randn(d, generator=gen, device=dev).abs() + 0.5).to(bf16)
@@ -413,9 +437,11 @@ def kernel_phase(torch, seed: int, probe):
     from repro_torch.kernels import ar_rmsnorm as K1
     gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
     k1_err = 0.0
+    # Qwen3-MoE's d 4096 at tp=8 and on one data shard's 4 ranks (timed)
     for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
                      + [(8, 32, 8192), (8, 1000, 8190), (8, 2048, 4096),
-                        (8, 2048, 3584), (8, 1000, 3584), (8, 12000, 512)]):
+                        (8, 2048, 3584), (8, 1000, 3584), (8, 12000, 512),
+                        (4, 1024, 4096), (4, 2048, 4096)]):
         x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
         r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
                         dtype=bf16)
@@ -477,8 +503,9 @@ def kernel_phase(torch, seed: int, probe):
             case["achieved_gb_per_s_1cta"] = nbytes / ms_ctas[1] / 1e6
             case["budget_gb_per_s"] = nbytes / case["budget_bound_ms"] / 1e6
             rows["ar_rmsnorm"] = case
-        elif d1 == 512:
-            # Whisper's encoder split: short rows (1 KB a rank), timed
+        elif d1 == 512 or (n, t, d1) == (4, 2048, 4096):
+            # Whisper's encoder split: short rows (1 KB a rank); one data
+            # shard's prefill split at D = 2 x R = 4: timed
             nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
             case.update(ms=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w)),
                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -486,6 +513,33 @@ def kernel_phase(torch, seed: int, probe):
             case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
         emit(case)
         del x, r, out, out1, p_out, p_res
+    # with a data axis comm_norm runs K1 once per data shard on views of
+    # that shard's rows (each rank's slab contiguous, the ranks D·T rows
+    # apart): bit-equal to K1 on contiguous copies, and held
+    dp, n, t, d1 = 2, 4, 1024, 4096
+    x = torch.randn(n, dp * t, d1, generator=gen1, device=dev, dtype=bf16)
+    r = torch.randn(n, dp * t // n, d1, generator=gen1, device=dev,
+                    dtype=bf16)
+    w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5).to(bf16)
+    for g in range(dp):
+        xv, rv = x[:, g * t:(g + 1) * t], r[:, g * t // n:(g + 1) * t // n]
+        out, new_res = K1.ar_rmsnorm(xv, rv, w)
+        c_out, c_res = K1.ar_rmsnorm(xv.contiguous(), rv.contiguous(), w)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, c_out) and torch.equal(new_res, c_res)):
+            raise AssertionError(f"K1 on data shard {g}'s views differs "
+                                 f"from K1 on copies")
+        p_out, p_res = K1.ar_rmsnorm_plain(xv, rv, w)
+        err = max(check_close(f"K1 views shard {g}", out, p_out, K1_TOL,
+                              K1_TOL),
+                  check_close(f"K1 views shard {g} residual", new_res, p_res,
+                              K1_TOL, K1_TOL))
+        k1_err = max(k1_err, err)
+        emit({"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
+              "d": d1, "data_shard": g, "data_shards": dp, "views": True,
+              "dtype": "bfloat16", "max_abs_err": err, "tol": K1_TOL,
+              "bit_identical_to_copies": True})
+    del x, r, out, c_out, p_out, p_res
     torch.cuda.empty_cache()
 
     k3_err = 0.0
@@ -544,9 +598,20 @@ def kernel_phase(torch, seed: int, probe):
         # bidirectional with padded keys (kpos -1 between the cache's
         # valid keys and the chunk's own) and padded query rows, ragged
         ("bidir_padded", 2, 300, 1000, 3, 7, 64, False, 0, 700, 600, 0, 20),
+        # Qwen3-MoE-235B's prefill (64 heads on 4 KV heads of 128): a
+        # first split behind an empty 4096-slot row at tp=1 (G 16) and
+        # at tp=8 (the ranks folded into the batch, 8 heads on one KV
+        # head each), and a second split at D = 2 x R = 4 (2 rows a data
+        # shard and the ranks folded into the batch: 16 rows, 16 heads on
+        # one KV head) behind the first split's 512 keys
+        ("qwen3", 1, 1024, 4096 + 1024, 4, 16, 128, True, 0, 0, 0, 0, 0),
+        ("qwen3_tp8", 8, 1024, 4096 + 1024, 1, 8, 128, True, 0, 0, 0, 0,
+         0),
+        ("qwen3_ep2d", 16, 512, 1024, 1, 16, 128, True, 512, 512, 512, 0,
+         0),
     ]
     timed = ("main", "engine", "engine_tp", "hybrid_d224", "gemma_d256",
-             "whisper_enc", "qwen2vl")
+             "whisper_enc", "qwen2vl", "qwen3", "qwen3_tp8", "qwen3_ep2d")
     for (name, b, sq, sk, kvh, g, dh, causal, window, q0, k_valid, k_at,
          pad) in cases:
         qpos, kpos = positions(sq, sk, q0, k_valid, b, k_at)
@@ -720,7 +785,11 @@ class MoeStats:
     def __init__(self, torch, cfg):
         from repro_torch.layers import moe
         self.torch, self.cfg, self.mod = torch, cfg, moe
-        self.orig = moe._capacity_dispatch
+        # ep2d dispatches twice (by destination shard, then by expert):
+        # an assignment is kept when its arrival row is
+        self.name = ("_ep2d_dispatch" if cfg.moe_partition == "ep2d"
+                     else "_capacity_dispatch")
+        self.orig = getattr(moe, self.name)
         self.calls, self.forwards = [], []
         if not cfg.is_moe:
             return
@@ -734,7 +803,15 @@ class MoeStats:
             self.calls.append((topi.shape[1], torch.cat([load, kept[None]])))
             return buf, slot, flat_w
 
-        moe._capacity_dispatch = count
+        def count_ep2d(xs, topi, **kw):
+            buf, slot, slot2 = self.orig(xs, topi, **kw)
+            load = (topi.reshape(-1, 1) == experts).sum(0)
+            self.calls.append((topi.shape[0] * topi.shape[1],
+                               torch.cat([load, slot2.ge(0).sum()[None]])))
+            return buf, slot, slot2
+
+        setattr(moe, self.name, count_ep2d if self.name == "_ep2d_dispatch"
+                else count)
 
     def step(self):
         if self.calls:
@@ -742,7 +819,7 @@ class MoeStats:
             self.calls = []
 
     def undo(self):
-        self.mod._capacity_dispatch = self.orig
+        setattr(self.mod, self.name, self.orig)
 
     def summary(self) -> dict:
         """Per forward: tokens (over its splits), the share of its T·k
@@ -2802,15 +2879,17 @@ def ssm_ranges() -> dict:
 def norm_launches(api, b: int, s: int, *, decode: bool, slots: int) -> int:
     """The add+norm kernel launches of one (b, s) forward: per split one
     entry norm and one slot per block (``slots``: layers, plus the
-    hybrid's shared-block calls); none when the forward's tokens do not
-    divide over the ranks, where ``comm_norm`` takes the reference's
-    vanilla fallback (a 4-row decode, an exact 700-token ssm chunk at
-    tp=8)."""
+    hybrid's shared-block calls), once per data shard when the batch is
+    over D (K1 runs per shard); none when a shard's tokens do not divide
+    over the ranks, where ``comm_norm`` takes the reference's vanilla
+    fallback (a 4-row decode, an exact 700-token ssm chunk at tp=8)."""
     from repro_torch.models import transformer as TR
-    if TR._comm_ctx(api.pcfg, api.cfg, b * s, api.tp).mode == "vanilla":
+    b_loc, shards = TR.data_layout(b, api.ep, api.pcfg)
+    if TR._comm_ctx(api.pcfg, api.cfg, b_loc * s, api.tp).mode == "vanilla":
         return 0
-    return (1 + TR.weave_decision_info(b, s, tp=api.tp, pcfg=api.pcfg,
-                                       decode=decode).weave) * (1 + slots)
+    return shards * (1 + TR.weave_decision_info(
+        b_loc, s, tp=api.tp, pcfg=api.pcfg, decode=decode).weave) * (
+        1 + slots)
 
 
 def recurrent_launches(norm: int, *, norm_kernel: str, k3: int = 0) -> dict:
@@ -3584,6 +3663,394 @@ def identity_family_phase(torch, np, seed: int, *, tp: int,
               "cuda_launches": launches["cuda"]})
 
 
+# --------------------------------------------------------------------------
+# the data rank axis: Qwen3-MoE-235B's ep2d at D = 2 x R = 4 and Gemma3-1B's
+# context-parallel decode over 524,288 positions
+# --------------------------------------------------------------------------
+
+QWEN3_LAYERS = 4                   # of 94: 19.3 GB of experts in bf16
+EP2D_ROWS, EP2D_LEN, EP2D_DECODE, EP2D_TP = 4, 1024, 16, 4
+GEMMA_CONTEXT, CP_DECODE, CP_SHARDS = 524288, 16, 4   # long_500k: one row
+CP_FP32_STEPS = 4
+CP_FP32_REL_FRO = 1e-3             # float32: summation order only
+
+
+def qwen3_phases(**kw) -> list:
+    """Qwen3-MoE-235B-A22B (``ep2d`` at data size 1: all 128 experts on
+    the one data shard, expert d_ff over the ranks) through the two-
+    dispatch engine at tp=1 ``fused`` and tp=8 ``ring``; gated as the
+    other engine phases (launch formulas, K3 at every shape)."""
+    from repro_torch.configs import get_config
+    qwen3 = dict(config=get_config("qwen3-moe-235b-a22b"),
+                 n_layers=QWEN3_LAYERS, phase="engine_moe_qwen3")
+    return [engine_phase(**kw, **qwen3, tp=1, comm_mode="fused"),
+            engine_phase(**kw, **qwen3, tp=8, comm_mode="ring")]
+
+
+def ep2d_run(torch, np, seed: int, trace_dir: Path, *, dp: int):
+    """Qwen3-MoE-235B's widths, QWEN3_LAYERS layers, bf16, random weights
+    from the seed, at D = ``dp`` data shards x R = EP2D_TP ranks in comm
+    mode ``ring``, by direct ``ModelApi`` calls: a prefill of EP2D_ROWS
+    rows of EP2D_LEN tokens, the batch over D (the weave cutting each
+    data shard's rows), its KV written into a slot cache, then
+    EP2D_DECODE greedy decode steps.  Launches: K1 once a slot per data
+    shard where a shard's tokens divide over the ranks (a decode of 2
+    rows a shard takes the vanilla fallback), K3 splits·L.  Returns
+    (launches, K3's max error on the run's inputs, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import kv_cache as KC
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              num_layers=QWEN3_LAYERS)
+    pcfg = ParallelConfig(comm_mode="ring", attn_impl="pallas",
+                          use_pallas_norm=True)
+    api = build_model(cfg, pcfg, tp=EP2D_TP, ep=dp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init(seed, device="cuda")
+    b, s = EP2D_ROWS, EP2D_LEN
+    rng = np.random.RandomState(seed + 40)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    cache = api.init_cache(b, s + EP2D_DECODE, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    v_loc = params["embedding"]["embed"].shape[1]
+    decode_ms, outs, k3_inputs = [], [], {}
+    stats = MoeStats(torch, cfg)
+
+    def prefill():
+        return api.prefill(params, tokens, None, None)
+
+    undo = capture_k3_inputs(k3_inputs)
+    try:
+        run_start_gb = reset_peak(torch)
+        reset_launches()
+        with torch.no_grad():
+            (logits, kv), prefill_ms = timed_ms(torch, prefill)
+            stats.step()
+            KC.insert_chunk(cache, kv, torch.zeros(b, device="cuda"), rows)
+            del kv
+            offload(k3_inputs)
+            if logits.shape != (EP2D_TP, b, 1, v_loc) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"prefill logits {tuple(logits.shape)}"
+                                     f" not finite / wrong shape")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+            for j in range(EP2D_DECODE):
+                outs.append(tok[:, 0].tolist())
+                pos = torch.full((b, 1), s + j, dtype=torch.int32,
+                                 device="cuda")
+                (logits, cache), ms = timed_ms(
+                    torch, lambda: api.decode_step(params, tok, cache, pos))
+                stats.step()
+                tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                decode_ms.append(ms)
+        launches = read_launches()
+    finally:
+        undo()
+        stats.undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode tokens {outs} or logits out of range")
+    b_loc, _ = TR.data_layout(b, dp, pcfg)
+    splits = 1 + TR.weave_decision_info(b_loc, s, tp=EP2D_TP,
+                                        pcfg=pcfg).weave
+    want = recurrent_launches(
+        norm_launches(api, b, s, decode=False, slots=2 * QWEN3_LAYERS)
+        + EP2D_DECODE * norm_launches(api, b, 1, decode=True,
+                                      slots=2 * QWEN3_LAYERS),
+        norm_kernel="ar_rmsnorm", k3=splits * QWEN3_LAYERS)
+    if launches != want or not launches["ar_rmsnorm"]:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    emit({"phase": "ep2d", "model": cfg.name, "data_shards": dp,
+          "tp": EP2D_TP, "comm_mode": "ring", "layers": QWEN3_LAYERS,
+          "experts_per_shard": cfg.num_experts // dp,
+          "expert_d_ff_per_rank": cfg.moe_d_ff // EP2D_TP,
+          "rows": b, "rows_per_shard": b_loc, "prompt_len": s,
+          "prefill_splits": splits, "decode_steps": EP2D_DECODE,
+          "launches": launches, "expected_launches": want,
+          "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+          "decode_ms_median": statistics.median(decode_ms),
+          "tokens_row0": [row[0] for row in outs],
+          "allocated_at_run_start_gb": run_start_gb,
+          "max_memory_allocated_gb": peak})
+    emit({"phase": "moe_forwards", "engine": "ep2d", "data_shards": dp,
+          "tp": EP2D_TP, **stats.summary()})
+
+    # where the time goes: the prefill again (its KV is dropped), with
+    # the MoE layer's ranges (ep2d: both dispatches and the all-to-alls
+    # are in moe_dispatch, the return in moe_combine), and one decode step
+    pos = torch.full((b, 1), s + EP2D_DECODE - 1, dtype=torch.int32,
+                     device="cuda")
+    with torch.no_grad():
+        for step, fn in (("prefill", prefill),
+                         ("decode", lambda: api.decode_step(params, tok,
+                                                            cache, pos))):
+            trace = trace_dir / f"ep2d_d{dp}_{step}_trace.json"
+            brk = device_breakdown(torch, fn, trace, ranges=moe_ranges(cfg))
+            emit({"phase": "breakdown", "engine": "ep2d", "data_shards": dp,
+                  "tp": EP2D_TP, "step": step,
+                  "tokens": b * s if step == "prefill" else b, **brk})
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    err = check_main_path_k3(torch, k3_inputs, f"ep2d_d{dp}", EP2D_TP)
+    emit({"phase": "ep2d_seconds", "data_shards": dp,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, err, peak
+
+
+def identity_data_phase(torch, np, seed: int):
+    """Small float32 twins on the card (kernels) and on the CPU (plain
+    versions), TF32 off, by direct calls: an ``ep2d`` MoE model at D = 2 x
+    R = 2 ``ring`` (a prefill of 4 rows of 48 tokens, the batch over D
+    and the weave cutting each shard's rows, then 4 greedy decode steps)
+    and the reduced Gemma3-1B (sliding and global layers) at D = 4 under
+    ``seq_shard_kv`` (8 greedy decode steps of one row from a seeded
+    256-slot cache).  Greedy tokens equal, first logits within
+    IDENTITY_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import kv_cache as KC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(seed + 7)
+    moe = ModelConfig(name="small-moe-ep2d", family="moe", num_layers=2,
+                      d_model=256, num_heads=8, num_kv_heads=2, head_dim=32,
+                      d_ff=512, vocab_size=509, num_experts=4,
+                      num_experts_per_tok=2, moe_d_ff=256,
+                      moe_partition="ep2d", qk_norm=True, dtype="float32")
+    gemma = dataclasses.replace(get_config("gemma3-1b").reduced(),
+                                vocab_size=509)
+    base = dict(attn_impl="pallas", use_pallas_norm=True, split_unit=16,
+                tokenweave_min_tokens=32)
+    twins = {"ep2d": (moe, ParallelConfig(comm_mode="ring", **base), 2, 2),
+             "cp": (gemma, ParallelConfig(comm_mode="fused",
+                                          seq_shard_kv=True, **base), 1, 4)}
+    for name, (cfg, pcfg, tp, dp) in twins.items():
+        api = build_model(cfg, pcfg, tp=tp, ep=dp)
+        p_cpu = api.init(seed, device="cpu")
+        params = {"cpu": p_cpu, "cuda": to_device(p_cpu, "cuda")}
+        got, first, launches = {}, {}, {}
+        if name == "ep2d":
+            b, s, steps, c = 4, 48, 4, 64
+            prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+        else:
+            b, s, steps, c = 1, 200, 8, 256
+            seeded = api.init_cache(b, c, device="cpu")
+            for layer in seeded:
+                cells = layer["pos"].shape[1]
+                for n in ("k", "v"):
+                    layer[n].copy_(torch.from_numpy(
+                        rng.randn(*layer[n].shape).astype(np.float32)))
+                p = torch.arange(max(0, s - cells), s, dtype=torch.int32)
+                layer["pos"][0, p % cells] = p
+            start = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, 1)))
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            with torch.no_grad():
+                if name == "ep2d":
+                    cache = api.init_cache(b, c, device=dev)
+                    logits, kv = api.prefill(params[dev], prompt.to(dev),
+                                             None, None)
+                    KC.insert_chunk(cache, kv, torch.zeros(b, device=dev),
+                                    torch.arange(b, device=dev))
+                    first[dev] = logits.cpu()
+                    tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                else:
+                    cache = to_device(seeded, dev)
+                    tok = start.to(dev)
+                got[dev] = []
+                for j in range(steps):
+                    pos = torch.full((b, 1), s + j, dtype=torch.int32,
+                                     device=dev)
+                    logits, cache = api.decode_step(params[dev], tok, cache,
+                                                    pos)
+                    if j == 0 and name == "cp":
+                        first[dev] = logits.cpu()
+                    tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+                    got[dev].append(tok[:, 0].tolist())
+            torch.cuda.synchronize()
+            launches[dev] = read_launches()
+        err = max_err(first["cuda"], first["cpu"])
+        if got["cuda"] != got["cpu"] or not err <= IDENTITY_LOGIT_TOL:
+            raise AssertionError(f"identity_{name}: cuda tokens "
+                                 f"{got['cuda']} != cpu {got['cpu']} or "
+                                 f"logits differ by {err}")
+        norm_kernel = ("ar_rmsnorm" if pcfg.comm_mode == "ring"
+                       else "fused_residual_rmsnorm")
+        if not launches["cuda"][norm_kernel] or any(launches["cpu"].values()):
+            raise AssertionError(f"identity_{name}: launches {launches}")
+        emit({"phase": f"identity_{name}", "model": cfg.name, "tp": tp,
+              "data_shards": dp, "comm_mode": pcfg.comm_mode,
+              "seq_shard_kv": pcfg.seq_shard_kv, "tokens_identical": True,
+              "tokens": got["cuda"], "first_logits_max_abs_err": err,
+              "tol": IDENTITY_LOGIT_TOL, "cuda_launches": launches["cuda"]})
+
+
+def counted(fn):
+    """(fn's result, the kernel launches it made)."""
+    before = read_launches()
+    out = fn()
+    after = read_launches()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def cp_compare(torch, cfg, seed: int, dtype, steps: int) -> dict:
+    """Gemma3-1B's full widths and depth in ``dtype`` at the
+    ``long_500k`` shape, caches filled from the seed: ``steps`` greedy
+    decode steps at D = CP_SHARDS; before each, the same step at D = 1 on
+    a copy of the same cache and the same token (the gate's pair); then
+    D = 1 on its own cache and D = CP_SHARDS's tokens (timed; its caches
+    drift from the other run's by rounding, so its logits only report)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.models.build import build_model
+
+    cfg = dataclasses.replace(cfg, dtype=str(dtype)[6:])
+    pcfg = ParallelConfig(comm_mode="fused", attn_impl="pallas",
+                          use_pallas_norm=True, seq_shard_kv=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    apis = {d: build_model(cfg, pcfg, tp=1, ep=d) for d in (CP_SHARDS, 1)}
+    params = apis[CP_SHARDS].init(seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    seeded = apis[CP_SHARDS].init_cache(1, GEMMA_CONTEXT, device="cuda")
+    filled = GEMMA_CONTEXT - steps
+    for layer in seeded:
+        cells = layer["pos"].shape[1]
+        for n in ("k", "v"):
+            layer[n].normal_(generator=gen)
+        p = torch.arange(max(0, filled - cells), filled, dtype=torch.int32,
+                         device="cuda")
+        layer["pos"][0, p % cells] = p
+
+    def clone(cache):
+        return [{n: t.clone() for n, t in layer.items()} for layer in cache]
+
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                        device="cuda")
+    inputs, tokens, ms, pair_err, logits_cp = [], [], [], [], []
+    pair_tokens = []
+    launches = {k: 0 for k in read_launches()}
+    cache = clone(seeded)
+    run_start_gb = reset_peak(torch)
+    with torch.no_grad():
+        for j in range(steps):
+            pos = torch.full((1, 1), filled + j, dtype=torch.int32,
+                             device="cuda")
+            ref, _ = apis[1].decode_step(params, tok, clone(cache), pos)
+            (out, n), t = timed_ms(torch, lambda: counted(
+                lambda: apis[CP_SHARDS].decode_step(params, tok, cache,
+                                                    pos)))
+            logits, cache = out
+            launches = {k: launches[k] + n[k] for k in n}
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"cp_decode {cfg.dtype}: logits not "
+                                     f"finite")
+            pair_err.append(rel_fro(logits, ref))
+            pair_tokens.append(int(sharded_argmax(
+                ref, vocab_size=cfg.vocab_size)[0, 0]))
+            logits_cp.append(logits.float())
+            inputs.append(tok)
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size)
+            tokens.append(int(tok[0, 0]))
+            ms.append(t)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del cache
+        cache = clone(seeded)
+        ms_d1, drift, tokens_d1 = [], [], []
+        for j in range(steps):
+            pos = torch.full((1, 1), filled + j, dtype=torch.int32,
+                             device="cuda")
+            (logits, cache), t = timed_ms(torch, lambda: apis[1].decode_step(
+                params, inputs[j], cache, pos))
+            drift.append(rel_fro(logits, logits_cp[j]))
+            tokens_d1.append(int(sharded_argmax(
+                logits, vocab_size=cfg.vocab_size)[0, 0]))
+            ms_d1.append(t)
+    global_gb = sum(layer["k"].nbytes + layer["v"].nbytes for layer in seeded
+                    if layer["pos"].shape[1] == GEMMA_CONTEXT) / 1e9
+    del params, seeded, cache
+    torch.cuda.empty_cache()
+    return {"dtype": cfg.dtype, "filled_positions": filled,
+            "global_layers_kv_gb": global_gb, "decode_steps": steps,
+            "logits_rel_fro_err_vs_d1_by_step": pair_err,
+            "logits_rel_fro_err_vs_d1": max(pair_err),
+            "free_running_d1_rel_fro_by_step": drift, "tokens": tokens,
+            "tokens_d1": pair_tokens, "tokens_free_running_d1": tokens_d1,
+            "tokens_equal": tokens == pair_tokens == tokens_d1,
+            "decode_ms": ms, "decode_ms_median": statistics.median(ms),
+            "decode_ms_d1": ms_d1,
+            "decode_ms_median_d1": statistics.median(ms_d1),
+            "launches": launches, "allocated_at_run_start_gb": run_start_gb,
+            "max_memory_allocated_gb": peak}
+
+
+def cp_decode_phase(torch, np, seed: int):
+    """Gemma3-1B at full width and depth (26 layers, random weights from
+    the seed) at the ``long_500k`` shape: one row, GEMMA_CONTEXT
+    positions.  The caches are filled from the seed (the 4 global layers'
+    524,288 slots and the sliding layers' 512-slot rings hold the
+    positions before the steps), not by a prefill.  In bf16: CP_DECODE
+    greedy decode steps under ``seq_shard_kv`` at D = CP_SHARDS (each
+    global layer's decode combines the 4 shards' 131,072-slot chunks)
+    beside D = 1 (``cp_compare``): the greedy tokens equal.  The logits
+    are gated in float32, TF32 off, over CP_FP32_STEPS steps: each
+    within CP_FP32_REL_FRO (relative Frobenius) of the same step at D = 1
+    on the same cache, the combine being the unsharded softmax up to
+    float32 summation order.  In bf16 that order flips a rounding now and
+    then, which 26 random-weight layers carry to the logits (bit-equal
+    steps beside ones a few 1e-2 apart), so there the errors are
+    reported against VERIFY_REL_FRO, not gated.  Every forward launches
+    K2 once (its entry norm: the sandwich post-norms take the unfused
+    composition, as the reference's do); no K1, no K3 (decode attention
+    is plain).  Returns the bf16 D = CP_SHARDS run's (launches, 0.0,
+    peak GB)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    reset_launches()
+    bf16 = cp_compare(torch, cfg, seed, torch.bfloat16, CP_DECODE)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fp32 = cp_compare(torch, cfg, seed, torch.float32, CP_FP32_STEPS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = recurrent_launches(CP_DECODE, norm_kernel="fused_residual_rmsnorm")
+    for run, tol in ((bf16, VERIFY_REL_FRO), (fp32, CP_FP32_REL_FRO)):
+        run["tol"], run["logits_gated"] = tol, run is fp32
+        emit({"phase": "cp_decode", "model": cfg.name,
+              "layers": cfg.num_layers, "d_model": cfg.d_model, "rows": 1,
+              "context": GEMMA_CONTEXT, "data_shards": CP_SHARDS,
+              "slots_per_shard": GEMMA_CONTEXT // CP_SHARDS, **run})
+    emit({"phase": "cp_decode_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    if bf16["launches"] != want:
+        raise AssertionError(f"cp_decode: launches {bf16['launches']}, "
+                             f"expected {want}")
+    for run in (bf16, fp32):
+        if not run["tokens_equal"]:
+            raise AssertionError(f"cp_decode {run['dtype']}: D={CP_SHARDS} "
+                                 f"tokens {run['tokens']}, D=1 "
+                                 f"{run['tokens_d1']} / "
+                                 f"{run['tokens_free_running_d1']}")
+    if not fp32["logits_rel_fro_err_vs_d1"] <= CP_FP32_REL_FRO:
+        raise AssertionError(
+            f"cp_decode float32: D={CP_SHARDS} and D=1 logits differ by "
+            f"{fp32['logits_rel_fro_err_vs_d1']} (relative Frobenius)")
+    return bf16["launches"], 0.0, bf16["max_memory_allocated_gb"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3665,7 +4132,12 @@ def main() -> int:
     for tp, mode in ((1, "fused"), (8, "ring")):
         paths += [vlm_phase(**kw, tp=tp, comm_mode=mode),
                   encdec_phase(**kw, tp=tp, comm_mode=mode)]
+    # the data rank axis: Qwen3-MoE through the engine at data size 1,
+    # ep2d at D = 2 and D = 1 by direct calls, context-parallel decode
+    paths += qwen3_phases(**kw)
+    paths += [ep2d_run(**kw, dp=dp) for dp in (2, 1)]
     kw.pop("trace_dir")
+    paths.append(cp_decode_phase(**kw))
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     # the K3 error over every shape the main paths gave it, too
@@ -3681,6 +4153,7 @@ def main() -> int:
     for tp, mode in ((1, "fused"), (2, "ring")):
         identity_recurrent_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
         identity_family_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
+    identity_data_phase(torch, np, args.seed)
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",

@@ -26,13 +26,21 @@ Modes:
 psum sums in fp32, rank 0 first, and rounds to x's dtype
 (``kernels.ar_rmsnorm.rank_sum``), psum_scatter(tiled) gives rank r rows
 ``[r·C, (r+1)·C)``, and all_gather writes the full result into every rank.
+With a data axis (``ctx.dp`` = D > 1) T holds the D data shards' tokens
+one shard after the other, and the scatter and the gather work inside each
+shard, as the reference's collectives over ``model`` do
+(``distributed.context.scatter_rows``): rank r's residual holds rows
+``[r·C, (r+1)·C)`` of every shard, C = T / (D·R), and K1 runs once per
+data shard over that shard's rows.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.splitting import ring_ctas
-from repro_torch.distributed.context import CommCtx, token_shard_slice
+from repro_torch.distributed.context import (CommCtx, gather_rows,
+                                             scatter_rows, shard_rows,
+                                             token_shard_slice)
 from repro_torch.kernels.ar_rmsnorm import rank_sum
 from repro_torch.kernels.ops import ar_rmsnorm, fused_residual_rmsnorm
 from repro_torch.layers.norms import residual_rmsnorm_unfused, rms_norm
@@ -45,9 +53,33 @@ def _ring_supported(ctx: CommCtx, reduce_input: bool, weight_post) -> bool:
     return reduce_input and weight_post is None and ctx.use_pallas
 
 
-def _all_gather(full: torch.Tensor, r: int) -> torch.Tensor:
-    """Every rank's copy of the gathered (T, d): (R, T, d)."""
+def _all_gather(local: torch.Tensor, dp: int = 1) -> torch.Tensor:
+    """Every rank's copy of the gathered rows of ``local`` (R, T // R,
+    d), placed as ``scatter_rows`` placed them: (R, T, d)."""
+    r = local.shape[0]
+    full = gather_rows(local, dp)
     return full[None] if r == 1 else full.expand(r, *full.shape).contiguous()
+
+
+def _ring(x, residual, weight, ctx: CommCtx):
+    """K1 over each data shard's rows: x (R, T, d), residual (R, T/R, d)
+    placed by ``scatter_rows``.  One launch per data shard, on views of
+    the contiguous x."""
+    x = x.contiguous()
+    if ctx.dp == 1:
+        return ar_rmsnorm(x, residual, weight, eps=ctx.eps,
+                          ctas=ring_ctas(ctx.comm_budget), use_pallas=True)
+    r, t, d = x.shape
+    c = t // (ctx.dp * r)
+    outs, ress = [], []
+    for g, (lo, hi) in enumerate(shard_rows(t, ctx.dp)):
+        out, res = ar_rmsnorm(x[:, lo:hi], residual[:, g * c:(g + 1) * c],
+                              weight, eps=ctx.eps,
+                              ctas=ring_ctas(ctx.comm_budget),
+                              use_pallas=True)
+        outs.append(out)
+        ress.append(res)
+    return torch.cat(outs, dim=1), torch.cat(ress, dim=1)
 
 
 def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
@@ -70,14 +102,12 @@ def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
 
     if mode == "ring":
         if _ring_supported(ctx, reduce_input, weight_post):
-            return ar_rmsnorm(x.contiguous(), residual, weight,
-                              eps=ctx.eps, ctas=ring_ctas(ctx.comm_budget),
-                              use_pallas=True)
+            return _ring(x, residual, weight, ctx)
         mode = "fused"
 
     r, t, d = x.shape
     if reduce_input:
-        local = rank_sum(x).reshape(r, t // r, d)    # psum_scatter(tiled)
+        local = scatter_rows(rank_sum(x), r, ctx.dp)   # psum_scatter(tiled)
     else:
         local = token_shard_slice(x, ctx)
     if weight_post is not None:
@@ -90,8 +120,7 @@ def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
     else:
         normed, new_res = residual_rmsnorm_unfused(local, residual, weight,
                                                    ctx.eps)
-        normed = normed.reshape(t, d)
-    return _all_gather(normed, r), new_res
+    return _all_gather(normed.reshape(r, t // r, d), ctx.dp), new_res
 
 
 def final_norm(residual, weight, *, ctx: CommCtx):
@@ -99,7 +128,7 @@ def final_norm(residual, weight, *, ctx: CommCtx):
     to every rank: (R, T, d)."""
     normed = rms_norm(residual, weight, ctx.eps)
     if ctx.sharded_residual:
-        return _all_gather(normed.reshape(-1, normed.shape[-1]), ctx.tp)
+        return _all_gather(normed, ctx.dp)
     return normed
 
 
@@ -113,5 +142,5 @@ def fresh_residual(t_tokens: int, d: int, dtype, *, ctx: CommCtx,
 def gather_residual(residual, *, ctx: CommCtx):
     """The full residual stream on every rank: (R, T, d)."""
     if ctx.sharded_residual:
-        return _all_gather(residual.reshape(-1, residual.shape[-1]), ctx.tp)
+        return _all_gather(residual, ctx.dp)
     return residual

@@ -9,6 +9,18 @@ collective is an operation over dim 0 (``psum`` a sum over R,
 ``psum_scatter(tiled)`` rank r's rows ``[r·C, (r+1)·C)``, ``all_gather``
 the full ``(T, d)`` on every rank).  At tp=1 the rank axis has size 1.
 
+The reference's ``data`` mesh axis is a second rank axis D = ``dp``.
+Where data shards run independently (embeddings, dense layers, attention,
+the sampler) D is folded into the batch: a tensor of token rows holds the
+D shards' rows one after the other, shard d's ``T_loc`` tokens at rows
+``[d·T_loc, (d+1)·T_loc)``.  Inside a data shard the model ranks split
+that shard's tokens, as the reference's ``psum_scatter(tiled)`` does
+within each shard: rank r holds rows ``[r·C, (r+1)·C)`` of every shard,
+C = T_loc / R, shard by shard (``shard_rows``).  D shows up on its own
+only where the reference communicates over ``data``: the MoE ``ep2d``
+all-to-alls (``layers/moe.py``), the context-parallel decode combine
+(``layers/attention.py``) and ``psum_dp``.
+
 A ``torch.distributed`` process group (one rank per card) is queued in
 ROADMAP.md; asking for one raises.
 """
@@ -28,6 +40,7 @@ class CommCtx:
     tp: int = 1                    # size of the rank axis R
     comm_budget: float = 1.0       # SM-equivalent fraction -> K1's CTAs
     backend: str = "rank_axis"
+    dp: int = 1                    # size of the data rank axis D
 
     def __post_init__(self):
         if self.backend != "rank_axis":
@@ -37,6 +50,8 @@ class CommCtx:
                 f"CommCtx comes with the multi-card K1)")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.dp < 1:
+            raise ValueError(f"dp must be >= 1, got {self.dp}")
 
     @property
     def sharded_residual(self) -> bool:
@@ -47,12 +62,60 @@ class CommCtx:
         return self.tp
 
 
+def shard_rows(t_tokens: int, dp: int) -> list:
+    """Each data shard's token range ``[lo, hi)`` of a folded token axis
+    of ``t_tokens`` rows."""
+    if t_tokens % dp:
+        raise ValueError(f"{t_tokens} tokens do not split over {dp} data "
+                         f"shards")
+    t_loc = t_tokens // dp
+    return [(d * t_loc, (d + 1) * t_loc) for d in range(dp)]
+
+
+def scatter_rows(full: torch.Tensor, r: int, dp: int = 1) -> torch.Tensor:
+    """``psum_scatter(tiled)``'s row placement, data shard by data shard:
+    a (T, ...) tensor of D shards' rows -> (R, T // R, ...), rank r
+    holding rows ``[r·C, (r+1)·C)`` of each shard (C = T / (D·R)), shard
+    after shard."""
+    t = full.shape[0]
+    c = t // (dp * r)
+    if dp == 1:
+        return full.reshape(r, c, *full.shape[1:])
+    return full.reshape(dp, r, c, *full.shape[1:]).transpose(0, 1).reshape(
+        r, dp * c, *full.shape[1:])
+
+
+def gather_rows(local: torch.Tensor, dp: int = 1) -> torch.Tensor:
+    """The inverse of ``scatter_rows``: (R, T // R, ...) -> (T, ...) in
+    token order."""
+    r, rows = local.shape[:2]
+    if dp == 1:
+        return local.reshape(r * rows, *local.shape[2:])
+    return local.reshape(r, dp, rows // dp, *local.shape[2:]).transpose(
+        0, 1).reshape(r * rows, *local.shape[2:])
+
+
 def token_shard_slice(x: torch.Tensor, ctx: CommCtx) -> torch.Tensor:
     """Each rank's token range of a token-replicated ``(R, T, ...)``:
-    ``(R, T // R, ...)``, rank r keeping rows ``[r·C, (r+1)·C)``."""
-    r = x.shape[0]
+    ``(R, T // R, ...)``, rank r keeping rows ``[r·C, (r+1)·C)`` of each
+    data shard's tokens (``scatter_rows``' placement)."""
+    r, dp = x.shape[0], ctx.dp
     if r == 1:
         return x
-    c = x.shape[1] // r
+    c = x.shape[1] // (r * dp)
     idx = torch.arange(r, device=x.device)
-    return x.reshape(r, r, c, *x.shape[2:])[idx, idx]
+    # (R, D, R, C, ...) indexed at [r, :, r]: the advanced dims lead
+    picked = x.reshape(r, dp, r, c, *x.shape[2:])[idx, :, idx]
+    return picked.reshape(r, dp * c, *x.shape[2:])
+
+
+def psum_dp(x: torch.Tensor, ctx: CommCtx) -> torch.Tensor:
+    """The all-reduce over the data axis (gradient sync): a (D, ...)
+    tensor of per-shard values -> their sum on every shard, (D, ...).
+    Summed in float32, shard 0 first, rounded once to x's dtype."""
+    if x.shape[0] != ctx.dp:
+        raise ValueError(f"x has {x.shape[0]} data shards, ctx.dp={ctx.dp}")
+    acc = x[0].float()
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k].float()
+    return acc.to(x.dtype).expand_as(x).contiguous()

@@ -104,8 +104,8 @@ def check_inputs(x, residual, weight) -> None:
     if residual.dtype != x.dtype or weight.dtype != x.dtype:
         raise TypeError("x, residual and weight must share one dtype")
     for name, t_ in (("x", x), ("residual", residual), ("weight", weight)):
-        if not t_.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not (t_.is_contiguous() if t_.dim() == 1 else slabs_contiguous(t_)):
+            raise ValueError(f"{name} must be contiguous within each rank")
         if t_.device != x.device:
             raise ValueError(f"{name} is on {t_.device}, x on {x.device}")
     if not pipelined(x, residual, weight) and d * 4 > _MAX_SMEM:
@@ -138,9 +138,19 @@ def _lib():
     return lib
 
 
+def slabs_contiguous(t: torch.Tensor) -> bool:
+    """Whether each rank's slab ``t[k]`` of an (N, rows, d) tensor is
+    contiguous: the kernel reads and writes a slab through one pointer
+    with a row stride of d, so a view of some rows of every rank (one
+    data shard's, ``core.fused_collectives``) is taken without a copy."""
+    return t[0].is_contiguous() and (t.shape[0] == 1
+                                     or t.stride(0) >= t[0].numel())
+
+
 def _table(t: torch.Tensor) -> PtrTable:
-    """Pointers to each rank's slab of a contiguous (N, ...) tensor."""
-    step = t[0].numel() * t.element_size()
+    """Pointers to each rank's slab of an (N, ...) tensor whose slabs are
+    contiguous."""
+    step = t.stride(0) * t.element_size()
     base = t.data_ptr()
     tab = PtrTable()
     for k in range(t.shape[0]):
@@ -151,7 +161,9 @@ def _table(t: torch.Tensor) -> PtrTable:
 def ar_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
                ctas: int = MAX_CTAS):
     """(out (N, T, d), new_residual (N, T/N, d)) for x (N, T, d),
-    residual (N, T/N, d) and weight (d,), on ``ctas`` CTAs (1 to 8)."""
+    residual (N, T/N, d) and weight (d,), on ``ctas`` CTAs (1 to 8).  x
+    and residual may be views whose rank slabs are contiguous
+    (``slabs_contiguous``); the outputs are new contiguous tensors."""
     if x.device.type == "cpu":
         return ar_rmsnorm_plain(x, residual, weight, eps)
     if x.device.type != "cuda":
@@ -159,8 +171,8 @@ def ar_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
     check_inputs(x, residual, weight)
     if not 1 <= ctas <= MAX_CTAS:
         raise ValueError(f"ctas={ctas} outside [1, {MAX_CTAS}]")
-    out = torch.empty_like(x)
-    new_res = torch.empty_like(residual)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    new_res = torch.empty(residual.shape, dtype=x.dtype, device=x.device)
     n, t, d = x.shape
     if t == 0:
         return out, new_res

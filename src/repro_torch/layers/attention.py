@@ -16,7 +16,10 @@ Implementations of prefill attention: ``impl="pallas"`` runs kernel K3
 and ``"chunked"`` compute the same function with the plain version.
 Decode attention and the encdec decoder's cross attention
 (``attn_cross``) are plain tensor code, as in the reference (no Pallas
-kernel there).  Packed steps have no Pallas kernel in the reference
+kernel there).  Context-parallel decode (``attn_decode(seq_shards=D)``,
+the reference's ``seq_axis``) splits a full-attention layer's cache
+sequence over the data rank axis and combines the D chunks' softmax
+statistics as flash decoding does.  Packed steps have no Pallas kernel in the reference
 either; its form gathers every token's whole cache row.  Under
 ``attn_impl="pallas"`` the port gathers each segment's row once instead
 and runs K3 over the split's segments (``attn_packed_paged``).
@@ -176,23 +179,54 @@ def attn_prefill(params, x, *, positions, cfg, lay: AttnLayout, theta,
 
 
 def attn_decode(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
-                window: int = 0, mrope_positions=None, seq_axis=None):
+                window: int = 0, mrope_positions=None,
+                seq_shards: Optional[int] = None):
     """Single-token decode against the slot cache: the S == 1 case of
-    ``attn_verify``.  Context-parallel KV (``seq_axis``) is not ported."""
-    if seq_axis is not None:
-        raise NotImplementedError("context-parallel KV (seq_shard_kv) is "
-                                  "not ported")
-    return attn_verify(params, x, cache, positions=positions, cfg=cfg,
-                       lay=lay, theta=theta, window=window,
-                       mrope_positions=mrope_positions)
+    ``attn_verify``, unless ``seq_shards``.
+
+    ``seq_shards`` = D (the reference's ``seq_axis``, here its size):
+    context-parallel KV.  The cache's C = c·D slots lie over the D data
+    shards, shard d owning slots ``[d·c, (d+1)·c)``; position p goes to
+    global slot ``p % (c·D)`` on owner ``(p % (c·D)) // c``, so the global
+    layout is the unsharded one.  As in the reference every row writes,
+    a row at position -1 too (into the last slot, with position -1).  The
+    attention combines the shards' chunks (``_decode_attn_math``)."""
+    if seq_shards is None:
+        return attn_verify(params, x, cache, positions=positions, cfg=cfg,
+                           lay=lay, theta=theta, window=window,
+                           mrope_positions=mrope_positions)
+    b = positions.shape[0]
+    c_all = cache["k"].shape[2]
+    if c_all % seq_shards:
+        raise ValueError(f"a cache of {c_all} slots does not split over "
+                         f"{seq_shards} data shards")
+    q, k_new, v_new = _project_qkv(params, x, cfg, lay, positions=positions,
+                                   theta=theta,
+                                   mrope_positions=mrope_positions)
+    pos = positions[:, 0]
+    gslot = (pos % c_all).long()
+    bidx = torch.arange(b, device=x.device)
+    cache["k"][:, bidx, gslot] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, bidx, gslot] = v_new[:, :, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, gslot] = pos.to(torch.int32)
+    partial = _decode_attn_math(params, q, cache["k"], cache["v"],
+                                cache["pos"], positions, x_dtype=x.dtype,
+                                cfg=cfg, lay=lay, window=window,
+                                seq_shards=seq_shards)
+    return partial, cache
 
 
 def _decode_attn_math(params, q, k, v, kpos, positions, *, x_dtype, cfg,
-                      lay: AttnLayout, window):
+                      lay: AttnLayout, window, seq_shards=None):
     """Decode/verify epilogue: grouped QK logits (float32 accumulation of
     the cache-dtype operands), masked stable softmax, P cast to the cache
     dtype, V accumulate in float32, output projection.  q (R, B, Sq, h,
-    dh); k, v (R, B, C, kv, dh), possibly a strided view of the cache."""
+    dh); k, v (R, B, C, kv, dh), possibly a strided view of the cache.
+
+    ``seq_shards`` = D: flash decoding over the D data shards' chunks of
+    the cache: each chunk's max, then their max (the reference's
+    ``pmax``); each chunk's denominator and accumulator against that max,
+    then their sums over the chunks (``psum``), all in float32."""
     r, b, sq = q.shape[:3]
     kvh = k.shape[3]
     g = lay.h_loc // kvh
@@ -201,11 +235,21 @@ def _decode_attn_math(params, q, k, v, kpos, positions, *, x_dtype, cfg,
         * (cfg.head_dim ** -0.5)
     msk = _mask(positions, kpos, True, window)           # (B, Sq, C)
     logits = torch.where(msk[None, :, None, None], logits, NEG_INF)
-    m = logits.amax(dim=-1)
-    p = torch.exp(logits - m[..., None])
-    denom = p.sum(dim=-1)
-    acc = torch.einsum("rbhgqk,rbkhd->rbhgqd", p.to(v.dtype).float(),
-                       v.float())
+    if seq_shards is None:
+        m = logits.amax(dim=-1)
+        p = torch.exp(logits - m[..., None])
+        denom = p.sum(dim=-1)
+        acc = torch.einsum("rbhgqk,rbkhd->rbhgqd", p.to(v.dtype).float(),
+                           v.float())
+    else:
+        n = seq_shards
+        chunks = logits.unflatten(-1, (n, -1))           # (..., D, c)
+        m = chunks.amax(dim=-1).amax(dim=-1)
+        p = torch.exp(chunks - m[..., None, None])
+        denom = p.sum(dim=-1).sum(dim=-1)
+        vc = v.unflatten(2, (n, -1))                     # (R, B, D, c, ...)
+        acc = torch.einsum("rbhgqnk,rbnkhd->rbhgqnd", p.to(v.dtype).float(),
+                           vc.float()).sum(dim=-2)
     out = acc / denom.clamp_min(1e-30)[..., None]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(r, b, sq,
                                                 lay.h_loc * cfg.head_dim)
@@ -545,7 +589,10 @@ def init_kv_cache(batch: int, max_len: int, cfg, tp: int, *, window: int = 0,
                   dtype=None, device=None):
     """One layer's slot cache; C = min(max_len, window) for sliding layers
     (the ring buffer is the window).  Rank r stores its kv_store heads,
-    the reference's global head axis ``[r·kv_store, (r+1)·kv_store)``."""
+    the reference's global head axis ``[r·kv_store, (r+1)·kv_store)``.
+    The layout is global over a data axis: ``batch`` counts every data
+    shard's rows, and context-parallel decode (``attn_decode``) splits C
+    over the shards in place."""
     lay = attention_layout(tp, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     c = min(max_len, window) if window > 0 else max_len
     dt = dtype or getattr(torch, cfg.dtype)

@@ -1,19 +1,31 @@
-"""Mixture-of-experts FFN, as ``repro.layers.moe``, in the ``expert`` and
-``ffn`` partitionings, batched over the rank axis R.
+"""Mixture-of-experts FFN, as ``repro.layers.moe``, in its three
+partitionings, batched over the rank axis R and the data rank axis D
+(``distributed/context.py``).
 
     expert : whole experts split over the ranks (E % tp == 0): rank r holds
              experts [r·E/tp, (r+1)·E/tp).  (olmoe)
     ffn    : every rank holds a d_ff slice of every expert (E < tp is
              fine).  (mixtral)
+    ep2d   : experts over the data axis (data shard d holds experts
+             [d·E/D, (d+1)·E/D)) and each expert's d_ff over the model
+             ranks.  (qwen3-moe)  The reference dispatches by destination
+             data shard with ``all_to_all(tiled=True)`` over ``data``,
+             dispatches again into per-expert buffers on arrival, and sends
+             the outputs home with a third all-to-all; on the one-device
+             rank axes each all-to-all is an index op (``_ep2d_dispatch``,
+             ``_ep2d_combine``).
 
-In both the output is partial over the ranks, as ``layers.mlp``'s is, so
-the layer's AllReduce is still the one ``comm_norm`` slot and kernels
-K1/K2 apply unchanged.  Dispatch is static-capacity (GShard-style): each
-expert takes at most ``cap`` assignments, in token order, and drops the
-rest; ``cap`` follows from the token count alone, so every shape is known
-on the host and nothing is read back from the device.  ``ep2d`` (experts
-over a data rank axis, all-to-all dispatch) needs a data axis the port's
-``CommCtx`` does not have (ROADMAP.md A10, A4).
+In all three the output is partial over the model ranks, as
+``layers.mlp``'s is, so the layer's AllReduce is still the one
+``comm_norm`` slot and kernels K1/K2 apply unchanged (the all-to-alls
+commute with the sum over the model ranks).  Dispatch is static-capacity
+(GShard-style): each expert (``ep2d``: each destination shard, then each
+expert there) takes at most a capacity's worth of assignments, in token
+(arrival) order, and drops the rest; every capacity follows from the data
+shard's token count alone, so every shape is known on the host and nothing
+is read back from the device.  With D > 1 the input holds the D data
+shards' tokens one shard after the other, and each shard routes and drops
+its own, as the reference's shards do.
 """
 from __future__ import annotations
 
@@ -25,17 +37,16 @@ import torch.nn.functional as F
 # named ranges around moe_forward's parts, so a profile can split their
 # device time (chip_smoke.py's MoE breakdown)
 ROUTE_RANGE = "repro_torch.moe.route"        # router product, softmax, top-k
-DISPATCH_RANGE = "repro_torch.moe.dispatch"  # one-hot, cumsum, scatter, gather
+DISPATCH_RANGE = "repro_torch.moe.dispatch"  # queues, scatter, gather (ep2d:
+#                                              both dispatches, the a2a)
 EXPERTS_RANGE = "repro_torch.moe.experts"    # the batched expert products
-COMBINE_RANGE = "repro_torch.moe.combine"    # gather, weight, sum over k
-
-EP2D_REFUSAL = ("MoE partitioning 'ep2d' needs a data rank axis and "
-                "all-to-all, which the port does not have yet "
-                "(ROADMAP.md A10, A4)")
+COMBINE_RANGE = "repro_torch.moe.combine"    # gather (ep2d: the a2a back),
+#                                              weight, sum over k
 
 
-def local_sizes(cfg, tp: int):
-    """(experts, expert d_ff) each rank holds."""
+def local_sizes(cfg, tp: int, ep: int = 1):
+    """(experts, expert d_ff) each rank holds; ``ep`` is the data axis's
+    size, which only ``ep2d`` splits experts over."""
     e, f, mode = cfg.num_experts, cfg.moe_d_ff, cfg.moe_partition
     if mode == "expert":
         if e % tp:
@@ -46,7 +57,11 @@ def local_sizes(cfg, tp: int):
             raise ValueError(f"moe_d_ff={f} is not a multiple of tp={tp}")
         return e, f // tp
     if mode == "ep2d":
-        raise NotImplementedError(EP2D_REFUSAL)
+        if e % ep:
+            raise ValueError(f"num_experts={e} is not a multiple of ep={ep}")
+        if f % tp:
+            raise ValueError(f"moe_d_ff={f} is not a multiple of tp={tp}")
+        return e // ep, f // tp
     raise ValueError(mode)
 
 
@@ -58,13 +73,16 @@ def expert_offsets(cfg, tp: int, device) -> torch.Tensor:
     return torch.arange(tp, device=device) * step
 
 
-def init_moe_params(gen: torch.Generator, cfg, tp: int, *, device, dtype):
+def init_moe_params(gen: torch.Generator, cfg, tp: int, ep: int = 1, *,
+                    device, dtype):
     """Random MoE weights with the reference's scales: router and expert
     inputs d^-0.5, expert down d_ff^-0.5.  The router is replicated
     ``(d, E)`` and float32 whatever ``dtype``; expert weights are
-    ``(R, E_loc, d, f_loc)`` (``w_down`` ``(R, E_loc, f_loc, d)``)."""
+    ``(R, E_loc, d, f_loc)`` (``w_down`` ``(R, E_loc, f_loc, d)``), and
+    ``(D, R, ...)`` for ``ep2d``, D = ``ep``."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    e_loc, f_loc = local_sizes(cfg, tp)
+    e_loc, f_loc = local_sizes(cfg, tp, ep)
+    lead = (ep, tp) if cfg.moe_partition == "ep2d" else (tp,)
     s = d ** -0.5
 
     def w(*shape, scale, dt=dtype):
@@ -72,9 +90,9 @@ def init_moe_params(gen: torch.Generator, cfg, tp: int, *, device, dtype):
                            dtype=dt) * scale
 
     return {"router": w(d, e, scale=s, dt=torch.float32),
-            "w_gate": w(tp, e_loc, d, f_loc, scale=s),
-            "w_up": w(tp, e_loc, d, f_loc, scale=s),
-            "w_down": w(tp, e_loc, f_loc, d, scale=f ** -0.5)}
+            "w_gate": w(*lead, e_loc, d, f_loc, scale=s),
+            "w_up": w(*lead, e_loc, d, f_loc, scale=s),
+            "w_down": w(*lead, e_loc, f_loc, d, scale=f ** -0.5)}
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -85,8 +103,8 @@ def top_k(x: torch.Tensor, k: int):
 
 
 def _route(x, router, cfg):
-    """x (R, T, d) -> (weights (R, T, k) in x.dtype, ids (R, T, k), aux
-    (R,)).  Routing runs in float32; aux is the Switch load-balancing loss
+    """x (N, T, d) -> (weights (N, T, k) in x.dtype, ids (N, T, k), aux
+    (N,)).  Routing runs in float32; aux is the Switch load-balancing loss
     E·sum_e(f_e·P_e), f_e by top-1 assignment."""
     logits = x.float() @ router
     probs = torch.softmax(logits, dim=-1)
@@ -101,6 +119,30 @@ def _route(x, router, cfg):
     return topw.to(x.dtype), topi, aux
 
 
+def _queue(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Each entry's place in its bin's queue, in order along the last dim
+    of ``bins`` (N, L) with values in [0, n_bins): a running count of a
+    one-hot in the last dim, where CUDA scans the rows in parallel (a scan
+    along a middle dim is many times slower)."""
+    ids = torch.arange(n_bins, device=bins.device)
+    oh = (bins[:, None, :] == ids[:, None]).int()      # (N, n_bins, L)
+    return oh.cumsum(dim=2).gather(1, bins[:, None, :])[:, 0] - 1
+
+
+def _fill(index: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,
+          n_slots: int, empty: int) -> torch.Tensor:
+    """The table (N, n_slots) of what each slot holds: ``index`` (N, L)
+    scattered to ``slot`` where ``keep``, ``empty`` elsewhere.  The
+    dropped entries go to an extra last column, cut off after the scatter,
+    so their duplicate writes are harmless."""
+    n = slot.shape[0]
+    table = torch.full((n, n_slots + 1), empty, dtype=torch.long,
+                       device=slot.device)
+    table.scatter_(1, torch.where(keep, slot, n_slots),
+                   index.expand(n, -1))
+    return table[:, :n_slots]
+
+
 def _capacity_dispatch(x, topi, topw, *, n_local: int, lo: torch.Tensor,
                        capacity: int):
     """Place each rank's local assignments into per-expert buffers of
@@ -108,42 +150,37 @@ def _capacity_dispatch(x, topi, topw, *, n_local: int, lo: torch.Tensor,
     lo (R,) each rank's first local expert.
 
     Returns (buf (R, n_local, C, d), slot (R, T·k) with -1 for dropped or
-    remote assignments, flat_w (R, T·k)).  The buffer row of each kept
-    slot is found by scattering token indices into a slot table whose
-    last entry collects the dropped ones; that entry is reset after the
-    scatter, so its duplicate writes are harmless, and it and every
-    unfilled slot point at a zero row."""
+    remote assignments, flat_w (R, T·k)).  Every unfilled slot points at a
+    zero row."""
     r, t, k = topi.shape
     d = x.shape[-1]
     flat_e = topi.reshape(r, t * k) - lo[:, None]
     flat_w = topw.reshape(r, t * k)
     local = (flat_e >= 0) & (flat_e < n_local)
     le = torch.where(local, flat_e, n_local)           # n_local = trash bin
-    # each assignment's place in its expert's queue: a running count along
-    # the token order, in the last dim, where CUDA scans the rows in
-    # parallel (a scan along a middle dim is many times slower)
-    experts = torch.arange(n_local + 1, device=x.device)
-    oh = (le[:, None, :] == experts[:, None]).int()    # (R, n_local+1, T·k)
-    pos = oh.cumsum(dim=2).gather(1, le[:, None, :])[:, 0] - 1
+    pos = _queue(le, n_local + 1)
     keep = local & (pos < capacity)
     slot = torch.where(keep, le * capacity + pos, -1)
-    trash = n_local * capacity
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    src = torch.full((r, trash + 1), t, dtype=torch.long, device=x.device)
-    src.scatter_(1, torch.where(keep, slot, trash), tok.expand(r, -1))
-    src[:, trash] = t
+    src = _fill(tok, keep, slot, n_local * capacity, t)
     rows = torch.cat([x, x.new_zeros(r, 1, d)], dim=1)  # row t is zero
-    buf = rows.gather(1, src[:, :trash, None].expand(-1, -1, d))
+    buf = rows.gather(1, src[:, :, None].expand(-1, -1, d))
     return buf.reshape(r, n_local, capacity, d), slot, flat_w
 
 
 def _expert_ffn(buf, params):
-    """buf (R, E_loc, C, d) -> (R, E_loc, C, d): batched expert products,
-    SiLU in float32 cast back to the buffer's dtype."""
-    g = buf @ params["w_gate"]
-    u = buf @ params["w_up"]
+    """Batched expert products, SiLU in float32 cast back to the buffer's
+    dtype.  buf (..., E_loc, C, d) broadcasts against the weights' leading
+    axes: (R, E_loc, C, d) for ``expert``/``ffn``, (R, D, E_loc, C, d)
+    against unsqueezed weights with D data shards, (D, 1, E_loc, C, d)
+    for ``ep2d``'s (D, R, ...) weights -> (D, R, E_loc, C, d)."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if buf.dim() > wg.dim():
+        wg, wu, wd = wg[:, None], wu[:, None], wd[:, None]
+    g = buf @ wg
+    u = buf @ wu
     h = F.silu(g.float()).to(buf.dtype) * u
-    return h @ params["w_down"]
+    return h @ wd
 
 
 def _combine(out_buf, slot, flat_w, t: int, k: int):
@@ -158,27 +195,141 @@ def _combine(out_buf, slot, flat_w, t: int, k: int):
     return gathered.reshape(r, t, k, d).sum(dim=2)
 
 
-def moe_forward(params, x: torch.Tensor, cfg):
-    """x (R, B, S, d), the same on every rank -> (partial out (R, B, S, d),
-    aux (R,)).  The caller's ``comm_norm`` reduces the output over R.
-    Capacity per expert is max(ceil(T·k/E·capacity_factor), 4) with T =
-    B·S, padding rows included."""
+def _ep2d_dispatch(xs, topi, *, e_loc: int, cs: int, cap2: int):
+    """``ep2d``'s dispatch on the data rank axis.  xs (D, T_loc, d) each
+    data shard's tokens, topi (D, T_loc, k).
+
+    First each shard queues its assignments by destination shard, ``cs``
+    a destination, in token order (the send buffers, (D, D·cs)).  The
+    all-to-all then hands shard j the concatenation, over source shards s
+    in order, of s's buffer for j: its D·cs arrival rows.  Each shard
+    queues its arrivals again, by local expert, ``cap2`` an expert, in
+    arrival order, so the drops there depend on the source order.
+
+    Returns (buf (D, e_loc, cap2, d), slot (D, T_loc·k) each assignment's
+    send row j·cs + p or -1 where dropped, slot2 (D, D·cs) each arrival
+    row's buffer row or -1 where empty or dropped)."""
+    dp, t_loc, k = topi.shape
+    d = xs.shape[-1]
+    dev = xs.device
+    flat = topi.reshape(dp, t_loc * k)
+    dest = flat // e_loc                                # destination shard
+    pos = _queue(dest, dp)
+    keep = pos < cs
+    slot = torch.where(keep, dest * cs + pos, -1)
+    tok = torch.arange(t_loc, device=dev).repeat_interleave(k)
+    # the send buffers as tables: each send row's token (t_loc: empty) and
+    # local expert (-1: empty), (D_src, D_dst·cs)
+    send_tok = _fill(tok, keep, slot, dp * cs, t_loc)
+    send_eid = _fill(flat % e_loc, keep, slot, dp * cs, -1)
+    # all_to_all(tiled): arrival row s·cs + p on shard j is send row
+    # j·cs + p of shard s
+    rt = dp * cs
+    recv_tok = send_tok.reshape(dp, dp, cs).transpose(0, 1).reshape(dp, rt)
+    recv_eid = send_eid.reshape(dp, dp, cs).transpose(0, 1).reshape(dp, rt)
+    valid = recv_eid >= 0
+    le = torch.where(valid, recv_eid, e_loc)            # e_loc = trash bin
+    pos2 = _queue(le, e_loc + 1)
+    keep2 = valid & (pos2 < cap2)
+    slot2 = torch.where(keep2, le * cap2 + pos2, -1)
+    arrival = _fill(torch.arange(rt, device=dev), keep2, slot2,
+                    e_loc * cap2, rt)                   # rt: empty
+    # each buffer row's (source shard, token); empty rows read a zero row
+    src_shard = torch.arange(dp, device=dev).repeat_interleave(cs)
+    src_shard = torch.cat([src_shard, src_shard.new_zeros(1)])
+    recv_tok = torch.cat([recv_tok, recv_tok.new_full((dp, 1), t_loc)], 1)
+    rows = torch.cat([xs, xs.new_zeros(dp, 1, d)], dim=1)
+    buf = rows[src_shard[arrival], recv_tok.gather(1, arrival)]
+    return buf.reshape(dp, e_loc, cap2, d), slot, slot2
+
+
+def _ep2d_combine(out_buf, slot, slot2, topw, *, cs: int):
+    """The all-to-all back and the combine at each token's home shard.
+    out_buf (D, R, e_loc, cap2, d) partial over the model ranks; slot,
+    slot2 as ``_ep2d_dispatch`` gives them; topw (D, T_loc, k) (the
+    weights never left home).  Assignment a of shard s sent to send row
+    j·cs + p arrived at row s·cs + p of shard j; its output is that row's
+    buffer row (zero where dropped at either dispatch).  Returns the
+    output (R, D·T_loc, d), partial over the ranks."""
+    dp, r, e_loc, cap2, d = out_buf.shape
+    _, t_loc, k = topw.shape
+    trash = e_loc * cap2
+    flat = torch.cat([out_buf.reshape(dp, r, trash, d),
+                      out_buf.new_zeros(dp, r, 1, d)], dim=2)
+    sent = slot.clamp_min(0)
+    j, p = sent // cs, sent % cs
+    home = torch.arange(dp, device=slot.device)[:, None]
+    row = slot2[j, home * cs + p]                       # (D, T_loc·k)
+    row = torch.where((slot >= 0) & (row >= 0), row, trash)
+    gathered = flat[j, :, row]                          # (D, T_loc·k, R, d)
+    gathered = gathered * topw.reshape(dp, t_loc * k, 1, 1).to(
+        gathered.dtype)
+    out = gathered.reshape(dp, t_loc, k, r, d).sum(dim=2)
+    return out.permute(2, 0, 1, 3).reshape(r, dp * t_loc, d)
+
+
+def _ep2d_forward(params, xt, cfg, dp: int):
+    """``ep2d`` over xt (R, D·T_loc, d), the same on every rank: routing
+    and dispatch run once (they are the same on every rank), the expert
+    products on each rank's d_ff slice."""
+    record = torch.profiler.record_function
+    r, t, d = xt.shape
+    t_loc, k = t // dp, cfg.num_experts_per_tok
+    e_loc, _ = local_sizes(cfg, r, dp)
+    if params["w_gate"].shape[:2] != (dp, r):
+        raise ValueError(f"ep2d expert weights hold (D, R) = "
+                         f"{tuple(params['w_gate'].shape[:2])}, the input "
+                         f"({dp}, {r})")
+    xs = xt[0].reshape(dp, t_loc, d)
+    with record(ROUTE_RANGE):
+        topw, topi, aux = _route(xs, params["router"], cfg)
+    cs = max(int(math.ceil(t_loc * k / dp * cfg.capacity_factor)), 4)
+    cap2 = int(math.ceil(dp * cs / e_loc * cfg.capacity_factor))
+    with record(DISPATCH_RANGE):
+        buf, slot, slot2 = _ep2d_dispatch(xs, topi, e_loc=e_loc, cs=cs,
+                                          cap2=cap2)
+    with record(EXPERTS_RANGE):
+        out_buf = _expert_ffn(buf[:, None], params)
+    with record(COMBINE_RANGE):
+        out = _ep2d_combine(out_buf, slot, slot2, topw, cs=cs)
+    return out, aux
+
+
+def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1):
+    """x (R, B, S, d), the same on every rank, B holding the ``dp`` data
+    shards' rows one shard after the other -> (partial out (R, B, S, d),
+    aux (R,), or (R, D) when dp > 1).  The caller's ``comm_norm`` reduces
+    the output over R.  Each data shard's capacity follows from its own
+    T_loc = B·S / D tokens, padding rows included: per expert
+    max(ceil(T_loc·k/E·capacity_factor), 4) for ``expert``/``ffn``; for
+    ``ep2d`` cs = max(ceil(T_loc·k/D·capacity_factor), 4) per destination
+    shard, then ceil(D·cs/E_loc·capacity_factor) per expert."""
     r, b, s, d = x.shape
-    e_loc, _ = local_sizes(cfg, r)          # refuses ep2d
-    xt = x.reshape(r, b * s, d)
-    t = b * s
+    if b % dp:
+        raise ValueError(f"{b} rows do not split over {dp} data shards")
+    if cfg.moe_partition == "ep2d":
+        out, aux = _ep2d_forward(params, x.reshape(r, b * s, d), cfg, dp)
+        aux = aux.expand(r, dp) if dp > 1 else aux.expand(r)
+        return out.reshape(r, b, s, d), aux
+    t_loc = b * s // dp
     k = cfg.num_experts_per_tok
     record = torch.profiler.record_function
+    e_loc, _ = local_sizes(cfg, r)
+    # each (rank, data shard) routes and queues its own tokens
+    xt = x.reshape(r * dp, t_loc, d)
     with record(ROUTE_RANGE):
         topw, topi, aux = _route(xt, params["router"], cfg)
-    cap = int(math.ceil(t * k / cfg.num_experts * cfg.capacity_factor))
+    cap = int(math.ceil(t_loc * k / cfg.num_experts * cfg.capacity_factor))
     cap = max(cap, 4)
     with record(DISPATCH_RANGE):
         buf, slot, flat_w = _capacity_dispatch(
             xt, topi, topw, n_local=e_loc,
-            lo=expert_offsets(cfg, r, x.device), capacity=cap)
+            lo=expert_offsets(cfg, r, x.device).repeat_interleave(dp),
+            capacity=cap)
     with record(EXPERTS_RANGE):
-        out_buf = _expert_ffn(buf, params)
+        if dp > 1:
+            buf = buf.reshape(r, dp, *buf.shape[1:])
+        out_buf = _expert_ffn(buf, params).reshape(r * dp, e_loc, cap, d)
     with record(COMBINE_RANGE):
-        out = _combine(out_buf, slot, flat_w, t, k)
-    return out.reshape(r, b, s, d), aux
+        out = _combine(out_buf, slot, flat_w, t_loc, k)
+    return out.reshape(r, b, s, d), (aux.reshape(r, dp) if dp > 1 else aux)

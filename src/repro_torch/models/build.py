@@ -1,9 +1,16 @@
 """Uniform model API, as ``repro.models.build``: the dense, MoE
-(``expert``, ``ffn``) and vlm families of the transformer, the ssm family
-(``mamba_model``), the hybrid one (``hybrid``) and the encoder-decoder
-(``encdec``), at any tp (the ranks on one device's rank axis).  The ssm,
-hybrid and encdec modules have no verify, packed or paged step: the
-engine refuses those modes for them, as the reference's does.
+(``expert``, ``ffn``, ``ep2d``) and vlm families of the transformer, the
+ssm family (``mamba_model``), the hybrid one (``hybrid``) and the
+encoder-decoder (``encdec``), at any tp (the ranks on one device's rank
+axis).  The ssm, hybrid and encdec modules have no verify, packed or
+paged step: the engine refuses those modes for them, as the reference's
+does.
+
+``ep`` is the size of the data rank axis D (the reference's ``ep =
+mesh.shape["data"]``): ``ep2d`` experts split over it, the transformer's
+batch splits over it, or, under ``pcfg.seq_shard_kv``, the transformer's
+and the hybrid's full-attention caches split their sequence over it
+(``models/transformer.py``).  Every bound call passes it on as ``dp``.
 
 ``prefill`` passes its keywords on: ``frames`` (encdec), and
 ``mrope_positions`` and ``extra_embeds`` (vlm); ``init_cache`` passes
@@ -14,7 +21,6 @@ import dataclasses
 from typing import Any
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.layers.moe import EP2D_REFUSAL
 from repro_torch.models import encdec, hybrid, mamba_model, transformer
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
@@ -28,12 +34,21 @@ class ModelApi:
     pcfg: ParallelConfig
     mod: Any
     tp: int = 1
+    ep: int = 1
+
+    @property
+    def _dp(self) -> dict:
+        """The data size for the modules that take one."""
+        return {"dp": self.ep} if self.mod in (transformer, hybrid) else {}
 
     def init(self, seed: int = 0, *, device=None, dtype=None):
+        kw = {"ep": self.ep} if self.mod is transformer else {}
         return self.mod.init_params(self.cfg, seed=seed, device=device,
-                                    dtype=dtype, tp=self.tp)
+                                    dtype=dtype, tp=self.tp, **kw)
 
     def init_cache(self, batch: int, max_len: int, *, device=None, **kw):
+        if self._dp:
+            kw.update(self._dp, seq_shard_kv=self.pcfg.seq_shard_kv)
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
 
@@ -41,11 +56,12 @@ class ModelApi:
         """The shared forward with no cache: (hidden (R, B, S, d), chunk
         kv per layer); ``spec.ModelDraft``'s rollout step."""
         return self.mod.forward(params, tokens, cfg=self.cfg, pcfg=self.pcfg,
-                                positions=positions, **kw)
+                                positions=positions, **self._dp, **kw)
 
     def prefill(self, params, tokens, cache, positions, **kw):
         return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
-                                pcfg=self.pcfg, positions=positions, **kw)
+                                pcfg=self.pcfg, positions=positions,
+                                **self._dp, **kw)
 
     def init_paged_cache(self, num_blocks: int, block_size: int, *,
                          device=None):
@@ -56,25 +72,30 @@ class ModelApi:
     def decode_step(self, params, tokens, cache, positions, **kw):
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
-                                    **kw)
+                                    **self._dp, **kw)
 
     def verify_step(self, params, tokens, cache, positions, **kw):
         return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
-                                    **kw)
+                                    **self._dp, **kw)
 
     def packed_step(self, params, tokens, cache, positions, **kw):
         return self.mod.packed_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
-                                    **kw)
+                                    **self._dp, **kw)
 
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
                 ep: int = 1) -> ModelApi:
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}")
-    if ep > 1 or (cfg.is_moe and cfg.moe_partition == "ep2d"):
-        raise NotImplementedError(EP2D_REFUSAL)
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    return ModelApi(cfg=cfg, pcfg=pcfg, mod=FAMILIES[cfg.family], tp=tp)
+    if tp < 1 or ep < 1:
+        raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
+    mod = FAMILIES[cfg.family]
+    if ep > 1 and not (mod is transformer or (
+            mod is hybrid and pcfg.seq_shard_kv)):
+        raise NotImplementedError(
+            f"a data axis (ep={ep}) is ported for the transformer families "
+            f"and the hybrid's context-parallel decode, not for the "
+            f"{cfg.family} family")
+    return ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep)

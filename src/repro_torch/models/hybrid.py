@@ -30,6 +30,12 @@ place, and returns the chunk's shared KV per invocation, [(k, v, pos)],
 for the caller to insert (``runtime.kv_cache.insert_chunk``); ``decode_step``
 updates both in place.  The engine does not serve this family; the
 reference serves it by direct calls too.
+
+Under ``pcfg.seq_shard_kv`` with ``dp`` = D data shards the shared
+block's decode is context-parallel, as the reference's: its caches'
+sequence lies over D and each decode combines the D chunks
+(``layers.attention.attn_decode(seq_shards=D)``); the batch is whole on
+every shard.  A batch split over D is not ported for this family.
 """
 from __future__ import annotations
 
@@ -112,7 +118,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
 # --------------------------------------------------------------------------
 
 def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
-                  pcfg, weave, decode: bool):
+                  pcfg, weave, decode: bool, dp: int = 1):
     """Invocation g of the shared attention block over every split.
     Prefill: the splits attend ``cache_inv``'s KV (earlier chunks) and
     every earlier split's; returns the chunk's (k, v, pos).  Decode: each
@@ -138,9 +144,9 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
                    theta=cfg.rope_theta)
         if decode:
             rows = h.shape[1]
-            a_part, _ = A.attn_decode(p_eff, u,
-                                      A.cache_rows(cache_inv, off, rows),
-                                      **geo)
+            a_part, _ = A.attn_decode(
+                p_eff, u, A.cache_rows(cache_inv, off, rows), **geo,
+                seq_shards=dp if pcfg.seq_shard_kv else None)
             off += rows
         else:
             a_part, kv = A.attn_prefill(p_eff, u, kv_prefix=kv_prev,
@@ -160,11 +166,13 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 128):
+            ssm_chunk: int = 128, dp: int = 1):
     """Returns (hidden (R, B, S, d), the same on every rank, {"mamba": the
     state cache, "shared": per invocation the chunk's (k, v, pos)
     (prefill) or the KV cache dict (decode)}).  Without ``cache`` the
-    shared blocks see no prefix and the recurrence starts from zero."""
+    shared blocks see no prefix and the recurrence starts from zero.
+    ``dp`` > 1 needs ``pcfg.seq_shard_kv`` (module docstring)."""
+    _check_dp(dp, pcfg.seq_shard_kv)
     tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
     dev = tokens.device
@@ -207,7 +215,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         hs, ress, kv = _shared_weave(
             params["shared"], g, hs, ress, embs, poss,
             None if cache is None else cache["shared"][g], cfg=cfg,
-            pcfg=pcfg, weave=weave, decode=decode)
+            pcfg=pcfg, weave=weave, decode=decode, dp=dp)
         shared_out.append(kv)
         for i in range(g * period, (g + 1) * period):
             hs, ress = mamba_layer(i, hs, ress)
@@ -220,29 +228,43 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,
-            last_idx=None):
+            last_idx=None, dp: int = 1):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last token, or at ``last_idx`` (R, B, 1, V_loc), {"mamba": the state
     cache, "shared": the chunk's KV per invocation})."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                           positions=positions, cache=cache)
+                           positions=positions, cache=cache, dp=dp)
     return MM.lm_logits_at(params, h, last_idx), new_cache
 
 
-def decode_step(params, tokens, cache, *, cfg, pcfg, positions):
+def decode_step(params, tokens, cache, *, cfg, pcfg, positions, dp: int = 1):
     """One token per row.  Returns (local logits (R, B, 1, V_loc), the
     cache, updated in place)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                           positions=positions, cache=cache, decode=True)
+                           positions=positions, cache=cache, decode=True,
+                           dp=dp)
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
+def _check_dp(dp: int, seq_shard_kv: bool) -> None:
+    if dp > 1 and not seq_shard_kv:
+        raise NotImplementedError(
+            "the hybrid family takes a data axis for context-parallel "
+            "decode (seq_shard_kv) only; its batch over D is not ported")
+
+
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
-               device=None, dtype=None):
+               device=None, dtype=None, dp: int = 1,
+               seq_shard_kv: bool = False):
     """Zero Mamba-2 state and empty shared KV (one slot cache of
     ``max_len`` per invocation) for ``batch`` rows on ``device`` (CUDA
-    unless given)."""
+    unless given); with ``seq_shard_kv`` the shared caches' ``max_len``
+    slots lie over ``dp`` data shards, in the unsharded layout."""
     device = resolve_device(device)
+    _check_dp(dp, seq_shard_kv)
+    if max_len % dp:
+        raise ValueError(f"max_len={max_len} does not split over {dp} "
+                         f"data shards")
     n_inv, _ = _n_groups(cfg)
     acfg = _shared_attn_cfg(cfg)
     return {"mamba": S.init_mamba2_state(batch, cfg, tp, cfg.num_layers,

@@ -16,6 +16,24 @@ the reference's pytree, activations are ``(R, B, S, d)``, and the
 AllReduce + residual + RMSNorm slots go through
 ``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).
 
+The reference's ``data`` axis is the data rank axis D (``dp``), used two
+ways, as the reference uses it:
+* the batch over D (``dp > 1`` without ``pcfg.seq_shard_kv``): B holds
+  the D data shards' rows one shard after the other (shard d's rows
+  ``[d·B/D, (d+1)·B/D)``) and every layer runs on the folded batch; the
+  weave decision, the comm mode's fallback and the comm slots' token
+  ownership follow each shard's own B/D rows, a MoE layer routes and
+  drops per shard and runs ``ep2d``'s all-to-alls over D, and a decode
+  batch split takes the same rows of every shard (not contiguous in the
+  folded batch: ``_weave_layer`` gathers them and writes them back);
+* context-parallel decode (``pcfg.seq_shard_kv``): the batch is whole on
+  every shard (the reference's ``long_500k`` has one row), and each
+  full-attention layer's decode combines the D chunks of its cache's
+  sequence (``layers.attention.attn_decode(seq_shards=D)``); an ``ep2d``
+  layer then dispatches every shard's copy of the tokens.
+Packed steps and the paged pool run at D = 1, as the reference's engine
+serves them.
+
 The weave (paper Fig. 8) emits, with two token splits s0/s1,
 
     attn(s0) ; AR-norm(s0) ; attn(s1) ; AR-norm(s1) ;
@@ -55,6 +73,7 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
 from repro_torch.layers import moe as X
+from repro_torch.runtime import kv_cache as KC
 from repro_torch.runtime import paging as PG
 
 
@@ -86,14 +105,15 @@ def layer_kinds(cfg: ModelConfig) -> List[LayerKind]:
 # --------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1):
+                tp: int = 1, ep: int = 1):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator`` on
     ``device`` (CUDA unless given), with the reference's scales (attention
     and MLP inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head
     d^-0.5; norms ones; MoE layers as ``layers.moe.init_moe_params``) and
-    shapes (every sharded weight (tp, ...)).  The values differ from the
-    reference's jax.random ones; tests move the reference's weights over
-    with ``weights.from_jax_params`` instead."""
+    shapes (every sharded weight (tp, ...); ``ep2d`` expert weights (ep,
+    tp, ...)).  The values differ from the reference's jax.random ones;
+    tests move the reference's weights over with
+    ``weights.from_jax_params`` instead."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has its own model module "
                          f"(models.build.build_model picks it)")
@@ -130,7 +150,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
             attn["k_norm"] = ones(dh)
         lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones()}
         if cfg.is_moe:
-            lp["moe"] = X.init_moe_params(gen, cfg, tp, device=device,
+            lp["moe"] = X.init_moe_params(gen, cfg, tp, ep, device=device,
                                           dtype=dtype)
         else:
             lp["mlp"] = {"w_gate": rnd((d, f // tp), s),
@@ -210,6 +230,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     the shared pool.  A MoE layer's aux loss is dropped (serving)."""
     n = len(state["h"])
     packed = state.get("pslots") is not None
+    dp = state["dp"]
     hs, ress = list(state["h"]), list(state["res"])
     kv_prev = None if decode or packed else _cache_prefix(cache_layer)
     kv_outs, off = [], 0
@@ -238,12 +259,22 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
                              where=state["where"], **geo, **mrope)
         elif decode:
             # batch split: each split updates its own rows of the cache in
-            # place through views, so the full cache is the result
+            # place through views, so the full cache is the result; with
+            # the batch over D a split's rows are the same rows of every
+            # data shard, gathered and written back
             rows = h.shape[1]
-            attn = A.attn_verify if h.shape[2] > 1 else A.attn_decode
-            a_part, _ = attn(lp["attn"], h,
-                             A.cache_rows(cache_layer, off, rows), **geo,
-                             **mrope)
+            idx = state["rows"][i]
+            cl = (A.cache_rows(cache_layer, off, rows) if idx is None
+                  else KC.gather_slots([cache_layer], idx)[0])
+            if h.shape[2] > 1:
+                a_part, _ = A.attn_verify(lp["attn"], h, cl, **geo, **mrope)
+            else:
+                # context-parallel KV on full-attention layers only
+                cp = dp if pcfg.seq_shard_kv and kind.window == 0 else None
+                a_part, _ = A.attn_decode(lp["attn"], h, cl, **geo, **mrope,
+                                          seq_shards=cp)
+            if idx is not None:
+                KC.write_rows([cache_layer], [cl], idx)
             off += rows
         else:
             a_part, kv = A.attn_prefill(lp["attn"], h, kv_prefix=kv_prev,
@@ -256,7 +287,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     for i in range(n):
         weave.wait(i)
         if kind.is_moe:
-            f_part, _ = X.moe_forward(lp["moe"], hs[i], cfg)
+            f_part = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv)
         else:
             f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
         hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
@@ -265,6 +296,20 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     if decode or packed:
         return state, cache_layer
     return state, kv_outs[0] if n == 1 else cat_kv(*kv_outs)
+
+
+def _moe(params, h, cfg, dp: int, seq_shard_kv: bool):
+    """A MoE layer's partial output.  With the batch over D each data
+    shard routes its own rows; under context parallelism (the batch whole
+    on every shard) ``ep2d`` still dispatches every shard's copy of the
+    tokens, as the reference's shards do, and keeps shard 0's output (all
+    D are equal); ``expert``/``ffn`` have nothing to exchange."""
+    if dp > 1 and not seq_shard_kv:
+        return X.moe_forward(params, h, cfg, dp=dp)[0]
+    if dp > 1 and cfg.moe_partition == "ep2d":
+        out, _ = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg, dp=dp)
+        return out[:, :h.shape[1]]
+    return X.moe_forward(params, h, cfg)[0]
 
 
 def cat_kv(a, b):
@@ -397,19 +442,20 @@ def _split_cuts(split: Optional[Tuple[int, int]], n: int):
 
 def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
               tp: int, *, mode: Optional[str] = None,
-              budget: float = 1.0) -> CommCtx:
+              budget: float = 1.0, dp: int = 1) -> CommCtx:
     """Pick the effective comm mode: the token-sharded (fused/reordered/
-    ring) layouts need t_local divisible by tp; otherwise fall back to
-    vanilla (the paper's fallback for small decode batches).  ``mode``
-    overrides ``pcfg.comm_mode`` when the overlap plan forces one;
-    ``budget`` sizes K1's grid."""
+    ring) layouts need t_local, one data shard's tokens, divisible by tp;
+    otherwise fall back to vanilla (the paper's fallback for small decode
+    batches).  ``mode`` overrides ``pcfg.comm_mode`` when the overlap plan
+    forces one; ``budget`` sizes K1's grid; ``dp`` data shards lie one
+    after the other on the token axis."""
     mode = mode or pcfg.comm_mode
     if (mode in ("fused", "reordered", "ring")
             and (t_local % tp != 0 or t_local < tp)):
         mode = "vanilla"
     return CommCtx(mode=mode, eps=cfg.norm_eps,
                    use_pallas=pcfg.use_pallas_norm, tp=tp,
-                   comm_budget=budget)
+                   comm_budget=budget, dp=dp)
 
 
 def _entry_norm(weave: _Weave, i: int, emb, w_first):
@@ -425,12 +471,26 @@ def _entry_norm(weave: _Weave, i: int, emb, w_first):
 # forward
 # --------------------------------------------------------------------------
 
+def data_layout(b: int, dp: int, pcfg: ParallelConfig) -> Tuple[int, int]:
+    """(rows per data shard, data shards the batch is split over) for a
+    batch of ``b`` rows at data size ``dp``: the batch splits over D
+    unless the cache's sequence does (``seq_shard_kv``)."""
+    if dp == 1 or pcfg.seq_shard_kv:
+        return b, 1
+    if b % dp:
+        raise ValueError(f"a batch of {b} rows does not split over {dp} "
+                         f"data shards")
+    return b // dp, dp
+
+
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, mrope_positions=None, extra_embeds=None,
             cache=None, decode: bool = False, block_tables=None,
-            packed_slots=None):
+            packed_slots=None, dp: int = 1):
     """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
-    every rank, kv_or_cache).  tp is the rank axis of ``params``.
+    every rank, kv_or_cache).  tp is the rank axis of ``params``; ``dp``
+    the data axis (module docstring): the batch's rows over D, or under
+    ``pcfg.seq_shard_kv`` the full-attention caches' sequence.
 
     vlm: ``extra_embeds`` (B, S_img, d) are complete patch embeddings
     that go in front of the text rows (S counts them; the default
@@ -461,17 +521,27 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     dev = tokens.device
     packed = packed_slots is not None
     paged_decode = decode and block_tables is not None and not packed
+    b_loc, dsplit = data_layout(b, dp, pcfg)
+    if dsplit > 1 and (packed or block_tables is not None):
+        raise ValueError("packed steps and the paged pool run at data size "
+                         "1, as the reference's engine serves them")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
-    winfo = weave_decision_info(b, s, tp=tp, pcfg=pcfg, decode=decode,
+    winfo = weave_decision_info(b_loc, s, tp=tp, pcfg=pcfg, decode=decode,
                                 packed=packed, paged_pool=paged_decode,
                                 family=cfg.family)
-    ctx = _comm_ctx(pcfg, cfg, b * s, tp, mode=winfo.comm_mode or None,
-                    budget=winfo.budget)
+    ctx = _comm_ctx(pcfg, cfg, b_loc * s, tp, mode=winfo.comm_mode or None,
+                    budget=winfo.budget, dp=dsplit)
 
-    # the splits' [lo, hi) along the batch (decode) or the sequence
+    # the splits' [lo, hi) along the batch (decode) or the sequence; a
+    # batch split over D takes rows [lo, hi) of every data shard
     cuts = _split_cuts(winfo.split, b if decode else s)
+    split_rows = [None] * len(cuts)
+    if decode and dsplit > 1 and winfo.split is not None:
+        split_rows = [torch.cat([torch.arange(d * b_loc + lo, d * b_loc + hi)
+                                 for d in range(dsplit)]).to(dev)
+                      for lo, hi in _split_cuts(winfo.split, b_loc)]
     state_extra = {}
     if packed and pcfg.attn_impl == "pallas":
         host_pos = positions.cpu().numpy()[0]
@@ -503,7 +573,12 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         emb = torch.cat([img.expand(tp, *img.shape), emb], dim=2)
     if mrope_positions is not None:
         mrope_positions = mrope_positions.to(dev)
-    if decode:
+    if decode and split_rows[0] is not None:
+        embs = [emb[:, idx] for idx in split_rows]
+        poss = [positions[idx] for idx in split_rows]
+        mrs = [None if mrope_positions is None else mrope_positions[idx]
+               for idx in split_rows]
+    elif decode:
         embs = [emb[:, lo:hi] for lo, hi in cuts]
         poss = [positions[lo:hi] for lo, hi in cuts]
         mrs = [None if mrope_positions is None else mrope_positions[lo:hi]
@@ -519,7 +594,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     hs, ress = map(list, zip(*(_entry_norm(weave, i, e, params["norm_first"])
                                for i, e in enumerate(embs))))
     state = {"h": hs, "res": ress, "positions": poss, "mrope": mrs,
-             **state_extra}
+             "rows": split_rows, "dp": dp, **state_extra}
 
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
@@ -536,18 +611,22 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         weave.wait(i)
     h_out = (torch.cat(state["h"], dim=1 if decode else 2)
              if len(state["h"]) == 2 else state["h"][0])
+    if split_rows[0] is not None:
+        # the data shards' rows back in batch order
+        h_out = h_out.index_copy(1, torch.cat(split_rows), h_out)
     return h_out, kv_all
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions,
-            mrope_positions=None, extra_embeds=None, last_idx=None):
+            mrope_positions=None, extra_embeds=None, last_idx=None,
+            dp: int = 1):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last valid token (R, B, 1, V_loc), chunk kv per layer).  ``last_idx``:
     per-row index of the last unpadded token in the chunk (the patch rows
     of ``extra_embeds`` counted)."""
     h, kv = forward(params, tokens, cfg=cfg, pcfg=pcfg, positions=positions,
                     mrope_positions=mrope_positions,
-                    extra_embeds=extra_embeds, cache=cache)
+                    extra_embeds=extra_embeds, cache=cache, dp=dp)
     if last_idx is None:
         h_last = h[:, :, -1:]
     else:
@@ -558,19 +637,19 @@ def prefill(params, tokens, cache, *, cfg, pcfg, positions,
 
 
 def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
-                mrope_positions=None, block_tables=None):
+                mrope_positions=None, block_tables=None, dp: int = 1):
     """Single-token decode (or verify window).  Returns (local logits
     (R, B, S, V_loc), the cache, updated in place).  ``block_tables``
     (B, max_blocks) selects the paged pool (``runtime/paging.py``)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions,
                            mrope_positions=mrope_positions, cache=cache,
-                           decode=True, block_tables=block_tables)
+                           decode=True, block_tables=block_tables, dp=dp)
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
 def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
-                mrope_positions=None, block_tables=None):
+                mrope_positions=None, block_tables=None, dp: int = 1):
     """Speculative multi-token verify: tokens (B, gamma+1) are the
     pending decode input followed by the draft, positions -1 where a row
     has no (or a short) draft.  Returns (local logits (R, B, gamma+1,
@@ -579,11 +658,11 @@ def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
     rejected positions on the host).  The decode path at S = gamma+1."""
     return decode_step(params, tokens, cache, cfg=cfg, pcfg=pcfg,
                        positions=positions, mrope_positions=mrope_positions,
-                       block_tables=block_tables)
+                       block_tables=block_tables, dp=dp)
 
 
 def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
-                sample_idx, block_tables=None):
+                sample_idx, block_tables=None, dp: int = 1):
     """One packed hybrid forward: tokens (1, T) carry prefill-chunk
     segments, single-token decode slots and verify windows on one axis;
     ``seg_slots``
@@ -595,16 +674,28 @@ def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
     in place)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions, cache=cache,
-                           block_tables=block_tables, packed_slots=seg_slots)
+                           block_tables=block_tables, packed_slots=seg_slots,
+                           dp=dp)
     idx = sample_idx.to(h.device).long().clamp_min(0)
     return E.lm_head_logits(params["embedding"], h[:, 0][:, idx]), new_cache
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
-               device=None, dtype=None):
+               device=None, dtype=None, dp: int = 1,
+               seq_shard_kv: bool = False):
     """Slot KV cache for ``tp`` ranks on ``device`` (CUDA unless given):
-    one {"k", "v", "pos"} dict per layer."""
+    one {"k", "v", "pos"} dict per layer, in the global layout the
+    reference shards over its data axis: ``batch`` rows over ``dp`` data
+    shards, or (``seq_shard_kv``) every full-attention layer's
+    ``max_len`` slots over them (shard d owning ``[d·C/D, (d+1)·C/D)``;
+    the sliding-window ring buffers stay whole)."""
     device = resolve_device(device)
+    if seq_shard_kv and max_len % dp:
+        raise ValueError(f"max_len={max_len} does not split over {dp} "
+                         f"data shards")
+    if not seq_shard_kv and batch % dp:
+        raise ValueError(f"batch={batch} does not split over {dp} data "
+                         f"shards")
     return [A.init_kv_cache(batch, max_len, cfg, tp, window=k.window,
                             dtype=dtype, device=device)
             for k in layer_kinds(cfg)]

@@ -258,6 +258,12 @@ class Engine:
         if emb.shape[0] != api.tp:
             raise ValueError(f"params hold {emb.shape[0]} ranks, the model "
                              f"API tp={api.tp}")
+        if api.ep > 1:
+            raise NotImplementedError(
+                f"the engine serves at data size 1, not ep={api.ep}, as the "
+                f"reference's engine does: it passes each step's tokens "
+                f"replicated against a cache sharded over the data axis; "
+                f"call ModelApi.prefill / decode_step for a data axis")
         self.api = api
         self.params = params
         self.scfg = scfg

@@ -3,7 +3,12 @@ slots of fixed length C, with ring-buffer insertion for sliding-window
 layers (C = window).  The cache is a list with one {"k", "v", "pos"} dict
 per layer: k and v are (R, B, C, kv_store, dh), one slab per rank of the
 rank axis, and pos is (B, C), the same on every rank.  ``insert_chunk``
-and ``reset_slots`` update it in place, across all ranks.
+and ``reset_slots`` update it in place, across all ranks.  With a data
+axis D (``distributed/context.py``) the cache keeps the reference's
+global layout: B holds the D data shards' rows one shard after the other,
+or, under ``seq_shard_kv``, a full-attention layer's C slots lie over the
+D shards (shard d owning ``[d·C/D, (d+1)·C/D)``) and a position p still
+goes to slot ``p % C``; so every function here serves both unchanged.
 
 The encdec family's cache is {"self": such a list, "cross": per decoder
 layer the encoder's projected keys and values, one whole row per slot},

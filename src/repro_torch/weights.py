@@ -10,7 +10,9 @@ care:
   with uniform layer kinds, and always for the ssm and hybrid families)
   or a ``{"layer_i": ...}`` dict;
 * every sharded weight carries a per-shard leading axis of size tp, kept
-  as the port's rank axis (a MoE layer's expert weights too); the
+  as the port's rank axis (a MoE layer's expert weights too); an
+  ``ep2d`` layer's expert weights carry two, (ep, tp, E/ep, ...), kept as
+  the data and rank axes (D, R, ...) (``layers/moe.py``); the
   replicated weights (norm gains, q/k norms, the row-parallel output bias,
   the MoE router, Mamba-2's B/C projection and conv) carry an axis of size
   1 and drop it;

@@ -2,7 +2,8 @@
 serves, against the JAX reference, in float32 on the CPU.
 
 Each of the 13 registry names gives a config equal to the reference's
-field by field.  The six dense configs and the two MoE ones, ``reduced()``
+field by field.  The six dense configs and the three MoE ones (``ffn``,
+``expert`` and ``ep2d``, the last at data size 1), ``reduced()``
 and with every weight perturbed by 0.05·N(0, 1) (so that norms, biases and
 routers are not trivial), run one prefill and one decode step through
 both packages with the same weights: logits and KV agree within 1e-4, and
@@ -53,6 +54,7 @@ PCFG = dict(tokenweave=True, comm_mode="fused", remat=False, split_unit=16,
 DENSE = ("gemma3-1b", "qwen1.5-4b", "deepseek-67b", "qwen3-14b",
          "llama3.3-70b", "qwen2.5-72b")
 MOE = ("mixtral-8x22b", "olmoe-1b-7b")
+EP2D = ("qwen3-moe-235b-a22b",)      # data size > 1: test_torch_dp.py
 PREFILL = {True: 48, False: 8}       # weave fires -> chunk per row (2 rows)
 DECODE = {True: 16, False: 4}        # weave fires -> batch rows
 PERTURB = 0.05
@@ -110,9 +112,9 @@ def capture_moe_inputs(monkeypatch):
             x, lax.axis_index(kw.get("tp_axis", "model")))
         return jorig(params, x, cfg, **kw)
 
-    def twrap(params, x, cfg):
+    def twrap(params, x, cfg, **kw):
         tstore.append(x.detach().clone())
-        return torig(params, x, cfg)
+        return torig(params, x, cfg, **kw)
 
     monkeypatch.setattr(JM, "moe_forward", jwrap)
     monkeypatch.setattr(TM, "moe_forward", twrap)
@@ -299,7 +301,7 @@ def test_registry_lists_equal_reference():
 # every transformer-family config, reduced and perturbed
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + EP2D)
 def test_reduced_config_prefill_and_decode_match(name, mesh11, monkeypatch):
     cfg = jconfigs.get_config(name).reduced()
     pair = model_pair(cfg, seed=3)

@@ -23,8 +23,8 @@ from repro.runtime.requests import Request as JRequest
 
 from repro_torch.configs import base as tbase
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import list_configs as t_list_configs
 from repro_torch.layers import moe as TM
-from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model as t_build_model
 from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime.engine import Engine as TEngine
@@ -129,32 +129,33 @@ def test_model_entry_points_without_device_raise_when_cuda_absent(
 
 
 # registry configs the port names but does not serve, and the ROADMAP.md
-# labels their refusals name
-UNSERVED = {"qwen3-moe-235b-a22b": "A10.*A4"}
+# labels their refusals name: none since the MoE ``ep2d`` partitioning
+# (qwen3-moe-235b-a22b) is ported (tests/test_torch_dp.py)
+UNSERVED: dict = {}
 
 
-@pytest.mark.parametrize("what", list(UNSERVED))
-def test_engine_refuses_unported_modes(torch_model, what):
-    """What stays unported is refused: the MoE ``ep2d`` partitioning,
-    when the model is built or initialised (ROADMAP.md A10, and A4 for
-    ep2d's data rank axis), as is ``ep > 1`` for any model.  (The ssm,
-    hybrid, encdec and vlm families are ported: tests/test_torch_ssm.py,
+@pytest.mark.parametrize("what", t_list_configs())
+def test_registry_name_is_served(what):
+    """Every registry name builds and, reduced, initialises on the CPU
+    (the ssm, hybrid, encdec and vlm families: tests/test_torch_ssm.py,
     tests/test_torch_hybrid.py, tests/test_torch_encdec.py and
-    tests/test_torch_vlm.py.)  (``evacuate`` and
-    the KV handoff are ported: tests/test_torch_handoff.py and
-    tests/test_torch_cluster.py.)"""
+    tests/test_torch_vlm.py; ``ep2d``: tests/test_torch_dp.py); a name in
+    ``UNSERVED`` is refused with its ROADMAP.md label."""
     cfg = t_get_config(what).reduced()
     pcfg = tbase.ParallelConfig()
-    for make in (lambda: t_build_model(cfg, pcfg),
-                 lambda: TT.init_params(cfg, device="cpu")):
+    if what in UNSERVED:
         with pytest.raises(NotImplementedError, match=UNSERVED[what]):
-            make()
+            t_build_model(cfg, pcfg)
+        return
+    api = t_build_model(cfg, pcfg)
+    assert (api.tp, api.ep) == (1, 1)
+    params = api.init(0, device="cpu")
+    assert params["embedding"]["embed"].shape[0] == 1
     if cfg.is_moe:
-        with pytest.raises(NotImplementedError, match="A10.*A4"):
-            TM.moe_forward({}, torch.zeros(1, 1, 4, cfg.d_model), cfg)
-        with pytest.raises(NotImplementedError, match="A10.*A4"):
-            t_build_model(t_get_config("mixtral-8x22b").reduced(), pcfg,
-                          ep=2)
+        moe = params["layers"][0]["moe"]
+        lead = (1, 1) if cfg.moe_partition == "ep2d" else (1,)
+        e_loc, _ = TM.local_sizes(cfg, 1)
+        assert moe["w_gate"].shape[:len(lead) + 1] == lead + (e_loc,)
 
 
 def test_engine_from_spec_without_device_raises_when_cuda_absent(
@@ -172,8 +173,8 @@ def test_engine_from_spec_without_device_raises_when_cuda_absent(
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the sim, calibration, tracing, profiler,
     online server, MoE layer, config registry, wire transport, cluster,
-    HTTP API, SSM layers, rotary embeddings and the mamba, hybrid and
-    encdec models among them), and
+    HTTP API, SSM layers, rotary embeddings, the data rank axis's context
+    and the mamba, hybrid and encdec models among them), and
     chip_smoke.py's imports, load with ``jax`` and ``repro`` made
     unimportable."""
     code = r"""
@@ -193,7 +194,9 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.runtime.http_api", "repro_torch.layers.ssm",
         "repro_torch.models.mamba_model",
         "repro_torch.models.hybrid", "repro_torch.models.encdec",
-        "repro_torch.layers.rotary"} <= set(names), names
+        "repro_torch.layers.rotary", "repro_torch.distributed.context",
+        "repro_torch.models.build",
+        "repro_torch.configs.qwen3_moe_235b"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
