@@ -167,7 +167,30 @@ Phases, each printing one JSON line:
             D = 1 on the same cache reported) and 4 float32 steps (logits
             within 1e-3); then small float32 twins, ep2d at D = 2 x R = 2
             and the reduced Gemma3-1B at D = 4, give equal greedy tokens on
-            the card and the CPU (``identity_ep2d``, ``identity_cp``).
+            the card and the CPU (``identity_ep2d``, ``identity_cp``);
+19. train_kernels  K2's and K3's autograd Functions (the kernel forward,
+            the plain version's backward) against autograd through their
+            plain versions on the card at the training step's shapes: K3
+            at Gemma3-1B's global and local (window 512) layers (B 4, S
+            1024, 1 KV head x 4, dh 256, bf16) and in float32 at dh 128,
+            G 8; K2 at (4096, 1152) and (2048, 8192) bf16; the output and
+            every input gradient within TRAIN_REL_FRO (bf16, relative
+            Frobenius) or TRAIN_FP32_TOL of max(1, its largest magnitude)
+            (float32); forward+backward ms of both;
+20. train_gemma  Gemma3-1B at full width and depth (26 layers, d 1152,
+            vocabulary 262,144, tied embeddings, bf16, random weights
+            from the seed) trains 6 AdamW steps of ``make_train_step`` at
+            tp=1 (``fused``, K2 and K3 inside autograd, every layer under
+            remat) on ``SyntheticLM`` batches of 4 x 1024: every loss and
+            gradient norm finite, the last loss below the first, K2 and
+            K3 launched on every step; step ms (median of steps 2-6, CUDA
+            events), tokens/s, peak GB, launches per step;
+21. train_resume  ``python -m repro_torch.launch.train`` on the card
+            (reduced Qwen1.5-4B): a run that fails at step 6 (exit 42), its
+            restart ("resumed from checkpoint step 6") and an
+            uninterrupted run, final losses within 1e-3 relative; then
+            ``--manual-sync --mesh 2x1x2`` (int8 pod reduce, reduced
+            Gemma3-1B) for 4 steps, its loss falling.
 
 The kernels phase holds K2 and K1 at the families' widths too (d 4096,
 3584, 1152 and 512, K1 timed at Whisper's 8 x 1500-row split and at one
@@ -189,6 +212,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,6 +246,14 @@ IDENTITY_LOGIT_TOL = 1e-4          # float32, TF32 off: summation order only
 # a packed run's peak over the two-dispatch run's at the same tp; the
 # reference's per-token KV view would add 17 GB per layer
 PACKED_PEAK_SLACK_GB = 1.5
+# training: the kernels' autograd Functions against autograd through their
+# plain versions (bf16 by relative Frobenius error, float32 against the
+# tensor's scale), and launch.train's resumed run against an unbroken one
+TRAIN_REL_FRO = 2e-2
+TRAIN_FP32_TOL = 1e-4
+RESUME_RTOL = 1e-3
+MANUAL_INT8_FALL_RTOL = 0.1   # int8's fixed-batch loss fall against none's
+TRAIN_STEPS = 6
 
 
 # A plain copy on a K1-sized grid: what that many SMs can move on this
@@ -711,7 +743,8 @@ def capture_k3_inputs(store: dict):
         key = (tuple(q.shape), tuple(k.shape), q.dtype,
                tuple(sorted(kw.items())))
         if key not in store:
-            store[key] = ([t.clone() for t in (q, k, v, qpos, kpos)], kw)
+            store[key] = ([t.detach().clone() for t in (q, k, v, qpos, kpos)],
+                          kw)
         return wrapper(q, k, v, qpos, kpos, **kw)
 
     A.flash_attention = keep
@@ -741,6 +774,49 @@ def check_main_path_k3(torch, store: dict, engine: str, tp: int) -> float:
     store.clear()
     torch.cuda.empty_cache()
     return k3_err
+
+
+def capture_k2_inputs(store: dict):
+    """As ``capture_k3_inputs``, for K2 where the model path reaches it
+    (``core.fused_collectives``, ``use_pallas``): a copy of its inputs at
+    the first call of each shape.  Returns the undo."""
+    from repro_torch.core import fused_collectives as FC
+    wrapper = FC.fused_residual_rmsnorm
+
+    def keep(x, residual, weight, *, eps=1e-6, use_pallas=False):
+        key = (tuple(x.shape), x.dtype, eps)
+        if use_pallas and key not in store:
+            store[key] = ([t.detach().clone() for t in (x, residual, weight)],
+                          eps)
+        return wrapper(x, residual, weight, eps=eps, use_pallas=use_pallas)
+
+    FC.fused_residual_rmsnorm = keep
+    return lambda: setattr(FC, "fused_residual_rmsnorm", wrapper)
+
+
+def check_main_path_k2(torch, store: dict, engine: str) -> float:
+    """Hold K2 on the inputs ``capture_k2_inputs`` kept, as the kernel
+    phase holds it (every element within K2_TOL), one ``main_path_k2``
+    line each; returns the max abs error."""
+    from repro_torch.kernels import fused_rmsnorm as K2
+    torch.cuda.synchronize()
+    if not store:
+        raise AssertionError(f"{engine}: the model path reached no K2 call")
+    k2_err = 0.0
+    for (x, r, w), eps in store.values():
+        out, new_res = K2.fused_residual_rmsnorm(x, r, w, eps=eps)
+        torch.cuda.synchronize()
+        p_out, p_res = K2.fused_residual_rmsnorm_plain(x, r, w, eps)
+        name = f"K2 {engine} main path {tuple(x.shape)}"
+        err = max(check_close(f"{name} out", out, p_out, K2_TOL, K2_TOL),
+                  check_close(f"{name} residual", new_res, p_res, K2_TOL,
+                              K2_TOL))
+        k2_err = max(k2_err, err)
+        emit({"phase": "main_path_k2", "engine": engine,
+              "T": x.shape[0], "d": x.shape[-1], "dtype": str(x.dtype)[6:],
+              "max_abs_err": err, "tol": K2_TOL})
+    store.clear()
+    return k2_err
 
 
 PROMPT_LENS, NEW_TOKENS = (1800, 1200, 700, 300), 16
@@ -4050,6 +4126,310 @@ def cp_decode_phase(torch, np, seed: int):
             f"{fp32['logits_rel_fro_err_vs_d1']} (relative Frobenius)")
     return bf16["launches"], 0.0, bf16["max_memory_allocated_gb"]
 
+# --------------------------------------------------------------------------
+# phases 19-21: training
+# --------------------------------------------------------------------------
+
+def grads_of(torch, fn, inputs, g_out):
+    """(outputs, d(sum of outputs . g_out) / d inputs) through autograd."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    got = torch.autograd.grad(outs, leaves, g_out)
+    return [o.detach() for o in outs], list(got)
+
+
+def fwd_bwd_ms(torch, fn, inputs, g_out, iters: int = 3) -> float:
+    """Mean ms of one forward and backward, CUDA events, after a warm-up
+    (autograd allocates, so no CUDA graph)."""
+    grads_of(torch, fn, inputs, g_out)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        grads_of(torch, fn, inputs, g_out)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_train_case(torch, name, kernel_fn, plain_fn, inputs, g_out,
+                     names) -> dict:
+    """The autograd Function's output and input gradients against
+    autograd through the plain version on the same inputs."""
+    outs, grads = grads_of(torch, kernel_fn, inputs, g_out)
+    torch.cuda.synchronize()
+    p_outs, p_grads = grads_of(torch, plain_fn, inputs, g_out)
+    case = {"phase": "train_kernels", "case": name,
+            "shapes": [list(t.shape) for t in inputs[:3]],
+            "dtype": str(inputs[0].dtype)[6:]}
+    bf16 = inputs[0].dtype == torch.bfloat16
+    for label, got, want in ([(f"out{i}", o, w) for i, (o, w) in
+                              enumerate(zip(outs, p_outs))]
+                             + list(zip(names, grads, p_grads))):
+        if bf16:
+            err = rel_fro(got, want)
+            ok = err <= TRAIN_REL_FRO
+            case[f"{label}_rel_fro"] = err
+        else:
+            scale = max(1.0, float(want.float().abs().max()))
+            err = max_err(got, want) / scale
+            ok = err <= TRAIN_FP32_TOL
+            case[f"{label}_err"] = err
+        if not ok:
+            raise AssertionError(f"train_kernels {name}: {label} off by "
+                                 f"{err}")
+    case["tol"] = TRAIN_REL_FRO if bf16 else TRAIN_FP32_TOL
+    case["kernel_fwd_bwd_ms"] = fwd_bwd_ms(torch, kernel_fn, inputs, g_out)
+    case["plain_fwd_bwd_ms"] = fwd_bwd_ms(torch, plain_fn, inputs, g_out)
+    emit(case)
+    return case
+
+
+def train_kernels_phase(torch, seed: int) -> None:
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import fused_rmsnorm as K2
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+    for name, b, s, kvh, g, dh, window, dt in (
+            ("k3_gemma_global", 4, 1024, 1, 4, 256, 0, torch.bfloat16),
+            ("k3_gemma_local", 4, 1024, 1, 4, 256, 512, torch.bfloat16),
+            ("k3_fp32_d128", 2, 512, 2, 8, 128, 0, torch.float32)):
+        pos = torch.arange(s, dtype=torch.int32,
+                           device="cuda")[None].expand(b, s).contiguous()
+        qkv = [rnd(b, s, kvh, g, dh, dtype=dt), rnd(b, s, kvh, dh, dtype=dt),
+               rnd(b, s, kvh, dh, dtype=dt)]
+        g_out = [rnd(b, s, kvh, g, dh, dtype=dt)]
+        kw = dict(causal=True, window=window)
+        check_train_case(
+            torch, name,
+            lambda q, k, v: ops.flash_attention(q, k, v, pos, pos, **kw),
+            lambda q, k, v: K3.flash_attention_plain(q, k, v, pos, pos, **kw),
+            qkv, g_out, ("dq", "dk", "dv"))
+    for name, t, d in (("k2_gemma", 4096, 1152), ("k2_d8192", 2048, 8192)):
+        xs = [rnd(t, d), rnd(t, d), 1.0 + rnd(d, scale=0.1)]
+        g_out = [rnd(t, d), rnd(t, d)]
+        check_train_case(
+            torch, name,
+            lambda x, r, w: ops.fused_residual_rmsnorm(x, r, w, eps=1e-6,
+                                                       use_pallas=True),
+            lambda x, r, w: K2.fused_residual_rmsnorm_plain(x, r, w, 1e-6),
+            xs, g_out, ("dx", "dresidual", "dweight"))
+
+
+def train_gemma_phase(torch, np, seed: int, trace_dir: Path):
+    """Six AdamW steps of Gemma3-1B at full width and depth, then one more
+    step traced (``breakdown``: device ms by kind of kernel and in the
+    loss, backward and optimizer ranges).  K3's and K2's inputs are kept
+    at each shape the six steps give them (the weave's two 512-token
+    splits: the suffix's queries at positions 512..1023 against 1024 keys,
+    global and window 512) and the kernels are held on them afterwards.
+    Returns (launches over the six steps, K3's error, K2's error): a main
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.build import build_model
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import RANGES, make_train_step
+
+    cfg = get_config("gemma3-1b")
+    pcfg = ParallelConfig(comm_mode="fused", attn_impl="pallas",
+                          use_pallas_norm=True, remat=True, split_unit=64,
+                          tokenweave_min_tokens=256)
+    api = build_model(cfg, pcfg, tp=1)
+    batch, seq = 4, 1024
+    data = SyntheticLM(vocab=cfg.vocab_size, seq_len=seq,
+                       global_batch=batch, seed=seed)
+    step, init = make_train_step(api, make_mesh((1, 1), ("data", "model")),
+                                 None, AdamWConfig(lr=1e-3, warmup_steps=2),
+                                 dp_size=1)
+    base = reset_peak(torch)
+    params, opt = init(seed, device="cuda")
+    n_params = sum(p.numel() for p in
+                   torch.utils._pytree.tree_flatten(params)[0])
+    k3_inputs, k2_inputs = {}, {}
+    undo = [capture_k3_inputs(k3_inputs), capture_k2_inputs(k2_inputs)]
+    reset_launches()
+    losses, norms, ms, per_step = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        b = data.batch(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = read_launches()
+        start.record()
+        params, opt, m = step(params, opt, b)
+        end.record()
+        torch.cuda.synchronize()
+        after = read_launches()
+        counts = {k: after[k] - before[k] for k in after}
+        per_step.append(counts)
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        for k in ("fused_residual_rmsnorm", "flash_attention"):
+            if counts[k] <= 0:
+                raise AssertionError(f"train_gemma step {i}: {k} not "
+                                     f"launched ({counts})")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9 - base
+    for u in undo:
+        u()
+    med = statistics.median(ms[1:])
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step(
+            state["params"], state["opt"], data.batch(TRAIN_STEPS))
+    emit({"phase": "breakdown", "engine": "train_gemma", "tp": 1,
+          "step": "train", "tokens": batch * seq,
+          **device_breakdown(torch, one_step, trace_dir / "train_gemma.json",
+                             RANGES)})
+    params, opt = state["params"], state["opt"]
+    emit({"phase": "train_gemma", "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": n_params, "batch": batch, "seq": seq,
+          "step_ms": ms, "step_ms_median_2_6": med,
+          "tokens_per_s": batch * seq / (med / 1e3), "peak_gb": peak,
+          "launches_per_step": per_step, "losses": losses,
+          "grad_norms": norms})
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train_gemma: non-finite loss or norm "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_gemma: loss did not fall {losses}")
+    del params, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (launches, check_main_path_k3(torch, k3_inputs, "train_gemma", 1),
+            check_main_path_k2(torch, k2_inputs, "train_gemma"))
+
+
+def run_train(*runs):
+    """``python -m repro_torch.launch.train`` on the card for each (args,
+    checkpoint dir), all at once (each is mostly its interpreter's and
+    CUDA's start), from src/ with no PYTHONPATH.  Returns (return code,
+    stdout, stderr) per run."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--ckpt-dir", str(ckpt)], cwd=SRC, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for args, ckpt in runs]
+    out = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            out.append((proc.returncode, stdout, stderr))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def logged_losses(out: str) -> list:
+    return [float(ln.split("loss")[1].split()[0]) for ln in out.splitlines()
+            if ln.startswith("[train] step")]
+
+
+def train_resume_phase(torch) -> None:
+    import shutil
+    root = ROOT / "build" / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", "qwen1.5-4b", "--reduced", "--steps", "12",
+            "--ckpt-every", "4", "--batch", "2", "--seq", "64"]
+    manual_args = ["--reduced", "--steps", "4", "--batch", "4", "--seq",
+                   "64", "--mesh", "2x1x2", "--manual-sync"]
+    t0 = time.perf_counter()
+    crash, clean = run_train((args + ["--fail-at-step", "6"], root / "crash"),
+                             (args, root / "clean"))
+    resume, manual = run_train((args, root / "crash"),
+                               (manual_args, root / "manual"))
+    for name, (rc, stdout, stderr) in (("crash", crash), ("clean", clean),
+                                       ("resume", resume),
+                                       ("manual", manual)):
+        if rc != (42 if name == "crash" else 0):
+            raise AssertionError(f"train_resume: the {name} run exited {rc}: "
+                                 f"{stdout}{stderr[-3000:]}")
+    if "resumed from checkpoint step 6" not in resume[1]:
+        raise AssertionError(f"train_resume: no resume: {resume[1]}")
+    resumed = logged_losses(resume[1])[-1]
+    clean = logged_losses(clean[1])[-1]
+    rel = abs(resumed - clean) / abs(clean)
+    manual = logged_losses(manual[1])
+    emit({"phase": "train_resume", "resumed_final_loss": resumed,
+          "clean_final_loss": clean, "rel_diff": rel, "rtol": RESUME_RTOL,
+          "manual_sync_losses": manual,
+          "seconds": time.perf_counter() - t0})
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"train_resume: final losses {resumed} vs "
+                             f"{clean}")
+    if not (len(manual) == 2 and all(map(math.isfinite, manual))):
+        raise AssertionError(f"train_resume: manual-sync losses {manual}")
+    manual_sync_phase(torch)
+
+
+def manual_sync_phase(torch) -> None:
+    """Whether the int8 pod reduce trains: the driver's ``--manual-sync
+    --mesh 2x1x2`` configuration built in process, 4 steps from one init
+    with the int8 reduce and without it (same batches), each holding the
+    loss on one fixed batch (batch 0) before and after.  Both must fall,
+    and the int8 run's fall must be within MANUAL_INT8_FALL_RTOL of the
+    uncompressed run's, relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.build import build_model
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_manual_sync_train_step
+
+    steps = 4
+    cfg = get_config("gemma3-1b").reduced()
+    pcfg = ParallelConfig(comm_mode="fused", dp_axes=("pod", "data"),
+                          split_unit=64, tokenweave_min_tokens=256,
+                          grad_compression="int8")
+    api = build_model(cfg, pcfg, tp=2, ep=2)
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    data = SyntheticLM(vocab=cfg.vocab_size, seq_len=64, global_batch=4)
+    fixed = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=steps // 4 + 1)
+
+    @torch.no_grad()
+    def fixed_loss(params):
+        ls, dn, aux = api.train_loss(params, fixed, dp=2)
+        return float((ls / torch.clamp(dn, min=1.0) + aux).mean())
+
+    out = {}
+    for name, compress in (("int8", True), ("none", False)):
+        step, init = make_manual_sync_train_step(api, mesh, data.batch(0),
+                                                 ocfg, compress_pod=compress)
+        state = list(init(0, device="cuda"))
+        before, losses = fixed_loss(state[0]), []
+        for i in range(steps):
+            extra = state[2:] + [data.batch(i)]
+            got = step(state[0], state[1], *extra)
+            state = [got[0], got[1], *got[3:]]
+            losses.append(float(got[2]["loss"]))
+        out[name] = {"fixed_before": before, "fixed_after":
+                     fixed_loss(state[0]), "step_losses": losses}
+    fall = {k: v["fixed_before"] - v["fixed_after"] for k, v in out.items()}
+    emit({"phase": "manual_sync", "mesh": "2x1x2", "steps": steps,
+          "lr": ocfg.lr, **out, "fall": fall,
+          "fall_rtol": MANUAL_INT8_FALL_RTOL})
+    if not (fall["none"] > 0 and abs(fall["int8"] - fall["none"])
+            <= MANUAL_INT8_FALL_RTOL * fall["none"]):
+        raise AssertionError(f"manual_sync: fixed-batch loss falls {fall}")
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4138,11 +4518,22 @@ def main() -> int:
     paths += [ep2d_run(**kw, dp=dp) for dp in (2, 1)]
     kw.pop("trace_dir")
     paths.append(cp_decode_phase(**kw))
+    # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
+    t0 = time.perf_counter()
+    train_kernels_phase(torch, args.seed)
+    *gemma, gemma_k2_err = train_gemma_phase(torch, np, args.seed,
+                                             args.trace_dir)
+    paths.append(tuple(gemma))
+    train_resume_phase(torch)
+    emit({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
-    # the K3 error over every shape the main paths gave it, too
+    # the K3 error over every shape the main paths gave it, too, and K2's
+    # over training's
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], *(p[1] for p in paths))
+    rows["fused_residual_rmsnorm"]["max_abs_err"] = max(
+        rows["fused_residual_rmsnorm"]["max_abs_err"], gemma_k2_err)
     for tp in (1, 8):
         sampler_phase(torch, np, args.seed, tp=tp)
     for moe in ("", "ffn", "expert"):

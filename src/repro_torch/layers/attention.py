@@ -12,7 +12,8 @@ by ``o_scale``).  The output is partial over the ranks; its reduction is
 ``comm_norm``.
 
 Implementations of prefill attention: ``impl="pallas"`` runs kernel K3
-(``kernels/flash_attention.py``) with R folded into the batch; ``"ref"``
+(``kernels/flash_attention.py``, through ``kernels.ops``, as an autograd
+Function where a gradient is asked) with R folded into the batch; ``"ref"``
 and ``"chunked"`` compute the same function with the plain version.
 Decode attention and the encdec decoder's cross attention
 (``attn_cross``) are plain tensor code, as in the reference (no Pallas
@@ -41,8 +42,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.flash_attention import attention_mask as _mask
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain as _attn_ref
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rotary import apply_mrope, apply_rope
 from repro_torch.runtime import paging as PG

@@ -1,5 +1,5 @@
-"""Vocab-sharded embedding, LM head and greedy argmax over vocab-sharded
-logits, as ``repro.layers.embedding``.
+"""Vocab-sharded embedding, LM head, the cross-entropy and greedy argmax
+over vocab-sharded logits, as ``repro.layers.embedding``.
 
 Rank r of the rank axis R holds vocabulary rows ``[r·V_loc, (r+1)·V_loc)``
 of the padded vocabulary (``V_pad = pad_to_multiple(V, tp)``).  The
@@ -50,3 +50,31 @@ def sharded_argmax(logits: torch.Tensor, *, vocab_size: int) -> torch.Tensor:
                        torch.full((), big, dtype=torch.int32,
                                   device=lg.device))
     return cand.min(dim=-1).values
+
+
+def sharded_softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+                         vocab_size: int, ignore_id: int = -100):
+    """Cross-entropy over vocab-sharded logits (R, B, S, V_loc), rank r's
+    shard the global ids ``[r·V_loc, (r+1)·V_loc)``, against global
+    ``labels`` (B, S).  Returns (the summed loss over the labels that are
+    not ``ignore_id``, their count), float32 scalars.
+
+    As the reference: the padded vocabulary tail is -inf, the stability
+    max (the max over every rank's shard) carries no gradient, the
+    log-sum-exp sums each rank's partial sum of exponentials, and the
+    label's logit is picked from the rank that holds it."""
+    r, b, s, v_loc = logits.shape
+    lg = logits.float()
+    lo = torch.arange(r, device=lg.device)[:, None, None, None] * v_loc
+    col = lo + torch.arange(v_loc, device=lg.device)
+    lg = torch.where(col < vocab_size, lg, float("-inf"))
+    m = lg.detach().amax(dim=-1).amax(dim=0)                    # (B, S)
+    se = torch.exp(lg - m[..., None]).sum(dim=-1)               # (R, B, S)
+    lse = torch.log(se.sum(dim=0)) + m
+    local = labels.long()[None] - lo[..., 0]                    # (R, B, S)
+    in_range = (local >= 0) & (local < v_loc)
+    picked = torch.gather(lg, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    correct = torch.where(in_range, picked, 0.0).sum(dim=0)
+    valid = labels != ignore_id
+    nll = torch.where(valid, lse - correct, 0.0)
+    return nll.sum(), valid.sum().to(torch.float32)

@@ -115,10 +115,47 @@ def _prefix_scan(a, b, dim: int, out=None):
     return out
 
 
+def _interleave(even, odd, dim: int, n: int):
+    """Positions 0, 2, 4, ... from ``even`` and 1, 3, ... from ``odd``
+    along ``dim``, n in all."""
+    if odd.shape[dim] < even.shape[dim]:                 # n odd
+        odd = torch.cat([odd, _slice(even, dim, 0, 1)], dim=dim)
+    both = torch.stack([even, odd], dim=dim + 1)
+    both = both.flatten(dim, dim + 1)
+    return _slice(both, dim, 0, n)
+
+
+def _prefix_scan_train(a, b, dim: int):
+    """``_prefix_scan`` for autograd: the same odd/even recursion and the
+    same operations, so it rounds bit for bit as the serving form, but
+    each level is built from new tensors (``torch.stack`` and an
+    interleave) instead of writes into strided views of an output, which
+    autograd refuses."""
+    n = a.shape[dim]
+    if n < 2:
+        return a, b
+    m, k = n // 2, (n - 1) // 2
+    al, bl = _slice(a, dim, 0, 2 * m, 2), _slice(b, dim, 0, 2 * m, 2)
+    ar, br = _slice(a, dim, 1, 2 * m, 2), _slice(b, dim, 1, 2 * m, 2)
+    oa, ob = _prefix_scan_train(al * ar, torch.addcmul(br, ar, bl), dim)
+    ea, eb = _slice(a, dim, 0, 1), _slice(b, dim, 0, 1)
+    if k:
+        ae, be = _slice(a, dim, 2, None, 2), _slice(b, dim, 2, None, 2)
+        pa, pb = (_slice(t, dim, 0, k) for t in (oa, ob))
+        ea = torch.cat([ea, pa * ae], dim=dim)
+        eb = torch.cat([eb, torch.addcmul(be, ae, pb)], dim=dim)
+    return _interleave(ea, oa, dim, n), _interleave(eb, ob, dim, n)
+
+
 def _scan_chunk(a, b, h, dim: int):
     """One chunk: h_t for every t of the chunk from the carry-in h (a[t]
-    without the time axis).  Returns (h_all, h at the chunk's end)."""
-    pa, pb = _prefix_scan(a, b, dim)
+    without the time axis).  Returns (h_all, h at the chunk's end).  The
+    training form of the scan runs where autograd records the call."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or h.requires_grad):
+        pa, pb = _prefix_scan_train(a, b, dim)
+    else:
+        pa, pb = _prefix_scan(a, b, dim)
     h_all = torch.addcmul(pb, pa, h.unsqueeze(dim))
     return h_all, h_all.select(dim, -1)
 

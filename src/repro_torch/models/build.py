@@ -14,12 +14,21 @@ and the hybrid's full-attention caches split their sequence over it
 
 ``prefill`` passes its keywords on: ``frames`` (encdec), and
 ``mrope_positions`` and ``extra_embeds`` (vlm); ``init_cache`` passes
-``enc_len`` (encdec)."""
+``enc_len`` (encdec).
+
+``train_loss`` gives the reference's (loss_sum, denom, aux) once per data
+shard, as (D,) tensors: the transformer splits its batch over D itself
+(a MoE layer routes per shard), the other families run each shard's rows
+on their own (nothing crosses data shards in them).  ``specs`` reads
+the reference's layout off a parameter tree (``weights.py``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import torch
+
+from repro_torch import weights
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import encdec, hybrid, mamba_model, transformer
 
@@ -51,6 +60,29 @@ class ModelApi:
             kw.update(self._dp, seq_shard_kv=self.pcfg.seq_shard_kv)
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
+
+    def train_loss(self, params, batch, *, dp: int | None = None):
+        """batch {"tokens" (B, S), "labels" (B, S_labels), and per family
+        "frames" (encdec), "mrope_positions" / "extra_embeds" (vlm)}, B
+        holding ``dp`` (default ``ep``) data shards' rows one after the
+        other -> (loss_sum, denom, aux), each (D,) float32."""
+        dp = self.ep if dp is None else dp
+        if self.mod is transformer:
+            return transformer.train_loss(params, batch, cfg=self.cfg,
+                                          pcfg=self.pcfg, dp=dp)
+        rows = batch["tokens"].shape[0]
+        if rows % dp:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{dp} data shards")
+        n = rows // dp
+        outs = [self.mod.train_loss(
+            params, {k: v[d * n:(d + 1) * n] for k, v in batch.items()},
+            cfg=self.cfg, pcfg=self.pcfg) for d in range(dp)]
+        return tuple(torch.cat(x) for x in zip(*outs))
+
+    def specs(self, params):
+        """The reference's ``api.specs()`` (tuples) for this tree."""
+        return weights.reference_specs(params, self.cfg, self.pcfg)
 
     def forward(self, params, tokens, positions, **kw):
         """The shared forward with no cache: (hidden (R, B, S, d), chunk

@@ -43,7 +43,7 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
 from repro_torch.models import transformer as TR
-from repro_torch.models.mamba_model import embedding_params
+from repro_torch.models.mamba_model import embedding_params, xent
 
 MAX_DECODER_POSITIONS = 4096
 
@@ -122,9 +122,30 @@ def encoder_split(b: int, s: int, *, tp: int, pcfg: ParallelConfig):
     return half or None
 
 
-def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig):
+def _enc_layer(lp, hs, ress, *, cuts, positions, cfg, pcfg, lay, weave):
+    """One encoder layer over the batch splits ``cuts``."""
+    hs, ress = list(hs), list(ress)
+    s = positions.shape[1]
+    for i, (lo, hi) in enumerate(cuts):
+        weave.wait(i)
+        a_part, _ = A.attn_prefill(
+            lp["attn"], hs[i], positions=positions.expand(hi - lo, s),
+            cfg=cfg, lay=lay, theta=cfg.rope_theta, causal=False,
+            impl=pcfg.attn_impl)
+        hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
+                                         lp["norm_attn"])
+    for i in range(len(cuts)):
+        weave.wait(i)
+        hs[i], ress[i] = weave.comm_norm(
+            i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+    return hs, ress
+
+
+def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig,
+           train: bool = False):
     """frames (B, S_enc, d), stub embeddings -> the encoder's output (R,
-    B, S_enc, d), the same on every rank."""
+    B, S_enc, d), the same on every rank.  ``train``: each layer under
+    ``remat`` when ``pcfg.remat``."""
     tp = params["embedding"]["embed"].shape[0]
     b, s, _ = frames.shape
     dev = frames.device
@@ -133,27 +154,18 @@ def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig):
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
     b1 = encoder_split(b, s, tp=tp, pcfg=pcfg)
     cuts = [(0, b)] if b1 is None else [(0, b1), (b1, b)]
-    weave = TR._Weave(len(cuts), ctx, dev)
+    weave = TR._Weave(len(cuts), ctx, dev, overlap=not train)
     # the frames are complete values: /tp, so the entry norm's sum over
     # the ranks gives them back
     hs, ress = map(list, zip(*(
         TR._entry_norm(weave, i, (x[lo:hi] / tp).expand(tp, hi - lo, s, -1),
                        params["norm_first_enc"])
         for i, (lo, hi) in enumerate(cuts))))
-    lay = _layout(cfg, tp)
+    layer = TR.remat(_enc_layer, train and pcfg.remat)
     for lp in params["enc_layers"]:
-        for i, (lo, hi) in enumerate(cuts):
-            weave.wait(i)
-            a_part, _ = A.attn_prefill(
-                lp["attn"], hs[i], positions=positions.expand(hi - lo, s),
-                cfg=cfg, lay=lay, theta=cfg.rope_theta, causal=False,
-                impl=pcfg.attn_impl)
-            hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
-                                             lp["norm_attn"])
-        for i in range(len(cuts)):
-            weave.wait(i)
-            hs[i], ress[i] = weave.comm_norm(
-                i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+        hs, ress = layer(lp, hs, ress, cuts=cuts, positions=positions,
+                         cfg=cfg, pcfg=pcfg, lay=_layout(cfg, tp),
+                         weave=weave)
     for i in range(len(cuts)):
         weave.wait(i)
     return torch.cat(hs, dim=1) if len(hs) == 2 else hs[0]
@@ -170,14 +182,70 @@ def project_cross_caches(params, enc_out, *, cfg: ModelConfig,
         for lp in params["dec_layers"]]
 
 
+def _dec_layer(lp, hs, ress, cache_l, cross_l, *, poss, cuts, decode: bool,
+               cfg, pcfg, lay, weave):
+    """One decoder layer over the splits: self attention (prefill: the
+    cache rows ``cache_l`` and every earlier split's KV as prefix; decode:
+    each split's rows of ``cache_l``, written in place), cross attention
+    over ``cross_l`` and the FFN.  Returns (hs, ress, the prompt's self KV
+    (prefill) or None)."""
+    hs, ress = list(hs), list(ress)
+
+    def cross_of(i):
+        """Split i's rows of the cross cache (a decode split slices the
+        batch; prompt splits share every row)."""
+        c = cross_l
+        if decode and len(cuts) == 2:
+            lo, hi = cuts[i]
+            c = A.cache_rows(c, lo, hi - lo)
+        return c["k"], c["v"], c["pos"]
+
+    kv_prev = (None if decode or cache_l is None else
+               (cache_l["k"], cache_l["v"], cache_l["pos"]))
+    kv_outs, off = [], 0
+    for i in range(len(hs)):
+        weave.wait(i)
+        geo = dict(positions=poss[i], cfg=cfg, lay=lay,
+                   theta=cfg.rope_theta)
+        if decode:
+            rows = hs[i].shape[1]
+            a_part, _ = A.attn_decode(lp["attn"], hs[i],
+                                      A.cache_rows(cache_l, off, rows),
+                                      **geo)
+            off += rows
+        else:
+            a_part, kv = A.attn_prefill(lp["attn"], hs[i],
+                                        kv_prefix=kv_prev,
+                                        impl=pcfg.attn_impl, **geo)
+            kv_outs.append(kv)
+            kv_prev = kv if kv_prev is None else TR.cat_kv(kv_prev, kv)
+        hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
+                                         lp["norm_attn"])
+    for i in range(len(hs)):
+        weave.wait(i)
+        c_part = A.attn_cross(lp["cross"], hs[i], cross_of(i), cfg=cfg,
+                              lay=lay)
+        hs[i], ress[i] = weave.comm_norm(i, c_part, ress[i],
+                                         lp["norm_cross"])
+    for i in range(len(hs)):
+        weave.wait(i)
+        hs[i], ress[i] = weave.comm_norm(
+            i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+    if decode:
+        return hs, ress, None
+    return hs, ress, (kv_outs[0] if len(kv_outs) == 1
+                      else TR.cat_kv(*kv_outs))
+
+
 def decoder_forward(params, tokens, *, cfg: ModelConfig,
                     pcfg: ParallelConfig, cross_kv, positions=None,
-                    cache=None, decode: bool = False):
+                    cache=None, decode: bool = False, train: bool = False):
     """The causal decoder over ``cross_kv`` (``project_cross_caches``).
     Returns (hidden (R, B, S, d), the same on every rank, the prompt's
     self KV per layer [(k, v, pos)] (prefill: ``cache``, the self cache's
     rows, is attended as prefix) or ``cache``, updated in place
-    (decode))."""
+    (decode)).  ``train``: no cache, no KV kept (None returned), each
+    layer under ``remat`` when ``pcfg.remat``."""
     tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
     dev = tokens.device
@@ -200,61 +268,38 @@ def decoder_forward(params, tokens, *, cfg: ModelConfig,
         embs = [emb[:, :, lo:hi] for lo, hi in cuts]
         poss = [positions[:, lo:hi] for lo, hi in cuts]
 
-    def cross_of(i, c):
-        """Split i's rows of one layer's cross cache (a decode split
-        slices the batch; prompt splits share every row)."""
-        if decode and len(cuts) == 2:
-            lo, hi = cuts[i]
-            c = A.cache_rows(c, lo, hi - lo)
-        return c["k"], c["v"], c["pos"]
-
-    weave = TR._Weave(len(embs), ctx, dev)
+    weave = TR._Weave(len(embs), ctx, dev, overlap=not train)
     hs, ress = map(list, zip(*(TR._entry_norm(weave, i, e,
                                               params["norm_first"])
                                for i, e in enumerate(embs))))
-    lay = _layout(cfg, tp)
+    layer = TR.remat(_dec_layer, train and pcfg.remat)
     kv_all = []
     for li, lp in enumerate(params["dec_layers"]):
         cache_l = None if cache is None else cache[li]
-        kv_prev = (None if decode or cache_l is None else
-                   (cache_l["k"], cache_l["v"], cache_l["pos"]))
-        kv_outs, off = [], 0
-        for i in range(len(hs)):
-            weave.wait(i)
-            geo = dict(positions=poss[i], cfg=cfg, lay=lay,
-                       theta=cfg.rope_theta)
-            if decode:
-                rows = hs[i].shape[1]
-                a_part, _ = A.attn_decode(lp["attn"], hs[i],
-                                          A.cache_rows(cache_l, off, rows),
-                                          **geo)
-                off += rows
-            else:
-                a_part, kv = A.attn_prefill(lp["attn"], hs[i],
-                                            kv_prefix=kv_prev,
-                                            impl=pcfg.attn_impl, **geo)
-                kv_outs.append(kv)
-                kv_prev = kv if kv_prev is None else TR.cat_kv(kv_prev, kv)
-            hs[i], ress[i] = weave.comm_norm(i, a_part, ress[i],
-                                             lp["norm_attn"])
-        for i in range(len(hs)):
-            weave.wait(i)
-            c_part = A.attn_cross(lp["cross"], hs[i],
-                                  cross_of(i, cross_kv[li]), cfg=cfg, lay=lay)
-            hs[i], ress[i] = weave.comm_norm(i, c_part, ress[i],
-                                             lp["norm_cross"])
-        for i in range(len(hs)):
-            weave.wait(i)
-            hs[i], ress[i] = weave.comm_norm(
-                i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
-        kv_all.append(cache_l if decode else
-                      kv_outs[0] if len(kv_outs) == 1 else
-                      TR.cat_kv(*kv_outs))
+        hs, ress, kv = layer(lp, hs, ress, cache_l, cross_kv[li], poss=poss,
+                             cuts=cuts, decode=decode, cfg=cfg, pcfg=pcfg,
+                             lay=_layout(cfg, tp), weave=weave)
+        if not train:
+            kv_all.append(cache_l if decode else kv)
     for i in range(len(hs)):
         weave.wait(i)
     h_out = (torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2
              else hs[0])
-    return h_out, (cache if decode else kv_all)
+    return h_out, (None if train else cache if decode else kv_all)
+
+
+def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
+               aux_weight: float = 0.0):
+    """batch {"frames" (B, S_enc, d), "tokens" (B, S), "labels" (B, S)} ->
+    (loss_sum, denom, aux), each (1,) float32 (no aux loss): the encoder
+    over the frames, the cross caches, the decoder over the tokens."""
+    frames = batch["frames"]
+    enc_out = encode(params, frames, cfg=cfg, pcfg=pcfg, train=True)
+    cross = project_cross_caches(params, enc_out, cfg=cfg, pcfg=pcfg)
+    h, _ = decoder_forward(params, batch["tokens"].to(frames.device),
+                           cfg=cfg, pcfg=pcfg, cross_kv=cross, train=True)
+    ls, dn = xent(params, h, batch["labels"], cfg)
+    return ls, dn, torch.zeros_like(ls)
 
 
 def prefill(params, tokens, cache, *, cfg: ModelConfig,

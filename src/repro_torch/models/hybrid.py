@@ -40,6 +40,7 @@ every shard.  A batch split over D is not ported for this family.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -166,12 +167,14 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 128, dp: int = 1):
+            ssm_chunk: int = 128, dp: int = 1, train: bool = False):
     """Returns (hidden (R, B, S, d), the same on every rank, {"mamba": the
     state cache, "shared": per invocation the chunk's (k, v, pos)
     (prefill) or the KV cache dict (decode)}).  Without ``cache`` the
     shared blocks see no prefix and the recurrence starts from zero.
-    ``dp`` > 1 needs ``pcfg.seq_shard_kv`` (module docstring)."""
+    ``dp`` > 1 needs ``pcfg.seq_shard_kv`` (module docstring).
+    ``train``: no cache and none returned; each shared-block invocation
+    and each Mamba-2 layer under ``remat`` when ``pcfg.remat``."""
     _check_dp(dp, pcfg.seq_shard_kv)
     tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
@@ -189,13 +192,16 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     embs = [emb[lo:hi] if decode else emb[:, lo:hi] for lo, hi in cuts]
     poss = [positions[lo:hi] if decode else positions[:, lo:hi]
             for lo, hi in cuts]
-    weave = TR._Weave(len(embs), ctx, dev)
+    weave = TR._Weave(len(embs), ctx, dev, overlap=not train)
     hs, ress = map(list, zip(*(
         TR._entry_norm(weave, i, (e / tp).expand(tp, *e.shape),
                        params["norm_first"]) for i, e in enumerate(embs))))
 
     n_inv, _ = _n_groups(cfg)
     period = cfg.shared_attn_period
+    if train:
+        return _train_layers(params, hs, ress, embs, poss, cfg=cfg,
+                             pcfg=pcfg, weave=weave, chunk=ssm_chunk), None
     mcache = (S.init_mamba2_state(b, cfg, tp, cfg.num_layers, device=dev,
                                   dtype=emb.dtype)
               if cache is None else cache["mamba"])
@@ -225,6 +231,44 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         weave.wait(i)
     h_out = torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2 else hs[0]
     return h_out, {"mamba": mcache, "shared": shared_out}
+
+
+def _shared_train(shared, g: int, hs, ress, embs, poss, *, cfg, pcfg,
+                  weave):
+    hs, ress, _ = _shared_weave(shared, g, list(hs), list(ress), embs, poss,
+                                None, cfg=cfg, pcfg=pcfg, weave=weave,
+                                decode=False)
+    return hs, ress
+
+
+def _train_layers(params, hs, ress, embs, poss, *, cfg, pcfg, weave,
+                  chunk: int):
+    """The training forward's blocks in the serving order, from a zero
+    state and no prefix; the hidden output (R, B, S, d)."""
+    shared = TR.remat(_shared_train, pcfg.remat)
+    layer = MM.train_layer(functools.partial(S.mamba2_forward, cfg=cfg),
+                           pcfg)
+    n_inv, _ = _n_groups(cfg)
+    period = cfg.shared_attn_period
+    for g in range(n_inv):
+        hs, ress = shared(params["shared"], g, hs, ress, embs, poss, cfg=cfg,
+                          pcfg=pcfg, weave=weave)
+        for i in range(g * period, (g + 1) * period):
+            hs, ress = layer(params["layers"][i], hs, ress, weave=weave,
+                             chunk=chunk)
+    for i in range(n_inv * period, cfg.num_layers):      # the tail
+        hs, ress = layer(params["layers"][i], hs, ress, weave=weave,
+                         chunk=chunk)
+    return torch.cat(hs, dim=2) if len(hs) == 2 else hs[0]
+
+
+def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
+               aux_weight: float = 0.0):
+    """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
+    aux), each (1,) float32 (no aux loss)."""
+    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True)
+    ls, dn = MM.xent(params, h, batch["labels"], cfg)
+    return ls, dn, torch.zeros_like(ls)
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,

@@ -19,6 +19,8 @@ the new state into it in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -115,15 +117,31 @@ def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
 # forward
 # --------------------------------------------------------------------------
 
+def _train_layer(block, lp, hs, ress, *, weave, chunk: int):
+    hs, ress, _ = mamba_weave(block, lp, list(hs), list(ress), None,
+                              weave=weave, decode=False, split_rows=0,
+                              chunk=chunk)
+    return hs, ress
+
+
+def train_layer(block, pcfg: ParallelConfig):
+    """One recurrent layer of a training forward, ``(lp, hs, ress, *,
+    weave, chunk) -> (hs, ress)``, from a zero state and keeping none,
+    under ``remat`` when ``pcfg.remat`` (the reference checkpoints each
+    layer of its scan)."""
+    return TR.remat(functools.partial(_train_layer, block), pcfg.remat)
+
+
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 256):
+            ssm_chunk: int = 256, train: bool = False):
     """Returns (hidden (R, B, S, d), the same on every rank, the state
     cache).  ``cache``: the state rows of this batch, read as the start
     state (decode, or a chunk after the first) and updated in place; with
     none, the recurrence starts from zero and a fresh cache is returned.
     ``positions`` are not read: a recurrence has no positions (padding
-    would enter the state, so chunks must be exact)."""
+    would enter the state, so chunks must be exact).  ``train``: no cache
+    and none returned, the layers under ``remat`` (``train_layer``)."""
     tp = params["embedding"]["embed"].shape[0]
     b, s = tokens.shape
     ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
@@ -131,10 +149,16 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
     embs = [emb[:, lo:hi] if decode else emb[:, :, lo:hi]
             for lo, hi in TR._split_cuts(split, b if decode else s)]
-    weave = TR._Weave(len(embs), ctx, emb.device)
+    weave = TR._Weave(len(embs), ctx, emb.device, overlap=not train)
     hs, ress = map(list, zip(*(TR._entry_norm(weave, i, e,
                                               params["norm_first"])
                                for i, e in enumerate(embs))))
+    if train:
+        layer = train_layer(functools.partial(S.mamba1_forward, cfg=cfg),
+                            pcfg)
+        for lp in params["layers"]:
+            hs, ress = layer(lp, hs, ress, weave=weave, chunk=ssm_chunk)
+        return torch.cat(hs, dim=2) if len(hs) == 2 else hs[0], None
     if cache is None:
         cache = S.init_mamba1_state(b, cfg, tp, cfg.num_layers,
                                     device=emb.device, dtype=emb.dtype)
@@ -162,6 +186,25 @@ def lm_logits_at(params, h, last_idx=None):
             r, -1, 1, d)
         h_last = torch.gather(h, 2, idx)
     return E.lm_head_logits(params["embedding"], h_last)
+
+
+def xent(params, h, labels, cfg: ModelConfig):
+    """(loss_sum, denom), each (1,), of the hidden rows h against
+    ``labels``: the per-shard values a family without a data axis
+    returns."""
+    ls, dn = E.sharded_softmax_xent(
+        E.lm_head_logits(params["embedding"], h), labels.to(h.device),
+        vocab_size=cfg.vocab_size)
+    return ls[None], dn[None]
+
+
+def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
+               aux_weight: float = 0.0):
+    """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
+    aux), each (1,) float32; a recurrence has no aux loss."""
+    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True)
+    ls, dn = xent(params, h, batch["labels"], cfg)
+    return ls, dn, torch.zeros_like(ls)
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,

@@ -62,6 +62,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fused_collectives as fc
@@ -180,12 +181,14 @@ class _Weave:
     AR-norm before it reads that split's output.  Tensors that cross
     streams get ``record_stream`` so the caching allocator does not hand
     their memory out early.  Otherwise every call runs in order on the
-    current stream."""
+    current stream, as it does with ``overlap=False`` (training: the
+    backward runs the layers again on the current stream)."""
 
-    def __init__(self, n_splits: int, ctx: CommCtx, device: torch.device):
+    def __init__(self, n_splits: int, ctx: CommCtx, device: torch.device,
+                 overlap: bool = True):
         self.ctx = ctx
         self.comm = None
-        if ctx.tp > 1 and n_splits == 2 and device.type == "cuda":
+        if overlap and ctx.tp > 1 and n_splits == 2 and device.type == "cuda":
             self.compute = torch.cuda.current_stream(device)
             self.comm = torch.cuda.Stream(device=device, priority=-1)
             self.done = [None] * n_splits
@@ -227,13 +230,14 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     cache in sequence, so the suffix split's attention reads the prefix
     split's freshly scattered KV (a segment straddling the cut needs its
     earlier tokens).  Paged decode runs unsplit: a batch split would fork
-    the shared pool.  A MoE layer's aux loss is dropped (serving)."""
+    the shared pool.  A MoE layer's aux loss is added to ``state["aux"]``
+    where the state has one (training) and dropped otherwise (serving)."""
     n = len(state["h"])
     packed = state.get("pslots") is not None
     dp = state["dp"]
     hs, ress = list(state["h"]), list(state["res"])
     kv_prev = None if decode or packed else _cache_prefix(cache_layer)
-    kv_outs, off = [], 0
+    kv_outs, auxes, off = [], [], 0
     for i in range(n):
         weave.wait(i)
         h, pos = hs[i], state["positions"][i]
@@ -287,29 +291,36 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     for i in range(n):
         weave.wait(i)
         if kind.is_moe:
-            f_part = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv)
+            f_part, aux = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv)
+            auxes.append(aux)
         else:
             f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
         hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
                                          lp.get("norm_ffn_post"))
     state = dict(state, h=hs, res=ress)
+    if auxes and "aux" in state:
+        state["aux"] = state["aux"] + sum(auxes)
     if decode or packed:
         return state, cache_layer
     return state, kv_outs[0] if n == 1 else cat_kv(*kv_outs)
 
 
 def _moe(params, h, cfg, dp: int, seq_shard_kv: bool):
-    """A MoE layer's partial output.  With the batch over D each data
-    shard routes its own rows; under context parallelism (the batch whole
-    on every shard) ``ep2d`` still dispatches every shard's copy of the
-    tokens, as the reference's shards do, and keeps shard 0's output (all
-    D are equal); ``expert``/``ffn`` have nothing to exchange."""
+    """A MoE layer's (partial output, aux loss per data shard the batch
+    splits over).  With the batch over D each data shard routes its own
+    rows; under context parallelism (the batch whole on every shard)
+    ``ep2d`` still dispatches every shard's copy of the tokens, as the
+    reference's shards do, and keeps shard 0's output (all D are equal);
+    ``expert``/``ffn`` have nothing to exchange.  The aux loss is the same
+    on every rank (routing reads the replicated input): rank 0's."""
     if dp > 1 and not seq_shard_kv:
-        return X.moe_forward(params, h, cfg, dp=dp)[0]
+        out, aux = X.moe_forward(params, h, cfg, dp=dp)
+        return out, aux[0]
     if dp > 1 and cfg.moe_partition == "ep2d":
-        out, _ = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg, dp=dp)
-        return out[:, :h.shape[1]]
-    return X.moe_forward(params, h, cfg)[0]
+        out, aux = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg, dp=dp)
+        return out[:, :h.shape[1]], aux[0, :1]
+    out, aux = X.moe_forward(params, h, cfg)
+    return out, aux[:1]
 
 
 def cat_kv(a, b):
@@ -458,6 +469,21 @@ def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
                    comm_budget=budget, dp=dp)
 
 
+def remat(fn, on: bool):
+    """``fn`` under ``torch.utils.checkpoint`` when ``on``: the
+    reference's ``jax.checkpoint(..., nothing_saveable)`` around a layer
+    (``pcfg.remat``, training only): the backward keeps the layer's
+    inputs alone and runs it again.  ``fn`` must not change its inputs
+    (the run again reads them)."""
+    if not on:
+        return fn
+
+    def run(*args, **kw):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return run
+
+
 def _entry_norm(weave: _Weave, i: int, emb, w_first):
     """Split i's partial embedding (R, B, S, d) -> residual birth + the
     first input norm: the embedding's partial rows are completed by this
@@ -486,9 +512,12 @@ def data_layout(b: int, dp: int, pcfg: ParallelConfig) -> Tuple[int, int]:
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, mrope_positions=None, extra_embeds=None,
             cache=None, decode: bool = False, block_tables=None,
-            packed_slots=None, dp: int = 1):
+            packed_slots=None, dp: int = 1, train: bool = False):
     """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
-    every rank, kv_or_cache).  tp is the rank axis of ``params``; ``dp``
+    every rank, kv_or_cache), or with ``train`` (hidden, the MoE aux loss
+    summed over layers and splits per data shard the batch splits over,
+    (D,) float32): no cache, no KV kept, each layer under ``remat`` when
+    ``pcfg.remat``.  tp is the rank axis of ``params``; ``dp``
     the data axis (module docstring): the batch's rows over D, or under
     ``pcfg.seq_shard_kv`` the full-attention caches' sequence.
 
@@ -520,6 +549,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
                            else extra_embeds.shape[1])
     dev = tokens.device
     packed = packed_slots is not None
+    if train and (cache is not None or decode or packed):
+        raise ValueError("a training forward takes no cache")
     paged_decode = decode and block_tables is not None and not packed
     b_loc, dsplit = data_layout(b, dp, pcfg)
     if dsplit > 1 and (packed or block_tables is not None):
@@ -590,22 +621,26 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
                else mrope_positions[:, :, lo:hi] for lo, hi in cuts]
 
     # residual birth + layer 0's input norm, split-local
-    weave = _Weave(len(embs), ctx, emb.device)
+    weave = _Weave(len(embs), ctx, emb.device, overlap=not train)
     hs, ress = map(list, zip(*(_entry_norm(weave, i, e, params["norm_first"])
                                for i, e in enumerate(embs))))
     state = {"h": hs, "res": ress, "positions": poss, "mrope": mrs,
              "rows": split_rows, "dp": dp, **state_extra}
+    if train:
+        state["aux"] = torch.zeros(dsplit, dtype=torch.float32, device=dev)
 
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
+    layer_fn = remat(_weave_layer, train and pcfg.remat)
     kv_all = []
     for i, kind in enumerate(layer_kinds(cfg)):
         cache_layer = None if cache is None else cache[i]
-        state, kv_new = _weave_layer(
+        state, kv_new = layer_fn(
             params["layers"][i], state, cache_layer, kind=kind, cfg=cfg,
             pcfg=pcfg, lay=lay, weave=weave, decode=decode,
             block_tables=block_tables)
-        kv_all.append(kv_new)
+        if not train:
+            kv_all.append(kv_new)
 
     for i in range(len(embs)):
         weave.wait(i)
@@ -614,7 +649,33 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     if split_rows[0] is not None:
         # the data shards' rows back in batch order
         h_out = h_out.index_copy(1, torch.cat(split_rows), h_out)
+    if train:
+        return h_out, state["aux"]
     return h_out, kv_all
+
+
+def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
+               dp: int = 1, aux_weight: float = 0.01):
+    """batch {"tokens" (B, S), "labels" (B, S_labels), and for vlm
+    "mrope_positions", "extra_embeds"} -> (loss_sum, denom, aux *
+    aux_weight), each (D,) float32: one entry per data shard the batch
+    splits over (``data_layout``), as the reference's per-shard values.
+    vlm: the image positions in front carry no loss (the hidden rows are
+    cut to the labels' last S_labels)."""
+    h, aux = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
+                     mrope_positions=batch.get("mrope_positions"),
+                     extra_embeds=batch.get("extra_embeds"), dp=dp,
+                     train=True)
+    labels = batch["labels"].to(h.device)
+    if h.shape[2] != labels.shape[1]:
+        h = h[:, :, h.shape[2] - labels.shape[1]:]
+    logits = E.lm_head_logits(params["embedding"], h)
+    b_loc, dsplit = data_layout(labels.shape[0], dp, pcfg)
+    ls, dn = zip(*(E.sharded_softmax_xent(
+        logits[:, d * b_loc:(d + 1) * b_loc],
+        labels[d * b_loc:(d + 1) * b_loc], vocab_size=cfg.vocab_size)
+        for d in range(dsplit)))
+    return torch.stack(ls), torch.stack(dn), aux * aux_weight
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions,

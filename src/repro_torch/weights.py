@@ -1,5 +1,8 @@
-"""Weight bridge: the reference package's parameter pytree, as numpy
-arrays, to this package's parameter dict.
+"""Weight bridge between the reference package's parameter pytree and
+this package's parameter dict, both ways (``from_jax_params``,
+``to_jax_layout``), and what the reference reads off its layout: each
+leaf's PartitionSpec (``reference_specs``) and its number of dimensions
+(``reference_ndims``, which decides its weight decay).
 
 ``params_np`` is ``jax.tree.map(np.asarray, params)`` of the reference's
 ``init_params`` (``models.transformer``, ``models.mamba_model``,
@@ -26,6 +29,11 @@ care:
   ``dtype`` asks for, as routing and the recurrences run in float32;
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
+
+``from_jax_params`` also takes the reference's tree with torch leaves
+(``to_jax_layout``'s output, a checkpoint restored by
+``checkpoint.manager``); ``to_jax_layout`` of the optimizer's ``m`` and
+``v`` trees gives the reference's optimizer layout.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from repro_torch.device import resolve_device
 
 
 def to_torch(a, device=None, dtype=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype or a.dtype, copy=True)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -98,3 +108,114 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
             "lora_a": to_torch(sh["lora_a"][:, 0], device, dtype),
             "lora_b": to_torch(sh["lora_b"], device, dtype)}
     return out
+
+
+# top-level leaves the reference replicates with a leading size-1 axis
+TOP_REPLICATED = ("norm_first", "pos_enc", "pos_dec", "norm_first_enc")
+
+
+def _stacks_layers(cfg, pcfg=None) -> bool:
+    """Whether the reference stacks its layers on a leading layer axis:
+    the transformer families under ``scan_layers`` with uniform layer
+    kinds, the other families always."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        return True
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    return ((pcfg is None or pcfg.scan_layers)
+            and all(k == kinds[0] for k in kinds))
+
+
+def _walk(params, cfg, pcfg, leaf, stack):
+    """The port's parameter tree (or a tree of its shape, as ``m``) in
+    the reference's structure: ``leaf(t, kind, lead)`` maps each leaf,
+    kind "replicated" (the reference gives it a leading size-1 axis),
+    "per_invocation" (the size-1 axis after the hybrid's invocation
+    axis), "sharded" (the per-shard axis is the port's rank axis) or
+    "ep2d" (the data and rank axes), and ``lead`` is 1 inside layers the
+    reference stacks; ``stack(list)`` joins one leaf over those layers
+    (None keeps the port's list of layers)."""
+    ep2d = cfg.family == "moe" and cfg.moe_partition == "ep2d"
+
+    def conv(tree, lead, parent=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = conv(v, lead, k)
+            elif k in REPLICATED:
+                out[k] = leaf(v, "replicated", lead)
+            elif ep2d and parent == "moe":
+                out[k] = leaf(v, "ep2d", lead)
+            else:
+                out[k] = leaf(v, "sharded", lead)
+        return out
+
+    def join(trees):
+        return {k: join([t[k] for t in trees])
+                if isinstance(trees[0][k], dict) else stack([t[k] for t in trees])
+                for k in trees[0]}
+
+    def layers(lst):
+        lead = int(_stacks_layers(cfg, pcfg))
+        per = [conv(lp, lead) for lp in lst]
+        if stack is None:
+            return per
+        if lead:
+            return join(per)
+        return {f"layer_{i}": lp for i, lp in enumerate(per)}
+
+    out = {}
+    for k, v in params.items():
+        if k == "embedding":
+            out[k] = conv(v, 0)
+        elif k in TOP_REPLICATED:
+            out[k] = leaf(v, "replicated", 0)
+        elif k in ("layers", "enc_layers", "dec_layers"):
+            out[k] = layers(v)
+        elif k == "shared":
+            out[k] = {"attn": conv(v["attn"], 0),
+                      "norm_in": leaf(v["norm_in"], "replicated", 0),
+                      "norm_out": leaf(v["norm_out"], "per_invocation", 0),
+                      "lora_a": leaf(v["lora_a"], "per_invocation", 0),
+                      "lora_b": leaf(v["lora_b"], "sharded", 1)}
+        else:
+            raise KeyError(f"unknown parameter group {k!r}")
+    return out
+
+
+def to_jax_layout(params, cfg, pcfg=None):
+    """This package's parameter dict (or the optimizer's ``m`` / ``v``,
+    trees of its shape) -> the reference's pytree, torch leaves on their
+    own device and dtype: the inverse of ``from_jax_params``.  Replicated
+    leaves get their size-1 axis back, stacked layers are stacked (new
+    tensors), per-layer dicts are named ``layer_i``."""
+    def leaf(t, kind, lead):
+        if kind == "replicated":
+            return t.unsqueeze(0)
+        if kind == "per_invocation":
+            return t.unsqueeze(1)
+        return t
+    return _walk(params, cfg, pcfg, leaf, torch.stack)
+
+
+def reference_specs(params, cfg, pcfg=None):
+    """The reference's ``api.specs()`` as tuples, in its structure: a
+    replicated leaf all None, a sharded one ``"model"`` on its per-shard
+    axis (after a stacked layer axis), an ``ep2d`` expert weight
+    ``("data", "model")``."""
+    def leaf(t, kind, lead):
+        if kind == "replicated":
+            return (None,) * (lead + 1)
+        if kind == "per_invocation":
+            return (None, None)
+        return (None,) * lead + (("data", "model") if kind == "ep2d"
+                                 else ("model",))
+    return _walk(params, cfg, pcfg, leaf, lambda xs: xs[0])
+
+
+def reference_ndims(params, cfg, pcfg=None):
+    """Each leaf's number of dimensions in the reference's layout, in the
+    port's structure (the reference decays the leaves with 2 or more)."""
+    def leaf(t, kind, lead):
+        return t.dim() + lead + (kind in ("replicated", "per_invocation"))
+    return _walk(params, cfg, pcfg, leaf, None)

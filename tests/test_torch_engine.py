@@ -173,8 +173,10 @@ def test_engine_from_spec_without_device_raises_when_cuda_absent(
 def test_port_imports_neither_jax_nor_reference():
     """Every module of the port (the sim, calibration, tracing, profiler,
     online server, MoE layer, config registry, wire transport, cluster,
-    HTTP API, SSM layers, rotary embeddings, the data rank axis's context
-    and the mamba, hybrid and encdec models among them), and
+    HTTP API, SSM layers, rotary embeddings, the data rank axis's context,
+    the mamba, hybrid and encdec models, the kernels' autograd Functions,
+    the training modules, the checkpoint manager and the train driver
+    among them), and
     chip_smoke.py's imports, load with ``jax`` and ``repro`` made
     unimportable."""
     code = r"""
@@ -196,7 +198,12 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.models.hybrid", "repro_torch.models.encdec",
         "repro_torch.layers.rotary", "repro_torch.distributed.context",
         "repro_torch.models.build",
-        "repro_torch.configs.qwen3_moe_235b"} <= set(names), names
+        "repro_torch.configs.qwen3_moe_235b",
+        "repro_torch.kernels.autograd", "repro_torch.training.optimizer",
+        "repro_torch.training.train_step",
+        "repro_torch.training.compression", "repro_torch.training.data",
+        "repro_torch.checkpoint.manager", "repro_torch.launch.mesh",
+        "repro_torch.launch.train"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())

@@ -1,0 +1,234 @@
+"""The port's layout specs and train steps against the JAX reference on
+the CPU.
+
+- ``to_jax_layout`` / ``reference_specs`` against the reference's
+  pytree and ``api.specs()``, and the ZeRO-1 specs (``zero_specs``'
+  chosen dims) against the reference's ``opt_state_specs``;
+- the train steps: one reference subprocess (``conftest.run_distributed``,
+  4 XLA host devices, mesh pod 2 x data 1 x model 2) runs 3 steps each of
+  ``make_train_step`` and ``make_manual_sync_train_step`` without and
+  with ``compress_pod`` and writes its initial params, losses, grad norms
+  and final params to an npz; the port replays them on its rank axes
+  (D = 2, R = 2) with K2 and K3 inside autograd: losses within 1e-5 and
+  grad norms within 1e-4 relative, params after 3 steps within 2e-4 (the
+  bound of the reference's own manual-vs-automatic test).  The weave is
+  off here (its splits are held in ``test_torch_training.py``): the
+  subprocess compiles a third faster;
+- the entry points defaulting to CUDA.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from conftest import run_distributed
+from repro import configs as jconfigs
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.configs.base import ParallelConfig as JParallel
+from repro.models.build import build_model as j_build_model
+from repro.training import optimizer as JO
+
+from repro_torch.configs import base as tbase
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.build import build_model as t_build_model
+from repro_torch.training import compression as TC
+from repro_torch.training import optimizer as TO
+from repro_torch.training.data import SyntheticLM as TSyntheticLM
+from repro_torch.training.train_step import (make_manual_sync_train_step,
+                                             make_train_step, state_specs)
+from repro_torch.weights import from_jax_params, to_jax_layout
+from test_torch_training import PCFG, PORT_KERNELS, TINY, close_tree
+
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_PARAM_TOL = 1e-5, 1e-4, 2e-4
+STEPS = 3
+VARIANTS = ("auto", "manual", "int8")
+STEP_PCFG = dict(PCFG, tokenweave=False)
+
+
+# --------------------------------------------------------------------------
+# layouts and specs
+# --------------------------------------------------------------------------
+
+def _padded(spec, ndim: int):
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+@pytest.mark.parametrize("name,tp,ep,dp_axes,dp_size", [
+    ("tiny", 2, 1, ("data",), 2),
+    ("gemma3-1b", 2, 1, ("pod", "data"), 4),
+    ("qwen3-moe-235b-a22b", 2, 2, ("data",), 2),
+    ("zamba2-7b", 2, 1, ("pod", "data"), 4),
+    ("whisper-base", 1, 1, ("data",), 2)])
+def test_layout_specs_and_zero_specs_match_reference(name, tp, ep, dp_axes,
+                                                     dp_size):
+    """``to_jax_layout`` gives the reference's pytree (keys, shapes),
+    ``reference_specs`` its ``api.specs()``, ``state_specs`` its ZeRO-1
+    ``opt_state_specs``, and every reference leaf has ndim >= 2 (so the
+    reference decays every leaf, and so does the port)."""
+    cfg = (JModelConfig(**TINY) if name == "tiny"
+           else jconfigs.get_config(name).reduced())
+    jpcfg = JParallel(**PCFG, dp_axes=dp_axes)
+    api = j_build_model(cfg, jpcfg, tp=tp, ep=ep)
+    like = jax.eval_shape(api.init, jax.random.PRNGKey(0))
+    jspec = api.specs()
+    jz = JO.opt_state_specs(like, jspec, dp_axes, dp_size)
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(cfg))
+    tapi = t_build_model(tcfg, tbase.ParallelConfig(**PCFG, dp_axes=dp_axes),
+                         tp=tp, ep=ep)
+    tparams = tapi.init(0, device="cpu")
+    ref = to_jax_layout(tparams, tcfg, tapi.pcfg)
+    flat_j = jax.tree_util.tree_flatten_with_path(like)[0]
+    flat_s = jax.tree.leaves(jspec, is_leaf=lambda s: isinstance(s, P))
+    flat_z = jax.tree.leaves(jz["m"], is_leaf=lambda s: isinstance(s, P))
+    pspec, ospec = state_specs(tapi, tparams, dp_size)
+    got = {}
+
+    def walk(t, prefix, fn):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}[{k!r}]", fn)
+        else:
+            fn(prefix, t)
+    walk(ref, "", lambda k, t: got.setdefault(k, [tuple(t.shape)]))
+    walk(pspec, "", lambda k, s: got[k].append(s))
+    walk(ospec["m"], "", lambda k, s: got[k].append(s))
+    assert set(got) == {jax.tree_util.keystr(p) for p, _ in flat_j}
+    for (path, leaf), s, z in zip(flat_j, flat_s, flat_z):
+        shape, ps, zs = got[jax.tree_util.keystr(path)]
+        assert shape == leaf.shape and len(shape) >= 2
+        assert _padded(ps, leaf.ndim) == _padded(s, leaf.ndim), path
+        assert _padded(zs, leaf.ndim) == _padded(z, leaf.ndim), path
+    assert ospec["step"] == ()
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a device the train steps' init_fn and launch.train build on
+    CUDA, and raise where there is none."""
+    from repro_torch.launch import train as driver
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = tbase.ModelConfig(**TINY)
+    api = t_build_model(tcfg, tbase.ParallelConfig(**PCFG))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    ocfg = TO.AdamWConfig()
+    for _, init in (make_train_step(api, mesh, None, ocfg, dp_size=1),
+                    make_manual_sync_train_step(api, mesh, None, ocfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.main(["--reduced", "--steps", "1"])
+
+
+# --------------------------------------------------------------------------
+# the train steps at pod 2 x data 1 x model 2
+# --------------------------------------------------------------------------
+
+REF_STEPS = r"""
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs.base import ModelConfig, ParallelConfig
+from repro.models.build import build_model
+from repro.training.data import SyntheticLM
+from repro.training.optimizer import AdamWConfig
+from repro.training.train_step import (make_manual_sync_train_step,
+                                       make_train_step)
+cfg = ModelConfig(**%(tiny)r)
+pcfg = ParallelConfig(**%(pcfg)r, dp_axes=('pod', 'data'),
+                      grad_compression='int8')
+mesh = jax.make_mesh((2, 1, 2), ('pod', 'data', 'model'),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 3)
+api = build_model(cfg, pcfg, tp=2)
+data = SyntheticLM(vocab=cfg.vocab_size, seq_len=32, global_batch=4)
+b0 = {k: jnp.asarray(v) for k, v in data.batch(0).items()}
+ocfg = AdamWConfig(lr=1e-2, warmup_steps=5)
+out = {}
+def keep(prefix, tree):
+    for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[prefix + jax.tree_util.keystr(p)] = np.asarray(leaf)
+steps = {"auto": make_train_step(api, mesh, b0, ocfg, dp_size=2),
+         "manual": make_manual_sync_train_step(api, mesh, b0, ocfg,
+                                               compress_pod=False),
+         "int8": make_manual_sync_train_step(api, mesh, b0, ocfg,
+                                             compress_pod=True)}
+for name, (step, init) in steps.items():
+    state = list(init(jax.random.PRNGKey(3)))
+    if name == "auto":
+        keep("init", state[0])
+    losses, norms = [], []
+    for i in range(%(steps)d):
+        b = {k: jnp.asarray(v) for k, v in data.batch(i).items()}
+        if len(state) == 3:
+            state[0], state[1], m, state[2] = step(*state[:2], state[2], b)
+        else:
+            state[0], state[1], m = step(*state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out[name + "/loss"] = np.array(losses)
+    out[name + "/gnorm"] = np.array(norms)
+    keep(name + "/params", state[0])
+np.savez(sys.argv[1], **out)
+print("PASS")
+"""
+
+
+def unflatten(z, prefix: str) -> dict:
+    """The npz's ``prefix['a']['b']`` keys as a nested dict."""
+    out = {}
+    for k in z.files:
+        if k.startswith(prefix + "["):
+            path = [p.strip("'") for p in k[len(prefix) + 1:-1].split("][")]
+            d = out
+            for p in path[:-1]:
+                d = d.setdefault(p, {})
+            d[path[-1]] = z[k]
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_steps(tmp_path_factory):
+    path = tmp_path_factory.mktemp("train_steps") / "ref.npz"
+    code = REF_STEPS % {"tiny": TINY, "pcfg": STEP_PCFG, "steps": STEPS}
+    run_distributed(code.replace("sys.argv[1]", repr(str(path))),
+                    n_devices=4, timeout=300)
+    return np.load(path)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_train_steps_match_reference_at_pod2_model2(variant, ref_steps):
+    """The same initial params and batches through the port's step on its
+    rank axes (D = pod x data = 2, R = 2; the weave off, as in the
+    reference's run)."""
+    z = ref_steps
+    tcfg = tbase.ModelConfig(**TINY)
+    tpcfg = tbase.ParallelConfig(**STEP_PCFG, **PORT_KERNELS,
+                                 dp_axes=("pod", "data"),
+                                 grad_compression="int8")
+    api = t_build_model(tcfg, tpcfg, tp=2, ep=2)
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    ocfg = TO.AdamWConfig(lr=1e-2, warmup_steps=5)
+    if variant == "auto":
+        step, _ = make_train_step(api, mesh, None, ocfg, dp_size=2)
+    else:
+        step, _ = make_manual_sync_train_step(
+            api, mesh, None, ocfg, compress_pod=variant == "int8")
+    params = from_jax_params(unflatten(z, "init"), tcfg, tpcfg, device="cpu")
+    state = [params, TO.init_opt_state(params)]
+    if variant == "int8":
+        state.append(TC.init_ef_state(to_jax_layout(params, tcfg, tpcfg), 2))
+    data = TSyntheticLM(vocab=tcfg.vocab_size, seq_len=32, global_batch=4)
+    losses, norms = [], []
+    for i in range(STEPS):
+        out = step(*state, data.batch(i))
+        state[:2] = out[:2]
+        state[2:] = out[3:]
+        losses.append(float(out[2]["loss"]))
+        norms.append(float(out[2]["grad_norm"]))
+    np.testing.assert_allclose(losses, z[variant + "/loss"],
+                               rtol=STEP_LOSS_RTOL)
+    np.testing.assert_allclose(norms, z[variant + "/gnorm"],
+                               rtol=STEP_NORM_RTOL)
+    with torch.no_grad():
+        got = to_jax_layout(state[0], tcfg, tpcfg)
+    close_tree(got, unflatten(z, variant + "/params"), STEP_PARAM_TOL)
