@@ -168,7 +168,20 @@ Phases, each printing one JSON line:
             within 1e-3); then small float32 twins, ep2d at D = 2 x R = 2
             and the reduced Gemma3-1B at D = 4, give equal greedy tokens on
             the card and the CPU (``identity_ep2d``, ``identity_cp``);
-19. train_kernels  K2's and K3's autograd Functions (the kernel forward,
+19. pg_engine  the process-group backend: ``init_groups`` over NCCL at
+            world size 1 (a (data 1, model 1) mesh, a file store), the
+            engine phase's model at tp=1 ``fused`` built on the rank axis
+            and over the groups (one rank's params, ``take_rank``): one
+            prefill's logits bit-equal, the 4 requests through the
+            two-dispatch engine over slots and packed over the paged pool
+            give equal tokens on both, launches equal their formulas (K2,
+            K3), the pool drains, K3 held on the group runs' inputs
+            (``pg_engine`` with both engines' step medians); then psum,
+            psum_scatter and all_gather at (2048, 8192) bf16 over NCCL
+            with each wire dtype beside the rank axis's at tp=1 and tp=8
+            (``pg_collectives``, with the card's name and power limit);
+            the process group is destroyed at the end;
+20. train_kernels  K2's and K3's autograd Functions (the kernel forward,
             the plain version's backward) against autograd through their
             plain versions on the card at the training step's shapes: K3
             at Gemma3-1B's global and local (window 512) layers (B 4, S
@@ -177,7 +190,7 @@ Phases, each printing one JSON line:
             every input gradient within TRAIN_REL_FRO (bf16, relative
             Frobenius) or TRAIN_FP32_TOL of max(1, its largest magnitude)
             (float32); forward+backward ms of both;
-20. train_gemma  Gemma3-1B at full width and depth (26 layers, d 1152,
+21. train_gemma  Gemma3-1B at full width and depth (26 layers, d 1152,
             vocabulary 262,144, tied embeddings, bf16, random weights
             from the seed) trains 6 AdamW steps of ``make_train_step`` at
             tp=1 (``fused``, K2 and K3 inside autograd, every layer under
@@ -185,7 +198,7 @@ Phases, each printing one JSON line:
             gradient norm finite, the last loss below the first, K2 and
             K3 launched on every step; step ms (median of steps 2-6, CUDA
             events), tokens/s, peak GB, launches per step;
-21. train_resume  ``python -m repro_torch.launch.train`` on the card
+22. train_resume  ``python -m repro_torch.launch.train`` on the card
             (reduced Qwen1.5-4B): a run that fails at step 6 (exit 42), its
             restart ("resumed from checkpoint step 6") and an
             uninterrupted run, final losses within 1e-3 relative; then
@@ -4130,6 +4143,249 @@ def cp_decode_phase(torch, np, seed: int):
 # phases 19-21: training
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# pg_engine: the process-group backend over NCCL at world size 1
+# --------------------------------------------------------------------------
+
+PG_SHAPE = (2048, 8192)            # a prefill split's rows at Llama width
+PG_ITERS = 20
+PG_TURNS = ("rank_axis", "process_group", "process_group", "rank_axis")
+# torch.distributed's own ranges around each NCCL call (none on the rank
+# axis): their host ms in a traced decode step
+PG_RANGES = {"nccl_reduce_scatter": "nccl:_reduce_scatter_base",
+             "nccl_all_gather": "nccl:_all_gather_base"}
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the card, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def event_ms(torch, fn, iters: int = PG_ITERS) -> float:
+    """Mean time of one call of ``fn`` over ``iters`` back-to-back calls
+    between two CUDA events, after a warm-up call (the host's launches
+    included: NCCL's calls are not captured in a graph here)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_engine_steps(torch, eng, times: list) -> None:
+    """Record each forward's wall ms and kind ("prefill", "decode") in
+    ``times``, fenced by synchronize, for either dispatch scheme."""
+    def wrap(kind_of, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append((kind_of(*args), (time.perf_counter() - t) * 1e3))
+        return run
+    eng._run_prefill = wrap(lambda *a: "prefill", eng._run_prefill)
+    eng._run_decode = wrap(lambda *a: "decode", eng._run_decode)
+    eng._run_packed = wrap(lambda plan: "prefill" if any(
+        s.kind == "prefill" for s in plan.segments) else "decode",
+        eng._run_packed)
+
+
+def pg_collectives(torch, groups) -> None:
+    """psum, psum_scatter and all_gather at PG_SHAPE bf16: over NCCL (the
+    process group of one card) with each wire dtype, beside the rank
+    axis's versions at tp=1 and tp=8; one ``pg_collectives`` line each."""
+    from repro_torch.distributed import collectives as CL
+    from repro_torch.distributed.context import CommCtx
+
+    t, d = PG_SHAPE
+    card = card_line()
+    x8 = torch.randn(8, t, d, device="cuda", dtype=torch.bfloat16)
+    cases = [("rank_axis", 1, False, x8[:1].contiguous()),
+             ("rank_axis", 8, False, x8)]
+    cases += [("process_group", 1, wire, x8[:1].contiguous())
+              for wire in (False, True)]
+    for backend, tp, wire, x in cases:
+        ctx = (CommCtx(tp=tp, bf16_wire=wire) if backend == "rank_axis"
+               else CommCtx(tp=tp, backend=backend, groups=groups,
+                            bf16_wire=wire))
+        local = CL.token_shard_slice(x, ctx).contiguous()
+        for op, fn in (("psum", lambda: CL.psum(x, ctx)),
+                       ("psum_scatter", lambda: CL.psum_scatter(x, ctx)),
+                       ("all_gather", lambda: CL.all_gather(local, ctx))):
+            emit({"phase": "pg_collectives", "op": op, "backend": backend,
+                  "tp": tp, "bf16_wire": wire, "shape": list(PG_SHAPE),
+                  "dtype": "bfloat16", "ms": event_ms(torch, fn),
+                  "iters": PG_ITERS, "card": card})
+    del x8, cases
+    torch.cuda.empty_cache()
+
+
+def pg_engine_phase(torch, np, seed: int, trace_dir: Path):
+    """The engine phase's model (Llama-3.3-70B widths, 4 layers, bf16,
+    seed 0) at tp=1 ``fused`` with K2, built twice: on the rank axis and
+    over a ``(data 1, model 1)`` mesh of NCCL process groups
+    (``init_groups``, a file store), with one rank's params
+    (``weights.take_rank``).  One prefill's logits must be bit-equal, and
+    the 4 requests served through the two-dispatch engine over legacy
+    slots and through packed batching over the paged pool, each in turns
+    (``PG_TURNS``), must give equal tokens on both backends; launches
+    equal their formulas (K2 and K3), the pool drains, K3 is held on the
+    first process-group run's inputs.  Then one decode step of each
+    backend is traced (``breakdown``) and the collectives are timed
+    (``pg_collectives``).  Returns (launches of the runs, K3's max error,
+    peak GB)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_groups, make_mesh
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+    from repro_torch.weights import take_rank
+
+    store = Path(tempfile.mkdtemp(prefix="pg_store_"))
+    groups = init_groups(make_mesh((1, 1), ("data", "model")),
+                         backend="nccl", init_method=f"file://{store}/store",
+                         rank=0, world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        cfg, api, params, prompts, init_s, start_gb = full_width_model(
+            torch, np, seed, tp=1, comm_mode="fused", n_layers=4)
+        apis = {"rank_axis": (api, params),
+                "process_group": (build_model(cfg, api.pcfg, tp=1,
+                                              groups=groups),
+                                  take_rank(params, 0, cfg))}
+
+        # one prefill's logits, bit-equal
+        chunk = 1856
+        tokens = torch.zeros(1, chunk, dtype=torch.long, device="cuda")
+        tokens[0, :1800] = torch.tensor(prompts[0], device="cuda")
+        pos = torch.full((1, chunk), -1, dtype=torch.int32, device="cuda")
+        pos[0, :1800] = torch.arange(1800, dtype=torch.int32, device="cuda")
+        logits = {}
+        with torch.no_grad():
+            for name, (a, p) in apis.items():
+                cache = a.init_cache(1, SchedulerConfig().max_len,
+                                     device="cuda")
+                logits[name], _ = a.prefill(
+                    p, tokens, cache, pos,
+                    last_idx=torch.tensor([1799], device="cuda"))
+                del cache
+        if not (torch.isfinite(logits["rank_axis"]).all()
+                and torch.equal(logits["rank_axis"],
+                                logits["process_group"])):
+            raise AssertionError("prefill logits differ between the rank "
+                                 "axis and the process group")
+        del logits
+
+        launches = {n: 0 for n in read_launches()}
+        k3_err, peak, rows = 0.0, 0.0, []
+        for scheme, kw in (("two_dispatch", {}),
+                           ("packed_paged", dict(paged=True, packed=True))):
+            toks, times, stats = [], {n: [] for n in apis}, {}
+            for turn, name in enumerate(PG_TURNS):
+                a, p = apis[name]
+                eng = Engine(a, p, SchedulerConfig(**kw))
+                time_engine_steps(torch, eng, times[name])
+                for i, prompt in enumerate(prompts):
+                    eng.add_request(Request(rid=i, prompt=prompt,
+                                            max_new_tokens=NEW_TOKENS))
+                k3_inputs = {}
+                undo = (capture_k3_inputs(k3_inputs) if turn == 1
+                        else (lambda: None))
+                try:
+                    reset_peak(torch)
+                    reset_launches()
+                    done = eng.run()
+                    torch.cuda.synchronize()
+                    got = read_launches()
+                finally:
+                    undo()
+                peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+                check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
+                st = eng.stats
+                if kw:
+                    check_drained(eng)
+                    splits = st.forwards + st.weave_forwards
+                else:
+                    pf = eng.metrics.get("engine/site_forwards",
+                                         site="prefill").value
+                    pw = eng.metrics.get("engine/site_weave", site="prefill")
+                    splits = pf + (pw.value if pw is not None else 0)
+                want = check_launches(eng, got,
+                                      norm_kernel="fused_residual_rmsnorm",
+                                      n_layers=cfg.num_layers,
+                                      k3_splits=splits)
+                for k in launches:
+                    launches[k] += got[k]
+                toks.append({r.rid: r.output for r in done})
+                stats[name] = {"forwards": st.forwards,
+                               "weave_forwards": st.weave_forwards,
+                               "launches": got, "expected_launches": want}
+                del eng
+                if k3_inputs:
+                    k3_err = max(k3_err, check_main_path_k3(
+                        torch, k3_inputs, f"pg_engine_{scheme}", 1))
+            if any(t != toks[0] for t in toks):
+                raise AssertionError(f"{scheme}: tokens differ between the "
+                                     f"rank axis and the process group")
+            for name in apis:
+                by_kind = {k: [ms for kk, ms in times[name] if kk == k]
+                           for k in ("prefill", "decode")}
+                rows.append({"scheme": scheme, "backend": name,
+                             "runs": PG_TURNS.count(name), **stats[name],
+                             "prefill_ms": by_kind["prefill"],
+                             "decode_ms_median":
+                                 statistics.median(by_kind["decode"]),
+                             "step_ms_median": statistics.median(
+                                 ms for _, ms in times[name])})
+        emit({"phase": "pg_engine", "model": cfg.name, "tp": 1,
+              "layers": cfg.num_layers, "dtype": cfg.dtype,
+              "backend": dist.get_backend(), "world_size":
+              dist.get_world_size(), "prompt_lens": list(PROMPT_LENS),
+              "new_tokens": NEW_TOKENS, "tokens_equal": True,
+              "prefill_logits_bit_equal": True, "runs": rows,
+              "max_memory_allocated_gb": peak, "card": card_line()})
+        # where a decode step's time goes on each backend: 8 slots, the
+        # 4 requests' rows at their last positions over an empty cache
+        dtok = torch.zeros(8, 1, dtype=torch.long, device="cuda")
+        dpos = torch.full((8, 1), -1, dtype=torch.int32, device="cuda")
+        dpos[:len(PROMPT_LENS), 0] = torch.tensor(
+            [n + NEW_TOKENS - 1 for n in PROMPT_LENS], device="cuda")
+        for name, (a, p) in apis.items():
+            cache = a.init_cache(8, SchedulerConfig().max_len,
+                                 device="cuda")
+            with torch.no_grad():
+                brk = device_breakdown(
+                    torch, lambda: a.decode_step(p, dtok, cache, dpos),
+                    trace_dir / f"pg_engine_{name}_decode_trace.json",
+                    ranges=PG_RANGES)
+            emit({"phase": "breakdown", "engine": "pg_engine",
+                  "backend": name, "tp": 1, "step": "decode", "tokens": 8,
+                  **brk})
+            del cache
+        del apis, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        pg_collectives(torch, groups)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches, k3_err, peak
+
+
 def grads_of(torch, fn, inputs, g_out):
     """(outputs, d(sum of outputs . g_out) / d inputs) through autograd."""
     leaves = [t.detach().requires_grad_(True) for t in inputs]
@@ -4518,6 +4774,8 @@ def main() -> int:
     paths += [ep2d_run(**kw, dp=dp) for dp in (2, 1)]
     kw.pop("trace_dir")
     paths.append(cp_decode_phase(**kw))
+    # the process-group backend: NCCL at world size 1 beside the rank axis
+    paths.append(pg_engine_phase(**kw, trace_dir=args.trace_dir))
     # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
     t0 = time.perf_counter()
     train_kernels_phase(torch, args.seed)
@@ -4563,11 +4821,7 @@ def main() -> int:
          "bound_by": rows[name]["bound_by"],
          "library_ms": rows[name]["library_ms"]}
         for name, (src, rep) in sources.items()]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,47 +1,52 @@
 """The add+norm slot after attention and after the FFN: AllReduce +
 residual-add + RMSNorm, five ways, as ``repro.core.fused_collectives``.
 
-The tp ranks sit on a leading rank axis R of one device
-(``distributed/context.py``).  Shapes:
+The tp ranks sit on a leading rank axis of R = ``ctx.local_ranks``
+entries (``distributed/context.py``): all tp ranks of one device under
+the ``rank_axis`` backend, this process's one rank under
+``process_group``.  Shapes:
 
     x          (R, T, d)   row-parallel product output, partial over ranks
     residual   vanilla/nocomm: (R, T, d), full on every rank
-               reordered/fused/ring: (R, T // R, d), rank r's token slice
+               reordered/fused/ring: (R, T // tp, d), each rank's token slice
     weight     (d,)
     returns    (normed (R, T, d), the same on every rank, new residual)
 
 Modes:
 
     vanilla   : psum -> +residual -> RMSNorm on all T tokens on every rank
-    reordered : psum_scatter -> unfused add+norm on 1/R of the tokens ->
+    reordered : psum_scatter -> unfused add+norm on 1/tp of the tokens ->
                 all_gather
     fused     : psum_scatter -> single-pass fused add+norm (kernel K2 when
-                ``ctx.use_pallas``) -> all_gather
+                ``ctx.use_pallas``, on the local rows) -> all_gather
     ring      : the whole slot in one kernel, K1 (``kernels/ar_rmsnorm.py``)
                 on ``ring_ctas(ctx.comm_budget)`` CTAs; falls down the
                 reference's ladder to ``fused`` when there is no reduction
-                to fold in, a sandwich post-norm, or no kernels asked for
+                to fold in, a sandwich post-norm, or no kernels asked for.
+                K1's multi-card form is not ported (ROADMAP.md B1): under
+                ``process_group`` a slot that would run K1 raises
     nocomm    : collectives skipped (perf counterfactual, wrong math)
 
-psum sums in fp32, rank 0 first, and rounds to x's dtype
-(``kernels.ar_rmsnorm.rank_sum``), psum_scatter(tiled) gives rank r rows
-``[r·C, (r+1)·C)``, and all_gather writes the full result into every rank.
-With a data axis (``ctx.dp`` = D > 1) T holds the D data shards' tokens
-one shard after the other, and the scatter and the gather work inside each
-shard, as the reference's collectives over ``model`` do
+The collectives are ``distributed/collectives.py``'s, each with both
+backends.  On the rank axis psum sums in fp32, rank 0 first, and rounds
+to x's dtype (``kernels.ar_rmsnorm.rank_sum``), psum_scatter(tiled) gives
+rank r rows ``[r·C, (r+1)·C)``, and all_gather writes the full result into
+every rank.  With a data axis (``ctx.dp`` = D > 1) T holds the D data
+shards' tokens one shard after the other, and the scatter and the gather
+work inside each shard, as the reference's collectives over ``model`` do
 (``distributed.context.scatter_rows``): rank r's residual holds rows
 ``[r·C, (r+1)·C)`` of every shard, C = T / (D·R), and K1 runs once per
-data shard over that shard's rows.
+data shard over that shard's rows.  Under ``process_group`` they are
+``torch.distributed`` collectives over the model group; a process holds
+one data shard's rows.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.splitting import ring_ctas
-from repro_torch.distributed.context import (CommCtx, gather_rows,
-                                             scatter_rows, shard_rows,
-                                             token_shard_slice)
-from repro_torch.kernels.ar_rmsnorm import rank_sum
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import CommCtx, shard_rows
 from repro_torch.kernels.ops import ar_rmsnorm, fused_residual_rmsnorm
 from repro_torch.layers.norms import residual_rmsnorm_unfused, rms_norm
 
@@ -51,14 +56,6 @@ def _ring_supported(ctx: CommCtx, reduce_input: bool, weight_post) -> bool:
     reduction to fold in, no sandwich post-norm (it fuses exactly
     add+norm), and kernels enabled."""
     return reduce_input and weight_post is None and ctx.use_pallas
-
-
-def _all_gather(local: torch.Tensor, dp: int = 1) -> torch.Tensor:
-    """Every rank's copy of the gathered rows of ``local`` (R, T // R,
-    d), placed as ``scatter_rows`` placed them: (R, T, d)."""
-    r = local.shape[0]
-    full = gather_rows(local, dp)
-    return full[None] if r == 1 else full.expand(r, *full.shape).contiguous()
 
 
 def _ring(x, residual, weight, ctx: CommCtx):
@@ -89,11 +86,12 @@ def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
     structure kept.  ``weight_post``: gemma-style post-norm of the reduced
     block output before the residual add."""
     mode = ctx.mode
-    if x.shape[0] != ctx.tp:
-        raise ValueError(f"x has {x.shape[0]} ranks, ctx.tp={ctx.tp}")
+    if x.shape[0] != ctx.local_ranks:
+        raise ValueError(f"x has {x.shape[0]} ranks, ctx holds "
+                         f"{ctx.local_ranks} of tp={ctx.tp}")
     if mode in ("nocomm", "vanilla"):
         if mode == "vanilla" and reduce_input:
-            x = rank_sum(x)              # psum: (T, d), the same on every rank
+            x = C.psum(x, ctx)           # (T, d), the same on every rank
         if weight_post is not None:
             x = rms_norm(x, weight_post, ctx.eps)
         return residual_rmsnorm_unfused(x, residual, weight, ctx.eps)
@@ -102,25 +100,30 @@ def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
 
     if mode == "ring":
         if _ring_supported(ctx, reduce_input, weight_post):
+            if ctx.process_group:
+                raise NotImplementedError(
+                    "comm mode 'ring' under the process_group backend needs "
+                    "K1's multi-card form (peer pointers; ROADMAP.md B1)")
             return _ring(x, residual, weight, ctx)
         mode = "fused"
 
     r, t, d = x.shape
     if reduce_input:
-        local = scatter_rows(rank_sum(x), r, ctx.dp)   # psum_scatter(tiled)
+        local = C.psum_scatter(x, ctx)
     else:
-        local = token_shard_slice(x, ctx)
+        local = C.token_shard_slice(x, ctx)
     if weight_post is not None:
         local = rms_norm(local, weight_post, ctx.eps)
+    rows = local.shape[0] * local.shape[1]
     if mode == "fused" and weight_post is None:
         normed, new_res = fused_residual_rmsnorm(
-            local.reshape(t, d), residual.reshape(t, d), weight, eps=ctx.eps,
-            use_pallas=ctx.use_pallas)
+            local.reshape(rows, d), residual.reshape(rows, d), weight,
+            eps=ctx.eps, use_pallas=ctx.use_pallas)
         new_res = new_res.reshape(residual.shape)
     else:
         normed, new_res = residual_rmsnorm_unfused(local, residual, weight,
                                                    ctx.eps)
-    return _all_gather(normed.reshape(r, t // r, d), ctx.dp), new_res
+    return C.all_gather(normed.reshape(r, rows // r, d), ctx), new_res
 
 
 def final_norm(residual, weight, *, ctx: CommCtx):
@@ -128,7 +131,7 @@ def final_norm(residual, weight, *, ctx: CommCtx):
     to every rank: (R, T, d)."""
     normed = rms_norm(residual, weight, ctx.eps)
     if ctx.sharded_residual:
-        return _all_gather(normed, ctx.dp)
+        return C.all_gather(normed, ctx)
     return normed
 
 
@@ -136,11 +139,12 @@ def fresh_residual(t_tokens: int, d: int, dtype, *, ctx: CommCtx,
                    device=None):
     """Zero residual in the layout the configured mode expects."""
     rows = t_tokens // ctx.tp if ctx.sharded_residual else t_tokens
-    return torch.zeros((ctx.tp, rows, d), dtype=dtype, device=device)
+    return torch.zeros((ctx.local_ranks, rows, d), dtype=dtype,
+                       device=device)
 
 
 def gather_residual(residual, *, ctx: CommCtx):
     """The full residual stream on every rank: (R, T, d)."""
     if ctx.sharded_residual:
-        return _all_gather(residual, ctx.dp)
+        return C.all_gather(residual, ctx)
     return residual

@@ -21,14 +21,47 @@ only where the reference communicates over ``data``: the MoE ``ep2d``
 all-to-alls (``layers/moe.py``), the context-parallel decode combine
 (``layers/attention.py``) and ``psum_dp``.
 
-A ``torch.distributed`` process group (one rank per card) is queued in
-ROADMAP.md; asking for one raises.
+Two backends carry the ranks (``CommCtx.backend``):
+
+* ``rank_axis`` (the default): every rank in one process on one device,
+  as above; ``local_ranks`` = tp and the collectives are operations over
+  dim 0 (the ``rank_axis`` branches of ``distributed/collectives.py``);
+* ``process_group``: one model rank per process (one per card under
+  NCCL, CPU processes under gloo), over the ``torch.distributed`` groups
+  of ``launch.mesh.init_groups``.  Every per-rank tensor keeps its leading
+  rank axis, of size ``local_ranks`` = 1, holding this process's rank
+  ``rank``; the collectives go over ``groups.model`` (and
+  ``groups.data`` for ``psum_dp`` / ``pmax_dp``).  Each process holds
+  one data shard's rows, so the data-shard placement above never shows
+  in a process's tensors.
+
+``bf16_wire`` is the reference's field: ``False`` reduces in float32 on
+the wire and rounds once to x's dtype (``rank_sum``'s contract, up to the
+order of the sum); ``True`` reduces in x's dtype (half the bytes of a
+bf16 reduction).  The rank axis always sums in float32, rank 0 first.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import torch
+
+BACKENDS = ("rank_axis", "process_group")
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """This process's place in a (data, model) mesh of processes
+    (``launch.mesh.init_groups``): its ``torch.distributed`` group over
+    the model axis and over the data axis, its index in each and their
+    sizes."""
+    model: Any = dataclasses.field(compare=False, repr=False)
+    data: Any = dataclasses.field(compare=False, repr=False)
+    model_rank: int
+    data_rank: int
+    model_size: int
+    data_size: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,26 +70,52 @@ class CommCtx:
     mode: str = "fused"            # vanilla | reordered | fused | ring | nocomm
     eps: float = 1e-6
     use_pallas: bool = False       # route add+norm to kernels K2 / K1
-    tp: int = 1                    # size of the rank axis R
+    tp: int = 1                    # model ranks (logical)
     comm_budget: float = 1.0       # SM-equivalent fraction -> K1's CTAs
-    backend: str = "rank_axis"
-    dp: int = 1                    # size of the data rank axis D
+    backend: str = "rank_axis"     # rank_axis | process_group
+    dp: int = 1                    # data shards (logical)
+    groups: Optional[Groups] = None    # process_group: the mesh's groups
+    bf16_wire: bool = False        # reduce in x's dtype, not float32
 
     def __post_init__(self):
-        if self.backend != "rank_axis":
-            raise NotImplementedError(
-                f"comm backend {self.backend!r} is not ported yet: only the "
-                f"one-device rank axis is (ROADMAP.md: the process-group "
-                f"CommCtx comes with the multi-card K1)")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown comm backend {self.backend!r}; "
+                             f"one of {BACKENDS}")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
         if self.dp < 1:
             raise ValueError(f"dp must be >= 1, got {self.dp}")
+        if self.backend == "process_group":
+            g = self.groups
+            if g is None:
+                raise ValueError("backend 'process_group' needs the groups "
+                                 "of launch.mesh.init_groups")
+            if (self.tp, self.dp) != (g.model_size, g.data_size):
+                raise ValueError(f"tp={self.tp}, dp={self.dp} against "
+                                 f"groups of model size {g.model_size}, "
+                                 f"data size {g.data_size}")
 
     @property
     def sharded_residual(self) -> bool:
         """fused/reordered/ring keep the residual stream token-sharded."""
         return self.mode in ("fused", "reordered", "ring")
+
+    @property
+    def process_group(self) -> bool:
+        return self.backend == "process_group"
+
+    @property
+    def local_ranks(self) -> int:
+        """The leading axis every per-rank tensor carries: tp on the rank
+        axis, 1 in a process of a group."""
+        return 1 if self.process_group else self.tp
+
+    @property
+    def rank(self) -> int:
+        """The model rank of the first local rank: this process's under
+        ``process_group``, 0 on the rank axis (whose ranks are
+        ``arange(tp)``)."""
+        return self.groups.model_rank if self.process_group else 0
 
     def tp_size(self) -> int:
         return self.tp

@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.context import CommCtx
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.flash_attention import attention_mask as _mask
 from repro_torch.kernels.flash_attention import flash_attention_plain as _attn_ref
@@ -181,7 +183,7 @@ def attn_prefill(params, x, *, positions, cfg, lay: AttnLayout, theta,
 
 def attn_decode(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
                 window: int = 0, mrope_positions=None,
-                seq_shards: Optional[int] = None):
+                seq_shards: Optional[int] = None, ctx=None):
     """Single-token decode against the slot cache: the S == 1 case of
     ``attn_verify``, unless ``seq_shards``.
 
@@ -191,13 +193,17 @@ def attn_decode(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
     global slot ``p % (c·D)`` on owner ``(p % (c·D)) // c``, so the global
     layout is the unsharded one.  As in the reference every row writes,
     a row at position -1 too (into the last slot, with position -1).  The
-    attention combines the shards' chunks (``_decode_attn_math``)."""
+    attention combines the shards' chunks (``_decode_attn_math``).  On the
+    rank axis ``cache`` holds all C slots; under a ``process_group``
+    ``ctx`` it holds this data rank's c, only the owner writes a row,
+    and the combine runs over the data group."""
     if seq_shards is None:
         return attn_verify(params, x, cache, positions=positions, cfg=cfg,
                            lay=lay, theta=theta, window=window,
                            mrope_positions=mrope_positions)
     b = positions.shape[0]
-    c_all = cache["k"].shape[2]
+    grouped = ctx is not None and ctx.process_group
+    c_all = cache["k"].shape[2] * (seq_shards if grouped else 1)
     if c_all % seq_shards:
         raise ValueError(f"a cache of {c_all} slots does not split over "
                          f"{seq_shards} data shards")
@@ -207,27 +213,49 @@ def attn_decode(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
     pos = positions[:, 0]
     gslot = (pos % c_all).long()
     bidx = torch.arange(b, device=x.device)
-    cache["k"][:, bidx, gslot] = k_new[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, bidx, gslot] = v_new[:, :, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, gslot] = pos.to(torch.int32)
+    if grouped:
+        _write_owned(cache, bidx, gslot, k_new[:, :, 0], v_new[:, :, 0], pos,
+                     c_all // seq_shards, ctx.groups.data_rank)
+    else:
+        cache["k"][:, bidx, gslot] = k_new[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, bidx, gslot] = v_new[:, :, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, gslot] = pos.to(torch.int32)
     partial = _decode_attn_math(params, q, cache["k"], cache["v"],
                                 cache["pos"], positions, x_dtype=x.dtype,
                                 cfg=cfg, lay=lay, window=window,
-                                seq_shards=seq_shards)
+                                seq_shards=seq_shards, ctx=ctx)
     return partial, cache
 
 
+def _write_owned(cache, bidx, gslot, k, v, pos, c: int, shard: int):
+    """Context-parallel decode's write on data rank ``shard`` of a group:
+    the rows whose global slot lies in ``[shard·c, (shard+1)·c)`` write
+    local slot ``gslot - shard·c``; the others write back what their
+    slot 0 holds (no host sync to pick the rows)."""
+    own = (gslot // c) == shard
+    lslot = torch.where(own, gslot - shard * c, 0)
+    for name, new in (("k", k), ("v", v)):
+        old = cache[name][:, bidx, lslot]
+        cache[name][:, bidx, lslot] = torch.where(
+            own[None, :, None, None], new.to(old.dtype), old)
+    cache["pos"][bidx, lslot] = torch.where(
+        own, pos.to(torch.int32), cache["pos"][bidx, lslot])
+
+
 def _decode_attn_math(params, q, k, v, kpos, positions, *, x_dtype, cfg,
-                      lay: AttnLayout, window, seq_shards=None):
+                      lay: AttnLayout, window, seq_shards=None, ctx=None):
     """Decode/verify epilogue: grouped QK logits (float32 accumulation of
     the cache-dtype operands), masked stable softmax, P cast to the cache
     dtype, V accumulate in float32, output projection.  q (R, B, Sq, h,
     dh); k, v (R, B, C, kv, dh), possibly a strided view of the cache.
 
     ``seq_shards`` = D: flash decoding over the D data shards' chunks of
-    the cache: each chunk's max, then their max (the reference's
-    ``pmax``); each chunk's denominator and accumulator against that max,
-    then their sums over the chunks (``psum``), all in float32."""
+    the cache: each chunk's max, then their max (``pmax_dp``, the
+    reference's ``pmax``); each chunk's denominator and accumulator
+    against that max, then their sums over the chunks (``psum_dp``), all
+    in float32.  On the rank axis k and v hold all D chunks; under a
+    ``process_group`` ``ctx`` they are this data rank's chunk, and the max
+    and the sums go over the data group."""
     r, b, sq = q.shape[:3]
     kvh = k.shape[3]
     g = lay.h_loc // kvh
@@ -243,14 +271,19 @@ def _decode_attn_math(params, q, k, v, kpos, positions, *, x_dtype, cfg,
         acc = torch.einsum("rbhgqk,rbkhd->rbhgqd", p.to(v.dtype).float(),
                            v.float())
     else:
-        n = seq_shards
-        chunks = logits.unflatten(-1, (n, -1))           # (..., D, c)
-        m = chunks.amax(dim=-1).amax(dim=-1)
-        p = torch.exp(chunks - m[..., None, None])
-        denom = p.sum(dim=-1).sum(dim=-1)
-        vc = v.unflatten(2, (n, -1))                     # (R, B, D, c, ...)
-        acc = torch.einsum("rbhgqnk,rbnkhd->rbhgqnd", p.to(v.dtype).float(),
-                           vc.float()).sum(dim=-2)
+        # the chunk axis leads, as the data shards of ``psum_dp``: the D
+        # chunks of the rank axis's whole cache, or a process's own one
+        if ctx is None or not ctx.process_group:
+            ctx = CommCtx(dp=seq_shards)
+        n = ctx.dp if not ctx.process_group else 1
+        chunks = logits.unflatten(-1, (n, -1)).movedim(-2, 0)
+        vc = v.unflatten(2, (n, -1)).movedim(2, 0)      # (n, R, B, c, ...)
+        m = C.pmax_dp(chunks.amax(dim=-1), ctx)[0]
+        p = torch.exp(chunks - m[None, ..., None])
+        denom = C.psum_dp(p.sum(dim=-1), ctx)[0]
+        acc = C.psum_dp(torch.einsum("nrbhgqk,nrbkhd->nrbhgqd",
+                                     p.to(v.dtype).float(), vc.float()),
+                        ctx)[0]
     out = acc / denom.clamp_min(1e-30)[..., None]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(r, b, sq,
                                                 lay.h_loc * cfg.head_dim)
@@ -587,17 +620,18 @@ def cache_rows(cache_layer, off: int, rows: int):
 
 
 def init_kv_cache(batch: int, max_len: int, cfg, tp: int, *, window: int = 0,
-                  dtype=None, device=None):
+                  dtype=None, device=None, ranks: Optional[int] = None):
     """One layer's slot cache; C = min(max_len, window) for sliding layers
     (the ring buffer is the window).  Rank r stores its kv_store heads,
     the reference's global head axis ``[r·kv_store, (r+1)·kv_store)``.
     The layout is global over a data axis: ``batch`` counts every data
     shard's rows, and context-parallel decode (``attn_decode``) splits C
-    over the shards in place."""
+    over the shards in place.  ``ranks``: the leading rank axis (tp
+    unless given; 1 for a process of a model group)."""
     lay = attention_layout(tp, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     c = min(max_len, window) if window > 0 else max_len
     dt = dtype or getattr(torch, cfg.dtype)
-    shape = (tp, batch, c, lay.kv_store, cfg.head_dim)
+    shape = (ranks or tp, batch, c, lay.kv_store, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),

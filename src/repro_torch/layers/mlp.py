@@ -9,9 +9,11 @@ import torch
 import torch.nn.functional as F
 
 
-def mlp_forward(params, x: torch.Tensor, *, act: str = "silu"):
+def mlp_forward(params, x: torch.Tensor, *, act: str = "silu", ctx=None):
     """x (R, B, S, d), the same on every rank -> partial (R, B, S, d).
-    Activations run in float32 and are cast back to x.dtype."""
+    Activations run in float32 and are cast back to x.dtype.  The psum
+    sums over ``ctx.tp`` ranks (R without a ``ctx``: a process of a
+    group holds one of them)."""
     r, b, s, d = x.shape
     xf = x.reshape(r, b * s, d)
     if "w_gate" in params:
@@ -23,6 +25,7 @@ def mlp_forward(params, x: torch.Tensor, *, act: str = "silu"):
     else:
         h = xf @ params["w_in"] + params["b_in"][:, None]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        # the psum downstream sums R copies of the bias: pre-divide
-        out = h @ params["w_out"] + params["b_out"] / r
+        # the psum downstream sums tp copies of the bias: pre-divide
+        tp = r if ctx is None else ctx.tp
+        out = h @ params["w_out"] + params["b_out"] / tp
     return out.reshape(r, b, s, d)

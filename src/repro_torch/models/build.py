@@ -20,7 +20,14 @@ and the hybrid's full-attention caches split their sequence over it
 shard, as (D,) tensors: the transformer splits its batch over D itself
 (a MoE layer routes per shard), the other families run each shard's rows
 on their own (nothing crosses data shards in them).  ``specs`` reads
-the reference's layout off a parameter tree (``weights.py``)."""
+the reference's layout off a parameter tree (``weights.py``).
+
+``groups`` (``launch.mesh.init_groups``) puts the model on the
+``process_group`` backend: this process holds one model rank (params,
+caches and logits with a rank axis of 1) and the calls pass the groups on.
+It is ported for the dense family's serving calls (and context-parallel
+decode over the data group); the other families, the verify step and
+training refuse it by name (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.distributed.context import CommCtx
 from repro_torch.models import encdec, hybrid, mamba_model, transformer
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
@@ -44,14 +52,37 @@ class ModelApi:
     mod: Any
     tp: int = 1
     ep: int = 1
+    groups: Any = None
 
     @property
     def _dp(self) -> dict:
-        """The data size for the modules that take one."""
-        return {"dp": self.ep} if self.mod in (transformer, hybrid) else {}
+        """The data size (and the groups) for the modules that take one."""
+        if self.mod not in (transformer, hybrid):
+            return {}
+        if self.groups is not None:
+            return {"dp": self.ep, "groups": self.groups}
+        return {"dp": self.ep}
+
+    @property
+    def comm_ctx(self) -> CommCtx:
+        """The CommCtx of collectives outside the model (the sampler's):
+        the rank axis, or ``process_group`` over ``groups``."""
+        return CommCtx(tp=self.tp, dp=self.ep, groups=self.groups,
+                       backend=("rank_axis" if self.groups is None
+                                else "process_group"))
+
+    def _refuse_groups(self, what: str) -> None:
+        if self.groups is not None:
+            raise NotImplementedError(
+                f"{what} over the process_group backend is not ported "
+                f"(ROADMAP.md)")
 
     def init(self, seed: int = 0, *, device=None, dtype=None):
+        """Random weights; with ``groups`` this process's model rank's
+        slice of the tp-rank weights drawn from ``seed``."""
         kw = {"ep": self.ep} if self.mod is transformer else {}
+        if self.groups is not None:
+            kw["rank"] = self.groups.model_rank
         return self.mod.init_params(self.cfg, seed=seed, device=device,
                                     dtype=dtype, tp=self.tp, **kw)
 
@@ -66,6 +97,7 @@ class ModelApi:
         "frames" (encdec), "mrope_positions" / "extra_embeds" (vlm)}, B
         holding ``dp`` (default ``ep``) data shards' rows one after the
         other -> (loss_sum, denom, aux), each (D,) float32."""
+        self._refuse_groups("training")
         dp = self.ep if dp is None else dp
         if self.mod is transformer:
             return transformer.train_loss(params, batch, cfg=self.cfg,
@@ -99,7 +131,8 @@ class ModelApi:
                          device=None):
         from repro_torch.runtime.paging import init_paged_cache
         return init_paged_cache(num_blocks, block_size, self.cfg, self.tp,
-                                device=device)
+                                device=device,
+                                ranks=self.comm_ctx.local_ranks)
 
     def decode_step(self, params, tokens, cache, positions, **kw):
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
@@ -107,6 +140,7 @@ class ModelApi:
                                     **self._dp, **kw)
 
     def verify_step(self, params, tokens, cache, positions, **kw):
+        self._refuse_groups("the speculative verify step")
         return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
@@ -118,16 +152,28 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
-                ep: int = 1) -> ModelApi:
+                ep: int = 1, groups=None) -> ModelApi:
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}")
     if tp < 1 or ep < 1:
         raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
     mod = FAMILIES[cfg.family]
+    if groups is not None:
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the process_group backend is ported for the dense "
+                f"family, not the {cfg.family} family (ROADMAP.md)")
+        if ep > 1 and not pcfg.seq_shard_kv:
+            raise NotImplementedError(
+                "the batch over the data group is not ported; the "
+                "process_group backend takes context-parallel decode "
+                "(seq_shard_kv) at ep > 1")
     if ep > 1 and not (mod is transformer or (
             mod is hybrid and pcfg.seq_shard_kv)):
         raise NotImplementedError(
             f"a data axis (ep={ep}) is ported for the transformer families "
             f"and the hybrid's context-parallel decode, not for the "
             f"{cfg.family} family")
-    return ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep)
+    api = ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep, groups=groups)
+    api.comm_ctx            # holds tp and ep to the groups' sizes
+    return api

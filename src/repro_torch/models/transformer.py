@@ -14,7 +14,13 @@ The tp ranks sit on a leading rank axis R of one device
 (``distributed/context.py``): every sharded weight is ``(R, ...)`` as in
 the reference's pytree, activations are ``(R, B, S, d)``, and the
 AllReduce + residual + RMSNorm slots go through
-``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).
+``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).  With
+``groups`` (``launch.mesh.init_groups``; the dense family) each process
+holds one model rank instead, R = 1 (``init_params(rank=)``,
+``weights.take_rank``), and the slots, the embedding's offsets and the
+LM head's shard follow ``CommCtx(backend="process_group")``; under
+``seq_shard_kv`` each data rank holds C/D slots of every full-attention
+cache and context-parallel decode combines over the data group.
 
 The reference's ``data`` axis is the data rank axis D (``dp``), used two
 ways, as the reference uses it:
@@ -46,8 +52,10 @@ the suffix split's attention takes the prefix split's KV as
 it waits on an event recorded after its split's row-parallel product, and
 the compute stream waits on the AR-norm's event only before that split's
 next layer part, so the other split's compute is queued in between
-(``_Weave``).  At tp=1, or unsplit, or on the CPU, everything runs in that
-order on the current stream.
+(``_Weave``); under ``process_group`` on NCCL the slot's collectives are
+issued on that comm stream, so NCCL's stream follows it and the done
+event follows the last collective.  At tp=1, or unsplit, or on the CPU,
+everything runs in that order on the current stream.
 
 Parameters are a plain dict: {"embedding": {"embed" (R, V_pad/R, d),
 "lm_head" (R, d, V_pad/R)}, "norm_first" (d,), "layers": [per-layer
@@ -69,7 +77,7 @@ from repro_torch.core import fused_collectives as fc
 from repro_torch.core.policy import DEFAULT_POLICY
 from repro_torch.core.splitting import pad_to_multiple, token_bucket
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import CommCtx
+from repro_torch.distributed.context import CommCtx, Groups
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
@@ -106,7 +114,7 @@ def layer_kinds(cfg: ModelConfig) -> List[LayerKind]:
 # --------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1, ep: int = 1):
+                tp: int = 1, ep: int = 1, rank: Optional[int] = None):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator`` on
     ``device`` (CUDA unless given), with the reference's scales (attention
     and MLP inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head
@@ -114,10 +122,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     shapes (every sharded weight (tp, ...); ``ep2d`` expert weights (ep,
     tp, ...)).  The values differ from the reference's jax.random ones;
     tests move the reference's weights over with
-    ``weights.from_jax_params`` instead."""
+    ``weights.from_jax_params`` instead.
+
+    With ``rank`` (a dense model), model rank ``rank``'s weights alone
+    (``weights.take_rank`` of the tp-rank draw, the same values): each
+    leaf is drawn whole and cut at once, so the peak is one whole leaf
+    beside the rank's tree, never the whole model."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has its own model module "
                          f"(models.build.build_model picks it)")
+    if rank is not None and cfg.is_moe:
+        raise NotImplementedError("one rank's weights are drawn for the "
+                                  "dense family, not for MoE")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -129,8 +145,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     s = d ** -0.5
 
     def rnd(shape, scale):
-        return torch.randn((tp,) + shape, generator=gen, device=device,
-                           dtype=dtype) * scale
+        w = torch.randn((tp,) + shape, generator=gen, device=device,
+                        dtype=dtype)
+        if rank is not None:
+            w = w[rank:rank + 1].clone()
+        return w * scale
 
     def ones(n=d):
         return torch.ones(n, dtype=dtype, device=device)
@@ -144,8 +163,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
         if cfg.qkv_bias:
             for name, w in (("bq", lay.h_loc), ("bk", lay.kv_store),
                             ("bv", lay.kv_store)):
-                attn[name] = torch.zeros(tp, w * dh, dtype=dtype,
-                                         device=device)
+                attn[name] = torch.zeros(1 if rank is not None else tp,
+                                         w * dh, dtype=dtype, device=device)
         if cfg.qk_norm:
             attn["q_norm"] = ones(dh)
             attn["k_norm"] = ones(dh)
@@ -276,7 +295,7 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
                 # context-parallel KV on full-attention layers only
                 cp = dp if pcfg.seq_shard_kv and kind.window == 0 else None
                 a_part, _ = A.attn_decode(lp["attn"], h, cl, **geo, **mrope,
-                                          seq_shards=cp)
+                                          seq_shards=cp, ctx=weave.ctx)
             if idx is not None:
                 KC.write_rows([cache_layer], [cl], idx)
             off += rows
@@ -294,7 +313,8 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
             f_part, aux = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv)
             auxes.append(aux)
         else:
-            f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act)
+            f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act,
+                                   ctx=weave.ctx)
         hs[i], ress[i] = weave.comm_norm(i, f_part, ress[i], lp["norm_ffn"],
                                          lp.get("norm_ffn_post"))
     state = dict(state, h=hs, res=ress)
@@ -453,20 +473,26 @@ def _split_cuts(split: Optional[Tuple[int, int]], n: int):
 
 def _comm_ctx(pcfg: ParallelConfig, cfg: ModelConfig, t_local: int,
               tp: int, *, mode: Optional[str] = None,
-              budget: float = 1.0, dp: int = 1) -> CommCtx:
+              budget: float = 1.0, dp: int = 1,
+              groups: Optional[Groups] = None) -> CommCtx:
     """Pick the effective comm mode: the token-sharded (fused/reordered/
     ring) layouts need t_local, one data shard's tokens, divisible by tp;
     otherwise fall back to vanilla (the paper's fallback for small decode
     batches).  ``mode`` overrides ``pcfg.comm_mode`` when the overlap plan
     forces one; ``budget`` sizes K1's grid; ``dp`` data shards lie one
-    after the other on the token axis."""
+    after the other on the token axis.  ``groups``: the process_group
+    backend over them (a process holds one data shard's rows, and ``dp``
+    is the data group's size)."""
     mode = mode or pcfg.comm_mode
     if (mode in ("fused", "reordered", "ring")
             and (t_local % tp != 0 or t_local < tp)):
         mode = "vanilla"
     return CommCtx(mode=mode, eps=cfg.norm_eps,
                    use_pallas=pcfg.use_pallas_norm, tp=tp,
-                   comm_budget=budget, dp=dp)
+                   comm_budget=budget, dp=dp, groups=groups,
+                   backend=("rank_axis" if groups is None
+                            else "process_group"),
+                   bf16_wire=pcfg.bf16_wire)
 
 
 def remat(fn, on: bool):
@@ -509,10 +535,23 @@ def data_layout(b: int, dp: int, pcfg: ParallelConfig) -> Tuple[int, int]:
     return b // dp, dp
 
 
+def _model_ranks(params, groups: Optional[Groups]) -> int:
+    """tp: the params' rank axis, or the model group's size when this
+    process holds one rank of it."""
+    local = params["embedding"]["embed"].shape[0]
+    if groups is None:
+        return local
+    if local != 1:
+        raise ValueError(f"a process of a model group holds one rank's "
+                         f"params, these hold {local}")
+    return groups.model_size
+
+
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, mrope_positions=None, extra_embeds=None,
             cache=None, decode: bool = False, block_tables=None,
-            packed_slots=None, dp: int = 1, train: bool = False):
+            packed_slots=None, dp: int = 1, train: bool = False,
+            groups: Optional[Groups] = None):
     """Shared forward.  Returns (hidden_normed (R, B, S, d), the same on
     every rank, kv_or_cache), or with ``train`` (hidden, the MoE aux loss
     summed over layers and splits per data shard the batch splits over,
@@ -542,8 +581,22 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     writes, each split's segments) runs once per forward on the host:
     pass ``positions``, ``block_tables`` and ``packed_slots`` as CPU
     tensors and nothing is read back from the device.
+
+    ``groups``: this process holds one model rank of ``groups``'
+    model group (params with a rank axis of 1) and, at ``dp`` =
+    ``groups.data_size`` > 1, one data rank of a context-parallel decode.
     """
-    tp = params["embedding"]["embed"].shape[0]
+    tp = _model_ranks(params, groups)
+    if groups is not None:
+        if train:
+            raise NotImplementedError(
+                "training over the process_group backend is not ported "
+                "(autograd-aware collectives; ROADMAP.md)")
+        if dp > 1 and not pcfg.seq_shard_kv:
+            raise NotImplementedError(
+                "the batch over the data group is not ported; the "
+                "process_group backend takes context-parallel decode "
+                "(seq_shard_kv) at dp > 1")
     b = tokens.shape[0]
     s = tokens.shape[1] + (0 if extra_embeds is None
                            else extra_embeds.shape[1])
@@ -563,7 +616,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
                                 packed=packed, paged_pool=paged_decode,
                                 family=cfg.family)
     ctx = _comm_ctx(pcfg, cfg, b_loc * s, tp, mode=winfo.comm_mode or None,
-                    budget=winfo.budget, dp=dsplit)
+                    budget=winfo.budget, dp=dsplit if groups is None else dp,
+                    groups=groups)
 
     # the splits' [lo, hi) along the batch (decode) or the sequence; a
     # batch split over D takes rows [lo, hi) of every data shard
@@ -596,12 +650,13 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         packed_slots = packed_slots.to(dev)
         state_extra["pslots"] = [packed_slots[lo:hi] for lo, hi in cuts]
 
-    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
+                         ctx=ctx)
     if extra_embeds is not None:
         # complete values: divided by tp so that the entry norm's sum over
         # the ranks gives them back beside the partial text rows
         img = (extra_embeds.to(dev) / tp).to(emb.dtype)
-        emb = torch.cat([img.expand(tp, *img.shape), emb], dim=2)
+        emb = torch.cat([img.expand(emb.shape[0], *img.shape), emb], dim=2)
     if mrope_positions is not None:
         mrope_positions = mrope_positions.to(dev)
     if decode and split_rows[0] is not None:
@@ -680,14 +735,15 @@ def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions,
             mrope_positions=None, extra_embeds=None, last_idx=None,
-            dp: int = 1):
+            dp: int = 1, groups: Optional[Groups] = None):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last valid token (R, B, 1, V_loc), chunk kv per layer).  ``last_idx``:
     per-row index of the last unpadded token in the chunk (the patch rows
     of ``extra_embeds`` counted)."""
     h, kv = forward(params, tokens, cfg=cfg, pcfg=pcfg, positions=positions,
                     mrope_positions=mrope_positions,
-                    extra_embeds=extra_embeds, cache=cache, dp=dp)
+                    extra_embeds=extra_embeds, cache=cache, dp=dp,
+                    groups=groups)
     if last_idx is None:
         h_last = h[:, :, -1:]
     else:
@@ -698,14 +754,16 @@ def prefill(params, tokens, cache, *, cfg, pcfg, positions,
 
 
 def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
-                mrope_positions=None, block_tables=None, dp: int = 1):
+                mrope_positions=None, block_tables=None, dp: int = 1,
+                groups: Optional[Groups] = None):
     """Single-token decode (or verify window).  Returns (local logits
     (R, B, S, V_loc), the cache, updated in place).  ``block_tables``
     (B, max_blocks) selects the paged pool (``runtime/paging.py``)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions,
                            mrope_positions=mrope_positions, cache=cache,
-                           decode=True, block_tables=block_tables, dp=dp)
+                           decode=True, block_tables=block_tables, dp=dp,
+                           groups=groups)
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
@@ -723,7 +781,8 @@ def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
 
 
 def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
-                sample_idx, block_tables=None, dp: int = 1):
+                sample_idx, block_tables=None, dp: int = 1,
+                groups: Optional[Groups] = None):
     """One packed hybrid forward: tokens (1, T) carry prefill-chunk
     segments, single-token decode slots and verify windows on one axis;
     ``seg_slots``
@@ -736,20 +795,23 @@ def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions, cache=cache,
                            block_tables=block_tables, packed_slots=seg_slots,
-                           dp=dp)
+                           dp=dp, groups=groups)
     idx = sample_idx.to(h.device).long().clamp_min(0)
     return E.lm_head_logits(params["embedding"], h[:, 0][:, idx]), new_cache
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                device=None, dtype=None, dp: int = 1,
-               seq_shard_kv: bool = False):
+               seq_shard_kv: bool = False, groups: Optional[Groups] = None):
     """Slot KV cache for ``tp`` ranks on ``device`` (CUDA unless given):
     one {"k", "v", "pos"} dict per layer, in the global layout the
     reference shards over its data axis: ``batch`` rows over ``dp`` data
     shards, or (``seq_shard_kv``) every full-attention layer's
     ``max_len`` slots over them (shard d owning ``[d·C/D, (d+1)·C/D)``;
-    the sliding-window ring buffers stay whole)."""
+    the sliding-window ring buffers stay whole).  With ``groups`` the
+    cache is this process's: one rank's heads and, under
+    ``seq_shard_kv``, its data rank's C/D slots of each full-attention
+    layer."""
     device = resolve_device(device)
     if seq_shard_kv and max_len % dp:
         raise ValueError(f"max_len={max_len} does not split over {dp} "
@@ -757,6 +819,11 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
     if not seq_shard_kv and batch % dp:
         raise ValueError(f"batch={batch} does not split over {dp} data "
                          f"shards")
+    if groups is not None:
+        return [A.init_kv_cache(
+            batch, max_len // dp if seq_shard_kv and k.window == 0
+            else max_len, cfg, tp, window=k.window, dtype=dtype,
+            device=device, ranks=1) for k in layer_kinds(cfg)]
     return [A.init_kv_cache(batch, max_len, cfg, tp, window=k.window,
                             dtype=dtype, device=device)
             for k in layer_kinds(cfg)]

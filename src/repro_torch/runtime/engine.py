@@ -72,8 +72,13 @@ them.
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
-axis.  It runs on CUDA unless it is given ``device="cpu"``; with no device
-and no CUDA it raises.  The host builds every step's index arrays (block
+axis.  Under ``api.groups`` (the ``process_group`` backend, the dense
+family) each process runs its own Engine on the same requests with one
+model rank's params: the scheduler is deterministic and every rank
+samples the same token (``sampler.sample`` over the model group), so all
+ranks take the same steps; speculative decoding refuses it.  It runs
+on CUDA unless it is given ``device="cpu"``; with no device and no CUDA
+it raises.  The host builds every step's index arrays (block
 tables, packed segment owners, positions) in numpy and hands them to the
 model as CPU tensors, which moves them to the device once per forward.
 """
@@ -255,9 +260,10 @@ class Engine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params are on {emb.device}, engine on "
                              f"{self.device}")
-        if emb.shape[0] != api.tp:
+        local = api.comm_ctx.local_ranks
+        if emb.shape[0] != local:
             raise ValueError(f"params hold {emb.shape[0]} ranks, the model "
-                             f"API tp={api.tp}")
+                             f"API holds {local} of tp={api.tp}")
         if api.ep > 1:
             raise NotImplementedError(
                 f"the engine serves at data size 1, not ep={api.ep}, as the "
@@ -318,6 +324,10 @@ class Engine:
                     "windows)")
         self.spec_gamma = int(scfg.spec_gamma)
         self.draft = None
+        if self.spec_gamma and api.groups is not None:
+            raise NotImplementedError(
+                "speculative decoding over the process_group backend is "
+                "not ported (ROADMAP.md)")
         if self.spec_gamma:
             if self._is_ssm:
                 raise ValueError("speculative decoding rolls back KV "
@@ -738,8 +748,8 @@ class Engine:
         """Each row's token id from (R, B, 1, V_loc) logits."""
         return sample(logits, vocab_size=self.api.cfg.vocab_size,
                       temperature=self.temperature, top_k=self.top_k,
-                      top_p=self.top_p, generator=self.generator
-                      ).cpu().numpy()
+                      top_p=self.top_p, generator=self.generator,
+                      ctx=self.api.comm_ctx).cpu().numpy()
 
     def _verify(self, logits, draft: np.ndarray):
         """(n_acc, emit) per row from (R, B, gamma+1, V_loc) logits and

@@ -64,11 +64,12 @@ from repro_torch.weights import to_torch
 # ==========================================================================
 
 def init_paged_cache(num_blocks: int, block_size: int, cfg, tp: int = 1, *,
-                     device=None, dtype=None):
+                     device=None, dtype=None, ranks: int | None = None):
     """The pool for ``tp`` ranks on ``device`` (CUDA unless given): one
     {"k": (R, nb, bs, kv_store, dh), "v": ..., "pos": (nb, bs)} dict per
     layer.  Rank r stores its kv_store heads, the reference's global head
-    axis ``[r·kv_store, (r+1)·kv_store)``."""
+    axis ``[r·kv_store, (r+1)·kv_store)``.  R is ``ranks`` (tp unless
+    given; 1 for a process of a model group)."""
     from repro_torch.device import resolve_device
     from repro_torch.layers.attention import attention_layout
     from repro_torch.models.transformer import layer_kinds
@@ -76,7 +77,8 @@ def init_paged_cache(num_blocks: int, block_size: int, cfg, tp: int = 1, *,
     device = resolve_device(device)
     lay = attention_layout(tp, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     dt = dtype or getattr(torch, cfg.dtype)
-    shape = (tp, num_blocks, block_size, lay.kv_store, cfg.head_dim)
+    shape = (ranks or tp, num_blocks, block_size, lay.kv_store,
+             cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device),
              "pos": torch.full((num_blocks, block_size), -1,

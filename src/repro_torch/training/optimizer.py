@@ -6,8 +6,10 @@ same structure, and ``adamw_update`` writes the new values in place.
 ``zero_specs`` / ``opt_state_specs`` are the reference's pure functions
 over shapes and PartitionSpecs (tuples here, in the reference's layout:
 ``weights.reference_specs``): for each leaf, the dims the data axes split
-the optimizer state over.  The layout stays whole on one card; a
-process-group backend reads these specs.
+the optimizer state over.  The layout stays whole on one card: the
+``process_group`` backend (``distributed/context.py``) serves but does not
+train yet, and the process-group train step queued in ROADMAP.md (A17)
+is the one to split ``m`` / ``v`` over the data group by these specs.
 
 Weight decay follows the reference's rule, ``ndim >= 2``, counted in the
 reference's layout (``weights.reference_ndims``): there a replicated leaf

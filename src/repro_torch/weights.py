@@ -30,6 +30,12 @@ care:
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
 
+``from_jax_params(..., rank=r)`` keeps model rank r's slice ``[r:r+1]``
+of every per-rank leaf (replicated leaves whole), the parameters of one
+process of a ``process_group`` model (``distributed/context.py``);
+``take_rank`` cuts the same slice out of this package's dict.  Both
+take the dense and MoE ``expert``/``ffn`` trees.
+
 ``from_jax_params`` also takes the reference's tree with torch leaves
 (``to_jax_layout``'s output, a checkpoint restored by
 ``checkpoint.manager``); ``to_jax_layout`` of the optimizer's ``m`` and
@@ -63,19 +69,53 @@ REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_cross",
 FLOAT32 = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
-def _convert(tree, device, dtype):
-    """Keep the per-shard axis of sharded leaves as the rank axis; drop
-    the size-1 axis of replicated ones."""
-    return {k: (_convert(v, device, dtype) if isinstance(v, dict)
-                else to_torch(v[0] if k in REPLICATED else v, device,
-                              torch.float32 if k in FLOAT32 else dtype))
-            for k, v in tree.items()}
+def _convert(tree, device, dtype, rank=None):
+    """Keep the per-shard axis of sharded leaves as the rank axis (rank
+    ``rank``'s slice of it when given); drop the size-1 axis of
+    replicated ones."""
+    def leaf(k, v):
+        if k in REPLICATED:
+            v = v[0]
+        elif rank is not None:
+            v = v[rank:rank + 1]
+        return to_torch(v, device, torch.float32 if k in FLOAT32 else dtype)
+    return {k: (_convert(v, device, dtype, rank) if isinstance(v, dict)
+                else leaf(k, v)) for k, v in tree.items()}
 
 
-def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
+def _check_rank_slicing(tree_keys, cfg) -> None:
+    """One model rank's slice is taken for the trees whose every sharded
+    leaf leads with the rank axis."""
+    if (cfg.family not in ("dense", "moe", "vlm")
+            or cfg.moe_partition == "ep2d" and cfg.family == "moe"
+            or {"shared", "enc_layers"} & set(tree_keys)):
+        raise NotImplementedError(
+            f"one rank's parameters are cut for the dense and MoE "
+            f"expert/ffn trees, not for {cfg.name!r} ({cfg.family})")
+
+
+def take_rank(params, rank: int, cfg):
+    """This package's parameter dict at tp ranks -> model rank ``rank``'s:
+    every per-rank leaf's ``[rank:rank+1]`` as a copy of its own (so the
+    full tree can be freed), replicated leaves as they are."""
+    _check_rank_slicing(params, cfg)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else [walk(x) for x in v] if isinstance(v, list)
+                else v if k in REPLICATED or k in TOP_REPLICATED
+                else v[rank:rank + 1].clone() for k, v in tree.items()}
+    return walk(params)
+
+
+def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None,
+                    rank=None):
     """Reference pytree (numpy leaves) -> this package's parameter dict,
-    on ``device`` (CUDA unless given)."""
+    on ``device`` (CUDA unless given); with ``rank``, model rank
+    ``rank``'s parameters alone (a leading rank axis of size 1)."""
     device = resolve_device(device)
+    if rank is not None:
+        _check_rank_slicing(params_np, cfg)
 
     def layers(tree, n):
         if "layer_0" in tree:
@@ -85,10 +125,10 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None):
                 return {k: take(v, i) if isinstance(v, dict) else v[i]
                         for k, v in t.items()}
             per_layer = [take(tree, i) for i in range(n)]
-        return [_convert(lp, device, dtype) for lp in per_layer]
+        return [_convert(lp, device, dtype, rank) for lp in per_layer]
 
     out = {
-        "embedding": _convert(params_np["embedding"], device, dtype),
+        "embedding": _convert(params_np["embedding"], device, dtype, rank),
         "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
     }
     if "enc_layers" in params_np:

@@ -175,8 +175,8 @@ def test_port_imports_neither_jax_nor_reference():
     online server, MoE layer, config registry, wire transport, cluster,
     HTTP API, SSM layers, rotary embeddings, the data rank axis's context,
     the mamba, hybrid and encdec models, the kernels' autograd Functions,
-    the training modules, the checkpoint manager and the train driver
-    among them), and
+    the training modules, the checkpoint manager, the train driver and
+    the process-group collectives among them), and
     chip_smoke.py's imports, load with ``jax`` and ``repro`` made
     unimportable."""
     code = r"""
@@ -203,7 +203,9 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.training.train_step",
         "repro_torch.training.compression", "repro_torch.training.data",
         "repro_torch.checkpoint.manager", "repro_torch.launch.mesh",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train",
+        "repro_torch.distributed.collectives",
+        "repro_torch.launch.serve"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
@@ -225,3 +227,20 @@ print("OK", len(names))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
+
+
+def test_init_groups_needs_a_named_backend(tmp_path):
+    """``init_groups`` never picks a backend from what it finds: without
+    one, or with one it does not know, it raises before joining a group
+    (CPU tensors take "gloo", CUDA ones "nccl")."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_groups, make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    kw = dict(init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    with pytest.raises(TypeError, match="backend"):
+        init_groups(mesh, **kw)
+    for backend in (None, "", "auto", "mpi"):
+        with pytest.raises(ValueError, match="name the backend"):
+            init_groups(mesh, backend=backend, **kw)
+    assert not dist.is_initialized()
