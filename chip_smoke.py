@@ -214,6 +214,22 @@ ragged and windowed), bidirectional (``whisper_enc``, timed), at G 7
 (``qwen2vl``, timed; ``bidir_padded`` ragged with padded keys) and at
 Qwen3-MoE's G 16 and 8 (``qwen3``, ``qwen3_tp8``, ``qwen3_ep2d``, timed).
 
+After the engine phases, ``tuned_plan``: the overlap-plan autotuner on
+``online_tp8``'s calibration (build/plans/tuned.json; the entries that
+differ from analysis/plans/h100_default.json printed), engine_tp's
+traffic served over the paged pool at tp=8 ``ring`` under the threshold
+policy and from the tuned plan in turns, each forward's plan key and
+budget with the CTAs it grants K1 (every K1 grid gated equal to it), K1
+held and timed at each CTA count used, K3 on every shape, step medians
+of both policies, bf16 tokens reported and the float32 twin's at tp=2
+gated equal.  After the identity phases, ``dryrun``: the meta-device dry
+run of every ASSIGNED arch x shape (and Llama-3.3-70B and
+Mixtral-8x22B) on the 16x16 mesh in parallel processes, a status count
+and the two paper models' per-device bytes and dominant roofline terms,
+then Llama-3.3-70B at 4 layers and tp=8 built on the card, its
+parameters' memory within 1 % of the dry run's count; and ``examples``:
+examples/torch/quickstart.py and serve_e2e.py run on the card, exit 0.
+
 Then a ``kernels`` summary line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}`` — printed only when every
 phase passed.  Without a CUDA device, or without the repository's src/
@@ -4687,6 +4703,422 @@ def manual_sync_phase(torch) -> None:
 
 
 
+# --------------------------------------------------------------------------
+# the tuned overlap plan, the meta-device dry run and the examples
+# --------------------------------------------------------------------------
+
+PLAN_TURNS = ("warmup", "threshold", "tuned", "tuned", "threshold")
+DRYRUN_WORKERS = 8                 # dry-run processes at a time (8 cores)
+# the cells that take longest on meta, started first: Zamba2's 256 SSD
+# chunks a layer at 32k, then the train steps of the deepest models
+DRYRUN_SLOW = (("zamba2-7b", "prefill_32k"), ("zamba2-7b", "train_4k"),
+               ("qwen3-moe-235b-a22b", "train_4k"),
+               ("deepseek-67b", "train_4k"))
+DRYRUN_PARAM_RTOL = 0.01           # allocated parameter bytes vs the count
+DRYRUN_REPORTED = ("llama3.3-70b", "mixtral-8x22b")
+EXAMPLES = ("quickstart", "serve_e2e")
+
+
+def retarget_plan(plan, tp_from: int, tp_to: int):
+    """The plan's ``tp_from`` entries granted at ``tp_to``: the plans
+    cover tp 8 and 1, the float32 twin runs at tp=2."""
+    return dataclasses.replace(plan, entries=tuple(
+        dataclasses.replace(e, tp=tp_to) for e in plan.entries
+        if e.tp == tp_from))
+
+
+class PlanSpy:
+    """Each engine forward's weave decision, and on each K1 call the grid
+    it got beside the budget of the forward it ran in; keeps a copy of
+    K1's inputs at the first call of each CTA count (taken on the card,
+    moved to the host by ``offload``)."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.kernels import ops
+        from repro_torch.models import transformer
+        self.ops, self.tr = ops, transformer
+        self.decide, self.k1 = transformer.weave_decision_info, ops._k1
+        self.infos, self.forwards, self.grids = [], [], []
+        self.k1_inputs = {}
+        note = eng._note_forward
+
+        def decide(*a, **kw):
+            info = self.decide(*a, **kw)
+            self.infos.append(info)
+            return info
+
+        def k1(x, residual, weight, *, eps=1e-6, ctas=8):
+            self.grids.append((ctas, self.infos[-1].budget))
+            if ctas not in self.k1_inputs:
+                self.k1_inputs[ctas] = ([t.detach().clone() for t in
+                                         (x, residual, weight)], eps)
+            return self.k1(x, residual, weight, eps=eps, ctas=ctas)
+
+        def note_forward(b, s, n_real, **kw):
+            note(b, s, n_real, **kw)
+            self.forwards.append((self.infos[-1], b * s))
+
+        transformer.weave_decision_info = decide
+        ops._k1 = k1
+        eng._note_forward = note_forward
+
+    def offload(self):
+        for ctas, (tensors, eps) in self.k1_inputs.items():
+            self.k1_inputs[ctas] = ([t.cpu() for t in tensors], eps)
+
+    def undo(self):
+        self.tr.weave_decision_info = self.decide
+        self.ops._k1 = self.k1
+
+
+def plan_forward_rows(spy, plan) -> list:
+    """(site, bucket, method, split_frac, budget -> K1 CTAs) of each
+    forward: the plan's entry at its key, or the threshold decision."""
+    from repro_torch.core.splitting import ring_ctas
+    index = {} if plan is None else {
+        (e.site, e.bucket, e.tp, e.family): e for e in plan.entries}
+    rows = []
+    for info, tokens in spy.forwards:
+        e = index.get((info.site, info.bucket, 8, "dense"))
+        rows.append({"site": info.site, "bucket": info.bucket,
+                     "tokens": tokens,
+                     "method": e.method if e else "threshold",
+                     "split_frac": e.split_frac if e else None,
+                     "budget": info.budget,
+                     "k1_ctas": ring_ctas(info.budget),
+                     "split": info.split, "reason": info.reason})
+    return rows
+
+
+def tuned_plan_phase(torch, np, seed: int, trace_dir: Path):
+    """The overlap-plan autotuner on the card's calibration, served.
+    ``autotune.build_default_plan`` on ``online_tp8``'s
+    calibration_tp8.json writes build/plans/tuned.json; every entry that
+    differs from the committed ``h100_default.json`` is printed.  Then
+    engine_tp's traffic (Llama-3.3-70B widths, 4 layers, bf16, tp=8
+    ``ring``, two-dispatch over the paged pool) is served under the
+    threshold policy and from the tuned plan in turns (``PLAN_TURNS``,
+    after an untimed warm-up run under the threshold policy):
+    each forward's plan key, method, split fraction and budget with the
+    CTAs it grants K1 (``tuned_plan_forwards``); every K1 call's grid is
+    ``ring_ctas`` of its forward's budget; every request finishes and the
+    pool drains; K1 is held against its plain version on the inputs it
+    got at each CTA count used, bit-identical across them, and timed at
+    each; K3 on every shape (``main_path_k3``).  The bf16 tokens of the
+    two policies are reported (their splits differ); on the small
+    float32 twin at tp=2 ``ring`` (the plan's tp=8 entries granted at
+    tp=2) they are gated equal.  Returns (launches, K3's max error,
+    peak GB)."""
+    from repro_torch.analysis import autotune
+    from repro_torch.core.policy import TunedPolicy
+    from repro_torch.core.splitting import ring_ctas
+    from repro_torch.kernels import ar_rmsnorm as K1
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    cal_path = trace_dir / "online" / "calibration_tp8.json"
+    with open(cal_path) as f:
+        cal = json.load(f)
+    plan = autotune.build_default_plan(cal)
+    plan_dir = ROOT / "build" / "plans"
+    plan_dir.mkdir(parents=True, exist_ok=True)
+    plan_path = plan_dir / "tuned.json"
+    plan.save(str(plan_path), **autotune._meta(str(cal_path)))
+    default = TunedPolicy.load(autotune.H100_PLAN)
+    ref = {(e.site, e.bucket, e.tp, e.family): e for e in default.entries}
+    diffs = [e for e in plan.entries
+             if ref.get((e.site, e.bucket, e.tp, e.family)) != e]
+    for e in diffs:
+        old = ref.get((e.site, e.bucket, e.tp, e.family))
+        emit({"phase": "tuned_plan_diff", "site": e.site,
+              "bucket": e.bucket, "tp": e.tp, "family": e.family,
+              "tuned": [e.method, e.split_frac, e.budget],
+              "h100_default": None if old is None else
+              [old.method, old.split_frac, old.budget]})
+    emit({"phase": "tuned_plan", "plan_id": plan.plan_id,
+          "h100_default_plan_id": default.plan_id,
+          "entries": len(plan.entries), "differing_entries": len(diffs),
+          "calibration": {k: cal.get(k) for k in (
+              "peak", "hbm", "ici", "mfu_cap", "overhead", "tile")},
+          "plan_json": str(plan_path)})
+
+    cfg, api, params, prompts, _, _ = full_width_model(
+        torch, np, seed, tp=8, comm_mode="ring", n_layers=4)
+    total = {"ar_rmsnorm": 0, "fused_residual_rmsnorm": 0,
+             "flash_attention": 0}
+    k3_inputs, k1_inputs, tokens = {}, {}, {}
+    times = {name: {"prefill": [], "decode": []} for name in PLAN_TURNS}
+    peak = 0.0
+    for turn, name in enumerate(PLAN_TURNS):
+        eng = Engine(api, params, SchedulerConfig(
+            paged=True, plan_path=str(plan_path) if name == "tuned"
+            else None))
+        turn_times = {"prefill": [], "decode": []}
+        spy = PlanSpy(torch, eng)
+
+        def timed(kind, fn, name=name, spy=spy):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                turn_times[kind].append((time.perf_counter() - t) * 1e3)
+                offload(k3_inputs)
+                spy.offload()
+            return run
+
+        eng._run_prefill = timed("prefill", eng._run_prefill)
+        eng._run_decode = timed("decode", eng._run_decode)
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p,
+                                    max_new_tokens=NEW_TOKENS))
+        undo = capture_k3_inputs(k3_inputs)
+        try:
+            reset_peak(torch)
+            reset_launches()
+            done = eng.run()
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            undo()
+            spy.undo()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        check_outputs(done, len(prompts), cfg.vocab_size, NEW_TOKENS)
+        check_drained(eng)
+        bad = [(c, b) for c, b in spy.grids if c != ring_ctas(b)]
+        if bad or not spy.grids:
+            raise AssertionError(f"{name}: K1 grids against their "
+                                 f"forwards' budgets {bad[:8]}, "
+                                 f"{len(spy.grids)} K1 calls")
+        for c, inputs in spy.k1_inputs.items():
+            k1_inputs.setdefault(c, inputs)
+        for k in total:
+            total[k] += launches[k]
+        tokens[name] = {r.rid: r.output for r in done}
+        for kind, ms in turn_times.items():
+            times[name][kind] += ms
+        emit({"phase": "tuned_plan_forwards", "turn": turn, "policy": name,
+              "plan_id": int(eng.metrics.get("engine/plan_id").value),
+              "launches": launches,
+              "ms_median": {k: statistics.median(v)
+                            for k, v in turn_times.items()},
+              "prefill_ms": turn_times["prefill"],
+              "k1_ctas_used": sorted({c for c, _ in spy.grids}),
+              "forwards": plan_forward_rows(
+                  spy, plan if name == "tuned" else None)})
+        del eng, spy
+    del params
+    torch.cuda.empty_cache()
+
+    # K1 on the inputs it got at each CTA count used: against its plain
+    # version, bit-identical on every count used, timed on each
+    ctas_used = sorted(k1_inputs)
+    k1_ms, k1_err = {}, 0.0
+    for c in ctas_used:
+        (x, r, w), eps = k1_inputs[c]
+        x, r, w = x.cuda(), r.cuda(), w.cuda()
+        out, new_res = K1.ar_rmsnorm(x, r, w, eps=eps, ctas=c)
+        for c2 in ctas_used:
+            o2, r2 = K1.ar_rmsnorm(x, r, w, eps=eps, ctas=c2)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, o2) and torch.equal(new_res, r2)):
+                raise AssertionError(f"K1 {tuple(x.shape)}: {c} and {c2} "
+                                     f"CTAs differ")
+        p_out, p_res = K1.ar_rmsnorm_plain(x, r, w, eps)
+        err = max(check_close(f"K1 tuned plan {c} CTAs out", out, p_out,
+                              K1_TOL, K1_TOL),
+                  check_close(f"K1 tuned plan {c} CTAs residual", new_res,
+                              p_res, K1_TOL, K1_TOL))
+        k1_err = max(k1_err, err)
+        k1_ms[c] = {str(c2): time_ms(torch, lambda c2=c2: K1.ar_rmsnorm(
+            x, r, w, eps=eps, ctas=c2)) for c2 in sorted({*ctas_used, 8})}
+        emit({"phase": "tuned_plan_k1", "ctas": c, "shape": list(x.shape),
+              "max_abs_err": err, "tol": K1_TOL,
+              "bit_identical_ctas": ctas_used, "ms_by_ctas": k1_ms[c]})
+        del x, r, w, out, new_res, p_out, p_res
+
+    def medians(name):
+        return {k: statistics.median(v) for k, v in times[name].items()}
+    emit({"phase": "tuned_plan_steps", "model": cfg.name, "tp": 8,
+          "layers": 4, "turns": list(PLAN_TURNS),
+          "threshold_ms_median": medians("threshold"),
+          "tuned_ms_median": medians("tuned"),
+          "tokens_equal_bf16": tokens["tuned"] == tokens["threshold"],
+          "k1_max_abs_err": k1_err, "peak_gb": peak,
+          "card": card_line()})
+    k3_err = check_main_path_k3(torch, k3_inputs, "tuned_plan", 8)
+
+    # the float32 twin at tp=2: the plan's tp=8 entries granted at tp=2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    twin_plan = plan_dir / "tuned_tp2.json"
+    retarget_plan(plan, 8, 2).save(str(twin_plan))
+    scfg = dict(max_batch=16, chunk_tokens=64, max_len=128,
+                prefill_bucket=16)
+    cfg2, api2 = small_api(tp=2, comm_mode="ring")
+    p2 = api2.init(seed, device="cuda")
+    rng = np.random.RandomState(seed + 1)
+    prompts2 = [rng.randint(0, cfg2.vocab_size, int(n)).tolist()
+                for n in rng.randint(5, 100, size=16)]
+    twin, ctas2 = {}, {}
+    for name, path in (("threshold", None), ("tuned", str(twin_plan))):
+        eng = Engine(api2, p2, SchedulerConfig(**scfg, plan_path=path))
+        spy = PlanSpy(torch, eng)
+        for i, p in enumerate(prompts2):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=8))
+        reset_launches()
+        try:
+            twin[name] = {r.rid: r.output for r in eng.run()}
+        finally:
+            spy.undo()
+        launches = read_launches()
+        for k in total:
+            total[k] += launches[k]
+        ctas2[name] = sorted({c for c, _ in spy.grids})
+        if any(c != ring_ctas(b) for c, b in spy.grids):
+            raise AssertionError(f"twin {name}: a K1 grid is not its "
+                                 f"forward's budget's")
+    emit({"phase": "tuned_plan_twin", "model": cfg2.name, "tp": 2,
+          "comm_mode": "ring", "requests": len(prompts2),
+          "tokens_identical": twin["tuned"] == twin["threshold"],
+          "k1_ctas_used": ctas2})
+    if twin["tuned"] != twin["threshold"]:
+        raise AssertionError("float32 twin: tuned-plan tokens differ from "
+                             "the threshold policy's")
+    del p2
+    torch.cuda.empty_cache()
+    return total, max(k3_err, 0.0), peak, k1_err
+
+
+def dryrun_phase(torch) -> None:
+    """``launch.dryrun.run_cell`` for every ASSIGNED arch x shape on the
+    16x16 mesh on meta tensors (one ``python -m repro_torch.launch.dryrun
+    --arch --shape`` process per cell, ``DRYRUN_WORKERS`` at a time, the
+    records in build/dryrun/), and the two paper models the report names
+    (``DRYRUN_REPORTED``): a status count, and for those two each
+    shape's per-device ``memory.args`` in GB and the roofline's dominant
+    term.  Then Llama-3.3-70B cut to 4 layers at tp=8 is built on the
+    card: the memory its parameters take must be within
+    ``DRYRUN_PARAM_RTOL`` of the dry run's parameter bytes of the same
+    cell (tp=8 ranks of one data shard, all on the card's rank axis)."""
+    import os
+
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.build import build_model
+
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    archs = [*ASSIGNED, *DRYRUN_REPORTED]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    # the slowest cells first, then train steps, then 32k prefills
+    pending = [*DRYRUN_SLOW, *(
+        (a, s) for s in ("train_4k", "prefill_32k", "decode_32k",
+                         "long_500k") for a in archs
+        if (a, s) not in DRYRUN_SLOW)]
+    running, failed = [], []
+    while pending or running:
+        while pending and len(running) < DRYRUN_WORKERS:
+            arch, shape = pending.pop(0)
+            out = out_dir / f"{arch}_{shape}.json"
+            out.unlink(missing_ok=True)
+            log = open(out_dir / f"{arch}_{shape}.log", "w")
+            running.append(((arch, shape), log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out)], cwd=SRC,
+                env=env, stdout=log, stderr=subprocess.STDOUT)))
+        time.sleep(0.2)
+        for item in [r for r in running if r[2].poll() is not None]:
+            running.remove(item)
+            item[1].close()
+            if item[2].returncode:
+                failed.append(item[0])
+    if failed:
+        raise AssertionError(f"dry run processes failed: {failed} (logs in "
+                             f"{out_dir})")
+    records = {}
+    for arch in archs:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            with open(out_dir / f"{arch}_{shape}.json") as f:
+                records.update(json.load(f))
+    status = {}
+    for key, rec in records.items():
+        status[rec["status"]] = status.get(rec["status"], 0) + 1
+    errors = {k: r.get("error") for k, r in records.items()
+              if r["status"] == "error"}
+    emit({"phase": "dryrun", "mesh": "16x16", "cells": len(records),
+          "status": status, "seconds": time.perf_counter() - t0,
+          "workers": DRYRUN_WORKERS, "errors": errors})
+    for key, rec in sorted(records.items()):
+        if key.split("|")[0] in DRYRUN_REPORTED and rec["status"] == "ok":
+            emit({"phase": "dryrun_cell", "arch": rec["arch"],
+                  "shape": rec["shape"],
+                  "memory_args_gb": rec["memory"]["args"] / 1e9,
+                  "memory_gb": {k: rec["memory"][k] / 1e9 for k in (
+                      "params", "opt", "cache", "inputs", "out")},
+                  "dominant": rec["roofline"]["dominant"],
+                  "compute_s": rec["roofline"]["compute_s"],
+                  "memory_s": rec["roofline"]["memory_s"],
+                  "collective_s": rec["roofline"]["collective_s"]})
+    if errors or status.get("ok", 0) + status.get("skipped", 0) != \
+            len(archs) * 4:
+        raise AssertionError(f"dry run: {status}, errors {errors}")
+
+    # the parameters of one cell on the card against the dry run's count
+    mesh = make_mesh((1, 8), ("data", "model"))
+    rec = dryrun.run_cell("llama3.3-70b", "decode_32k", multi_pod=False,
+                          mesh=mesh, cfg_overrides={"num_layers": 4},
+                          tag="tp8_4layers")
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of the card's cell: {rec}")
+    counted = rec["memory"]["params"] * 8        # tp=8 ranks on one card
+    api = build_model(dataclasses.replace(get_config("llama3.3-70b"),
+                                          num_layers=4),
+                      ParallelConfig(comm_mode="ring", attn_impl="pallas",
+                                     use_pallas_norm=True), tp=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = api.init(0, device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    rel = abs(grown - counted) / counted
+    emit({"phase": "dryrun_params", "arch": "llama3.3-70b", "layers": 4,
+          "tp": 8, "allocated_bytes": grown, "dryrun_bytes": counted,
+          "dryrun_bytes_per_rank": rec["memory"]["params"],
+          "rel_diff": rel, "rtol": DRYRUN_PARAM_RTOL})
+    del params
+    torch.cuda.empty_cache()
+    if not rel <= DRYRUN_PARAM_RTOL:
+        raise AssertionError(f"parameters took {grown} bytes on the card, "
+                             f"the dry run counts {counted}")
+
+
+def examples_phase() -> None:
+    """The example scripts ``EXAMPLES`` run on the card as a user runs
+    them (``python examples/torch/<name>.py``, no ``--device``: CUDA by
+    default); each must exit 0."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        emit({"phase": "examples", "example": name,
+              "returncode": proc.returncode,
+              "seconds": time.perf_counter() - t0,
+              "stdout_tail": proc.stdout.strip().splitlines()[-3:]})
+        if proc.returncode:
+            raise AssertionError(f"examples/torch/{name}.py exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4741,6 +5173,9 @@ def main() -> int:
             raise AssertionError(f"tp={tp}: packed peak {packed[tp][2]} GB "
                                  f"exceeds two-dispatch {two[tp][2]} GB by "
                                  f"more than {PACKED_PEAK_SLACK_GB} GB")
+    # the overlap plan tuned on online_tp8's calibration, served at tp=8
+    *tuned, tuned_k1_err = tuned_plan_phase(**kw)
+    paths.append(tuple(tuned))
     # speculative decoding: packed at tp=1 and tp=8, two-dispatch paged
     kw.pop("trace_dir")
     paths += [spec_phase(**kw, tp=1, comm_mode="fused"),
@@ -4803,6 +5238,12 @@ def main() -> int:
         identity_recurrent_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
         identity_family_phase(torch, np, args.seed, tp=tp, comm_mode=mode)
     identity_data_phase(torch, np, args.seed)
+    rows["ar_rmsnorm"]["max_abs_err"] = max(
+        rows["ar_rmsnorm"]["max_abs_err"], tuned_k1_err)
+    # the meta-device dry run and the examples: host work, after every
+    # timed phase
+    dryrun_phase(torch)
+    examples_phase()
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",

@@ -12,3 +12,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def generator(device: torch.device, seed: int):
+    """A seeded generator on ``device``; None on ``meta``, whose tensors
+    hold no values to draw (the dry run's ``launch/dryrun.py``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)

@@ -27,14 +27,94 @@ the ``_dp`` pair): a sum runs in float32 on the wire and is rounded once to
 x's dtype, or in x's dtype under ``ctx.bf16_wire``; a max and a gather move
 x's dtype.  Called on a side stream, NCCL orders its work after that
 stream's, and the stream waits for the result.
+
+While ``analysis.op_costs`` counts a call (``recording``), every
+collective reports its kind (the reference's HLO names), the bytes of
+its result as its tensors hold one rank's (on the rank axis a model-axis
+result spans every data shard folded into the batch, and a data-axis
+one carries the model ranks), its group size and its axis, and its
+body's tensor ops are not counted as the model's (on the rank axis a
+collective is an operation over dim 0).  ``note`` reports a collective
+that a caller computes with index ops (the ``ep2d`` all-to-alls,
+``layers/moe.py``), with one device's result bytes.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import context as C
 from repro_torch.kernels.ar_rmsnorm import rank_sum
+
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Report every collective to ``recorder`` while the block runs: an
+    object with ``collective()``, a context manager around a collective's
+    body, ``inside`` (whether such a body is running: a collective that
+    another one calls is not reported) and ``add(kind, nbytes, group,
+    axis)``, ``axis`` None where ``nbytes`` is one device's."""
+    _RECORDERS.append(recorder)
+    try:
+        yield recorder
+    finally:
+        _RECORDERS.remove(recorder)
+
+
+def note(kind: str, device_bytes: float, group: int,
+         axis: str | None = None) -> None:
+    """Report one collective of ``kind`` over a group of ``group`` ranks
+    whose result is ``device_bytes`` on each device (as the tensors hold
+    it where ``axis`` is given: ``model`` or ``data``)."""
+    if _RECORDERS and group > 1:
+        _RECORDERS[-1].add(kind, float(device_bytes), int(group), axis)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _reports(kind: str, axis: str, per_rank):
+    """Decorator: a recorder sees the call as one ``kind`` collective over
+    ``axis``; ``per_rank(out, x, ctx)`` gives (one rank's result bytes,
+    the group size)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(x, ctx):
+            if not _RECORDERS or _RECORDERS[-1].inside:
+                return fn(x, ctx)
+            with _RECORDERS[-1].collective():
+                out = fn(x, ctx)
+            note(kind, *per_rank(out, x, ctx), axis)
+            return out
+        return inner
+    return wrap
+
+
+def _model_group(x, ctx) -> int:
+    return ctx.tp if _grouped(ctx) else x.shape[0]
+
+
+def _whole(out, x, ctx):
+    """A result every rank holds whole: a sum, a max, or every rank's
+    tensors gathered (``gather_ranks``)."""
+    return _nbytes(out), _model_group(x, ctx)
+
+
+def _per_rank(out, x, ctx):
+    """A result whose leading axis is the local ranks."""
+    return _nbytes(out) / out.shape[0], _model_group(x, ctx)
+
+
+def _per_shard(out, x, ctx):
+    """A (D_loc, ...) result over the data axis."""
+    return _nbytes(out) / out.shape[0], ctx.dp
 
 
 def _grouped(ctx) -> bool:
@@ -59,6 +139,7 @@ def _all_reduce(x: torch.Tensor, op, group, dtype) -> torch.Tensor:
     return buf.to(x.dtype)
 
 
+@_reports("all-reduce", "model", _whole)
 def psum(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return rank_sum(x)
@@ -66,6 +147,7 @@ def psum(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     return _all_reduce(x, dist.ReduceOp.SUM, ctx.groups.model, _wire(x, ctx))
 
 
+@_reports("reduce-scatter", "model", _per_rank)
 def psum_scatter(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return C.scatter_rows(rank_sum(x), x.shape[0], ctx.dp)
@@ -79,6 +161,7 @@ def psum_scatter(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     return out.to(x.dtype)[None]
 
 
+@_reports("all-gather", "model", _per_rank)
 def all_gather(local: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         r = local.shape[0]
@@ -88,6 +171,7 @@ def all_gather(local: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     return gather_ranks(local, ctx).flatten(0, 1)[None]
 
 
+@_reports("all-gather", "model", _whole)
 def gather_ranks(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return x
@@ -97,6 +181,7 @@ def gather_ranks(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     return out
 
 
+@_reports("all-reduce", "model", _whole)
 def pmax(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return x.amax(dim=0)
@@ -113,6 +198,7 @@ def token_shard_slice(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     return x[:, ctx.rank * c:(ctx.rank + 1) * c]
 
 
+@_reports("all-reduce", "data", _per_shard)
 def psum_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return C.psum_dp(x, ctx)
@@ -120,6 +206,7 @@ def psum_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
                        _wire(x, ctx))[None]
 
 
+@_reports("all-reduce", "data", _per_shard)
 def pmax_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         if x.shape[0] != ctx.dp:

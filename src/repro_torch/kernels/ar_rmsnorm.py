@@ -21,8 +21,8 @@ reduced and stored; rows it cannot hold (``pipelined``) take a scalar body
 that does one row at a time.  Every grid gives the same bits (see the
 source note).
 
-``ar_rmsnorm`` is the wrapper: on CPU tensors it runs ``ar_rmsnorm_plain``;
-on CUDA tensors it launches the kernel or raises.
+``ar_rmsnorm`` is the wrapper: on CPU and meta tensors it runs
+``ar_rmsnorm_plain``; on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -164,7 +164,7 @@ def ar_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
     residual (N, T/N, d) and weight (d,), on ``ctas`` CTAs (1 to 8).  x
     and residual may be views whose rank slabs are contiguous
     (``slabs_contiguous``); the outputs are new contiguous tensors."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return ar_rmsnorm_plain(x, residual, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")

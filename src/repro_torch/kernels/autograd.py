@@ -4,9 +4,9 @@ The reference's Pallas kernels have no backward (no ``custom_vjp``): its
 training differentiates through what ``jax.grad`` makes of them.  Here
 each kernel is a ``torch.autograd.Function`` whose forward is the
 kernel's wrapper (the hand-written kernel on CUDA tensors, its plain
-version on CPU tensors) and whose backward runs the plain version again
-from the saved inputs under ``torch.enable_grad()`` and returns its
-gradients.  A backward kernel is queued in ROADMAP.md.
+version on CPU and meta tensors) and whose backward runs the plain
+version again from the saved inputs under ``torch.enable_grad()`` and
+returns its gradients.  A backward kernel is queued in ROADMAP.md.
 
 ``kernels/ops.py`` applies these only where a gradient may be asked
 (``needs_grad``); serving calls the wrappers directly.  K1 has no

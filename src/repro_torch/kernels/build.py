@@ -19,6 +19,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+# the devices whose tensors a wrapper hands to its kernel's plain version:
+# the CPU's, and meta tensors (shapes only: the dry run, launch/dryrun.py);
+# on a CUDA tensor it launches the kernel, on any other it raises
+PLAIN_DEVICES = ("cpu", "meta")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {

@@ -26,7 +26,7 @@ path's ``_attn_ref`` gives it with its finite ``NEG_INF``; the kernel
 takes that mean, in fp32, from a side pass over V that runs in the same
 call (``vsum`` partials per (batch, KV head, chunk of keys)).
 
-``flash_attention`` is the wrapper: on CPU tensors it runs
+``flash_attention`` is the wrapper: on CPU and meta tensors it runs
 ``flash_attention_plain`` (the semantics of the model path's
 ``_attn_ref``); on CUDA tensors it launches the kernel or raises.
 """
@@ -192,7 +192,7 @@ def tiling(head_dim: int) -> tuple[int, int, int]:
 def flash_attention(q, k, v, qpos, kpos, *, causal: bool, window: int = 0,
                     sm_scale: float | None = None):
     """Attention forward; shapes as ``flash_attention_plain``."""
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, qpos, kpos, causal=causal,
                                      window=window, sm_scale=sm_scale)
     if q.device.type != "cuda":

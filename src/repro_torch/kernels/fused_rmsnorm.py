@@ -10,7 +10,7 @@ note).  A Triton kernel would serve as well — a fused elementwise pass plus
 one row reduction is Triton's home ground — but CUDA C++ built with nvcc
 shares one build route with K3 and needs no extra package.
 
-``fused_residual_rmsnorm`` is the wrapper: on CPU tensors it runs
+``fused_residual_rmsnorm`` is the wrapper: on CPU and meta tensors it runs
 ``fused_residual_rmsnorm_plain``; on CUDA tensors it launches the kernel
 or raises.
 """
@@ -69,7 +69,7 @@ def _lib():
 
 def fused_residual_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
     """(out, new_residual) for x, residual (T, d) and weight (d,)."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return fused_residual_rmsnorm_plain(x, residual, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")

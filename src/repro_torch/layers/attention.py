@@ -302,11 +302,23 @@ def attn_verify(params, x, cache, *, positions, cfg, lay: AttnLayout, theta,
                                    mrope_positions=mrope_positions)
     c = cache["k"].shape[2]
     valid = positions >= 0
-    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s)[valid]
-    slot = (positions % c)[valid].long()
-    cache["k"][:, bidx, slot] = k_new[:, valid].to(cache["k"].dtype)
-    cache["v"][:, bidx, slot] = v_new[:, valid].to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = positions[valid].to(torch.int32)
+    # a write of static shape (no host sync): a dropped entry repeats the
+    # first kept entry of its row (the same slot, the same value), and a
+    # row with none writes its slot 0's old contents back
+    keep = valid.any(dim=1)
+    first = valid.int().argmax(dim=1, keepdim=True)
+    src = torch.where(valid, torch.arange(s, device=x.device)[None], first)
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s)
+    slot = torch.where(keep[:, None], positions.gather(1, src) % c,
+                       0).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        old = cache[name][:, bidx, slot]
+        cache[name][:, bidx, slot] = torch.where(
+            keep[None, :, None, None, None], new[:, bidx, src].to(old.dtype),
+            old)
+    cache["pos"][bidx, slot] = torch.where(
+        keep[:, None], positions.gather(1, src).to(torch.int32),
+        cache["pos"][bidx, slot])
     partial = _decode_attn_math(params, q, cache["k"], cache["v"],
                                 cache["pos"], positions, x_dtype=x.dtype,
                                 cfg=cfg, lay=lay, window=window)

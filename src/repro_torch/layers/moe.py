@@ -34,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as COL
+
 # named ranges around moe_forward's parts, so a profile can split their
 # device time (chip_smoke.py's MoE breakdown)
 ROUTE_RANGE = "repro_torch.moe.route"        # router product, softmax, top-k
@@ -285,13 +287,17 @@ def _ep2d_forward(params, xt, cfg, dp: int):
         topw, topi, aux = _route(xs, params["router"], cfg)
     cs = max(int(math.ceil(t_loc * k / dp * cfg.capacity_factor)), 4)
     cap2 = int(math.ceil(dp * cs / e_loc * cfg.capacity_factor))
+    # each all-to-all moves a device's D·cs rows of d (its send buffer)
+    a2a = dp * cs * d * xs.element_size()
     with record(DISPATCH_RANGE):
         buf, slot, slot2 = _ep2d_dispatch(xs, topi, e_loc=e_loc, cs=cs,
                                           cap2=cap2)
+    COL.note("all-to-all", a2a, dp)
     with record(EXPERTS_RANGE):
         out_buf = _expert_ffn(buf[:, None], params)
     with record(COMBINE_RANGE):
         out = _ep2d_combine(out_buf, slot, slot2, topw, cs=cs)
+    COL.note("all-to-all", a2a, dp)
     return out, aux
 
 

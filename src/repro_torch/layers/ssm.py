@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ar_rmsnorm import rank_sum
+from repro_torch.distributed.collectives import psum
 
 IN_PROJ_RANGE = "repro_torch.ssm.in_proj"      # in_proj (and Mamba-2's B/C)
 CONV_RANGE = "repro_torch.ssm.conv"            # causal depthwise conv, silu
@@ -240,8 +240,8 @@ def mamba1_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
         u = F.silu(u.float()).to(x.dtype)
     # dt/B/C from the full inner dim: local partial + its sum over ranks
     with _record(XPROJ_RANGE):
-        dbc = rank_sum(u.reshape(r, bsz * s, dil) @ params["x_proj"]
-                       ).float().reshape(bsz, s, -1)
+        dbc = psum(u.reshape(r, bsz * s, dil) @ params["x_proj"],
+                   None).float().reshape(bsz, s, -1)
         dt_in = dbc[..., :dtr]
         b_ssm, c_ssm = dbc[..., dtr:dtr + s_st], dbc[..., dtr + s_st:]
     with _record(SCAN_RANGE):
@@ -330,7 +330,7 @@ def _gated_rmsnorm_tp(y, z, w, eps):
     dil); w (R, dil)."""
     g = y.float() * F.silu(z.float())
     ss = (g * g).sum(dim=-1, keepdim=True)
-    ss = rank_sum(ss)[None] if ss.shape[0] > 1 else ss
+    ss = psum(ss, None)[None] if ss.shape[0] > 1 else ss
     n = g.shape[-1] * g.shape[0]
     inv = torch.rsqrt(ss / n + eps)
     return (g * inv * _bcast(w.float(), g)).to(z.dtype)

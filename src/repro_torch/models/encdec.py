@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
@@ -56,7 +56,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     zero, norms ones) and shapes."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
     d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff

@@ -45,8 +45,8 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.device import resolve_device
-from repro_torch.kernels.ar_rmsnorm import rank_sum
+from repro_torch.device import generator, resolve_device
+from repro_torch.distributed.collectives import psum
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
@@ -83,7 +83,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     (2d)^-0.5)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     d = cfg.d_model
     n_inv, _ = _n_groups(cfg)
     acfg, lay = _shared_layout(cfg, tp)
@@ -186,7 +186,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
     # the complete embedding: every shared-block input reuses it
-    emb = rank_sum(emb)                                   # (B, S, d)
+    emb = psum(emb, None)                                 # (B, S, d)
     split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
     cuts = TR._split_cuts(split, b if decode else s)
     embs = [emb[lo:hi] if decode else emb[:, lo:hi] for lo, hi in cuts]

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.splitting import pad_to_multiple
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
 from repro_torch.models import transformer as TR
@@ -39,7 +39,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     ``weights.from_jax_params`` instead."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     layers = [{"mamba": S.init_mamba1_params(gen, cfg, tp, device=device,
                                              dtype=dtype),
                "norm_out": torch.ones(cfg.d_model, dtype=dtype,

@@ -76,7 +76,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fused_collectives as fc
 from repro_torch.core.policy import DEFAULT_POLICY
 from repro_torch.core.splitting import pad_to_multiple, token_bucket
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.distributed.context import CommCtx, Groups
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
@@ -136,7 +136,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
                                   "dense family, not for MoE")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     lay = A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim)
     d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff

@@ -175,12 +175,13 @@ def test_port_imports_neither_jax_nor_reference():
     online server, MoE layer, config registry, wire transport, cluster,
     HTTP API, SSM layers, rotary embeddings, the data rank axis's context,
     the mamba, hybrid and encdec models, the kernels' autograd Functions,
-    the training modules, the checkpoint manager, the train driver and
-    the process-group collectives among them), and
-    chip_smoke.py's imports, load with ``jax`` and ``repro`` made
-    unimportable."""
+    the training modules, the checkpoint manager, the train driver, the
+    process-group collectives, the launch shapes, the dry run, the op
+    counts, the autotuner and the plan checker among them), the example
+    scripts under examples/torch/ and chip_smoke.py's imports, load with
+    ``jax`` and ``repro`` made unimportable."""
     code = r"""
-import ast, pathlib, sys, importlib, pkgutil
+import ast, pathlib, sys, importlib, importlib.util, pkgutil
 sys.path.insert(0, sys.argv[1])
 sys.modules["jax"] = None
 sys.modules["repro"] = None
@@ -205,9 +206,20 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.checkpoint.manager", "repro_torch.launch.mesh",
         "repro_torch.launch.train",
         "repro_torch.distributed.collectives",
-        "repro_torch.launch.serve"} <= set(names), names
+        "repro_torch.launch.serve", "repro_torch.launch.shapes",
+        "repro_torch.launch.dryrun", "repro_torch.analysis.op_costs",
+        "repro_torch.analysis.autotune",
+        "repro_torch.analysis.check_plan"} <= set(names), names
 for n in names:
     importlib.import_module(n)
+examples = sorted(pathlib.Path("examples/torch").glob("*.py"))
+assert {p.stem for p in examples} >= {
+    "quickstart", "serve_e2e", "online_serve", "shared_prefix_serve",
+    "cluster_serve", "trace_serve", "overlap_ablation"}, examples
+sys.path.insert(0, "examples/torch")
+for p in examples:
+    spec = importlib.util.spec_from_file_location("example_" + p.stem, p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
 for node in ast.walk(tree):
     if isinstance(node, ast.Import):
