@@ -21,6 +21,21 @@ Phases, each printing one JSON line:
             visit), its second split at tp=8 (``engine_tp``: the ranks
             folded into the batch, one KV head each) and a sweep over G
             and head dim;
+2b. k1_peer K1's cross-rank form (csrc/ar_rmsnorm_peer.cu), N ranks on
+            the one card: (a) in one process, N = 2, 4, 8 ranks as N
+            launches on N streams, each with its own peer workspace, at
+            (T 2048, d 8192), (T 12000, d 512), (T 1000, d 8190: the
+            scalar body) and (T 8, d 8192: fewer rows than CTAs) bf16 and
+            (T 2048, d 4096) float32: every rank's
+            output and new residual bit-equal
+            to the one-card K1's on the same inputs, on 1, 2, 4 and 8 CTAs,
+            within K1_TOL of the plain version, timed with CUDA events
+            beside the one-card K1; (b) N = 2 and 4 processes, each
+            calling ``comm_norm`` in comm mode ``ring`` under
+            ``CommCtx(process_group)`` over gloo groups (which carry only
+            the CUDA IPC handle exchange): bit-equal to the one-card K1 on
+            the whole inputs, one launch a call, times labelled
+            time-sliced (the processes share the card by turns);
 3. online   the serving front end and observability at full width
             (Llama-3.3-70B cut to 4 layers, bf16, packed + paged):
             8 requests (prompts of 300-1800 tokens, 32 new) served with
@@ -181,6 +196,22 @@ Phases, each printing one JSON line:
             with each wire dtype beside the rank axis's at tp=1 and tp=8
             (``pg_collectives``, with the card's name and power limit);
             the process group is destroyed at the end;
+19b. pg_ring  ``launch.serve``'s ``main`` with ``--comm-mode ring
+            --backend gloo`` at world size 2, both ranks on the card, each
+            with a spy around K1's cross-rank wrapper: Llama-3.3-70B at 4
+            layers (bf16) and its reduced float32 twin; K1-peer launches
+            equal the engine's slots, splits·(1+2L), no other add+norm
+            kernel runs; at every (T, CTAs) the forwards gave it (prefill
+            splits, decode steps of T/2 rows below the 8 CTAs) the served
+            inputs, stacked, through the one-card K1: each rank's outputs
+            bit-equal, within K1_TOL of the plain version; tokens beside
+            the rank axis's ``ring`` at tp=2 on the card (bf16 reported,
+            float32 gated equal), and K1's inputs and outputs beside the
+            rank axis's call by call (bits, by digest): outputs equal
+            wherever inputs are (gated), float32 the same calls at the
+            same shapes (gated); the first call whose inputs part, and a
+            layer's products at its rows batched over the ranks and one
+            rank alone (reported);
 20. train_kernels  K2's and K3's autograd Functions (the kernel forward,
             the plain version's backward) against autograd through their
             plain versions on the card at the training step's shapes: K3
@@ -242,6 +273,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4402,6 +4434,605 @@ def pg_engine_phase(torch, np, seed: int, trace_dir: Path):
     return launches, k3_err, peak
 
 
+# --------------------------------------------------------------------------
+# k1_peer: K1's cross-rank form, N ranks on the one card
+# --------------------------------------------------------------------------
+
+# (T, d, dtype): a prefill split's rows at Llama width, Whisper's encoder
+# split of short rows, one float32 case, rows of 8190 (not whole 16-byte
+# vectors: the scalar body), and a decode step's 8 rows (T/N below the 8
+# CTAs: CTAs with no rows still take part in the flags)
+K1P_CASES = ((2048, 8192, "bfloat16"), (12000, 512, "bfloat16"),
+             (2048, 4096, "float32"), (1000, 8190, "bfloat16"),
+             (8, 8192, "bfloat16"))
+K1P_LOCAL_RANKS = (2, 4, 8)        # one process, one stream a rank
+K1P_PROC_RANKS = (2, 4)            # one process a rank
+K1P_ITERS = 20
+K1P_PROC_ITERS = 5
+# the workspace every k1_peer run sizes: 2048 rows of 8192 bf16, whose
+# chunks hold every case's
+K1P_ROWS, K1P_D = 2048, 8192
+K1P_TIMEOUT_S = 600
+# a sleep kernel that holds back k1_peer's timed calls while the host
+# enqueues them (~70 ms at the H100's clock), doubled while too short
+K1P_GATE_CYCLES = 1 << 27
+
+
+def gated_ms(torch, fn, iters: int) -> tuple:
+    """(device ms, host ms) of one call of ``fn`` (launches on several
+    streams, joined back into the current one): ``iters`` calls are
+    enqueued behind a sleep kernel on the current stream and timed from
+    its end with CUDA events, so they run back to back whatever the
+    host's launch rate; the host ms is the enqueueing's.  A CUDA graph
+    would serve as well (``time_ms``), but a graph's parallel branches are
+    not promised to run at once, and the ranks' kernels wait on each
+    other."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = K1P_GATE_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t) * 1e3 / iters
+        end.record()
+        late = start.query()       # the gate opened before the last launch
+        torch.cuda.synchronize()
+        if not late:
+            return start.elapsed_time(end) / iters, host
+        cycles *= 2
+    raise AssertionError("the host could not enqueue the timed calls "
+                         "within the gate")
+
+
+def k1p_inputs(torch, seed: int, n: int, t: int, d: int, dtype):
+    """Every rank's partial (n, T, d) and residual chunk (n, T/n, d) and
+    the weight, from the seed on the card: equal in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100 * n + t + d)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, t, d, generator=gen, device="cuda", dtype=dt)
+    r = torch.randn(n, t // n, d, generator=gen, device="cuda", dtype=dt)
+    w = (torch.randn(d, generator=gen, device="cuda").abs() + 0.5).to(dt)
+    return x, r, w
+
+
+def k1p_bytes(n: int, t: int, d: int, size: int) -> dict:
+    """The function's bytes (each input read once, each output written
+    once: K1's) and this design's traffic over the N ranks (source
+    note)."""
+    return {"function_bytes": 2 * (n + 1) * t * d * size + d * size,
+            "design_bytes": ((3 * (n - 1) + 2) + (2 * (n - 1) + 3))
+            * t * d * size}
+
+
+def k1_peer_local(torch, seed: int) -> None:
+    """k1_peer (a), in a process of its own: N ranks as N launches on N
+    streams, each with its own workspace (``PeerWorkspace.local``), at
+    every K1P_CASES shape and N in K1P_LOCAL_RANKS.  Each rank's output
+    and new residual bit-equal to the one-card K1's on the same inputs, on
+    1, 2, 4 and 8 CTAs, and within K1_TOL of the plain version; the
+    device time of one call of all N ranks (``gated_ms``) beside the
+    one-card K1's.  One JSON line per case, then the summary."""
+    from repro_torch.distributed.peer import PeerWorkspace
+    from repro_torch.kernels import ar_rmsnorm as K1
+    from repro_torch.kernels import ar_rmsnorm_peer as K1P
+
+    summary = {"max_abs_err": 0.0}
+    main = torch.cuda.current_stream()
+    for n in K1P_LOCAL_RANKS:
+        ws = PeerWorkspace.local(n, rows=K1P_ROWS, d=K1P_D,
+                                 dtype=torch.bfloat16, device="cuda")
+        streams = [torch.cuda.Stream() for _ in range(n)]
+        for t, d, dtype in K1P_CASES:
+            x, r, w = k1p_inputs(torch, seed, n, t, d, dtype)
+
+            def run(ctas):
+                outs = []
+                for s in streams:
+                    s.wait_stream(main)
+                for k, s in enumerate(streams):
+                    with torch.cuda.stream(s):
+                        outs.append(K1P.ar_rmsnorm_peer(
+                            x[k:k + 1], r[k:k + 1], w, workspace=ws[k],
+                            ctas=ctas))
+                for s in streams:
+                    main.wait_stream(s)
+                return outs
+            ref_out, ref_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
+            before = K1P.ar_rmsnorm_peer.launches
+            for ctas in CTA_SWEEP:
+                outs = run(ctas)
+                torch.cuda.synchronize()
+                for k, (o, nr) in enumerate(outs):
+                    if not (torch.equal(o[0], ref_out[k])
+                            and torch.equal(nr[0], ref_res[k])):
+                        raise AssertionError(
+                            f"K1 peer N={n} T={t} d={d} {dtype} rank {k} on "
+                            f"{ctas} CTAs differs from the one-card K1")
+            launches = K1P.ar_rmsnorm_peer.launches - before
+            if launches != n * len(CTA_SWEEP):
+                raise AssertionError(f"K1 peer launches {launches}")
+            p_out, p_res = K1.ar_rmsnorm_plain(x, r, w)
+            err = max(check_close(f"K1 peer N={n} T={t} out", ref_out, p_out,
+                                  K1_TOL, K1_TOL),
+                      check_close(f"K1 peer N={n} T={t} residual", ref_res,
+                                  p_res, K1_TOL, K1_TOL))
+            summary["max_abs_err"] = max(summary["max_abs_err"], err)
+            size = x.element_size()
+            ms, host = gated_ms(torch, lambda: run(K1.MAX_CTAS), K1P_ITERS)
+            case = {"phase": "k1_peer", "mode": "one_process", "N": n,
+                    "T": t, "d": d, "dtype": dtype, "ctas": K1.MAX_CTAS,
+                    "bit_equal_to_one_card_k1": True,
+                    "ctas_bit_identical": list(CTA_SWEEP),
+                    "max_abs_err": err, "tol": K1_TOL, "ms": ms,
+                    "host_ms": host, "iters": K1P_ITERS,
+                    "one_card_k1_ms": time_ms(torch, lambda: K1.ar_rmsnorm(
+                        x, r, w, ctas=K1.MAX_CTAS)),
+                    **k1p_bytes(n, t, d, size)}
+            case["bound_ms"] = (case["function_bytes"] / HBM_BYTES_PER_S
+                                * 1e3)
+            case["design_bound_ms"] = (case["design_bytes"]
+                                       / HBM_BYTES_PER_S * 1e3)
+            case["achieved_gb_per_s"] = case["design_bytes"] / ms / 1e6
+            if (n, t, d, dtype) == (8, 2048, 8192, "bfloat16"):
+                case["plain_ms"] = time_ms(
+                    torch, lambda: K1.ar_rmsnorm_plain(x, r, w), iters=3)
+                summary.update(ms=ms, plain_ms=case["plain_ms"],
+                               bound_ms=case["bound_ms"], bound_by="bytes",
+                               library_ms=None)
+            emit(case)
+            del x, r, w, ref_out, ref_res, p_out, p_res
+        for one in ws:
+            one.close()
+        torch.cuda.empty_cache()
+    emit({"k1_peer_local": summary})
+
+
+def k1_peer_rank(torch, seed: int, rank: int, world: int,
+                 store: str) -> None:
+    """k1_peer (b), one process of a world of N on the card: gloo groups
+    (they carry only the IPC handle exchange), a workspace over them
+    (``peer.attach``), then at every K1P_CASES shape ``comm_norm`` in
+    comm mode ``ring`` under ``process_group`` on this rank's share:
+    output and new residual bit-equal to the one-card K1's on the whole
+    inputs (made here from the same seed), one launch a call; the calls'
+    time, with the ranks time-sliced on the card.  One JSON line."""
+    import torch.distributed as dist
+    from repro_torch.core import fused_collectives as FC
+    from repro_torch.core.splitting import ring_ctas
+    from repro_torch.distributed import peer
+    from repro_torch.distributed.context import CommCtx
+    from repro_torch.kernels import ar_rmsnorm as K1
+    from repro_torch.kernels import ar_rmsnorm_peer as K1P
+    from repro_torch.launch.mesh import init_groups, make_mesh
+
+    groups = init_groups(make_mesh((1, world), ("data", "model")),
+                         backend="gloo", init_method=f"file://{store}/store",
+                         rank=rank, world_size=world)
+    try:
+        groups = peer.attach(groups, rows=K1P_ROWS, d=K1P_D,
+                             dtype=torch.bfloat16, device="cuda")
+        ctx = CommCtx(mode="ring", use_pallas=True, tp=world,
+                      backend="process_group", groups=groups)
+        cases = []
+        for t, d, dtype in K1P_CASES:
+            x, r, w = k1p_inputs(torch, seed + 1, world, t, d, dtype)
+            ref_out, ref_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
+            mine = (x[rank:rank + 1], r[rank:rank + 1])
+            before = K1P.ar_rmsnorm_peer.launches
+            out, new_res = FC.comm_norm(*mine, w, ctx=ctx)
+            torch.cuda.synchronize()
+            if K1P.ar_rmsnorm_peer.launches != before + 1:
+                raise AssertionError("comm_norm(ring) did not launch the "
+                                     "peer kernel once")
+            if not (torch.equal(out[0], ref_out[rank])
+                    and torch.equal(new_res[0], ref_res[rank])):
+                raise AssertionError(f"K1 peer across processes, rank "
+                                     f"{rank} of {world}, T={t} d={d} "
+                                     f"{dtype}: differs from the one-card "
+                                     f"K1")
+            ms = event_ms(torch, lambda: FC.comm_norm(*mine, w, ctx=ctx),
+                          iters=K1P_PROC_ITERS)
+            cases.append({"T": t, "d": d, "dtype": dtype,
+                          "time_sliced_ms": ms})
+        emit({"phase": "k1_peer", "mode": "processes", "rank": rank,
+              "N": world, "ctas": ring_ctas(ctx.comm_budget),
+              "bit_equal_to_one_card_k1": True, "cases": cases,
+              "launches": K1P.ar_rmsnorm_peer.launches,
+              "iters": K1P_PROC_ITERS})
+        groups.peer.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(cmds, *, cwd, env, timeout: float) -> list:
+    """Start every command at once and wait for all; their standard
+    output's lines, or a failure naming the first that failed (every
+    child is stopped before it raises)."""
+    procs = [subprocess.Popen(c, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs, failed = [], []
+    try:
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{' '.join(map(str, c))}: exit "
+                              f"{p.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith("{")]
+
+
+def k1_peer_phase(seed: int) -> dict:
+    """K1's cross-rank form on the card: (a) one process, N ranks on N
+    streams (``k1_peer_local``; CUDA_DEVICE_MAX_CONNECTIONS raised so no
+    two streams share a hardware queue, where a spinning rank could hold
+    back the launch it waits for); (b) N processes, one rank each
+    (``k1_peer_rank``).  Returns the kernel line's numbers."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32")
+    me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed)]
+    out, = run_children([me + ["--k1-peer-local"]], cwd=ROOT, env=env,
+                        timeout=K1P_TIMEOUT_S)
+    lines = json_lines(out)
+    for ln in lines[:-1]:
+        emit(ln)
+    row = lines[-1]["k1_peer_local"]
+    card = card_line()
+    for n in K1P_PROC_RANKS:
+        store = tempfile.mkdtemp(prefix="k1p_store_")
+        outs = run_children(
+            [me + ["--k1-peer-rank", str(k), "--k1-peer-world", str(n),
+                   "--k1-peer-store", store] for k in range(n)],
+            cwd=ROOT, env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"),
+            timeout=K1P_TIMEOUT_S)
+        for o in outs:
+            for ln in json_lines(o):
+                emit(dict(ln, card=card))
+    return row
+
+
+# --------------------------------------------------------------------------
+# pg_ring: launch.serve in comm mode ring, two ranks on the card
+# --------------------------------------------------------------------------
+
+PG_RING_WORLD = 2
+
+
+def bits_digest(torch, t):
+    """A fingerprint of a tensor's bits, left on the card (no host sync):
+    the int64 sum of each element's bit pattern times a weight from its
+    position, 1 to 65521.  Equal bits give equal digests; a change in any
+    one element changes it (each term is below 2^48 in size)."""
+    bits = t.reshape(-1).view(torch.int16 if t.element_size() == 2
+                              else torch.int32).to(torch.int64)
+    pos = torch.arange(bits.numel(), device=t.device, dtype=torch.int64)
+    return (bits * (pos % 65521 + 1)).sum()
+
+
+def serve_spied(torch, spy_dir: Path, argv) -> int:
+    """One rank of pg_ring: ``launch.serve``'s ``main`` on ``argv``, with
+    a spy around K1's cross-rank wrapper.  The spy calls the wrapper as
+    the engine asked and keeps, for every call, its (T, CTAs) and the
+    digests of its x, residual, output and new residual; at the first call
+    of each (T, CTAs) it saves those tensors and the weight.  The wrapper
+    counts its launches on the spy, where ``launch.serve`` reads them.
+    Everything goes to ``spy_dir`` for pg_ring_phase."""
+    from repro_torch.kernels import ar_rmsnorm_peer as K1P
+    from repro_torch.launch import serve
+
+    rank = serve.parse(argv).rank
+    real = K1P.ar_rmsnorm_peer
+    calls, digests, saved = [], [], set()
+
+    def spy(x, residual, weight, ctx=None, **kw):
+        out, new_res = real(x, residual, weight, ctx, **kw)
+        key = (x.shape[1], kw["ctas"])
+        calls.append(key)
+        digests.append(torch.stack([bits_digest(torch, t)
+                                    for t in (x, residual, out, new_res)]))
+        if key not in saved:
+            saved.add(key)
+            torch.save({"x": x.cpu(), "residual": residual.cpu(),
+                        "weight": weight.cpu(), "out": out.cpu(),
+                        "new_res": new_res.cpu(), "eps": kw["eps"]},
+                       spy_dir / f"r{rank}_T{key[0]}_c{key[1]}.pt")
+        return out, new_res
+
+    spy.launches = real.launches
+    K1P.ar_rmsnorm_peer = spy
+    try:
+        rc = serve.main(argv)
+    finally:
+        K1P.ar_rmsnorm_peer = real
+    (spy_dir / f"calls_r{rank}.json").write_text(json.dumps({
+        "calls": calls,
+        "digests": torch.stack(digests).tolist() if digests else []}))
+    return rc
+
+
+def serve_ring(*, reduced: bool, seed: int, spy_dir: Path,
+               timeout: float = 900) -> dict:
+    """``python -m repro_torch.launch.serve --comm-mode ring --backend
+    gloo`` at world size PG_RING_WORLD, every rank on the card (Llama-3.3-
+    70B at 4 layers, or ``--reduced``), each rank's ``main`` run under
+    ``serve_spied``; rank 0's JSON line, once both ranks exited 0."""
+    import os
+    import tempfile
+
+    store = tempfile.mkdtemp(prefix="pg_ring_store_")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    args = ["--arch", "llama3.3-70b", "--comm-mode", "ring", "--backend",
+            "gloo", "--world-size", str(PG_RING_WORLD), "--seed", str(seed),
+            "--prompt-lens", ",".join(map(str, PROMPT_LENS)),
+            "--new-tokens", str(NEW_TOKENS),
+            "--init-method", f"file://{store}/store"]
+    args += ["--reduced"] if reduced else ["--layers", "4"]
+    me = [sys.executable, str(Path(__file__).resolve()), "--pg-ring-spy",
+          str(spy_dir), "--serve-argv"]
+    try:
+        outs = run_children([me + args + ["--rank", str(k)]
+                             for k in range(PG_RING_WORLD)],
+                            cwd=ROOT, env=env, timeout=timeout)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    line, = json_lines(outs[0])
+    if not line["ranks_agree"]:
+        raise AssertionError("pg_ring: the ranks' tokens differ")
+    return line
+
+
+def rank_axis_calls(torch, fn) -> tuple:
+    """Run ``fn`` with a spy around the rank axis's K1 in ``comm_norm``:
+    (fn's result, every call's (T, CTAs), every call's digests of x,
+    residual, output and new residual, rank by rank)."""
+    from repro_torch.core import fused_collectives as FC
+
+    real = FC.ar_rmsnorm
+    calls, digests = [], []
+
+    def spy(x, residual, weight, **kw):
+        out, new_res = real(x, residual, weight, **kw)
+        calls.append((x.shape[1], kw["ctas"]))
+        digests.append(torch.stack([
+            torch.stack([bits_digest(torch, t[k])
+                         for t in (x, residual, out, new_res)])
+            for k in range(x.shape[0])]))
+        return out, new_res
+
+    FC.ar_rmsnorm = spy
+    try:
+        result = fn()
+    finally:
+        FC.ar_rmsnorm = real
+    return result, calls, torch.stack(digests).tolist() if digests else []
+
+
+def check_peer_shapes(torch, spy_dir: Path, counts: dict) -> tuple:
+    """K1's cross-rank form at every (T, CTAs) the served forwards gave
+    it: the ranks' saved inputs stacked, the one-card K1 run on them, each
+    rank's output and new residual bit-equal to it, and it within K1_TOL
+    of the plain version.  Returns (rows for the report, max abs error)."""
+    from repro_torch.kernels import ar_rmsnorm as K1
+
+    rows, worst = [], 0.0
+    for (t, ctas), n_calls in sorted(counts.items()):
+        parts = [torch.load(spy_dir / f"r{k}_T{t}_c{ctas}.pt")
+                 for k in range(PG_RING_WORLD)]
+        w = parts[0]["weight"]
+        if not all(torch.equal(p["weight"], w) for p in parts):
+            raise AssertionError(f"pg_ring T={t}: the ranks' weights differ")
+        x = torch.cat([p["x"] for p in parts]).cuda()
+        r = torch.cat([p["residual"] for p in parts]).cuda()
+        w, eps = w.cuda(), parts[0]["eps"]
+        ref_out, ref_res = K1.ar_rmsnorm(x, r, w, eps=eps, ctas=ctas)
+        for k, p in enumerate(parts):
+            if not (torch.equal(p["out"][0].cuda(), ref_out[k])
+                    and torch.equal(p["new_res"][0].cuda(), ref_res[k])):
+                raise AssertionError(
+                    f"pg_ring: K1 peer at T={t} on {ctas} CTAs, rank {k}, "
+                    f"differs from the one-card K1 on the same inputs")
+        p_out, p_res = K1.ar_rmsnorm_plain(x, r, w, eps)
+        err = max(check_close(f"pg_ring K1 peer T={t} out", ref_out, p_out,
+                              K1_TOL, K1_TOL),
+                  check_close(f"pg_ring K1 peer T={t} residual", ref_res,
+                              p_res, K1_TOL, K1_TOL))
+        worst = max(worst, err)
+        rows.append({"T": t, "chunk": t // PG_RING_WORLD, "ctas": ctas,
+                     "calls": n_calls, "bit_equal_to_one_card_k1": True,
+                     "max_abs_err": err})
+    return rows, worst
+
+
+def first_divergence(group: list, axis: list, calls: list,
+                     axis_calls: list) -> dict:
+    """Set the served calls (``group[k]``: rank k's (calls, digests))
+    beside the rank axis's, call by call over the calls both made at the
+    same (T, CTAs): the first call whose K1 inputs differ (which input, on
+    which rank), and whether K1's outputs agreed at every call whose
+    inputs agreed.  Raises where they did not."""
+    n = 0
+    while (n < min(len(calls), len(axis_calls))
+           and tuple(calls[n]) == tuple(axis_calls[n])):
+        n += 1
+    first, agreed = None, 0
+    for i in range(n):
+        same_in = [group[k][1][i][:2] == axis[i][k][:2]
+                   for k in range(PG_RING_WORLD)]
+        if all(same_in):
+            agreed += 1
+            for k in range(PG_RING_WORLD):
+                if group[k][1][i][2:] != axis[i][k][2:]:
+                    raise AssertionError(
+                        f"pg_ring call {i}: K1's inputs equal the rank "
+                        f"axis's on every rank, rank {k}'s outputs differ")
+        elif first is None:
+            first = {"call": i, "T": calls[i][0], "ctas": calls[i][1],
+                     "x_differs": [group[k][1][i][0] != axis[i][k][0]
+                                   for k in range(PG_RING_WORLD)],
+                     "residual_differs": [group[k][1][i][1] != axis[i][k][1]
+                                          for k in range(PG_RING_WORLD)]}
+    return {"calls": len(calls), "axis_calls": len(axis_calls),
+            "aligned": n, "inputs_equal": agreed,
+            "outputs_equal_where_inputs_equal": True,
+            "first_input_difference": first}
+
+
+def layer_gemms(cfg) -> dict:
+    """A dense layer's products on one rank at tp=PG_RING_WORLD: name ->
+    (f, n), (T, f) @ (f, n) (wv has wk's shape, w_up w_gate's)."""
+    hd, d, w = cfg.head_dim, cfg.d_model, PG_RING_WORLD
+    return {"wq": (d, cfg.num_heads * hd // w),
+            "wk": (d, max(cfg.num_kv_heads // w, 1) * hd),
+            "wo": (cfg.num_heads * hd // w, d),
+            "w_gate": (d, cfg.d_ff // w),
+            "w_down": (cfg.d_ff // w, d)}
+
+
+def gemm_witness(torch, seed: int, t: int, f: int, n: int, dtype) -> dict:
+    """A product at T rows the two ways the model runs it at tp=2: the
+    rank axis's one batched product over both ranks, (R, T, f) @ (R, f, n),
+    and a process's own, (1, T, f) @ (1, f, n), on the same seeded
+    operands in the model's dtype: whether each rank's bits differ, and by
+    how much."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(PG_RING_WORLD, t, f, generator=gen, device="cuda").to(
+        dtype)
+    b = (torch.randn(PG_RING_WORLD, f, n, generator=gen, device="cuda")
+         / f ** 0.5).to(dtype)
+    both = a @ b
+    one = [(a[k:k + 1] @ b[k:k + 1])[0] for k in range(PG_RING_WORLD)]
+    return {"T": t, "f": f, "n": n,
+            "bits_differ": [not torch.equal(both[k], one[k])
+                            for k in range(PG_RING_WORLD)],
+            "max_abs_diff": max(max_err(both[k], one[k])
+                                for k in range(PG_RING_WORLD))}
+
+
+def pg_ring_phase(torch, np, seed: int) -> tuple:
+    """Comm mode ``ring`` one rank per process (``launch.serve``, gloo for
+    the collectives that are not K1, K1's cross-rank form for every add+
+    norm slot) at Llama-3.3-70B width, 4 layers, bf16, and its float32
+    twin (the reduced config): K1-peer launches equal the engine's slots,
+    splits·(1+2L), and nothing else runs an add+norm kernel; K1-peer bit-
+    equal to the one-card K1 (and within K1_TOL of the plain version) at
+    every (T, CTAs) the forwards gave it, on the served inputs
+    (``check_peer_shapes``); tokens beside the rank axis's ``ring`` at
+    tp=2 on the card (bf16: reported; float32: equal), and K1's inputs
+    and outputs beside the rank axis's call by call
+    (``first_divergence``: outputs equal wherever inputs are; float32:
+    the same calls at the same shapes), with, where the inputs part, a
+    layer's products at that call's rows the two ways (``gemm_witness``).  Returns (rank 0's K1-peer launches over both
+    runs, the largest error against the plain version)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    peer_launches, worst = 0, 0.0
+    for reduced in (False, True):
+        spy_dir = Path(tempfile.mkdtemp(prefix="pg_ring_spy_"))
+        try:
+            line = serve_ring(reduced=reduced, seed=seed, spy_dir=spy_dir)
+            got = line["launches"]
+            slots = ((line["forwards"] + line["weave_forwards"])
+                     * (1 + 2 * line["layers"]))
+            if (got["ar_rmsnorm_peer"] != slots or got["ar_rmsnorm"]
+                    or got["fused_residual_rmsnorm"]):
+                raise AssertionError(f"pg_ring launches {got}, expected "
+                                     f"{slots} of ar_rmsnorm_peer alone")
+            peer_launches += got["ar_rmsnorm_peer"]
+            group = []
+            for k in range(PG_RING_WORLD):
+                log = json.loads((spy_dir / f"calls_r{k}.json").read_text())
+                group.append(([tuple(c) for c in log["calls"]],
+                              log["digests"]))
+            calls = group[0][0]
+            if any(g[0] != calls for g in group) or len(calls) != slots:
+                raise AssertionError("pg_ring: the ranks' K1-peer calls "
+                                     "differ, or miss the slot count")
+            counts = {}
+            for c in calls:
+                counts[c] = counts.get(c, 0) + 1
+            shapes, err = check_peer_shapes(torch, spy_dir, counts)
+            worst = max(worst, err)
+        finally:
+            shutil.rmtree(spy_dir, ignore_errors=True)
+        # the rank axis's ring at tp=2 on the same seeded weights
+        cfg = get_config("llama3.3-70b")
+        cfg = (cfg.reduced() if reduced
+               else dataclasses.replace(cfg, num_layers=4))
+        api = build_model(cfg, ParallelConfig(
+            comm_mode="ring", attn_impl="pallas", use_pallas_norm=True),
+            tp=PG_RING_WORLD)
+        params = api.init(seed, device="cuda")
+        rng = np.random.RandomState(seed)
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in PROMPT_LENS]
+        eng = Engine(api, params, SchedulerConfig())
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(rid=i, prompt=p,
+                                    max_new_tokens=NEW_TOKENS))
+        done, axis_calls, axis = rank_axis_calls(torch, eng.run)
+        done = {r.rid: r.output for r in done}
+        want = [done[i] for i in range(len(prompts))]
+        same = line["tokens"] == want
+        # per request: the first token that differs (None: all equal)
+        first_diff = [next((i for i, (a, b) in enumerate(zip(g, w_))
+                            if a != b), None)
+                      for g, w_ in zip(line["tokens"], want)]
+        calls_vs_axis = first_divergence(group, axis, calls, axis_calls)
+        first = calls_vs_axis["first_input_difference"]
+        if first is not None:
+            first["gemm_witness"] = {
+                name: gemm_witness(torch, seed, first["T"], f, n,
+                                   getattr(torch, cfg.dtype))
+                for name, (f, n) in layer_gemms(cfg).items()}
+        emit({"phase": "pg_ring", "model": line["arch"],
+              "layers": line["layers"], "dtype": line["dtype"],
+              "world_size": line["world_size"], "backend": line["backend"],
+              "forwards": line["forwards"],
+              "weave_forwards": line["weave_forwards"],
+              "launches_rank0": got, "expected_peer_launches": slots,
+              "wall_s_time_sliced": line["wall_s"],
+              "tokens_equal_rank_axis_ring_tp2": same,
+              "first_differing_token": first_diff,
+              "peer_shapes": shapes, "calls_vs_rank_axis": calls_vs_axis,
+              "gated": reduced, "card": card_line()})
+        if reduced and not (same and calls_vs_axis["aligned"]
+                            == len(calls) == len(axis_calls)):
+            raise AssertionError("pg_ring float32 twin: tokens or K1 call "
+                                 "shapes differ from the rank axis's ring "
+                                 "at tp=2")
+        del api, params, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return peer_launches, worst
+
+
 def grads_of(torch, fn, inputs, g_out):
     """(outputs, d(sum of outputs . g_out) / d inputs) through autograd."""
     leaves = [t.detach().requires_grad_(True) for t in inputs]
@@ -5125,6 +5756,16 @@ def main() -> int:
     ap.add_argument("--trace-dir", type=Path,
                     default=ROOT / "build" / "traces",
                     help="where the traced model calls' Chrome traces go")
+    # k1_peer's own processes (k1_peer_phase starts them)
+    ap.add_argument("--k1-peer-local", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--k1-peer-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--k1-peer-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--k1-peer-store", help=argparse.SUPPRESS)
+    # pg_ring's ranks (serve_ring starts them): launch.serve's argv follows
+    ap.add_argument("--pg-ring-spy", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-argv", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -5137,6 +5778,15 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.k1_peer_local:
+        k1_peer_local(torch, args.seed)
+        return 0
+    if args.k1_peer_rank is not None:
+        k1_peer_rank(torch, args.seed, args.k1_peer_rank, args.k1_peer_world,
+                     args.k1_peer_store)
+        return 0
+    if args.pg_ring_spy is not None:
+        return serve_spied(torch, args.pg_ring_spy, args.serve_argv)
     from repro_torch.kernels import build
 
     emit({"phase": "env", "python": sys.version.split()[0],
@@ -5153,6 +5803,7 @@ def main() -> int:
         build.load(name)
 
     rows = kernel_phase(torch, args.seed, load_copy_probe(probe))
+    rows["ar_rmsnorm_peer"] = k1_peer_phase(args.seed)
     # the main paths: launches are counted from 0 over each engine run
     kw = dict(torch=torch, np=np, seed=args.seed, trace_dir=args.trace_dir)
     online = online_phase(**kw)
@@ -5211,6 +5862,8 @@ def main() -> int:
     paths.append(cp_decode_phase(**kw))
     # the process-group backend: NCCL at world size 1 beside the rank axis
     paths.append(pg_engine_phase(**kw, trace_dir=args.trace_dir))
+    # comm mode ring one rank per process: K1's cross-rank form
+    peer_launches, pg_ring_err = pg_ring_phase(torch, np, args.seed)
     # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
     t0 = time.perf_counter()
     train_kernels_phase(torch, args.seed)
@@ -5221,6 +5874,7 @@ def main() -> int:
     emit({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
+    launches["ar_rmsnorm_peer"] = peer_launches
     # the K3 error over every shape the main paths gave it, too, and K2's
     # over training's
     rows["flash_attention"]["max_abs_err"] = max(
@@ -5240,6 +5894,8 @@ def main() -> int:
     identity_data_phase(torch, np, args.seed)
     rows["ar_rmsnorm"]["max_abs_err"] = max(
         rows["ar_rmsnorm"]["max_abs_err"], tuned_k1_err)
+    rows["ar_rmsnorm_peer"]["max_abs_err"] = max(
+        rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err)
     # the meta-device dry run and the examples: host work, after every
     # timed phase
     dryrun_phase(torch)
@@ -5247,6 +5903,9 @@ def main() -> int:
 
     sources = {"ar_rmsnorm": (
         "src/repro_torch/csrc/ar_rmsnorm.cu",
+        "src/repro/kernels/ring_ar_rmsnorm.py:43"),
+        "ar_rmsnorm_peer": (
+        "src/repro_torch/csrc/ar_rmsnorm_peer.cu",
         "src/repro/kernels/ring_ar_rmsnorm.py:43"),
         "fused_residual_rmsnorm": (
         "src/repro_torch/csrc/fused_rmsnorm.cu",

@@ -19,12 +19,14 @@ Modes:
                 all_gather
     fused     : psum_scatter -> single-pass fused add+norm (kernel K2 when
                 ``ctx.use_pallas``, on the local rows) -> all_gather
-    ring      : the whole slot in one kernel, K1 (``kernels/ar_rmsnorm.py``)
-                on ``ring_ctas(ctx.comm_budget)`` CTAs; falls down the
-                reference's ladder to ``fused`` when there is no reduction
-                to fold in, a sandwich post-norm, or no kernels asked for.
-                K1's multi-card form is not ported (ROADMAP.md B1): under
-                ``process_group`` a slot that would run K1 raises
+    ring      : the whole slot in one kernel, K1 on
+                ``ring_ctas(ctx.comm_budget)`` CTAs: on the rank axis its
+                one-card form (``kernels/ar_rmsnorm.py``), under
+                ``process_group`` its cross-rank form over the model
+                group's peer buffers (``kernels/ar_rmsnorm_peer.py``,
+                ``ctx.groups.peer``); falls down the reference's ladder to
+                ``fused`` when there is no reduction to fold in, a sandwich
+                post-norm, or no kernels asked for
     nocomm    : collectives skipped (perf counterfactual, wrong math)
 
 The collectives are ``distributed/collectives.py``'s, each with both
@@ -47,6 +49,7 @@ import torch
 from repro_torch.core.splitting import ring_ctas
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.context import CommCtx, shard_rows
+from repro_torch.kernels import ar_rmsnorm_peer as K1P
 from repro_torch.kernels.ops import ar_rmsnorm, fused_residual_rmsnorm
 from repro_torch.layers.norms import residual_rmsnorm_unfused, rms_norm
 
@@ -60,9 +63,14 @@ def _ring_supported(ctx: CommCtx, reduce_input: bool, weight_post) -> bool:
 
 def _ring(x, residual, weight, ctx: CommCtx):
     """K1 over each data shard's rows: x (R, T, d), residual (R, T/R, d)
-    placed by ``scatter_rows``.  One launch per data shard, on views of
-    the contiguous x."""
+    placed by ``scatter_rows``.  On the rank axis one launch per data
+    shard, on views of the contiguous x; under ``process_group`` one
+    launch of the cross-rank form on this process's rank (a process
+    holds one data shard's rows)."""
     x = x.contiguous()
+    if ctx.process_group:
+        return K1P.ar_rmsnorm_peer(x, residual, weight, ctx, eps=ctx.eps,
+                                   ctas=ring_ctas(ctx.comm_budget))
     if ctx.dp == 1:
         return ar_rmsnorm(x, residual, weight, eps=ctx.eps,
                           ctas=ring_ctas(ctx.comm_budget), use_pallas=True)
@@ -100,10 +108,6 @@ def comm_norm(x, residual, weight, *, ctx: CommCtx, reduce_input: bool = True,
 
     if mode == "ring":
         if _ring_supported(ctx, reduce_input, weight_post):
-            if ctx.process_group:
-                raise NotImplementedError(
-                    "comm mode 'ring' under the process_group backend needs "
-                    "K1's multi-card form (peer pointers; ROADMAP.md B1)")
             return _ring(x, residual, weight, ctx)
         mode = "fused"
 

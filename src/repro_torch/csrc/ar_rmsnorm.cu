@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ar_rmsnorm_row.cuh"
+
 constexpr int kMaxRanks = 8;
 
 // Outside the anonymous namespace: the C entry point takes it, and a
@@ -57,49 +59,16 @@ struct PtrTable {
 
 namespace {
 
+// the scalar body's 1024 threads; the pipelined body's 512 (128 registers
+// each, for the next row's N + 1 vectors, t and w), each owning up to
+// kMaxVec 16-byte vectors of a row: d <= 8192 bf16, 4096 fp32
+using k1row::kMaxVec;
+using k1row::kPipeThreads;
+using k1row::kThreads;
+
 constexpr int kMaxCtas = 8;
-constexpr int kThreads = 1024;
-// the pipelined body: 512 threads (128 registers each, for the next row's
-// N + 1 vectors, t and w), each owning up to kMaxVec 16-byte vectors of a
-// row: d <= 8192 bf16, 4096 fp32
-constexpr int kPipeThreads = 512;
-constexpr int kMaxVec = 2;
 // the scalar body's row of t in shared memory
 constexpr size_t kMaxSmemBytes = 227 * 1024;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as the reference's cast
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum of v over the CTA, returned to every thread.  Two barriers per call
-// make back-to-back calls safe: red is rewritten only after every warp has
-// passed the second barrier, total only after all have read it.
-__device__ __forceinline__ float block_sum(float v, float* red, float* total) {
-  v = warp_sum(v);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < kThreads / 32 ? red[lane] : 0.f;
-    s = warp_sum(s);
-    if (lane == 0) *total = s;
-  }
-  __syncthreads();
-  return *total;
-}
 
 // The residual slab (in and out) of the rank that owns a row, selected
 // without indexing the parameter tables at run time (which would copy them
@@ -125,9 +94,9 @@ __device__ __forceinline__ void owner_slab(const PtrTable& res, const PtrTable& 
 // The scalar body, for rows the pipelined body cannot take (d * sizeof(T)
 // not a multiple of 16, a pointer not 16-byte aligned, or more than
 // kMaxVec vectors per thread): one row at a time, t kept in shared memory
-// between the reduction and the scaling.  N, the number of ranks, is a
-// template parameter (in both bodies) so the loops over ranks unroll
-// without predicates.
+// between the reduction and the scaling (k1row::scalar_row).  N, the
+// number of ranks, is a template parameter (in both bodies) so the loops
+// over ranks unroll without predicates.
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 ar_rmsnorm_scalar_kernel(PtrTable x, PtrTable res, const T* __restrict__ w,
@@ -142,26 +111,12 @@ ar_rmsnorm_scalar_kernel(PtrTable x, PtrTable res, const T* __restrict__ w,
     const T* rr;
     T* ro;
     owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
-    float ss = 0.f;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
-      T xs[N];
+    k1row::scalar_row<T, N>(
+        [&](int k, int i) { return static_cast<const T*>(x.p[k])[xoff + i]; }, rr, ro,
+        w, d, eps, t_s, red, &total, [&](int i, T o) {
 #pragma unroll
-      for (int k = 0; k < N; ++k) xs[k] = static_cast<const T*>(x.p[k])[xoff + i];
-      float s = to_f(xs[0]);
-#pragma unroll
-      for (int k = 1; k < N; ++k) s += to_f(xs[k]);
-      const float t = to_f(from_f<T>(s)) + to_f(rr[i]);
-      t_s[i] = t;
-      ss += t * t;
-      ro[i] = from_f<T>(t);
-    }
-    const float inv = rsqrtf(block_sum(ss, red, &total) / static_cast<float>(d) + eps);
-    // each thread reads back only the t values it wrote itself
-    for (int i = threadIdx.x; i < d; i += kThreads) {
-      const T o = from_f<T>(t_s[i] * inv * to_f(w[i]));
-#pragma unroll
-      for (int k = 0; k < N; ++k) static_cast<T*>(out.p[k])[xoff + i] = o;
-    }
+          for (int k = 0; k < N; ++k) static_cast<T*>(out.p[k])[xoff + i] = o;
+        });
   }
 }
 
@@ -170,11 +125,11 @@ ar_rmsnorm_scalar_kernel(PtrTable x, PtrTable res, const T* __restrict__ w,
 // Each CTA walks its rows (row = blockIdx.x + k * gridDim.x) with 512
 // threads, each owning up to kMaxVec 16-byte vectors of a row.  A thread
 // holds the next row's N partial vectors and residual vector in registers:
-// as soon as it has summed the current row into t (also in registers), it
-// issues the next row's loads, which then fly while the current row's
-// residual is stored, its sum of squares reduced across the CTA (two
-// barriers) and its N outputs written.  Each row is done by one CTA with a
-// fixed thread mapping, so every grid gives the same bits.
+// as soon as it has summed the current row into t (also in registers,
+// k1row::vec_sum), it issues the next row's loads, which then fly while
+// the current row's residual is stored, its sum of squares reduced across
+// the CTA (two barriers) and its N outputs written (k1row::vec_finish).  Each row is done
+// by one CTA with a fixed thread mapping, so every grid gives the same bits.
 template <typename T, int N>
 __global__ void __launch_bounds__(kPipeThreads)
 ar_rmsnorm_kernel(PtrTable x, PtrTable res, const T* __restrict__ w, PtrTable out,
@@ -182,7 +137,7 @@ ar_rmsnorm_kernel(PtrTable x, PtrTable res, const T* __restrict__ w, PtrTable ou
   __shared__ float red[kPipeThreads / 32];
   __shared__ float total;
   constexpr int V = 16 / sizeof(T);
-  const int nv = d / V, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nv = d / V, tid = threadIdx.x;
   uint4 xv[kMaxVec][N], rv[kMaxVec];   // the next row's segments, in flight
   auto load = [&](int row) {
     const T* rr;
@@ -208,70 +163,23 @@ ar_rmsnorm_kernel(PtrTable x, PtrTable res, const T* __restrict__ w, PtrTable ou
   if (blockIdx.x < rows) load(blockIdx.x);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     float tv[kMaxVec][V];
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int i = tid + j * kPipeThreads;
-      if (i >= nv) break;
-      float sum[V];
-      {
-        const T* e = reinterpret_cast<const T*>(&xv[j][0]);
-#pragma unroll
-        for (int q = 0; q < V; ++q) sum[q] = to_f(e[q]);
-      }
-#pragma unroll
-      for (int k = 1; k < N; ++k) {
-        const T* e = reinterpret_cast<const T*>(&xv[j][k]);
-#pragma unroll
-        for (int q = 0; q < V; ++q) sum[q] += to_f(e[q]);
-      }
-      const T* re = reinterpret_cast<const T*>(&rv[j]);
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        const float t = to_f(from_f<T>(sum[q])) + to_f(re[q]);
-        tv[j][q] = t;
-        ss += t * t;
-      }
-    }
+    const float ss = k1row::vec_sum<T, N>(xv, rv, nv, tv);
     // the next row's loads fly while this one is reduced and stored
     if (row + gridDim.x < rows) load(row + gridDim.x);
-    ss = warp_sum(ss);
-    if (lane == 0) red[warp] = ss;
-    const T* rr;
-    T* ro;
-    owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
+    k1row::vec_finish<T>(
+        tv, ss, wv, nv, d, eps, red, &total,
+        [&] {
+          const T* rr;
+          T* ro;
+          owner_slab<T, N>(res, res_out, row, chunk, d, rr, ro);
+          return ro;
+        },
+        [&](int i, const uint4& ov) {
+          const int64_t xoff = static_cast<int64_t>(row) * d;
 #pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int i = tid + j * kPipeThreads;
-      if (i >= nv) break;
-      uint4 nres;
-      T* ne = reinterpret_cast<T*>(&nres);
-#pragma unroll
-      for (int q = 0; q < V; ++q) ne[q] = from_f<T>(tv[j][q]);
-      reinterpret_cast<uint4*>(ro)[i] = nres;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < kPipeThreads / 32 ? red[lane] : 0.f;
-      v = warp_sum(v);
-      if (lane == 0) total = v;
-    }
-    __syncthreads();
-    const float inv = rsqrtf(total / static_cast<float>(d) + eps);
-    const int64_t xoff = static_cast<int64_t>(row) * d;
-#pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int i = tid + j * kPipeThreads;
-      if (i >= nv) break;
-      const T* we = reinterpret_cast<const T*>(&wv[j]);
-      uint4 ov;
-      T* oe = reinterpret_cast<T*>(&ov);
-#pragma unroll
-      for (int q = 0; q < V; ++q) oe[q] = from_f<T>(tv[j][q] * inv * to_f(we[q]));
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        reinterpret_cast<uint4*>(static_cast<T*>(out.p[k]) + xoff)[i] = ov;
-    }
+          for (int k = 0; k < N; ++k)
+            reinterpret_cast<uint4*>(static_cast<T*>(out.p[k]) + xoff)[i] = ov;
+        });
   }
 }
 

@@ -55,13 +55,16 @@ class Groups:
     """This process's place in a (data, model) mesh of processes
     (``launch.mesh.init_groups``): its ``torch.distributed`` group over
     the model axis and over the data axis, its index in each and their
-    sizes."""
+    sizes; and, for comm mode ``ring`` on CUDA, the model group's
+    peer-mapped buffers that K1 reaches its peers through
+    (``distributed.peer.attach``)."""
     model: Any = dataclasses.field(compare=False, repr=False)
     data: Any = dataclasses.field(compare=False, repr=False)
     model_rank: int
     data_rank: int
     model_size: int
     data_size: int
+    peer: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)

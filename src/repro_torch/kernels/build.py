@@ -4,8 +4,9 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, which the kernel modules load
 through ``ctypes``.  Nothing here includes PyTorch's headers, so a build
 takes seconds.  Libraries land in ``build/kernels/`` at the repository
-root, named by a digest of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  Sources build in
+root, named by a digest of the source, the headers of ``csrc/`` it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Sources build in
 parallel, one ``nvcc`` process each.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,12 +31,15 @@ SOURCES = {
     "fused_rmsnorm": "fused_rmsnorm.cu",
     "flash_attention": "flash_attention.cu",
     "ar_rmsnorm": "ar_rmsnorm.cu",
+    "ar_rmsnorm_peer": "ar_rmsnorm_peer.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per source: K3's wgmma body needs ptxas to spend registers on keeping its
 # wgmma groups in flight, or it serializes them (warning C7512)
 EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "--register-usage-level=10")}
+
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,10 +60,25 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def includes(path: Path) -> list:
+    """The headers of ``csrc/`` that a source includes (``#include
+    "..."``), with theirs, each once, in the order first met."""
+    found, todo = [], [path]
+    while todo:
+        for line in todo.pop(0).read_text().splitlines():
+            m = _INCLUDE.match(line)
+            if m and (CSRC / m.group(1)) not in found:
+                found.append(CSRC / m.group(1))
+                todo.append(CSRC / m.group(1))
+    return found
+
+
 def lib_path(name: str) -> Path:
+    """The library of one source, named by a digest of the source, the
+    headers it includes and nvcc's flags."""
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags(name)).encode()).hexdigest()
+    text = b"".join(p.read_bytes() for p in [src, *includes(src)])
+    digest = hashlib.sha256(text + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

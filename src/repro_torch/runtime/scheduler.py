@@ -44,6 +44,7 @@ it): ``PackedPlan.total_tokens <= chunk_tokens``, which requires
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple, Union
 
 from repro_torch.runtime.requests import Request, State
@@ -98,6 +99,15 @@ class SchedulerConfig:
     @property
     def effective_num_blocks(self) -> int:
         return self.num_blocks or self.max_batch * self.max_blocks_per_req
+
+    def max_forward_tokens(self, tp: int = 1) -> int:
+        """The most token rows one forward carries: a prefill group or a
+        packed plan holds at most ``chunk_tokens`` (the engine pads a
+        packed total to a multiple of lcm(prefill_bucket, tp)); a decode
+        or verify step every slot's window."""
+        unit = math.lcm(self.prefill_bucket, tp)
+        return max(-(-self.chunk_tokens // unit) * unit,
+                   self.max_batch * (self.spec_gamma + 1))
 
 
 def _edf_key(r: Request):

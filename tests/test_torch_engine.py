@@ -177,7 +177,8 @@ def test_port_imports_neither_jax_nor_reference():
     the mamba, hybrid and encdec models, the kernels' autograd Functions,
     the training modules, the checkpoint manager, the train driver, the
     process-group collectives, the launch shapes, the dry run, the op
-    counts, the autotuner and the plan checker among them), the example
+    counts, the autotuner, the plan checker, K1's cross-rank wrapper and
+    its peer workspace among them), the example
     scripts under examples/torch/ and chip_smoke.py's imports, load with
     ``jax`` and ``repro`` made unimportable."""
     code = r"""
@@ -209,7 +210,9 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.launch.serve", "repro_torch.launch.shapes",
         "repro_torch.launch.dryrun", "repro_torch.analysis.op_costs",
         "repro_torch.analysis.autotune",
-        "repro_torch.analysis.check_plan"} <= set(names), names
+        "repro_torch.analysis.check_plan",
+        "repro_torch.kernels.ar_rmsnorm_peer",
+        "repro_torch.distributed.peer"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 examples = sorted(pathlib.Path("examples/torch").glob("*.py"))

@@ -12,12 +12,19 @@ The reference runs at tp=2 in one subprocess (XLA host devices,
 ``conftest.run_distributed``) on weights the port draws and hands over in
 the reference's layout (``weights.to_jax_layout``), while the worlds run.
 
+Comm mode ``ring`` runs K1's cross-rank wrapper, whose CPU form is its
+plain version over the group (``kernels/ar_rmsnorm_peer.py``): held to the
+rank axis's ``ring`` (comm_norm, engine tokens, the launcher) and to the
+jnp oracle ``repro.kernels.ref.ring_ar_rmsnorm_ref``.
+
 Tolerances: float32 collectives 1e-6 relative; bf16 sums with
 ``bf16_wire=False`` within one bf16 ulp of ``rank_sum``, with
 ``bf16_wire=True`` within 2^-7 relative Frobenius (and different from the
 float32 wire on an input whose partial sums round differently in bf16);
 comm_norm 1e-6; model logits, KV and caches 1e-5; tokens equal; against the
-reference logits within 1e-4 (``test_torch_tp.TOL``).
+reference logits within 1e-4 (``test_torch_tp.TOL``); K1's plain version
+against the oracle within 1e-5 in float32 and one bf16 ulp in bf16 (the
+group sums in gloo's order, the oracle rank 0 first).
 """
 import dataclasses
 import json
@@ -60,7 +67,7 @@ SCHED = dict(max_batch=3, chunk_tokens=48, max_len=128, prefill_bucket=16)
 PACKED = dict(SCHED, paged=True, packed=True, block_size=16)
 STOCHASTIC = dict(temperature=0.8, top_p=0.9)
 WORLDS = {2: ((1, 2), (2, 1)), 4: ((1, 4), (2, 2))}
-MODES = ("vanilla", "reordered", "fused", "nocomm")
+MODES = ("vanilla", "reordered", "fused", "ring", "nocomm")
 N_REF = 2                         # two-dispatch reference traces at tp=2
 
 
@@ -243,6 +250,35 @@ def _case_comm_norm(groups, out):
             out[f"cn/{mode}/{int(post)}/res"] = nr.numpy()
 
 
+def _k1_inputs(tp, dtype):
+    """Every rank's partial (tp, T, d) and residual chunk (tp, T/tp, d) and
+    the weight, numpy-seeded."""
+    rng = np.random.RandomState(200 + tp)
+    t, d = 8 * tp, 32
+    x = rng.randn(tp, t, d).astype(np.float32)
+    res = rng.randn(tp, t // tp, d).astype(np.float32)
+    w = (np.abs(rng.randn(d)) + 0.5).astype(np.float32)
+    if dtype == "bf16":               # values a bf16 holds exactly
+        x, res, w = (_bf16(a).float().numpy() for a in (x, res, w))
+    return x, res, w
+
+
+def _case_k1_peer(groups, out):
+    """K1's cross-rank wrapper on this rank's share (its plain version
+    over the group on the CPU)."""
+    from repro_torch.kernels.ar_rmsnorm_peer import ar_rmsnorm_peer
+    tp, r = groups.model_size, groups.model_rank
+    ctx = CommCtx(mode="ring", use_pallas=True, tp=tp,
+                  backend="process_group", groups=groups)
+    for dtype in ("f32", "bf16"):
+        x, res, w = (torch.from_numpy(a) for a in _k1_inputs(tp, dtype))
+        if dtype == "bf16":
+            x, res, w = x.bfloat16(), res.bfloat16(), w.bfloat16()
+        o, nr = ar_rmsnorm_peer(x[r:r + 1], res[r:r + 1], w, ctx)
+        out[f"k1p/{dtype}/out"] = o.float().numpy()
+        out[f"k1p/{dtype}/res"] = nr.float().numpy()
+
+
 def _argmax_logits(tp):
     """Small integer logits: ties within and across ranks, and the
     largest value in the padded vocab tail (which must never win)."""
@@ -301,11 +337,15 @@ def _case_engine(groups, out):
     tp, r = groups.model_size, groups.model_rank
     api = build_model(_cfg(), _pcfg(), tp=tp, groups=groups)
     params = take_rank(_params(tp), r, _cfg())
+    ring = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=tp,
+                       groups=groups)
     for name, (sched, traces) in ENGINE_TRACES.items():
         for kind, kw in (("greedy", {}), ("stochastic", STOCHASTIC)):
             toks = [_serve(api, params, sched, p, n, seed=11, **kw)
                     for p, n in traces]
             out[f"eng/{name}/{kind}"] = np.asarray(json.dumps(toks))
+        out[f"eng/{name}/ring"] = np.asarray(json.dumps(
+            [_serve(ring, params, sched, p, n) for p, n in traces]))
     ctx = api.comm_ctx
     lg = torch.from_numpy(_sampler_logits(tp)[r:r + 1])
     for s in range(3):
@@ -375,6 +415,7 @@ def _worker(rank, world, tmp, ref_path):
         if n_data == 1:
             _case_argmax(groups, out)
             _case_comm_norm(groups, out)
+            _case_k1_peer(groups, out)
             _case_model(groups, out)
             _case_engine(groups, out)
             if n_model == 2:
@@ -393,18 +434,24 @@ SERVE = ["--arch", "llama3.3-70b", "--reduced", "--prompt-lens", "20,9",
 
 
 def _case_serve(rank, tmp):
-    """``launch.serve``'s main in a world of 2 over gloo."""
+    """``launch.serve``'s main in a world of 2 over gloo, in comm modes
+    ``fused`` (its default) and ``ring``."""
     import contextlib
     import io
     from repro_torch.launch import serve
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(SERVE + ["--device", "cpu",
-                                 "--init-method",
-                                 f"file://{tmp}/store_serve",
-                                 "--rank", str(rank), "--world-size", "2"])
-    np.savez(f"{tmp}/serve_r{rank}.npz", rc=np.asarray(rc),
-             line=np.asarray(buf.getvalue()))
+    for mode in ("fused", "ring"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(SERVE + ["--device", "cpu",
+                                     "--init-method",
+                                     f"file://{tmp}/store_serve_{mode}",
+                                     "--rank", str(rank), "--world-size",
+                                     "2"]
+                            + (["--comm-mode", mode] if mode != "fused"
+                               else []))
+        name = "serve" if mode == "fused" else f"serve_{mode}"
+        np.savez(f"{tmp}/{name}_r{rank}.npz", rc=np.asarray(rc),
+                 line=np.asarray(buf.getvalue()))
 
 
 def _nest(flat):
@@ -547,7 +594,9 @@ def worlds(tmp_path_factory):
     got = {mesh: [dict(np.load(tmp / f"{mesh[0]}x{mesh[1]}_r{w}.npz"))
                   for w in range(mesh[0] * mesh[1])]
            for meshes in WORLDS.values() for mesh in meshes}
-    got["serve"] = [dict(np.load(tmp / f"serve_r{w}.npz")) for w in range(2)]
+    for name in ("serve", "serve_ring"):
+        got[name] = [dict(np.load(tmp / f"{name}_r{w}.npz"))
+                     for w in range(2)]
     got["ref"] = dict(np.load(tmp / "ref.npz"))
     got["params"] = params
     return got
@@ -714,6 +763,40 @@ def test_engine_tokens_equal_rank_axis(worlds, tp, engine, kind):
         assert json.loads(str(got[f"eng/{engine}/{kind}"])) == want
 
 
+@pytest.mark.parametrize("engine", list(ENGINE_TRACES))
+@pytest.mark.parametrize("tp", [2, 4])
+def test_ring_engine_tokens_equal_rank_axis(worlds, tp, engine):
+    """Comm mode ``ring``: every slot through K1's cross-rank wrapper on
+    each process against the rank axis's K1, greedy."""
+    api = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=tp)
+    sched, traces = ENGINE_TRACES[engine]
+    want = [_serve(api, _params(tp), sched, p, n) for p, n in traces]
+    for got in worlds[(1, tp)]:
+        assert json.loads(str(got[f"eng/{engine}/ring"])) == want
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_k1_peer_plain_matches_the_oracle(worlds, tp, dtype):
+    """Each rank's full normed output and its residual chunk from K1's
+    cross-rank wrapper (its plain version over gloo) against
+    ``ring_ar_rmsnorm_ref``'s for that rank."""
+    import jax.numpy as jnp
+    from repro.kernels.ref import ring_ar_rmsnorm_ref
+    x, res, w = _k1_inputs(tp, dtype)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    outs, ress = ring_ar_rmsnorm_ref([jnp.asarray(a, jdt) for a in x],
+                                     [jnp.asarray(a, jdt) for a in res],
+                                     jnp.asarray(w, jdt))
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "f32" else dict(
+        rtol=2.0 ** -7, atol=1e-6)
+    for r, got in enumerate(worlds[(1, tp)]):
+        np.testing.assert_allclose(got[f"k1p/{dtype}/out"][0],
+                                   np.asarray(outs[r], np.float32), **tol)
+        np.testing.assert_allclose(got[f"k1p/{dtype}/res"][0],
+                                   np.asarray(ress[r], np.float32), **tol)
+
+
 @pytest.mark.parametrize("tp", [2, 4])
 def test_sharded_argmax_ties_across_ranks(worlds, tp):
     lg = _argmax_logits(tp)
@@ -787,14 +870,6 @@ def test_cp_decode_matches_rank_axis(worlds, mesh):
 def _fake_groups(model=2, data=1):
     return Groups(model=None, data=None, model_rank=0, data_rank=0,
                   model_size=model, data_size=data)
-
-
-def test_ring_under_process_group_raises():
-    ctx = CommCtx(mode="ring", use_pallas=True, tp=2,
-                  backend="process_group", groups=_fake_groups())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1"):
-        tfc.comm_norm(torch.zeros(1, 4, 8), torch.zeros(1, 2, 8),
-                      torch.ones(8), ctx=ctx)
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "falcon-mamba-7b",
@@ -929,3 +1004,20 @@ def test_serve_launcher_matches_the_rank_axis_engine(worlds):
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (20, 9)]
     want = _serve(api, params, dict(), prompts, [3, 3])
     assert line["tokens"] == want
+
+
+def test_serve_launcher_ring_matches_the_rank_axis_ring_engine(worlds):
+    """``launch.serve --comm-mode ring`` in a world of 2 over gloo: the
+    ranks agree, and rank 0's tokens are the rank-axis engine's in comm
+    mode ``ring`` on the same seeded weights."""
+    from repro_torch.configs import get_config
+    assert [int(r["rc"]) for r in worlds["serve_ring"]] == [0, 0]
+    line = json.loads(str(worlds["serve_ring"][0]["line"]))
+    assert line["comm_mode"] == "ring" and line["ranks_agree"]
+    cfg = get_config("llama3.3-70b").reduced()
+    api = build_model(cfg, tbase.ParallelConfig(
+        comm_mode="ring", attn_impl="pallas", use_pallas_norm=True), tp=2)
+    params = api.init(2, device="cpu")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (20, 9)]
+    assert line["tokens"] == _serve(api, params, dict(), prompts, [3, 3])
