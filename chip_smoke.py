@@ -212,6 +212,35 @@ Phases, each printing one JSON line:
             same shapes (gated); the first call whose inputs part, and a
             layer's products at its rows batched over the ranks and one
             rank alone (reported);
+19c. pg_families  the other families the same way, in two processes
+            of its own (``--pg-families-rank``) that run every model in
+            turn: Mixtral-8x22B (``ffn``, 4 of 56 layers), OLMoE-1B-7B
+            (``expert``, 16 layers) and Falcon-Mamba-7B (8 of 64 layers)
+            through ``launch.serve`` (4 requests of 1024/640/384/128
+            tokens, 8 new), Zamba2-7B (12 of 81 layers: two shared-block
+            groups; 2 x 512 tokens), Whisper-base (all 6 + 6 layers; 4 x
+            1500 frames, a 4-token prompt) and Qwen2-VL-7B (4 of 28
+            layers; 2 x (256 patches + 256 text)) by direct ``ModelApi``
+            calls with 8 greedy decode steps, each at full width (bf16)
+            and as its reduced float32 twin; K1's peer workspace sized by
+            ``peer.direct_rows`` for direct calls; gates: the ranks'
+            tokens equal, K1-peer launches equal the family's formula
+            (``PGF_FORMULAS``: splits·(1+2L) MoE and vlm, splits·(1+L)
+            ssm, splits·(1+L+n_inv) hybrid, the encoder's
+            enc_splits·(1+2L_enc) + splits·(1+3L) encdec), no other
+            add+norm kernel, the peer kernel bit-equal to the one-card K1
+            at every served (T, CTAs) (the body it took, vector or
+            scalar, reported), K3's launches equal the family's formula
+            (``PGF_K3_FORMULAS``: prefill splits·L MoE and vlm, none ssm,
+            splits·n_inv hybrid, enc_splits·L_enc + splits·L encdec) and
+            K3 held against its plain version on each rank's inputs at
+            every shape it got (causal, Whisper's bidirectional encoder,
+            G 7, Zamba2's head dim 224), each twin's tokens and K1 calls
+            equal to the rank axis's ``ring`` at tp=2; per-rank prefill
+            and decode wall ms (time-sliced); then K1's cross-rank form at
+            N 2 timed
+            at each full-width model's largest and smallest served rows
+            (``k1_peer_families``, a process of its own);
 20. train_kernels  K2's and K3's autograd Functions (the kernel forward,
             the plain version's backward) against autograd through their
             plain versions on the card at the training step's shapes: K3
@@ -4509,10 +4538,12 @@ def k1p_bytes(n: int, t: int, d: int, size: int) -> dict:
             * t * d * size}
 
 
-def k1_peer_local(torch, seed: int) -> None:
+def k1_peer_local(torch, seed: int, cases=K1P_CASES,
+                  ranks=K1P_LOCAL_RANKS) -> None:
     """k1_peer (a), in a process of its own: N ranks as N launches on N
     streams, each with its own workspace (``PeerWorkspace.local``), at
-    every K1P_CASES shape and N in K1P_LOCAL_RANKS.  Each rank's output
+    every ``cases`` shape (K1P_CASES, or pg_families' served rows) and N
+    in ``ranks``.  Each rank's output
     and new residual bit-equal to the one-card K1's on the same inputs, on
     1, 2, 4 and 8 CTAs, and within K1_TOL of the plain version; the
     device time of one call of all N ranks (``gated_ms``) beside the
@@ -4523,11 +4554,11 @@ def k1_peer_local(torch, seed: int) -> None:
 
     summary = {"max_abs_err": 0.0}
     main = torch.cuda.current_stream()
-    for n in K1P_LOCAL_RANKS:
+    for n in ranks:
         ws = PeerWorkspace.local(n, rows=K1P_ROWS, d=K1P_D,
                                  dtype=torch.bfloat16, device="cuda")
         streams = [torch.cuda.Stream() for _ in range(n)]
-        for t, d, dtype in K1P_CASES:
+        for t, d, dtype in cases:
             x, r, w = k1p_inputs(torch, seed, n, t, d, dtype)
 
             def run(ctas):
@@ -4728,45 +4759,64 @@ def bits_digest(torch, t):
     return (bits * (pos % 65521 + 1)).sum()
 
 
+class k1_peer_spy:
+    """A spy around K1's cross-rank wrapper while the block runs: it
+    calls the wrapper as the model asked and keeps, for every call, its
+    (T, CTAs) and the digests of its x, residual, output and new
+    residual; at the first call of each (T, CTAs) it saves those tensors,
+    the weight and the body ``check_inputs`` picks (vector or scalar).
+    The wrapper counts its launches on the spy (``launches``), where
+    ``launch.serve`` reads them.  On leaving, the calls go to
+    ``spy_dir``/calls_r<rank>.json."""
+
+    def __init__(self, torch, spy_dir: Path, rank: int):
+        self.torch, self.spy_dir, self.rank = torch, spy_dir, rank
+
+    def __enter__(self):
+        from repro_torch.kernels import ar_rmsnorm as K1
+        from repro_torch.kernels import ar_rmsnorm_peer as K1P
+
+        torch, spy_dir, rank = self.torch, self.spy_dir, self.rank
+        self.mod, self.real = K1P, K1P.ar_rmsnorm_peer
+        real, calls, digests, saved = self.real, [], [], set()
+        self.calls, self.digests = calls, digests
+
+        def spy(x, residual, weight, ctx=None, **kw):
+            out, new_res = real(x, residual, weight, ctx, **kw)
+            key = (x.shape[1], kw["ctas"])
+            calls.append(key)
+            digests.append(torch.stack([bits_digest(torch, t)
+                                        for t in (x, residual, out,
+                                                  new_res)]))
+            if key not in saved:
+                saved.add(key)
+                torch.save({"x": x.cpu(), "residual": residual.cpu(),
+                            "weight": weight.cpu(), "out": out.cpu(),
+                            "new_res": new_res.cpu(), "eps": kw["eps"],
+                            "vector": K1.pipelined(x, residual, weight)},
+                           spy_dir / f"r{rank}_T{key[0]}_c{key[1]}.pt")
+            return out, new_res
+
+        spy.launches = real.launches
+        K1P.ar_rmsnorm_peer = spy
+        return spy
+
+    def __exit__(self, *exc):
+        self.mod.ar_rmsnorm_peer = self.real
+        (self.spy_dir / f"calls_r{self.rank}.json").write_text(json.dumps({
+            "calls": self.calls,
+            "digests": (self.torch.stack(self.digests).tolist()
+                        if self.digests else [])}))
+        return False
+
+
 def serve_spied(torch, spy_dir: Path, argv) -> int:
-    """One rank of pg_ring: ``launch.serve``'s ``main`` on ``argv``, with
-    a spy around K1's cross-rank wrapper.  The spy calls the wrapper as
-    the engine asked and keeps, for every call, its (T, CTAs) and the
-    digests of its x, residual, output and new residual; at the first call
-    of each (T, CTAs) it saves those tensors and the weight.  The wrapper
-    counts its launches on the spy, where ``launch.serve`` reads them.
-    Everything goes to ``spy_dir`` for pg_ring_phase."""
-    from repro_torch.kernels import ar_rmsnorm_peer as K1P
+    """One rank of pg_ring: ``launch.serve``'s ``main`` on ``argv`` under
+    ``k1_peer_spy``.  Everything goes to ``spy_dir`` for pg_ring_phase."""
     from repro_torch.launch import serve
 
-    rank = serve.parse(argv).rank
-    real = K1P.ar_rmsnorm_peer
-    calls, digests, saved = [], [], set()
-
-    def spy(x, residual, weight, ctx=None, **kw):
-        out, new_res = real(x, residual, weight, ctx, **kw)
-        key = (x.shape[1], kw["ctas"])
-        calls.append(key)
-        digests.append(torch.stack([bits_digest(torch, t)
-                                    for t in (x, residual, out, new_res)]))
-        if key not in saved:
-            saved.add(key)
-            torch.save({"x": x.cpu(), "residual": residual.cpu(),
-                        "weight": weight.cpu(), "out": out.cpu(),
-                        "new_res": new_res.cpu(), "eps": kw["eps"]},
-                       spy_dir / f"r{rank}_T{key[0]}_c{key[1]}.pt")
-        return out, new_res
-
-    spy.launches = real.launches
-    K1P.ar_rmsnorm_peer = spy
-    try:
-        rc = serve.main(argv)
-    finally:
-        K1P.ar_rmsnorm_peer = real
-    (spy_dir / f"calls_r{rank}.json").write_text(json.dumps({
-        "calls": calls,
-        "digests": torch.stack(digests).tolist() if digests else []}))
-    return rc
+    with k1_peer_spy(torch, spy_dir, serve.parse(argv).rank):
+        return serve.main(argv)
 
 
 def serve_ring(*, reduced: bool, seed: int, spy_dir: Path,
@@ -4827,7 +4877,8 @@ def rank_axis_calls(torch, fn) -> tuple:
     return result, calls, torch.stack(digests).tolist() if digests else []
 
 
-def check_peer_shapes(torch, spy_dir: Path, counts: dict) -> tuple:
+def check_peer_shapes(torch, spy_dir: Path, counts: dict,
+                      label: str = "pg_ring") -> tuple:
     """K1's cross-rank form at every (T, CTAs) the served forwards gave
     it: the ranks' saved inputs stacked, the one-card K1 run on them, each
     rank's output and new residual bit-equal to it, and it within K1_TOL
@@ -4840,7 +4891,7 @@ def check_peer_shapes(torch, spy_dir: Path, counts: dict) -> tuple:
                  for k in range(PG_RING_WORLD)]
         w = parts[0]["weight"]
         if not all(torch.equal(p["weight"], w) for p in parts):
-            raise AssertionError(f"pg_ring T={t}: the ranks' weights differ")
+            raise AssertionError(f"{label} T={t}: the ranks' weights differ")
         x = torch.cat([p["x"] for p in parts]).cuda()
         r = torch.cat([p["residual"] for p in parts]).cuda()
         w, eps = w.cuda(), parts[0]["eps"]
@@ -4849,16 +4900,20 @@ def check_peer_shapes(torch, spy_dir: Path, counts: dict) -> tuple:
             if not (torch.equal(p["out"][0].cuda(), ref_out[k])
                     and torch.equal(p["new_res"][0].cuda(), ref_res[k])):
                 raise AssertionError(
-                    f"pg_ring: K1 peer at T={t} on {ctas} CTAs, rank {k}, "
+                    f"{label}: K1 peer at T={t} on {ctas} CTAs, rank {k}, "
                     f"differs from the one-card K1 on the same inputs")
         p_out, p_res = K1.ar_rmsnorm_plain(x, r, w, eps)
-        err = max(check_close(f"pg_ring K1 peer T={t} out", ref_out, p_out,
+        err = max(check_close(f"{label} K1 peer T={t} out", ref_out, p_out,
                               K1_TOL, K1_TOL),
-                  check_close(f"pg_ring K1 peer T={t} residual", ref_res,
+                  check_close(f"{label} K1 peer T={t} residual", ref_res,
                               p_res, K1_TOL, K1_TOL))
         worst = max(worst, err)
-        rows.append({"T": t, "chunk": t // PG_RING_WORLD, "ctas": ctas,
-                     "calls": n_calls, "bit_equal_to_one_card_k1": True,
+        rows.append({"T": t, "d": int(w.shape[0]),
+                     "chunk": t // PG_RING_WORLD, "ctas": ctas,
+                     "calls": n_calls,
+                     "body": ("vector" if parts[0].get("vector")
+                              else "scalar"),
+                     "bit_equal_to_one_card_k1": True,
                      "max_abs_err": err})
     return rows, worst
 
@@ -5031,6 +5086,525 @@ def pg_ring_phase(torch, np, seed: int) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
     return peer_launches, worst
+
+
+# --------------------------------------------------------------------------
+# pg_families: the MoE, ssm, hybrid, encdec and vlm families one rank per
+# process, two ranks on the card
+# --------------------------------------------------------------------------
+
+# (registry name, layers (0: all of them), how it is served): MoE and ssm
+# through launch.serve's engine, the hybrid, encdec and vlm by direct
+# ModelApi calls (the engine cannot hold their caches)
+PGF_MODELS = (("mixtral-8x22b", 4, "serve"), ("olmoe-1b-7b", 16, "serve"),
+              ("falcon-mamba-7b", 8, "serve"), ("zamba2-7b", 12, "direct"),
+              ("whisper-base", 0, "direct"), ("qwen2-vl-7b", 4, "direct"))
+PGF_PROMPT_LENS, PGF_NEW_TOKENS = (1024, 640, 384, 128), 8
+# direct calls, by family: (rows, prompt tokens); the vlm's prompt follows
+# a VLM_GRID x VLM_GRID patch image, Whisper's decoder prompt 1500 frames
+PGF_DIRECT = {"hybrid": (2, 512), "encdec": (4, 4), "vlm": (2, 256)}
+PGF_DECODE = 8
+PGF_TIMEOUT_S = 900
+# K1-peer launches per forward per weave split, by family: the entry norm
+# and each block's slot (an encdec forward adds its encoder's when it
+# encodes)
+PGF_FORMULAS = {"moe": "splits·(1+2L)", "ssm": "splits·(1+L)",
+                "hybrid": "splits·(1+L+n_inv)", "vlm": "splits·(1+2L)",
+                "encdec": "enc_splits·(1+2L_enc) + splits·(1+3L)"}
+# K3 launches per run: one call per attention layer of each prefill split
+# (decode attention is not K3); the ssm has no attention
+PGF_K3_FORMULAS = {"moe": "prefill_splits·L", "ssm": "0",
+                   "hybrid": "splits·n_inv", "vlm": "splits·L",
+                   "encdec": "enc_splits·L_enc + splits·L"}
+
+
+def pgf_config(name: str, layers: int, twin: bool):
+    """A PGF_MODELS model: its widths at ``layers`` (bf16), or its reduced
+    float32 twin."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if twin:
+        return cfg.reduced()
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def pgf_pcfg():
+    from repro_torch.configs.base import ParallelConfig
+    return ParallelConfig(comm_mode="ring", attn_impl="pallas",
+                          use_pallas_norm=True)
+
+
+def pgf_run(name: str, twin: bool) -> str:
+    return f"{name}_{'twin' if twin else 'full'}"
+
+
+def pgf_prompts(np, seed: int, cfg) -> list:
+    """``launch.serve``'s prompts for PGF_PROMPT_LENS and ``seed``."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab_size, n).tolist()
+            for n in PGF_PROMPT_LENS]
+
+
+class api_timings:
+    """Wall ms of every ``ModelApi.prefill`` and ``decode_step`` while
+    the block runs, each between two device syncs (under process groups
+    the ranks' time-sliced share of the card and gloo's copies
+    included)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, {"prefill": [], "decode_step": []}
+
+    def __enter__(self):
+        from repro_torch.models.build import ModelApi
+        self.cls, torch = ModelApi, self.torch
+        self.real = {n: getattr(ModelApi, n) for n in self.ms}
+
+        def timed(name, fn):
+            def call(api, *args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(api, *args, **kw)
+                torch.cuda.synchronize()
+                self.ms[name].append((time.perf_counter() - t) * 1e3)
+                return out
+            return call
+        for name, fn in self.real.items():
+            setattr(ModelApi, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.cls, name, fn)
+        return False
+
+
+def drive_direct(torch, np, api, params, seed: int) -> dict:
+    """A hybrid, encdec or vlm model by direct ``ModelApi`` calls, as the
+    reference serves them: one prefill of PGF_DIRECT's rows (Zamba2: a
+    512-token chunk; Whisper: 1500 stub frames and a 4-token prompt;
+    Qwen2-VL: a 16 x 16 patch image and 256 text tokens with M-RoPE ids),
+    its caches written (``kv_cache.insert_chunk`` / ``write_rows``), then
+    PGF_DECODE greedy steps (``sharded_argmax`` over the api's context).
+    Returns the tokens of every step, rows by position."""
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.runtime import kv_cache as KC
+
+    cfg, fam, dev = api.cfg, api.cfg.family, "cuda"
+    b, s = PGF_DIRECT[fam]
+    dt = getattr(torch, cfg.dtype)
+    rng = np.random.RandomState(seed + 23)
+    rows, zero = torch.arange(b, device=dev), torch.zeros(b, device=dev)
+    if fam == "vlm":
+        tokens, img, ids = vlm_inputs(torch, np, seed + 23, cfg, b, VLM_GRID,
+                                      s, dev, dt)
+        n = VLM_GRID * VLM_GRID + s
+        cache = api.init_cache(b, n + PGF_DECODE, device=dev)
+
+        def prefill():
+            return api.prefill(params, tokens, None, None,
+                               mrope_positions=ids, extra_embeds=img)
+    elif fam == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(seed + 23)
+        frames = torch.randn(b, cfg.max_source_positions, cfg.d_model,
+                             generator=gen, device=dev).to(dt)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                              (b, s))).to(dev)
+        n = s
+        cache = api.init_cache(b, n + PGF_DECODE, device=dev,
+                               enc_len=cfg.max_source_positions)
+
+        def prefill():
+            return api.prefill(params, tokens, None, None, frames=frames)
+    else:
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                              (b, s))).to(dev)
+        n = s
+        cache = api.init_cache(b, n + PGF_DECODE, device=dev)
+
+        def prefill():
+            return api.prefill(params, tokens, cache, None)
+    ctx = api.comm_ctx
+    with torch.no_grad():
+        logits, out = prefill()
+        if fam == "hybrid":
+            KC.insert_chunk(cache["shared"], out["shared"], zero, rows)
+        elif fam == "encdec":
+            KC.insert_chunk(cache["self"], out["self"], zero, rows)
+            KC.write_rows(cache["cross"], out["cross"], rows)
+        else:
+            KC.insert_chunk(cache, out, zero, rows)
+        del out
+        outs = []
+        for j in range(PGF_DECODE + 1):
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{cfg.name}: step {j}'s logits are "
+                                     f"not finite")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size, ctx=ctx)
+            outs.append(tok[:, 0].tolist())
+            if j == PGF_DECODE:
+                break
+            pos = torch.full((b, 1), n + j, dtype=torch.int32, device=dev)
+            # the vlm's M-RoPE ids run on from the image's grid
+            kw = ({} if fam != "vlm" else {"mrope_positions": torch.full(
+                (b, 3, 1), VLM_GRID + s + j, dtype=torch.int32, device=dev)})
+            logits, cache = api.decode_step(params, tok, cache, pos, **kw)
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row):
+        raise AssertionError(f"{cfg.name}: tokens {outs} outside the "
+                             f"vocabulary")
+    return {"tokens": outs, "rows": b, "prompt": n}
+
+
+def direct_spied(torch, np, run_dir: Path, cfg, seed: int,
+                 rank: int) -> dict:
+    """One rank of a direct-call run: gloo groups over a (1, 2) mesh, K1's
+    peer workspace sized by ``peer.direct_rows`` for the run's largest
+    forward, the model built over the groups in comm mode ``ring`` with
+    this rank's weights (``ModelApi.init``), ``drive_direct`` under
+    ``k1_peer_spy``; whether both ranks emitted the same tokens."""
+    import torch.distributed as dist
+    from repro_torch.distributed import peer
+    from repro_torch.launch.mesh import init_groups, make_mesh
+    from repro_torch.models.build import build_model
+
+    groups = init_groups(make_mesh((1, PG_RING_WORLD), ("data", "model")),
+                         backend="gloo", init_method=f"file://{run_dir}/store",
+                         rank=rank, world_size=PG_RING_WORLD)
+    try:
+        b, s = PGF_DIRECT[cfg.family]
+        chunk = s + (VLM_GRID * VLM_GRID if cfg.family == "vlm" else 0)
+        rows = peer.direct_rows(cfg, batch=b, chunk=chunk)
+        groups = peer.attach(groups, rows=rows, d=cfg.d_model,
+                             dtype=getattr(torch, cfg.dtype), device="cuda")
+        api = build_model(cfg, pgf_pcfg(), tp=PG_RING_WORLD, groups=groups)
+        params = api.init(seed, device="cuda")
+        with k1_peer_spy(torch, run_dir, rank) as spy:
+            before = spy.launches
+            reset_launches()
+            got = drive_direct(torch, np, api, params, seed)
+            launches = dict(read_launches(),
+                            ar_rmsnorm_peer=spy.launches - before)
+        flat = torch.tensor([t for step in got["tokens"] for t in step],
+                            device="cuda")
+        lo, hi = flat.clone(), flat.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        groups.peer.close()
+        return dict(got, arch=cfg.name, layers=cfg.num_layers,
+                    dtype=cfg.dtype, workspace_rows=rows,
+                    launches=launches,
+                    ranks_agree=bool(torch.equal(lo, hi)))
+    finally:
+        dist.destroy_process_group()
+
+
+def pgf_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
+    """One of pg_families' two processes: every PGF_MODELS model at full
+    width (bf16, depth cut) and its reduced float32 twin, one after the
+    other, over gloo groups with K1's cross-rank form in every add+norm
+    slot (``launch.serve`` or ``direct_spied``), K3's inputs kept at the
+    first call of each shape (``capture_k3_inputs``); each run's spy
+    records, K3 inputs, timings and result go to ``out_dir``/<run>/."""
+    import contextlib
+    import io
+
+    for name, layers, how in PGF_MODELS:
+        for twin in (False, True):
+            run_dir = out_dir / pgf_run(name, twin)
+            run_dir.mkdir(exist_ok=True)
+            cfg = pgf_config(name, layers, twin)
+            k3_inputs = {}
+            undo = capture_k3_inputs(k3_inputs)
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                stack.callback(undo)
+                timing = stack.enter_context(api_timings(torch))
+                if how == "serve":
+                    argv = ["--arch", name, "--comm-mode", "ring",
+                            "--backend", "gloo", "--world-size",
+                            str(PG_RING_WORLD), "--seed", str(seed),
+                            "--prompt-lens",
+                            ",".join(map(str, PGF_PROMPT_LENS)),
+                            "--new-tokens", str(PGF_NEW_TOKENS),
+                            "--init-method", f"file://{run_dir}/store",
+                            "--rank", str(rank)]
+                    argv += (["--reduced"] if twin
+                             else ["--layers", str(layers)])
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        rc = serve_spied(torch, run_dir, argv)
+                    if rc:
+                        raise AssertionError(f"pg_families {name}: "
+                                             f"launch.serve exit {rc}")
+                    line = (json_lines(buf.getvalue()) or [{}])[0]
+                else:
+                    line = direct_spied(torch, np, run_dir, cfg, seed, rank)
+            line["ms"] = timing.ms
+            line["k3_launches"] = read_launches()["flash_attention"]
+            (run_dir / f"result_r{rank}.json").write_text(json.dumps(line))
+            offload(k3_inputs)
+            torch.save(list(k3_inputs.values()), run_dir / f"k3_r{rank}.pt")
+            del k3_inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def pgf_expected(api, how: str, line: dict) -> int:
+    """K1-peer launches a run must make (PGF_FORMULAS): per forward, per
+    weave split, the entry norm and each block's slot; a forward whose
+    tokens do not divide over the ranks would take the vanilla fallback
+    and fail the count.  Served runs count the engine's forwards and
+    weave forwards; direct runs their prefill and PGF_DECODE steps."""
+    cfg = api.cfg
+    if how == "serve":
+        per = 1 + (2 if cfg.family == "moe" else 1) * cfg.num_layers
+        return (line["forwards"] + line["weave_forwards"]) * per
+    b, s = PGF_DIRECT[cfg.family]
+    if cfg.family == "encdec":
+        return encdec_launches(api, b, cfg.max_source_positions, s,
+                               PGF_DECODE, norm_kernel="ar_rmsnorm"
+                               )["ar_rmsnorm"]
+    slots = (cfg.num_layers + cfg.num_layers // cfg.shared_attn_period
+             if cfg.family == "hybrid" else 2 * cfg.num_layers)
+    n = s + (VLM_GRID * VLM_GRID if cfg.family == "vlm" else 0)
+    return (norm_launches(api, b, n, decode=False, slots=slots)
+            + PGF_DECODE * norm_launches(api, b, 1, decode=True,
+                                         slots=slots))
+
+
+def pgf_k3_expected(api, how: str, line: dict) -> int:
+    """K3 launches a run must make (PGF_K3_FORMULAS): one call per
+    attention layer of each prefill split.  Served runs count the
+    engine's prefill forwards and their weave splits
+    (``launch.serve``'s ``prefill_splits``); direct runs their one
+    prefill, Whisper's encoder split apart."""
+    from repro_torch.models import transformer as TR
+    cfg = api.cfg
+    if how == "serve":
+        return line["prefill_splits"] * (cfg.num_layers
+                                         if cfg.family == "moe" else 0)
+    b, s = PGF_DIRECT[cfg.family]
+    if cfg.family == "encdec":
+        return encdec_launches(api, b, cfg.max_source_positions, s,
+                               PGF_DECODE, norm_kernel="ar_rmsnorm"
+                               )["flash_attention"]
+    n = s + (VLM_GRID * VLM_GRID if cfg.family == "vlm" else 0)
+    splits = 1 + TR.weave_decision_info(b, n, tp=api.tp,
+                                        pcfg=api.pcfg).weave
+    return splits * (cfg.num_layers // cfg.shared_attn_period
+                     if cfg.family == "hybrid" else cfg.num_layers)
+
+
+def pgf_check_k3(torch, run_dir: Path, name: str, want: int) -> tuple:
+    """K3 on each rank's kept inputs, shape by shape, against its plain
+    version (``check_main_path_k3``; a run whose formula gives no K3 call
+    must have kept none).  Returns (K3's max error, the shapes held)."""
+    err, shapes = 0.0, []
+    for k in range(PG_RING_WORLD):
+        kept = torch.load(run_dir / f"k3_r{k}.pt")
+        if not want:
+            if kept:
+                raise AssertionError(f"pg_families {name}: K3 ran where "
+                                     f"the family has no attention")
+            continue
+        shapes += [[list(t[0].shape), list(t[1].shape), str(t[0].dtype)[6:],
+                    kw.get("causal", True)] for t, kw in kept]
+        err = max(err, check_main_path_k3(
+            torch, dict(enumerate(kept)), f"pg_families {name} rank {k}",
+            PG_RING_WORLD))
+    return err, shapes
+
+
+def pgf_rank_axis(torch, np, cfg, how: str, seed: int):
+    """The rank axis's ``ring`` at tp=2 on the card on the same seeded
+    weights and inputs: (tokens, K1's calls, their digests)."""
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    api = build_model(cfg, pgf_pcfg(), tp=PG_RING_WORLD)
+    params = api.init(seed, device="cuda")
+    if how == "direct":
+        got, calls, digests = rank_axis_calls(
+            torch, lambda: drive_direct(torch, np, api, params, seed))
+        return got["tokens"], calls, digests
+    prompts = pgf_prompts(np, seed, cfg)
+    eng = Engine(api, params, SchedulerConfig())
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(rid=i, prompt=p,
+                                max_new_tokens=PGF_NEW_TOKENS))
+    done, calls, digests = rank_axis_calls(torch, eng.run)
+    done = {r.rid: r.output for r in done}
+    return [done[i] for i in range(len(prompts))], calls, digests
+
+
+def pgf_check(torch, np, seed: int, run_dir: Path, name: str, layers: int,
+              how: str, twin: bool) -> tuple:
+    """One pg_families run's gates: the ranks' tokens and K1-peer calls
+    equal, K1-peer launches equal the family's formula (no other add+norm
+    kernel), every served (T, CTAs) bit-equal to the one-card K1 on the
+    stacked inputs (``check_peer_shapes``); K3's launches equal the
+    family's K3 formula, on both ranks, and K3 within its tolerance of
+    the plain version on each rank's inputs at every shape
+    (``pgf_check_k3``); a twin's tokens and K1 calls equal to the rank
+    axis's ring at tp=2.  Emits its line; returns (rank 0's K1-peer
+    launches, the largest K1-peer error against the plain version, the
+    served shapes, rank 0's K3 launches, K3's largest error)."""
+    from repro_torch.models.build import build_model
+
+    cfg = pgf_config(name, layers, twin)
+    res = [json.loads((run_dir / f"result_r{k}.json").read_text())
+           for k in range(PG_RING_WORLD)]
+    line = res[0]
+    tokens = line["tokens"]
+    if how == "direct" and res[1]["tokens"] != tokens:
+        raise AssertionError(f"pg_families {name}: the ranks' tokens differ")
+    if not line["ranks_agree"]:
+        raise AssertionError(f"pg_families {name}: the ranks' tokens differ")
+    api = build_model(cfg, pgf_pcfg(), tp=PG_RING_WORLD)
+    want = pgf_expected(api, how, line)
+    got = line["launches"]
+    if (got["ar_rmsnorm_peer"] != want or got.get("ar_rmsnorm")
+            or got.get("fused_residual_rmsnorm")):
+        raise AssertionError(f"pg_families {name}: launches {got}, expected "
+                             f"{want} of ar_rmsnorm_peer alone")
+    want_k3 = pgf_k3_expected(api, how, line)
+    k3_counts = [got["flash_attention"]] + [r["k3_launches"] for r in res]
+    if any(n != want_k3 for n in k3_counts):
+        raise AssertionError(f"pg_families {name}: K3 launches {k3_counts} "
+                             f"(rank 0's run, each rank's process), "
+                             f"expected {want_k3}")
+    k3_err, k3_shapes = pgf_check_k3(torch, run_dir, name, want_k3)
+    group = []
+    for k in range(PG_RING_WORLD):
+        log = json.loads((run_dir / f"calls_r{k}.json").read_text())
+        group.append(([tuple(c) for c in log["calls"]], log["digests"]))
+    calls = group[0][0]
+    if any(g[0] != calls for g in group) or len(calls) != want:
+        raise AssertionError(f"pg_families {name}: the ranks' K1-peer calls "
+                             f"differ, or miss the slot count")
+    counts = {}
+    for c in calls:
+        counts[c] = counts.get(c, 0) + 1
+    shapes, err = check_peer_shapes(torch, run_dir, counts,
+                                    label=f"pg_families {name}")
+    out = {"phase": "pg_families", "model": cfg.name, "family": cfg.family,
+           "served_by": ("launch.serve" if how == "serve"
+                         else "ModelApi direct calls"),
+           "layers": cfg.num_layers, "layers_cut_from": (
+               None if twin else pgf_config(name, 0, False).num_layers),
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "world_size": PG_RING_WORLD, "backend": "gloo",
+           "launches_rank0": got, "expected_peer_launches": want,
+           "formula": PGF_FORMULAS[cfg.family],
+           "expected_k3_launches": want_k3,
+           "k3_formula": PGF_K3_FORMULAS[cfg.family],
+           "k3_shapes_held": k3_shapes, "k3_max_abs_err": k3_err,
+           "ranks_agree": True, "tokens_rank0": tokens,
+           "peer_shapes": shapes,
+           "prefill_ms": [r["ms"]["prefill"] for r in res],
+           "decode_ms": [r["ms"]["decode_step"] for r in res],
+           "decode_ms_median": [statistics.median(r["ms"]["decode_step"])
+                                for r in res],
+           "gated": True, "card": card_line()}
+    if how == "serve":
+        out.update(forwards=line["forwards"],
+                   weave_forwards=line["weave_forwards"],
+                   wall_s_time_sliced=line["wall_s"],
+                   prompt_lens=list(PGF_PROMPT_LENS),
+                   new_tokens=PGF_NEW_TOKENS)
+    else:
+        out.update(rows=line["rows"], prompt=line["prompt"],
+                   decode_steps=PGF_DECODE,
+                   workspace_rows=line["workspace_rows"])
+    if twin:
+        axis_tokens, axis_calls, axis = pgf_rank_axis(torch, np, cfg, how,
+                                                      seed)
+        same = axis_tokens == tokens
+        calls_vs_axis = first_divergence(group, axis, calls, axis_calls)
+        out.update(tokens_equal_rank_axis_ring_tp2=same,
+                   calls_vs_rank_axis=calls_vs_axis)
+        emit(out)
+        if not (same and calls_vs_axis["aligned"] == len(calls)
+                == len(axis_calls)):
+            raise AssertionError(f"pg_families {name} float32 twin: tokens "
+                                 f"or K1 call shapes differ from the rank "
+                                 f"axis's ring at tp=2")
+    else:
+        emit(out)
+    return (got["ar_rmsnorm_peer"], err, [(r["T"], r["d"], cfg.dtype)
+                                          for r in shapes],
+            got["flash_attention"], k3_err)
+
+
+def pgf_shape_cases(served: dict) -> list:
+    """The K1-peer shapes pg_families times: per full-width model its
+    largest served T (a prefill split) and its smallest (a decode
+    step)."""
+    cases = []
+    for shapes in served.values():
+        ts = sorted({t for t, _, _ in shapes})
+        for t in sorted({ts[0], ts[-1]}):
+            d, dtype = shapes[0][1], shapes[0][2]
+            if (t, d, dtype) not in cases:
+                cases.append((t, d, dtype))
+    return cases
+
+
+def pg_families_phase(torch, np, seed: int) -> tuple:
+    """The MoE (Mixtral ``ffn``, OLMoE ``expert``), ssm (Falcon-Mamba),
+    hybrid (Zamba2), encdec (Whisper) and vlm (Qwen2-VL) families in comm
+    mode ``ring`` one model rank per process: two processes on the card
+    (``pgf_rank``; gloo carries the groups' collectives, CUDA IPC K1's
+    peer buffers), each model at full width with its depth cut and as
+    its reduced float32 twin, gated by ``pgf_check``; then K1's cross-
+    rank form at N 2 timed at each full-width model's largest and
+    smallest served rows, in a process of its own (``k1_peer_local``).
+    Returns (rank 0's K1-peer launches over every run, the largest K1-peer
+    error against the plain version, rank 0's K3 launches over every
+    run, K3's largest error on the runs' inputs)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="pg_families_"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+          "--pg-families-dir", str(out_dir), "--pg-families-rank"]
+    launches, worst, served, k3_launches, k3_err = 0, 0.0, {}, 0, 0.0
+    try:
+        run_children([me + [str(k)] for k in range(PG_RING_WORLD)],
+                     cwd=ROOT, env=env, timeout=PGF_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        for name, layers, how in PGF_MODELS:
+            for twin in (False, True):
+                n, err, shapes, n_k3, err_k3 = pgf_check(
+                    torch, np, seed, out_dir / pgf_run(name, twin), name,
+                    layers, how, twin)
+                launches += n
+                worst = max(worst, err)
+                k3_launches += n_k3
+                k3_err = max(k3_err, err_k3)
+                if not twin:
+                    served[name] = shapes
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cases = pgf_shape_cases(served)
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32")
+    out, = run_children([[sys.executable, str(Path(__file__).resolve()),
+                          "--seed", str(seed), "--k1-peer-local",
+                          "--k1-peer-cases", json.dumps(cases)]],
+                        cwd=ROOT, env=env, timeout=K1P_TIMEOUT_S)
+    card = card_line()
+    for ln in json_lines(out)[:-1]:
+        emit(dict(ln, phase="k1_peer_families", card=card))
+    worst = max(worst, json_lines(out)[-1]["k1_peer_local"]["max_abs_err"])
+    emit({"phase": "pg_families_seconds", "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    return launches, worst, k3_launches, k3_err
 
 
 def grads_of(torch, fn, inputs, g_out):
@@ -5766,6 +6340,12 @@ def main() -> int:
     ap.add_argument("--pg-ring-spy", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--serve-argv", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
+    # pg_families' ranks and its K1-peer timing (pg_families_phase starts
+    # them)
+    ap.add_argument("--pg-families-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pg-families-dir", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--k1-peer-cases", type=json.loads,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -5778,8 +6358,17 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.k1_peer_local and args.k1_peer_cases:
+        k1_peer_local(torch, args.seed,
+                      cases=[tuple(c) for c in args.k1_peer_cases],
+                      ranks=(PG_RING_WORLD,))
+        return 0
     if args.k1_peer_local:
         k1_peer_local(torch, args.seed)
+        return 0
+    if args.pg_families_rank is not None:
+        pgf_rank(torch, np, args.seed, args.pg_families_rank,
+                 args.pg_families_dir)
         return 0
     if args.k1_peer_rank is not None:
         k1_peer_rank(torch, args.seed, args.k1_peer_rank, args.k1_peer_world,
@@ -5864,6 +6453,10 @@ def main() -> int:
     paths.append(pg_engine_phase(**kw, trace_dir=args.trace_dir))
     # comm mode ring one rank per process: K1's cross-rank form
     peer_launches, pg_ring_err = pg_ring_phase(torch, np, args.seed)
+    # the MoE, ssm, hybrid, encdec and vlm families the same way
+    (family_launches, pg_families_err, family_k3,
+     family_k3_err) = pg_families_phase(torch, np, args.seed)
+    peer_launches += family_launches
     # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
     t0 = time.perf_counter()
     train_kernels_phase(torch, args.seed)
@@ -5875,10 +6468,12 @@ def main() -> int:
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     launches["ar_rmsnorm_peer"] = peer_launches
+    launches["flash_attention"] += family_k3
     # the K3 error over every shape the main paths gave it, too, and K2's
     # over training's
     rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"], *(p[1] for p in paths))
+        rows["flash_attention"]["max_abs_err"], family_k3_err,
+        *(p[1] for p in paths))
     rows["fused_residual_rmsnorm"]["max_abs_err"] = max(
         rows["fused_residual_rmsnorm"]["max_abs_err"], gemma_k2_err)
     for tp in (1, 8):
@@ -5895,7 +6490,7 @@ def main() -> int:
     rows["ar_rmsnorm"]["max_abs_err"] = max(
         rows["ar_rmsnorm"]["max_abs_err"], tuned_k1_err)
     rows["ar_rmsnorm_peer"]["max_abs_err"] = max(
-        rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err)
+        rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err, pg_families_err)
     # the meta-device dry run and the examples: host work, after every
     # timed phase
     dryrun_phase(torch)

@@ -20,3 +20,12 @@ def generator(device: torch.device, seed: int):
     if device.type == "meta":
         return None
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def randn_ranks(gen, shape, *, rank=None, device, dtype) -> torch.Tensor:
+    """``torch.randn(shape)`` from ``gen``, the draw of all tp ranks along
+    its leading axis; with ``rank``, model rank ``rank``'s slice of it as a
+    tensor of its own (the whole draw is freed at once), so that one
+    process's weights equal its slice of the tp-rank draw."""
+    w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    return w if rank is None else w[rank:rank + 1].clone()

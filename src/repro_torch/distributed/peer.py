@@ -7,8 +7,11 @@ A ``PeerWorkspace`` is one rank's view of a model group's buffers: its own
 allocation (flags, N receive slots, a ``gathered`` chunk;
 ``ar_rmsnorm_peer.workspace_bytes``), every peer's mapped into this
 process, the kernel's pointer tables, and the epoch the flags count calls
-by.  It is sized for the largest forward the scheduler can issue
-(``SchedulerConfig.max_forward_tokens``) at the model's width and dtype.
+by.  It is sized for the largest forward a run makes at the model's
+width and dtype: the scheduler's (``SchedulerConfig.max_forward_tokens``)
+under the engine, ``direct_rows``' for direct ``ModelApi.prefill`` /
+``decode_step`` calls (the hybrid's chunks, an encoder's frames).  A
+forward larger than the workspace raises; nothing falls back.
 
 ``PeerWorkspace.create`` is collective over the model group: each rank
 allocates its buffer, the ranks exchange CUDA IPC handles with
@@ -141,3 +144,16 @@ def attach(groups: Groups, *, rows: int, d: int, dtype, device) -> Groups:
     groups=)`` in comm mode ``ring`` on CUDA."""
     return dataclasses.replace(groups, peer=PeerWorkspace.create(
         groups, rows=rows, d=d, dtype=dtype, device=device))
+
+
+def direct_rows(cfg, *, batch: int, chunk: int) -> int:
+    """The most token rows one forward of a run of direct ``ModelApi``
+    calls gives an add+norm slot: a prefill chunk's ``batch`` x ``chunk``
+    (an image's patch rows counted in ``chunk``), a decode step's
+    ``batch``, and for the encdec family the encoder's ``batch`` x
+    ``max_source_positions`` frames: the ``rows`` of ``attach`` for a run
+    with no ``SchedulerConfig``."""
+    rows = batch * max(chunk, 1)
+    if cfg.family == "encdec":
+        rows = max(rows, batch * cfg.max_source_positions)
+    return rows

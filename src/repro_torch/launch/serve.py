@@ -4,6 +4,8 @@ launcher of a multi-card machine, run under ``torchrun``.
 
     torchrun --nproc-per-node=8 -m repro_torch.launch.serve \\
         --arch llama3.3-70b --layers 4 [--comm-mode ring]
+    torchrun --nproc-per-node=8 -m repro_torch.launch.serve \\
+        --arch mixtral-8x22b --layers 4 --comm-mode ring
 
 Every process draws the model's weights from the seed and keeps its own
 model rank's (``ModelApi.init`` with groups), runs its own ``Engine`` on
@@ -18,11 +20,16 @@ world size) share a card, since NCCL refuses two ranks on one device
 rank and the world size come from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``; ``--init-method env://``) or from
 ``--rank`` / ``--world-size`` with a ``file://`` store.  The mesh is
-(data 1, model = world size): the dense family at data size 1, as the
-engine serves it.  ``--comm-mode ring`` runs every add+norm slot as K1's
-cross-rank form on CUDA (the model group's peer buffers are made before
-the first forward, ``distributed.peer.attach``), its plain version over
-the group on the CPU.
+(data 1, model = world size), as the engine serves it.  ``--arch`` takes
+every family the engine serves: dense, MoE (``expert`` and ``ffn``; an
+``ep2d`` model needs the data group, ROADMAP.md A19), ssm, and vlm as
+text.  The hybrid and encdec families are refused by name: the engine
+cannot hold their caches, and they are served by direct
+``ModelApi.prefill`` / ``decode_step`` calls.  ``--comm-mode ring``
+runs every add+norm slot as K1's cross-rank form on CUDA (the model
+group's peer buffers are made before the first forward,
+``distributed.peer.attach``), its plain version over the group on the
+CPU.
 
 Without CUDA, ``--device cuda`` (the default) stops with an error; run
 from ``src/`` with no PYTHONPATH (``src/sitecustomize.py`` would load the
@@ -76,6 +83,16 @@ def main(argv=None) -> int:
     from repro_torch.runtime.requests import Request
     from repro_torch.runtime.scheduler import SchedulerConfig
 
+    cfg = get_config(args.arch)
+    if cfg.family in ("hybrid", "encdec"):
+        print(f"serve: the {cfg.family} family is served by direct "
+              f"ModelApi.prefill / decode_step calls, not by the engine",
+              file=sys.stderr)
+        return 2
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     rank = int(os.environ["RANK"]) if args.rank is None else args.rank
     world = (int(os.environ["WORLD_SIZE"]) if args.world_size is None
              else args.world_size)
@@ -96,11 +113,6 @@ def main(argv=None) -> int:
                          backend=backend, init_method=args.init_method,
                          rank=rank, world_size=world)
     try:
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = cfg.reduced()
-        if args.layers:
-            cfg = dataclasses.replace(cfg, num_layers=args.layers)
         pcfg = ParallelConfig(comm_mode=args.comm_mode, attn_impl="pallas",
                               use_pallas_norm=True)
         sched = SchedulerConfig()
@@ -124,6 +136,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(device)
         wall_s = time.perf_counter() - t0
         after = launches()
+        # prefill forwards and their weave splits: K3's calls per layer
+        prefill_splits = sum(
+            m.value for m in (
+                eng.metrics.get("engine/site_forwards", site="prefill"),
+                eng.metrics.get("engine/site_weave", site="prefill"))
+            if m is not None)
         tokens = {r.rid: r.output for r in done}
         flat = torch.tensor([t for rid in sorted(tokens)
                              for t in tokens[rid]], dtype=torch.int64,
@@ -134,11 +152,13 @@ def main(argv=None) -> int:
         same = bool(torch.equal(lo, hi))
         if rank == 0:
             print(json.dumps({
-                "arch": cfg.name, "layers": cfg.num_layers,
+                "arch": cfg.name, "family": cfg.family,
+                "layers": cfg.num_layers,
                 "dtype": cfg.dtype, "comm_mode": args.comm_mode,
                 "backend": dist.get_backend(), "world_size": world,
                 "forwards": eng.stats.forwards,
                 "weave_forwards": eng.stats.weave_forwards,
+                "prefill_splits": prefill_splits,
                 "launches": {k: after[k] - before[k] for k in after},
                 "wall_s": wall_s, "ranks_agree": same,
                 "tokens": [tokens[rid] for rid in sorted(tokens)]}),

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import randn_ranks
 from repro_torch.distributed import collectives as COL
 
 # named ranges around moe_forward's parts, so a profile can split their
@@ -67,34 +68,45 @@ def local_sizes(cfg, tp: int, ep: int = 1):
     raise ValueError(mode)
 
 
-def expert_offsets(cfg, tp: int, device) -> torch.Tensor:
-    """(R,) index of each rank's first local expert: r·E/tp in ``expert``
-    mode, 0 in ``ffn`` mode."""
+def expert_offsets(cfg, tp: int, device, ranks=None) -> torch.Tensor:
+    """(R,) index of each local rank's first expert: r·E/tp in ``expert``
+    mode, 0 in ``ffn`` mode, for the model ranks ``ranks`` (a range;
+    all tp unless given)."""
     e_loc, _ = local_sizes(cfg, tp)
     step = e_loc if cfg.moe_partition == "expert" else 0
-    return torch.arange(tp, device=device) * step
+    ranks = range(tp) if ranks is None else ranks
+    return torch.arange(ranks.start, ranks.stop, device=device) * step
 
 
 def init_moe_params(gen: torch.Generator, cfg, tp: int, ep: int = 1, *,
-                    device, dtype):
+                    device, dtype, rank=None):
     """Random MoE weights with the reference's scales: router and expert
     inputs d^-0.5, expert down d_ff^-0.5.  The router is replicated
     ``(d, E)`` and float32 whatever ``dtype``; expert weights are
     ``(R, E_loc, d, f_loc)`` (``w_down`` ``(R, E_loc, f_loc, d)``), and
-    ``(D, R, ...)`` for ``ep2d``, D = ``ep``."""
+    ``(D, R, ...)`` for ``ep2d``, D = ``ep``.  With ``rank``, model rank
+    ``rank``'s expert weights, each drawn whole and cut at once (not
+    ``ep2d``)."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     e_loc, f_loc = local_sizes(cfg, tp, ep)
     lead = (ep, tp) if cfg.moe_partition == "ep2d" else (tp,)
+    if rank is not None and len(lead) > 1:
+        raise NotImplementedError("one rank's ep2d experts are not drawn: "
+                                  "they split over the data group too")
     s = d ** -0.5
 
     def w(*shape, scale, dt=dtype):
         return torch.randn(shape, generator=gen, device=device,
                            dtype=dt) * scale
 
+    def expert(*shape, scale):
+        return randn_ranks(gen, lead + shape, rank=rank, device=device,
+                           dtype=dtype) * scale
+
     return {"router": w(d, e, scale=s, dt=torch.float32),
-            "w_gate": w(*lead, e_loc, d, f_loc, scale=s),
-            "w_up": w(*lead, e_loc, d, f_loc, scale=s),
-            "w_down": w(*lead, e_loc, f_loc, d, scale=f ** -0.5)}
+            "w_gate": expert(e_loc, d, f_loc, scale=s),
+            "w_up": expert(e_loc, d, f_loc, scale=s),
+            "w_down": expert(e_loc, f_loc, d, scale=f ** -0.5)}
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -301,7 +313,7 @@ def _ep2d_forward(params, xt, cfg, dp: int):
     return out, aux
 
 
-def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1):
+def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1, ctx=None):
     """x (R, B, S, d), the same on every rank, B holding the ``dp`` data
     shards' rows one shard after the other -> (partial out (R, B, S, d),
     aux (R,), or (R, D) when dp > 1).  The caller's ``comm_norm`` reduces
@@ -309,8 +321,16 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1):
     T_loc = B·S / D tokens, padding rows included: per expert
     max(ceil(T_loc·k/E·capacity_factor), 4) for ``expert``/``ffn``; for
     ``ep2d`` cs = max(ceil(T_loc·k/D·capacity_factor), 4) per destination
-    shard, then ceil(D·cs/E_loc·capacity_factor) per expert."""
+    shard, then ceil(D·cs/E_loc·capacity_factor) per expert.
+
+    ``ctx`` (a ``CommCtx``) gives the model group's size tp and the model
+    rank of the first local rank: under ``process_group`` R = 1 is model
+    rank ``ctx.rank`` of ``ctx.tp``, and in ``expert`` mode it holds
+    experts [rank·E/tp, (rank+1)·E/tp).  Without one, the R local ranks
+    are all tp ranks (``expert``/``ffn``; ``ep2d`` runs on the rank
+    axes only)."""
     r, b, s, d = x.shape
+    tp, first = (r, 0) if ctx is None else (ctx.tp, ctx.rank)
     if b % dp:
         raise ValueError(f"{b} rows do not split over {dp} data shards")
     if cfg.moe_partition == "ep2d":
@@ -320,7 +340,7 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1):
     t_loc = b * s // dp
     k = cfg.num_experts_per_tok
     record = torch.profiler.record_function
-    e_loc, _ = local_sizes(cfg, r)
+    e_loc, _ = local_sizes(cfg, tp)
     # each (rank, data shard) routes and queues its own tokens
     xt = x.reshape(r * dp, t_loc, d)
     with record(ROUTE_RANGE):
@@ -330,7 +350,8 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1):
     with record(DISPATCH_RANGE):
         buf, slot, flat_w = _capacity_dispatch(
             xt, topi, topw, n_local=e_loc,
-            lo=expert_offsets(cfg, r, x.device).repeat_interleave(dp),
+            lo=expert_offsets(cfg, tp, x.device, range(first, first + r)
+                              ).repeat_interleave(dp),
             capacity=cap)
     with record(EXPERTS_RANGE):
         if dp > 1:

@@ -6,7 +6,8 @@ The tp ranks sit on a leading rank axis R of one device
 (``distributed/context.py``): sharded weights are ``(R, ...)`` as in the
 reference's pytree, the layer input is ``(R, B, S, d)`` (the same on every
 rank) and the output is partial over the ranks; its reduction is
-``comm_norm``.  The reference's two collectives become sums over R: the
+``comm_norm``.  The reference's two collectives become sums over R, or
+over the model group of a ``process_group`` ``ctx`` (R = 1 there): the
 ``x_proj`` output of Mamba-1 (``(dt_rank + 2·state)`` per token, in its
 own ``record_function`` range) and the gated norm's scalar variance of
 Mamba-2.  What is the same on every rank after them (Mamba-1's dt/B/C,
@@ -34,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import randn_ranks
 from repro_torch.distributed.collectives import psum
 
 IN_PROJ_RANGE = "repro_torch.ssm.in_proj"      # in_proj (and Mamba-2's B/C)
@@ -192,39 +194,41 @@ def _cat_rows(states):
 # Mamba-1 (falcon-mamba)
 # --------------------------------------------------------------------------
 
-def init_mamba1_params(gen, cfg, tp: int, *, device, dtype):
+def init_mamba1_params(gen, cfg, tp: int, *, device, dtype, rank=None):
     """Random Mamba-1 weights for ``tp`` ranks with the reference's scales
-    and shapes (``repro.layers.ssm.init_mamba1_params``), from ``gen``."""
+    and shapes (``repro.layers.ssm.init_mamba1_params``), from ``gen``;
+    model rank ``rank``'s alone when given (``device.randn_ranks``)."""
     d, di, s_st = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dtr, k = cfg.ssm_dt_rank, cfg.ssm_conv
     if di % tp:
         raise ValueError(f"d_inner={di} is not a multiple of tp={tp}")
-    dil = di // tp
+    dil, r = di // tp, tp if rank is None else 1
 
     def rnd(shape, scale):
-        return (torch.randn((tp,) + shape, generator=gen, device=device,
+        return (randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
                             dtype=torch.float32) * scale).to(dtype)
     a_init = torch.arange(1, s_st + 1, dtype=torch.float32,
                           device=device)[None].expand(dil, s_st)
     return {
         "in_proj": rnd((d, 2 * dil), d ** -0.5),
         "conv_w": rnd((k, dil), 0.2),
-        "conv_b": torch.zeros(tp, dil, dtype=dtype, device=device),
+        "conv_b": torch.zeros(r, dil, dtype=dtype, device=device),
         "x_proj": rnd((dil, dtr + 2 * s_st), di ** -0.5),
         "dt_w": rnd((dtr, dil), dtr ** -0.5),
-        "dt_b": torch.full((tp, dil), -4.6, dtype=dtype, device=device),
-        "A_log": torch.log(a_init)[None].repeat(tp, 1, 1),
-        "D": torch.ones(tp, dil, dtype=torch.float32, device=device),
+        "dt_b": torch.full((r, dil), -4.6, dtype=dtype, device=device),
+        "A_log": torch.log(a_init)[None].repeat(r, 1, 1),
+        "D": torch.ones(r, dil, dtype=torch.float32, device=device),
         "out_proj": rnd((dil, d), di ** -0.5),
     }
 
 
 def mamba1_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
-                   chunk: int = 256):
+                   chunk: int = 256, ctx=None):
     """x (R, B, S, d), the same on every rank -> (partial out (R, B, S,
     d), (conv_state, h_state)).  ``init_state``: (conv_state, h) from a
     prefix token split (or the decode cache); the suffix resumes the
-    recurrence exactly."""
+    recurrence exactly.  ``ctx``: the ``CommCtx`` the x_proj sum runs
+    over (the rank axis when None)."""
     r, bsz, s, d = x.shape
     dil = params["conv_b"].shape[-1]
     s_st, dtr = cfg.ssm_state, cfg.ssm_dt_rank
@@ -241,7 +245,7 @@ def mamba1_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
     # dt/B/C from the full inner dim: local partial + its sum over ranks
     with _record(XPROJ_RANGE):
         dbc = psum(u.reshape(r, bsz * s, dil) @ params["x_proj"],
-                   None).float().reshape(bsz, s, -1)
+                   ctx).float().reshape(bsz, s, -1)
         dt_in = dbc[..., :dtr]
         b_ssm, c_ssm = dbc[..., dtr:dtr + s_st], dbc[..., dtr + s_st:]
     with _record(SCAN_RANGE):
@@ -272,22 +276,24 @@ def mamba1_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
     return partial, (conv_st, h)
 
 
-def mamba1_decode(params, x, state, *, cfg):
+def mamba1_decode(params, x, state, *, cfg, ctx=None):
     """Single-token step; state = (conv_state (R, B, K-1, dil), h (R, B,
     dil, state))."""
-    return mamba1_forward(params, x, cfg=cfg, init_state=state, chunk=1)
+    return mamba1_forward(params, x, cfg=cfg, init_state=state, chunk=1,
+                          ctx=ctx)
 
 
 def init_mamba1_state(batch: int, cfg, tp: int, layers: int, *, device,
-                      dtype=None):
+                      dtype=None, ranks: Optional[int] = None):
     """Zero state for ``layers`` layers: (conv (L, R, B, K-1, dil), h (L,
-    R, B, dil, state) float32)."""
-    dil = cfg.d_inner // tp
+    R, B, dil, state) float32); R = ``ranks`` (tp unless given; 1 in a
+    process of a model group)."""
+    dil, r = cfg.d_inner // tp, ranks or tp
     dtype = dtype or getattr(torch, cfg.dtype)
     return (
-        torch.zeros(layers, tp, batch, cfg.ssm_conv - 1, dil, dtype=dtype,
+        torch.zeros(layers, r, batch, cfg.ssm_conv - 1, dil, dtype=dtype,
                     device=device),
-        torch.zeros(layers, tp, batch, dil, cfg.ssm_state,
+        torch.zeros(layers, r, batch, dil, cfg.ssm_state,
                     dtype=torch.float32, device=device),
     )
 
@@ -296,43 +302,50 @@ def init_mamba1_state(batch: int, cfg, tp: int, layers: int, *, device,
 # Mamba-2 / SSD (zamba2 backbone)
 # --------------------------------------------------------------------------
 
-def init_mamba2_params(gen, cfg, tp: int, *, device, dtype):
+def init_mamba2_params(gen, cfg, tp: int, *, device, dtype, rank=None):
     """Random Mamba-2 weights for ``tp`` ranks with the reference's scales
     and shapes; the replicated B/C projection and conv drop the size-1
-    axis the reference gives them."""
+    axis the reference gives them.  Model rank ``rank``'s alone when
+    given (``device.randn_ranks``)."""
     d, di, s_st = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh, k = cfg.ssm_heads, cfg.ssm_conv
     if di % tp or nh % tp:
         raise ValueError(f"d_inner={di} and ssm_heads={nh} must be "
                          f"multiples of tp={tp}")
-    dil, nhl = di // tp, nh // tp
+    dil, nhl, r = di // tp, nh // tp, tp if rank is None else 1
 
-    def rnd(shape, scale, lead=(tp,)):
-        return (torch.randn(lead + shape, generator=gen, device=device,
+    def rnd(shape, scale):
+        return (randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def replicated(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32) * scale).to(dtype)
     return {
         "in_proj": rnd((d, 2 * dil + nhl), d ** -0.5),
-        "in_proj_bc": rnd((d, 2 * s_st), d ** -0.5, ()),
+        "in_proj_bc": replicated((d, 2 * s_st), d ** -0.5),
         "conv_x": rnd((k, dil), 0.2),
-        "conv_bc": rnd((k, 2 * s_st), 0.2, ()),
-        "A_log": torch.zeros(tp, nhl, dtype=torch.float32, device=device),
-        "D": torch.ones(tp, nhl, dtype=torch.float32, device=device),
-        "dt_bias": torch.full((tp, nhl), -4.6, dtype=torch.float32,
+        "conv_bc": replicated((k, 2 * s_st), 0.2),
+        "A_log": torch.zeros(r, nhl, dtype=torch.float32, device=device),
+        "D": torch.ones(r, nhl, dtype=torch.float32, device=device),
+        "dt_bias": torch.full((r, nhl), -4.6, dtype=torch.float32,
                               device=device),
-        "gate_norm": torch.ones(tp, dil, dtype=dtype, device=device),
+        "gate_norm": torch.ones(r, dil, dtype=dtype, device=device),
         "out_proj": rnd((dil, d), di ** -0.5),
     }
 
 
-def _gated_rmsnorm_tp(y, z, w, eps):
+def _gated_rmsnorm_tp(y, z, w, eps, ctx=None):
     """RMSNorm(y * silu(z)) with the variance over the FULL (sharded)
-    d_inner: the per-rank sums of squares summed over R.  y, z (R, ...,
-    dil); w (R, dil)."""
+    d_inner: the per-rank sums of squares summed over the tp ranks (the
+    rank axis, or ``ctx``'s model group).  y, z (R, ..., dil); w (R,
+    dil)."""
     g = y.float() * F.silu(z.float())
     ss = (g * g).sum(dim=-1, keepdim=True)
-    ss = psum(ss, None)[None] if ss.shape[0] > 1 else ss
-    n = g.shape[-1] * g.shape[0]
-    inv = torch.rsqrt(ss / n + eps)
+    tp = g.shape[0] if ctx is None else ctx.tp
+    if tp > 1:
+        ss = psum(ss, ctx)[None]
+    inv = torch.rsqrt(ss / (g.shape[-1] * tp) + eps)
     return (g * inv * _bcast(w.float(), g)).to(z.dtype)
 
 
@@ -361,11 +374,13 @@ def _ssd_chunk(h, xc, dc, bcu, ccu, a_h):
 
 
 def mamba2_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
-                   chunk: int = 128):
+                   chunk: int = 128, ctx=None):
     """Chunked SSD.  x (R, B, S, d), the same on every rank -> (partial
     (R, B, S, d), ((conv_x_state, conv_bc_state), h_state)); h_state
     (R, B, nh_loc, dh, state).  B/C are shared across heads (n_groups=1)
-    and computed once, from rank 0's copy of the replicated input."""
+    and computed once, from the first local rank's copy of the
+    replicated input.  ``ctx``: the ``CommCtx`` the gated norm's variance
+    sums over (the rank axis when None)."""
     r, bsz, s, d = x.shape
     s_st = cfg.ssm_state
     nhl = params["A_log"].shape[-1]
@@ -409,28 +424,31 @@ def mamba2_forward(params, x, *, cfg, init_state: Optional[Tuple] = None,
         y = y + params["D"][:, None, None, :, None] * xh
         y = y.reshape(r, bsz, s, dil)
     with _record(OUT_PROJ_RANGE):
-        y = _gated_rmsnorm_tp(y, z, params["gate_norm"], cfg.norm_eps)
+        y = _gated_rmsnorm_tp(y, z, params["gate_norm"], cfg.norm_eps, ctx)
         partial = (y.to(x.dtype).reshape(r, bsz * s, dil)
                    @ params["out_proj"]).reshape(r, bsz, s, d)
     return partial.to(x.dtype), ((conv_x_st, conv_bc_st), h)
 
 
-def mamba2_decode(params, x, state, *, cfg):
-    return mamba2_forward(params, x, cfg=cfg, init_state=state, chunk=1)
+def mamba2_decode(params, x, state, *, cfg, ctx=None):
+    return mamba2_forward(params, x, cfg=cfg, init_state=state, chunk=1,
+                          ctx=ctx)
 
 
 def init_mamba2_state(batch: int, cfg, tp: int, layers: int, *, device,
-                      dtype=None):
+                      dtype=None, ranks: Optional[int] = None):
     """Zero state for ``layers`` layers: ((conv_x (L, R, B, K-1, dil),
     conv_bc (L, 1, B, K-1, 2·state)), h (L, R, B, nh_loc, dh, state)
-    float32)."""
+    float32); R = ``ranks`` (tp unless given; 1 in a process of a model
+    group)."""
     di, nh, k = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv
+    r = ranks or tp
     dtype = dtype or getattr(torch, cfg.dtype)
     return (
-        (torch.zeros(layers, tp, batch, k - 1, di // tp, dtype=dtype,
+        (torch.zeros(layers, r, batch, k - 1, di // tp, dtype=dtype,
                      device=device),
          torch.zeros(layers, 1, batch, k - 1, 2 * cfg.ssm_state,
                      dtype=dtype, device=device)),
-        torch.zeros(layers, tp, batch, nh // tp, di // nh, cfg.ssm_state,
+        torch.zeros(layers, r, batch, nh // tp, di // nh, cfg.ssm_state,
                     dtype=torch.float32, device=device),
     )

@@ -24,10 +24,11 @@ the reference's layout off a parameter tree (``weights.py``).
 
 ``groups`` (``launch.mesh.init_groups``) puts the model on the
 ``process_group`` backend: this process holds one model rank (params,
-caches and logits with a rank axis of 1) and the calls pass the groups on.
-It is ported for the dense family's serving calls (and context-parallel
-decode over the data group); the other families, the verify step and
-training refuse it by name (ROADMAP.md)."""
+caches and logits with a rank axis of 1) and every family's calls pass
+the groups on.  It is ported for the serving calls of every family but
+``ep2d`` at data size 1, and for the dense family's context-parallel
+decode over the data group; ``ep2d``, the batch over the data group, the
+verify step and training refuse it by name (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -56,12 +57,11 @@ class ModelApi:
 
     @property
     def _dp(self) -> dict:
-        """The data size (and the groups) for the modules that take one."""
-        if self.mod not in (transformer, hybrid):
-            return {}
+        """The data size for the modules that take one, and the groups."""
+        kw = {"dp": self.ep} if self.mod in (transformer, hybrid) else {}
         if self.groups is not None:
-            return {"dp": self.ep, "groups": self.groups}
-        return {"dp": self.ep}
+            kw["groups"] = self.groups
+        return kw
 
     @property
     def comm_ctx(self) -> CommCtx:
@@ -87,8 +87,9 @@ class ModelApi:
                                     dtype=dtype, tp=self.tp, **kw)
 
     def init_cache(self, batch: int, max_len: int, *, device=None, **kw):
-        if self._dp:
-            kw.update(self._dp, seq_shard_kv=self.pcfg.seq_shard_kv)
+        kw.update(self._dp)
+        if "dp" in kw:
+            kw["seq_shard_kv"] = self.pcfg.seq_shard_kv
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
 
@@ -159,15 +160,20 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
         raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
     mod = FAMILIES[cfg.family]
     if groups is not None:
-        if cfg.family != "dense":
+        if cfg.family == "moe" and cfg.moe_partition == "ep2d":
             raise NotImplementedError(
-                f"the process_group backend is ported for the dense "
-                f"family, not the {cfg.family} family (ROADMAP.md)")
+                "ep2d over the process_group backend is not ported: its "
+                "all-to-alls need the data group (ROADMAP.md A19)")
         if ep > 1 and not pcfg.seq_shard_kv:
             raise NotImplementedError(
-                "the batch over the data group is not ported; the "
-                "process_group backend takes context-parallel decode "
-                "(seq_shard_kv) at ep > 1")
+                "the batch over the data group is not ported (ROADMAP.md "
+                "A19); the process_group backend takes context-parallel "
+                "decode (seq_shard_kv) at ep > 1")
+        if ep > 1 and cfg.family != "dense":
+            raise NotImplementedError(
+                f"context-parallel decode over the data group is ported "
+                f"for the dense family, not the {cfg.family} family "
+                f"(ROADMAP.md A19)")
     if ep > 1 and not (mod is transformer or (
             mod is hybrid and pcfg.seq_shard_kv)):
         raise NotImplementedError(

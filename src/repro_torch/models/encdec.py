@@ -32,13 +32,24 @@ write into the cache (``runtime.kv_cache.insert_chunk`` and
 ``write_rows``); ``decode_step`` updates the self cache in place.  The
 engine does not serve this family; the reference serves it by direct
 calls too.
+
+With ``groups`` each process holds one model rank (R = 1:
+``init_params(rank=)`` cuts encoder and decoder layers alike), the
+frames and the decoder's positional rows enter the entry norms divided
+by the model group's tp, and every slot runs over the group; cross
+attention needs no collective of its own (its keys and values are the
+rank's heads of the replicated encoder output, its output is partial
+like self attention's and goes through the ``norm_cross`` slot).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.device import generator, resolve_device
+from repro_torch.device import generator, randn_ranks, resolve_device
+from repro_torch.distributed.context import Groups
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
@@ -49,11 +60,14 @@ MAX_DECODER_POSITIONS = 4096
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1, max_positions: int = MAX_DECODER_POSITIONS):
+                tp: int = 1, max_positions: int = MAX_DECODER_POSITIONS,
+                rank: Optional[int] = None):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator``
     on ``device`` (CUDA unless given), with the reference's scales
     (projections d^-0.5, FFN out d_ff^-0.5, position tables 0.02, biases
-    zero, norms ones) and shapes."""
+    zero, norms ones) and shapes.  With ``rank``, model rank ``rank``'s
+    weights alone (``weights.take_rank`` of the tp-rank draw), each leaf
+    drawn whole and cut at once."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = generator(device, seed)
@@ -63,9 +77,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     if f % tp:
         raise ValueError(f"d_ff={f} is not a multiple of tp={tp}")
     s = d ** -0.5
+    r = tp if rank is None else 1
 
     def rnd(shape, scale):
         return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def sharded(shape, scale):
+        return (randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
                             dtype=torch.float32) * scale).to(dtype)
 
     def zeros(*shape):
@@ -75,21 +94,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
         return torch.ones(n, dtype=dtype, device=device)
 
     def attn(cross: bool):
-        p = {"wq": rnd((tp, d, lay.h_loc * dh), s),
-             "wk": rnd((tp, d, lay.kv_store * dh), s),
-             "wv": rnd((tp, d, lay.kv_store * dh), s),
-             "wo": rnd((tp, lay.h_loc * dh, d), s)}
+        p = {"wq": sharded((d, lay.h_loc * dh), s),
+             "wk": sharded((d, lay.kv_store * dh), s),
+             "wv": sharded((d, lay.kv_store * dh), s),
+             "wo": sharded((lay.h_loc * dh, d), s)}
         if cfg.qkv_bias and not cross:
-            p.update(bq=zeros(tp, lay.h_loc * dh),
-                     bk=zeros(tp, lay.kv_store * dh),
-                     bv=zeros(tp, lay.kv_store * dh))
+            p.update(bq=zeros(r, lay.h_loc * dh),
+                     bk=zeros(r, lay.kv_store * dh),
+                     bv=zeros(r, lay.kv_store * dh))
         if cfg.qk_norm:
             p.update(q_norm=ones(dh), k_norm=ones(dh))
         return p
 
     def mlp():
-        return {"w_in": rnd((tp, d, f // tp), s), "b_in": zeros(tp, f // tp),
-                "w_out": rnd((tp, f // tp, d), f ** -0.5), "b_out": zeros(d)}
+        return {"w_in": sharded((d, f // tp), s), "b_in": zeros(r, f // tp),
+                "w_out": sharded((f // tp, d), f ** -0.5), "b_out": zeros(d)}
 
     enc = [{"attn": attn(False), "mlp": mlp(), "norm_attn": ones(),
             "norm_ffn": ones()} for _ in range(cfg.encoder_layers)]
@@ -97,7 +116,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
             "norm_attn": ones(), "norm_cross": ones(), "norm_ffn": ones()}
            for _ in range(cfg.num_layers)]
     return {"embedding": embedding_params(gen, cfg, tp, device=device,
-                                          dtype=dtype),
+                                          dtype=dtype, rank=rank),
             "pos_enc": rnd((cfg.max_source_positions, d), 0.02),
             "pos_dec": rnd((max_positions, d), 0.02),
             "norm_first_enc": ones(), "norm_first": ones(),
@@ -137,19 +156,21 @@ def _enc_layer(lp, hs, ress, *, cuts, positions, cfg, pcfg, lay, weave):
     for i in range(len(cuts)):
         weave.wait(i)
         hs[i], ress[i] = weave.comm_norm(
-            i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+            i, M.mlp_forward(lp["mlp"], hs[i], ctx=weave.ctx), ress[i],
+            lp["norm_ffn"])
     return hs, ress
 
 
 def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig,
-           train: bool = False):
+           train: bool = False, groups: Optional[Groups] = None):
     """frames (B, S_enc, d), stub embeddings -> the encoder's output (R,
     B, S_enc, d), the same on every rank.  ``train``: each layer under
-    ``remat`` when ``pcfg.remat``."""
-    tp = params["embedding"]["embed"].shape[0]
+    ``remat`` when ``pcfg.remat``.  ``groups``: this process holds one
+    model rank of the model group (R = 1)."""
+    tp = TR._model_ranks(params, groups)
     b, s, _ = frames.shape
     dev = frames.device
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
     x = frames + params["pos_enc"][:s].to(frames.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
     b1 = encoder_split(b, s, tp=tp, pcfg=pcfg)
@@ -158,8 +179,8 @@ def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig,
     # the frames are complete values: /tp, so the entry norm's sum over
     # the ranks gives them back
     hs, ress = map(list, zip(*(
-        TR._entry_norm(weave, i, (x[lo:hi] / tp).expand(tp, hi - lo, s, -1),
-                       params["norm_first_enc"])
+        TR._entry_norm(weave, i, (x[lo:hi] / tp).expand(
+            ctx.local_ranks, hi - lo, s, -1), params["norm_first_enc"])
         for i, (lo, hi) in enumerate(cuts))))
     layer = TR.remat(_enc_layer, train and pcfg.remat)
     for lp in params["enc_layers"]:
@@ -172,11 +193,12 @@ def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def project_cross_caches(params, enc_out, *, cfg: ModelConfig,
-                         pcfg: ParallelConfig):
+                         pcfg: ParallelConfig,
+                         groups: Optional[Groups] = None):
     """Each decoder layer's cross keys and values from the encoder's
     output (R, B, S_enc, d): [{"k", "v" (R, B, S_enc, kv_store, dh),
-    "pos" (B, S_enc)}]."""
-    lay = _layout(cfg, enc_out.shape[0])
+    "pos" (B, S_enc)}], the local ranks' heads."""
+    lay = _layout(cfg, TR._model_ranks(params, groups))
     return [dict(zip(("k", "v", "pos"), A.project_cross_kv(
         lp["cross"], enc_out, cfg=cfg, lay=lay)))
         for lp in params["dec_layers"]]
@@ -230,7 +252,8 @@ def _dec_layer(lp, hs, ress, cache_l, cross_l, *, poss, cuts, decode: bool,
     for i in range(len(hs)):
         weave.wait(i)
         hs[i], ress[i] = weave.comm_norm(
-            i, M.mlp_forward(lp["mlp"], hs[i]), ress[i], lp["norm_ffn"])
+            i, M.mlp_forward(lp["mlp"], hs[i], ctx=weave.ctx), ress[i],
+            lp["norm_ffn"])
     if decode:
         return hs, ress, None
     return hs, ress, (kv_outs[0] if len(kv_outs) == 1
@@ -239,22 +262,24 @@ def _dec_layer(lp, hs, ress, cache_l, cross_l, *, poss, cuts, decode: bool,
 
 def decoder_forward(params, tokens, *, cfg: ModelConfig,
                     pcfg: ParallelConfig, cross_kv, positions=None,
-                    cache=None, decode: bool = False, train: bool = False):
+                    cache=None, decode: bool = False, train: bool = False,
+                    groups: Optional[Groups] = None):
     """The causal decoder over ``cross_kv`` (``project_cross_caches``).
     Returns (hidden (R, B, S, d), the same on every rank, the prompt's
     self KV per layer [(k, v, pos)] (prefill: ``cache``, the self cache's
     rows, is attended as prefix) or ``cache``, updated in place
     (decode)).  ``train``: no cache, no KV kept (None returned), each
-    layer under ``remat`` when ``pcfg.remat``."""
-    tp = params["embedding"]["embed"].shape[0]
+    layer under ``remat`` when ``pcfg.remat``.  ``groups``: this process
+    holds one model rank of the model group (R = 1)."""
+    tp = TR._model_ranks(params, groups)
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
-    emb = E.embed_tokens(params["embedding"], tokens)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    emb = E.embed_tokens(params["embedding"], tokens, ctx=ctx)
     table = params["pos_dec"]
     pos_emb = table[positions.long().clamp(0, table.shape[0] - 1)]
     emb = emb + pos_emb.to(emb.dtype) / tp
@@ -303,42 +328,49 @@ def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def prefill(params, tokens, cache, *, cfg: ModelConfig,
-            pcfg: ParallelConfig, frames, positions=None):
+            pcfg: ParallelConfig, frames, positions=None,
+            groups: Optional[Groups] = None):
     """Encode ``frames`` (B, S_enc, d), project the cross caches and run
     the decoder prompt ``tokens`` (B, S) (attending ``cache["self"]``'s
     rows as prefix when a cache is given).  Returns (local logits at the
     last position (R, B, 1, V_loc), {"self": the prompt's KV per layer,
     "cross": the cross caches})."""
-    enc_out = encode(params, frames, cfg=cfg, pcfg=pcfg)
-    cross = project_cross_caches(params, enc_out, cfg=cfg, pcfg=pcfg)
+    enc_out = encode(params, frames, cfg=cfg, pcfg=pcfg, groups=groups)
+    cross = project_cross_caches(params, enc_out, cfg=cfg, pcfg=pcfg,
+                                 groups=groups)
     h, kv = decoder_forward(params, tokens, cfg=cfg, pcfg=pcfg,
                             cross_kv=cross, positions=positions,
-                            cache=None if cache is None else cache["self"])
+                            cache=None if cache is None else cache["self"],
+                            groups=groups)
     return (E.lm_head_logits(params["embedding"], h[:, :, -1:]),
             {"self": kv, "cross": cross})
 
 
 def decode_step(params, tokens, cache, *, cfg: ModelConfig,
-                pcfg: ParallelConfig, positions):
+                pcfg: ParallelConfig, positions,
+                groups: Optional[Groups] = None):
     """One token per row over the self and cross caches.  Returns (local
     logits (R, B, 1, V_loc), the cache, its self part updated in
     place)."""
     h, _ = decoder_forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            cross_kv=cache["cross"], positions=positions,
-                           cache=cache["self"], decode=True)
+                           cache=cache["self"], decode=True, groups=groups)
     return E.lm_head_logits(params["embedding"], h), cache
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
-               enc_len: int | None = None, device=None, dtype=None):
+               enc_len: int | None = None, device=None, dtype=None,
+               groups: Optional[Groups] = None):
     """Empty self caches of ``max_len`` slots and zero cross caches of
     ``enc_len`` (the config's source length unless given) encoder
-    positions, per decoder layer, on ``device`` (CUDA unless given)."""
+    positions, per decoder layer, on ``device`` (CUDA unless given).
+    With ``groups``, this process's model rank's heads (R = 1)."""
     device = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
     s_enc = enc_len or cfg.max_source_positions
     lay = _layout(cfg, tp)
-    shape = (tp, batch, s_enc, lay.kv_store, cfg.head_dim)
+    ranks = tp if groups is None else 1
+    shape = (ranks, batch, s_enc, lay.kv_store, cfg.head_dim)
 
     def cross():
         return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -346,6 +378,6 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                 "pos": torch.zeros(batch, s_enc, dtype=torch.int32,
                                    device=device)}
     return {"self": [A.init_kv_cache(batch, max_len, cfg, tp, dtype=dtype,
-                                     device=device)
+                                     device=device, ranks=ranks)
                      for _ in range(cfg.num_layers)],
             "cross": [cross() for _ in range(cfg.num_layers)]}

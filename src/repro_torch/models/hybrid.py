@@ -36,17 +36,24 @@ block's decode is context-parallel, as the reference's: its caches'
 sequence lies over D and each decode combines the D chunks
 (``layers.attention.attn_decode(seq_shards=D)``); the batch is whole on
 every shard.  A batch split over D is not ported for this family.
+
+With ``groups`` each process holds one model rank (R = 1: ``init_params(
+rank=)``, the shared block's ``lora_b`` cut on its rank axis, axis 1),
+the embedding's sum and the slots run over the model group, and the
+data size is 1 (``models.build`` refuses more; ROADMAP.md A19).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.device import generator, resolve_device
+from repro_torch.device import generator, randn_ranks, resolve_device
 from repro_torch.distributed.collectives import psum
+from repro_torch.distributed.context import Groups
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
@@ -76,11 +83,13 @@ def _shared_layout(cfg: ModelConfig, tp: int):
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1):
+                tp: int = 1, rank: Optional[int] = None):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator``
     on ``device`` (CUDA unless given), with the reference's scales and
     shapes (LoRA A 0.01, LoRA B zero, the shared output projection
-    (2d)^-0.5)."""
+    (2d)^-0.5).  With ``rank``, model rank ``rank``'s weights alone
+    (``weights.take_rank`` of the tp-rank draw), each leaf drawn whole
+    and cut at once."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = generator(device, seed)
@@ -92,24 +101,28 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     def rnd(shape, scale):
         return (torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32) * scale).to(dtype)
+
+    def sharded(shape, scale):
+        return (randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
     layers = [{"mamba": S.init_mamba2_params(gen, cfg, tp, device=device,
-                                             dtype=dtype),
+                                             dtype=dtype, rank=rank),
                "norm_out": torch.ones(d, dtype=dtype, device=device)}
               for _ in range(cfg.num_layers)]
     s2 = (2 * d) ** -0.5
     shared = {
-        "attn": {"wq": rnd((tp, 2 * d, hd), s2),
-                 "wk": rnd((tp, 2 * d, lay.kv_store * acfg.head_dim), s2),
-                 "wv": rnd((tp, 2 * d, lay.kv_store * acfg.head_dim), s2),
-                 "wo": rnd((tp, hd, d), s2)},
+        "attn": {"wq": sharded((2 * d, hd), s2),
+                 "wk": sharded((2 * d, lay.kv_store * acfg.head_dim), s2),
+                 "wv": sharded((2 * d, lay.kv_store * acfg.head_dim), s2),
+                 "wo": sharded((hd, d), s2)},
         "norm_in": torch.ones(2 * d, dtype=dtype, device=device),
         "norm_out": torch.ones(n_inv, d, dtype=dtype, device=device),
         "lora_a": rnd((n_inv, 2 * d, LORA_RANK), 0.01),
-        "lora_b": torch.zeros(n_inv, tp, LORA_RANK, hd, dtype=dtype,
-                              device=device),
+        "lora_b": torch.zeros(n_inv, tp if rank is None else 1, LORA_RANK,
+                              hd, dtype=dtype, device=device),
     }
     return {"embedding": MM.embedding_params(gen, cfg, tp, device=device,
-                                             dtype=dtype),
+                                             dtype=dtype, rank=rank),
             "norm_first": torch.ones(d, dtype=dtype, device=device),
             "layers": layers, "shared": shared}
 
@@ -125,8 +138,7 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
     every earlier split's; returns the chunk's (k, v, pos).  Decode: each
     split writes and reads its own rows of ``cache_inv`` in place; returns
     the cache dict."""
-    tp = hs[0].shape[0]
-    acfg, lay = _shared_layout(cfg, tp)
+    acfg, lay = _shared_layout(cfg, weave.ctx.tp)
     p_eff = dict(shared["attn"])
     lora_a = shared["lora_a"][g]
     delta = (lora_a.float() @ shared["lora_b"][g].float()).to(lora_a.dtype)
@@ -138,7 +150,7 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
     for i in range(len(hs)):
         weave.wait(i)
         h = hs[i]
-        e = embs[i].to(h.dtype).expand(tp, *embs[i].shape)
+        e = embs[i].to(h.dtype).expand(h.shape[0], *embs[i].shape)
         u = rms_norm(torch.cat([h, e], dim=-1), shared["norm_in"],
                      cfg.norm_eps)
         geo = dict(positions=poss[i], cfg=acfg, lay=lay,
@@ -167,26 +179,34 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 128, dp: int = 1, train: bool = False):
+            ssm_chunk: int = 128, dp: int = 1, train: bool = False,
+            groups: Optional[Groups] = None):
     """Returns (hidden (R, B, S, d), the same on every rank, {"mamba": the
     state cache, "shared": per invocation the chunk's (k, v, pos)
     (prefill) or the KV cache dict (decode)}).  Without ``cache`` the
     shared blocks see no prefix and the recurrence starts from zero.
     ``dp`` > 1 needs ``pcfg.seq_shard_kv`` (module docstring).
     ``train``: no cache and none returned; each shared-block invocation
-    and each Mamba-2 layer under ``remat`` when ``pcfg.remat``."""
+    and each Mamba-2 layer under ``remat`` when ``pcfg.remat``.
+    ``groups``: this process holds one model rank of the model group (R
+    = 1) at data size 1."""
     _check_dp(dp, pcfg.seq_shard_kv)
-    tp = params["embedding"]["embed"].shape[0]
+    tp = TR._model_ranks(params, groups)
+    if groups is not None and (train or dp > 1):
+        raise NotImplementedError(
+            "the hybrid family over the process_group backend serves at "
+            "data size 1 and does not train (ROADMAP.md A17, A19)")
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
-    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
+                         ctx=ctx)
     # the complete embedding: every shared-block input reuses it
-    emb = psum(emb, None)                                 # (B, S, d)
+    emb = psum(emb, ctx)                                  # (B, S, d)
     split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
     cuts = TR._split_cuts(split, b if decode else s)
     embs = [emb[lo:hi] if decode else emb[:, lo:hi] for lo, hi in cuts]
@@ -194,7 +214,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             for lo, hi in cuts]
     weave = TR._Weave(len(embs), ctx, dev, overlap=not train)
     hs, ress = map(list, zip(*(
-        TR._entry_norm(weave, i, (e / tp).expand(tp, *e.shape),
+        TR._entry_norm(weave, i, (e / tp).expand(ctx.local_ranks, *e.shape),
                        params["norm_first"]) for i, e in enumerate(embs))))
 
     n_inv, _ = _n_groups(cfg)
@@ -203,7 +223,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         return _train_layers(params, hs, ress, embs, poss, cfg=cfg,
                              pcfg=pcfg, weave=weave, chunk=ssm_chunk), None
     mcache = (S.init_mamba2_state(b, cfg, tp, cfg.num_layers, device=dev,
-                                  dtype=emb.dtype)
+                                  dtype=emb.dtype, ranks=ctx.local_ranks)
               if cache is None else cache["mamba"])
     kw = dict(weave=weave, decode=decode,
               split_rows=split[0] if split else 0,
@@ -272,21 +292,23 @@ def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,
-            last_idx=None, dp: int = 1):
+            last_idx=None, dp: int = 1, groups: Optional[Groups] = None):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last token, or at ``last_idx`` (R, B, 1, V_loc), {"mamba": the state
     cache, "shared": the chunk's KV per invocation})."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                           positions=positions, cache=cache, dp=dp)
+                           positions=positions, cache=cache, dp=dp,
+                           groups=groups)
     return MM.lm_logits_at(params, h, last_idx), new_cache
 
 
-def decode_step(params, tokens, cache, *, cfg, pcfg, positions, dp: int = 1):
+def decode_step(params, tokens, cache, *, cfg, pcfg, positions, dp: int = 1,
+                groups: Optional[Groups] = None):
     """One token per row.  Returns (local logits (R, B, 1, V_loc), the
     cache, updated in place)."""
     h, new_cache = forward(params, tokens, cfg=cfg, pcfg=pcfg,
                            positions=positions, cache=cache, decode=True,
-                           dp=dp)
+                           dp=dp, groups=groups)
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
@@ -299,11 +321,12 @@ def _check_dp(dp: int, seq_shard_kv: bool) -> None:
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                device=None, dtype=None, dp: int = 1,
-               seq_shard_kv: bool = False):
+               seq_shard_kv: bool = False, groups: Optional[Groups] = None):
     """Zero Mamba-2 state and empty shared KV (one slot cache of
     ``max_len`` per invocation) for ``batch`` rows on ``device`` (CUDA
     unless given); with ``seq_shard_kv`` the shared caches' ``max_len``
-    slots lie over ``dp`` data shards, in the unsharded layout."""
+    slots lie over ``dp`` data shards, in the unsharded layout.  With
+    ``groups``, this process's model rank's (R = 1)."""
     device = resolve_device(device)
     _check_dp(dp, seq_shard_kv)
     if max_len % dp:
@@ -311,8 +334,11 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                          f"data shards")
     n_inv, _ = _n_groups(cfg)
     acfg = _shared_attn_cfg(cfg)
+    ranks = None if groups is None else 1
     return {"mamba": S.init_mamba2_state(batch, cfg, tp, cfg.num_layers,
-                                         device=device, dtype=dtype),
+                                         device=device, dtype=dtype,
+                                         ranks=ranks),
             "shared": [A.init_kv_cache(batch, max_len, acfg, tp,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device,
+                                       ranks=ranks)
                        for _ in range(n_inv)]}

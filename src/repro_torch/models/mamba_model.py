@@ -20,44 +20,50 @@ the new state into it in place.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.splitting import pad_to_multiple
-from repro_torch.device import generator, resolve_device
+from repro_torch.device import generator, randn_ranks, resolve_device
+from repro_torch.distributed.context import Groups
 from repro_torch.layers import embedding as E
 from repro_torch.layers import ssm as S
 from repro_torch.models import transformer as TR
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1):
+                tp: int = 1, rank: Optional[int] = None):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator``
     on ``device`` (CUDA unless given), with the reference's scales and
     shapes; tests move the reference's weights over with
-    ``weights.from_jax_params`` instead."""
+    ``weights.from_jax_params`` instead.  With ``rank``, model rank
+    ``rank``'s weights alone (``weights.take_rank`` of the tp-rank draw),
+    each leaf drawn whole and cut at once."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = generator(device, seed)
     layers = [{"mamba": S.init_mamba1_params(gen, cfg, tp, device=device,
-                                             dtype=dtype),
+                                             dtype=dtype, rank=rank),
                "norm_out": torch.ones(cfg.d_model, dtype=dtype,
                                       device=device)}
               for _ in range(cfg.num_layers)]
     return {"embedding": embedding_params(gen, cfg, tp, device=device,
-                                          dtype=dtype),
+                                          dtype=dtype, rank=rank),
             "norm_first": torch.ones(cfg.d_model, dtype=dtype, device=device),
             "layers": layers}
 
 
-def embedding_params(gen, cfg: ModelConfig, tp: int, *, device, dtype):
-    """The vocab-sharded embedding and LM head (scales 0.02 and d^-0.5)."""
+def embedding_params(gen, cfg: ModelConfig, tp: int, *, device, dtype,
+                     rank: Optional[int] = None):
+    """The vocab-sharded embedding and LM head (scales 0.02 and d^-0.5);
+    model rank ``rank``'s shard alone when given."""
     v_loc = pad_to_multiple(cfg.vocab_size, tp) // tp
     d = cfg.d_model
 
     def rnd(shape, scale):
-        return (torch.randn((tp,) + shape, generator=gen, device=device,
+        return (randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
                             dtype=torch.float32) * scale).to(dtype)
     emb = {"embed": rnd((v_loc, d), 0.02)}
     if not cfg.tie_embeddings:
@@ -104,7 +110,7 @@ def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
         weave.wait(i)
         init_state = prev_final if (not decode and i > 0) else sts[i]
         partial, state_i = block(lp["mamba"], hs[i], init_state=init_state,
-                                 chunk=chunk)
+                                 chunk=chunk, ctx=weave.ctx)
         hs[i], ress[i] = weave.comm_norm(i, partial, ress[i], lp["norm_out"])
         prev_final = state_i
         out_states.append(state_i)
@@ -134,18 +140,26 @@ def train_layer(block, pcfg: ParallelConfig):
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 256, train: bool = False):
+            ssm_chunk: int = 256, train: bool = False,
+            groups: Optional[Groups] = None):
     """Returns (hidden (R, B, S, d), the same on every rank, the state
     cache).  ``cache``: the state rows of this batch, read as the start
     state (decode, or a chunk after the first) and updated in place; with
     none, the recurrence starts from zero and a fresh cache is returned.
     ``positions`` are not read: a recurrence has no positions (padding
     would enter the state, so chunks must be exact).  ``train``: no cache
-    and none returned, the layers under ``remat`` (``train_layer``)."""
-    tp = params["embedding"]["embed"].shape[0]
+    and none returned, the layers under ``remat`` (``train_layer``).
+    ``groups``: this process holds one model rank of the model group (R
+    = 1), as the transformer's ``forward``."""
+    tp = TR._model_ranks(params, groups)
+    if groups is not None and train:
+        raise NotImplementedError(
+            "training over the process_group backend is not ported "
+            "(autograd-aware collectives; ROADMAP.md)")
     b, s = tokens.shape
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp)
-    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
+                         ctx=ctx)
     split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
     embs = [emb[:, lo:hi] if decode else emb[:, :, lo:hi]
             for lo, hi in TR._split_cuts(split, b if decode else s)]
@@ -161,7 +175,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         return torch.cat(hs, dim=2) if len(hs) == 2 else hs[0], None
     if cache is None:
         cache = S.init_mamba1_state(b, cfg, tp, cfg.num_layers,
-                                    device=emb.device, dtype=emb.dtype)
+                                    device=emb.device, dtype=emb.dtype,
+                                    ranks=ctx.local_ranks)
     for i, lp in enumerate(params["layers"]):
         hs, ress, st = mamba_weave(
             lambda p, x, **kw: S.mamba1_forward(p, x, cfg=cfg, **kw), lp,
@@ -208,24 +223,28 @@ def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,
-            last_idx=None):
+            last_idx=None, groups: Optional[Groups] = None):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last token, or at ``last_idx`` (R, B, 1, V_loc), the state cache)."""
-    h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache)
+    h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache,
+                        groups=groups)
     return lm_logits_at(params, h, last_idx), states
 
 
-def decode_step(params, tokens, cache, *, cfg, pcfg, positions=None):
+def decode_step(params, tokens, cache, *, cfg, pcfg, positions=None,
+                groups: Optional[Groups] = None):
     """One token per row.  Returns (local logits (R, B, 1, V_loc), the
     state cache, updated in place)."""
     h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache,
-                        decode=True)
+                        decode=True, groups=groups)
     return E.lm_head_logits(params["embedding"], h), states
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
-               device=None, dtype=None):
+               device=None, dtype=None, groups: Optional[Groups] = None):
     """Zero state for ``batch`` rows on ``device`` (CUDA unless given);
-    ``max_len`` is not needed by a recurrence."""
+    ``max_len`` is not needed by a recurrence.  With ``groups``, this
+    process's model rank's state (R = 1)."""
     return S.init_mamba1_state(batch, cfg, tp, cfg.num_layers,
-                               device=resolve_device(device), dtype=dtype)
+                               device=resolve_device(device), dtype=dtype,
+                               ranks=None if groups is None else 1)

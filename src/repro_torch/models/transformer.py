@@ -15,10 +15,10 @@ The tp ranks sit on a leading rank axis R of one device
 the reference's pytree, activations are ``(R, B, S, d)``, and the
 AllReduce + residual + RMSNorm slots go through
 ``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).  With
-``groups`` (``launch.mesh.init_groups``; the dense family) each process
-holds one model rank instead, R = 1 (``init_params(rank=)``,
-``weights.take_rank``), and the slots, the embedding's offsets and the
-LM head's shard follow ``CommCtx(backend="process_group")``; under
+``groups`` (``launch.mesh.init_groups``) each process holds one model
+rank instead, R = 1 (``init_params(rank=)``, ``weights.take_rank``), and
+the slots, the embedding's offsets, a MoE layer's experts and the LM
+head's shard follow ``CommCtx(backend="process_group")``; under
 ``seq_shard_kv`` each data rank holds C/D slots of every full-attention
 cache and context-parallel decode combines over the data group.
 
@@ -76,7 +76,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fused_collectives as fc
 from repro_torch.core.policy import DEFAULT_POLICY
 from repro_torch.core.splitting import pad_to_multiple, token_bucket
-from repro_torch.device import generator, resolve_device
+from repro_torch.device import generator, randn_ranks, resolve_device
 from repro_torch.distributed.context import CommCtx, Groups
 from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
@@ -124,16 +124,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     tests move the reference's weights over with
     ``weights.from_jax_params`` instead.
 
-    With ``rank`` (a dense model), model rank ``rank``'s weights alone
+    With ``rank``, model rank ``rank``'s weights alone
     (``weights.take_rank`` of the tp-rank draw, the same values): each
     leaf is drawn whole and cut at once, so the peak is one whole leaf
     beside the rank's tree, never the whole model."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has its own model module "
                          f"(models.build.build_model picks it)")
-    if rank is not None and cfg.is_moe:
-        raise NotImplementedError("one rank's weights are drawn for the "
-                                  "dense family, not for MoE")
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     gen = generator(device, seed)
@@ -145,11 +142,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     s = d ** -0.5
 
     def rnd(shape, scale):
-        w = torch.randn((tp,) + shape, generator=gen, device=device,
-                        dtype=dtype)
-        if rank is not None:
-            w = w[rank:rank + 1].clone()
-        return w * scale
+        return randn_ranks(gen, (tp,) + shape, rank=rank, device=device,
+                           dtype=dtype) * scale
 
     def ones(n=d):
         return torch.ones(n, dtype=dtype, device=device)
@@ -171,7 +165,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
         lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones()}
         if cfg.is_moe:
             lp["moe"] = X.init_moe_params(gen, cfg, tp, ep, device=device,
-                                          dtype=dtype)
+                                          dtype=dtype, rank=rank)
         else:
             lp["mlp"] = {"w_gate": rnd((d, f // tp), s),
                          "w_up": rnd((d, f // tp), s),
@@ -310,7 +304,8 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     for i in range(n):
         weave.wait(i)
         if kind.is_moe:
-            f_part, aux = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv)
+            f_part, aux = _moe(lp["moe"], hs[i], cfg, dp, pcfg.seq_shard_kv,
+                               weave.ctx)
             auxes.append(aux)
         else:
             f_part = M.mlp_forward(lp["mlp"], hs[i], act=cfg.act,
@@ -325,21 +320,23 @@ def _weave_layer(lp, state, cache_layer, *, kind: LayerKind, cfg, pcfg,
     return state, kv_outs[0] if n == 1 else cat_kv(*kv_outs)
 
 
-def _moe(params, h, cfg, dp: int, seq_shard_kv: bool):
+def _moe(params, h, cfg, dp: int, seq_shard_kv: bool, ctx: CommCtx):
     """A MoE layer's (partial output, aux loss per data shard the batch
     splits over).  With the batch over D each data shard routes its own
     rows; under context parallelism (the batch whole on every shard)
     ``ep2d`` still dispatches every shard's copy of the tokens, as the
     reference's shards do, and keeps shard 0's output (all D are equal);
-    ``expert``/``ffn`` have nothing to exchange.  The aux loss is the same
-    on every rank (routing reads the replicated input): rank 0's."""
+    ``expert``/``ffn`` have nothing to exchange.  ``ctx`` names the model
+    ranks the local ones are (a process's one under ``process_group``).
+    The aux loss is the same on every rank (routing reads the replicated
+    input): rank 0's, or this process's rank's."""
     if dp > 1 and not seq_shard_kv:
         out, aux = X.moe_forward(params, h, cfg, dp=dp)
         return out, aux[0]
     if dp > 1 and cfg.moe_partition == "ep2d":
         out, aux = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg, dp=dp)
         return out[:, :h.shape[1]], aux[0, :1]
-    out, aux = X.moe_forward(params, h, cfg)
+    out, aux = X.moe_forward(params, h, cfg, ctx=ctx)
     return out, aux[:1]
 
 

@@ -72,9 +72,10 @@ them.
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
-axis.  Under ``api.groups`` (the ``process_group`` backend, the dense
-family) each process runs its own Engine on the same requests with one
-model rank's params: the scheduler is deterministic and every rank
+axis.  Under ``api.groups`` (the ``process_group`` backend, every
+family above but the ``ep2d`` MoE) each process runs its own Engine on
+the same requests with one model rank's params: the scheduler is
+deterministic and every rank
 samples the same token (``sampler.sample`` over the model group), so all
 ranks take the same steps; speculative decoding refuses it.  It runs
 on CUDA unless it is given ``device="cpu"``; with no device and no CUDA

@@ -30,11 +30,14 @@ care:
 * bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses, so they go over through a uint16 view.
 
-``from_jax_params(..., rank=r)`` keeps model rank r's slice ``[r:r+1]``
-of every per-rank leaf (replicated leaves whole), the parameters of one
-process of a ``process_group`` model (``distributed/context.py``);
-``take_rank`` cuts the same slice out of this package's dict.  Both
-take the dense and MoE ``expert``/``ffn`` trees.
+``from_jax_params(..., rank=r)`` keeps model rank r's slice of every
+per-rank leaf (replicated and per-invocation leaves whole), the
+parameters of one process of a ``process_group`` model
+(``distributed/context.py``); ``take_rank`` cuts the same slice out of
+this package's dict.  Both cut each leaf on the axis ``_walk`` names for
+it: the leading axis of a layer's or the embedding's leaf, axis 1 of the
+hybrid's ``shared.lora_b``.  They take every family's tree but an
+``ep2d`` MoE's.
 
 ``from_jax_params`` also takes the reference's tree with torch leaves
 (``to_jax_layout``'s output, a checkpoint restored by
@@ -69,85 +72,79 @@ REPLICATED = frozenset({"norm_attn", "norm_ffn", "norm_cross",
 FLOAT32 = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
-def _convert(tree, device, dtype, rank=None):
-    """Keep the per-shard axis of sharded leaves as the rank axis (rank
-    ``rank``'s slice of it when given); drop the size-1 axis of
-    replicated ones."""
-    def leaf(k, v):
-        if k in REPLICATED:
-            v = v[0]
-        elif rank is not None:
-            v = v[rank:rank + 1]
+def _torch_tree(tree, device, dtype):
+    """Every leaf of a tree in this package's structure as a tensor on
+    ``device``: ``dtype``, or float32 for the ``FLOAT32`` leaves."""
+    def one(k, v):
+        if isinstance(v, dict):
+            return _torch_tree(v, device, dtype)
+        if isinstance(v, list):
+            return [_torch_tree(x, device, dtype) for x in v]
         return to_torch(v, device, torch.float32 if k in FLOAT32 else dtype)
-    return {k: (_convert(v, device, dtype, rank) if isinstance(v, dict)
-                else leaf(k, v)) for k, v in tree.items()}
+    return {k: one(k, v) for k, v in tree.items()}
 
 
-def _check_rank_slicing(tree_keys, cfg) -> None:
-    """One model rank's slice is taken for the trees whose every sharded
-    leaf leads with the rank axis."""
-    if (cfg.family not in ("dense", "moe", "vlm")
-            or cfg.moe_partition == "ep2d" and cfg.family == "moe"
-            or {"shared", "enc_layers"} & set(tree_keys)):
+def _check_rank_slicing(cfg) -> None:
+    """One model rank's slice is cut for every tree but an ``ep2d`` MoE's,
+    whose experts also split over the data group (ROADMAP.md A19)."""
+    if cfg.family == "moe" and cfg.moe_partition == "ep2d":
         raise NotImplementedError(
-            f"one rank's parameters are cut for the dense and MoE "
-            f"expert/ffn trees, not for {cfg.name!r} ({cfg.family})")
+            f"one rank's parameters are not cut for {cfg.name!r}: ep2d "
+            f"experts split over the data group too (ROADMAP.md A19)")
+
+
+def _narrow(t, axis: int, rank: int):
+    """Rank ``rank``'s slice of ``t`` on ``axis`` (a view)."""
+    return t[(slice(None),) * axis + (slice(rank, rank + 1),)]
 
 
 def take_rank(params, rank: int, cfg):
     """This package's parameter dict at tp ranks -> model rank ``rank``'s:
-    every per-rank leaf's ``[rank:rank+1]`` as a copy of its own (so the
-    full tree can be freed), replicated leaves as they are."""
-    _check_rank_slicing(params, cfg)
+    every sharded leaf's slice on its rank axis as a copy of its own (so
+    the full tree can be freed), replicated leaves as they are."""
+    _check_rank_slicing(cfg)
 
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict)
-                else [walk(x) for x in v] if isinstance(v, list)
-                else v if k in REPLICATED or k in TOP_REPLICATED
-                else v[rank:rank + 1].clone() for k, v in tree.items()}
-    return walk(params)
+    def cut(t, kind, lead):
+        if kind != "sharded":
+            return t
+        return _narrow(t, lead, rank).clone(
+            memory_format=torch.contiguous_format)
+    return _walk(params, cfg, None, cut, None, layer_axis=False)
 
 
 def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None,
                     rank=None):
     """Reference pytree (numpy leaves) -> this package's parameter dict,
     on ``device`` (CUDA unless given); with ``rank``, model rank
-    ``rank``'s parameters alone (a leading rank axis of size 1)."""
+    ``rank``'s parameters alone (a rank axis of size 1), cut from views
+    before anything is copied."""
     device = resolve_device(device)
     if rank is not None:
-        _check_rank_slicing(params_np, cfg)
+        _check_rank_slicing(cfg)
 
     def layers(tree, n):
         if "layer_0" in tree:
-            per_layer = [tree[f"layer_{i}"] for i in range(n)]
-        else:
-            def take(t, i):
-                return {k: take(v, i) if isinstance(v, dict) else v[i]
-                        for k, v in t.items()}
-            per_layer = [take(tree, i) for i in range(n)]
-        return [_convert(lp, device, dtype, rank) for lp in per_layer]
+            return [tree[f"layer_{i}"] for i in range(n)]
 
-    out = {
-        "embedding": _convert(params_np["embedding"], device, dtype, rank),
-        "norm_first": to_torch(params_np["norm_first"][0], device, dtype),
-    }
-    if "enc_layers" in params_np:
-        out.update({k: to_torch(params_np[k][0], device, dtype)
-                    for k in ("pos_enc", "pos_dec", "norm_first_enc")})
-        out["enc_layers"] = layers(params_np["enc_layers"],
-                                   cfg.encoder_layers)
-        out["dec_layers"] = layers(params_np["dec_layers"], cfg.num_layers)
-        return out
-    out["layers"] = layers(params_np["layers"], cfg.num_layers)
-    if "shared" in params_np:
-        sh = params_np["shared"]
-        out["shared"] = {
-            "attn": _convert(sh["attn"], device, dtype),
-            "norm_in": to_torch(sh["norm_in"][0], device, dtype),
-            "norm_out": to_torch(sh["norm_out"][:, 0], device, dtype),
-            "lora_a": to_torch(sh["lora_a"][:, 0], device, dtype),
-            "lora_b": to_torch(sh["lora_b"], device, dtype)}
-    return out
+        def take(t, i):
+            return {k: take(v, i) if isinstance(v, dict) else v[i]
+                    for k, v in t.items()}
+        return [take(tree, i) for i in range(n)]
+
+    tree = dict(params_np)
+    for k, n in (("layers", cfg.num_layers), ("dec_layers", cfg.num_layers),
+                 ("enc_layers", cfg.encoder_layers)):
+        if k in tree:
+            tree[k] = layers(tree[k], n)
+
+    def leaf(t, kind, lead):
+        if kind == "replicated":
+            return t[0]
+        if kind == "per_invocation":
+            return t[:, 0]
+        return t if rank is None else _narrow(t, lead, rank)
+    return _torch_tree(_walk(tree, cfg, pcfg, leaf, None, layer_axis=False),
+                       device, dtype)
 
 
 # top-level leaves the reference replicates with a leading size-1 axis
@@ -166,15 +163,19 @@ def _stacks_layers(cfg, pcfg=None) -> bool:
             and all(k == kinds[0] for k in kinds))
 
 
-def _walk(params, cfg, pcfg, leaf, stack):
+def _walk(params, cfg, pcfg, leaf, stack, *, layer_axis: bool = True):
     """The port's parameter tree (or a tree of its shape, as ``m``) in
     the reference's structure: ``leaf(t, kind, lead)`` maps each leaf,
     kind "replicated" (the reference gives it a leading size-1 axis),
     "per_invocation" (the size-1 axis after the hybrid's invocation
-    axis), "sharded" (the per-shard axis is the port's rank axis) or
-    "ep2d" (the data and rank axes), and ``lead`` is 1 inside layers the
-    reference stacks; ``stack(list)`` joins one leaf over those layers
-    (None keeps the port's list of layers)."""
+    axis), "sharded" (the per-shard axis, axis ``lead``, is the port's
+    rank axis) or "ep2d" (the data and rank axes), and ``lead`` is 1
+    inside layers the reference stacks (with ``layer_axis=False`` 0: the
+    axes of one layer's leaf) and for the hybrid's ``shared.lora_b``,
+    whose invocation axis leads; ``stack(list)`` joins one leaf over
+    those layers (None keeps the port's list of layers).  The one place
+    that decides each leaf's kind: the reference's layout and specs, and
+    the rank cuts of ``take_rank`` and ``from_jax_params``."""
     ep2d = cfg.family == "moe" and cfg.moe_partition == "ep2d"
 
     def conv(tree, lead, parent=""):
@@ -196,7 +197,7 @@ def _walk(params, cfg, pcfg, leaf, stack):
                 for k in trees[0]}
 
     def layers(lst):
-        lead = int(_stacks_layers(cfg, pcfg))
+        lead = int(layer_axis and _stacks_layers(cfg, pcfg))
         per = [conv(lp, lead) for lp in lst]
         if stack is None:
             return per

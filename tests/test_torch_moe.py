@@ -406,9 +406,9 @@ def test_moe_model_tp2_ring_matches(jax_side, name, phase, weave,
     seen = []
     orig = TM.moe_forward
 
-    def keep(p, x, c):
+    def keep(p, x, c, **kw):
         seen.append(x.clone())
-        return orig(p, x, c)
+        return orig(p, x, c, **kw)
 
     monkeypatch.setattr(TM, "moe_forward", keep)
     got = port_step(params, tcfg, pcfg, inp, phase=phase, tp=2)

@@ -872,15 +872,57 @@ def _fake_groups(model=2, data=1):
                   model_size=model, data_size=data)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "falcon-mamba-7b",
-                                  "zamba2-7b", "whisper-base",
-                                  "qwen2-vl-7b"])
-def test_non_dense_family_refuses_process_group(name):
+def _refusal(case):
+    """What stays refused over the process_group backend: (the call,
+    the words its NotImplementedError names)."""
     from repro_torch.configs import get_config
-    cfg = get_config(name)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        build_model(cfg, tbase.ParallelConfig(), tp=2,
-                    groups=_fake_groups())
+
+    def build(name, ep=1, **pcfg):
+        return build_model(get_config(name).reduced(),
+                           tbase.ParallelConfig(**pcfg), tp=2, ep=ep,
+                           groups=_fake_groups(data=ep))
+
+    def engine_spec(name):
+        api = build(name)
+        Engine(api, api.init(0, device="cpu"),
+               SchedulerConfig(**dict(PACKED, spec_gamma=3)), device="cpu")
+
+    def verify(name):
+        api = build(name)
+        api.verify_step(None, torch.zeros(1, 4, dtype=torch.long), None,
+                        torch.zeros(1, 4, dtype=torch.int32))
+
+    def train(name):
+        api = build(name)
+        api.train_loss(None, {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                              "labels": torch.zeros(1, 4, dtype=torch.long)})
+    return {
+        "ep2d": (lambda: build("qwen3-moe-235b-a22b"), "ep2d.*A19"),
+        "data_batch": (lambda: build("llama3.3-70b", ep=2),
+                       "batch over the data group.*A19"),
+        "hybrid_data": (lambda: build("zamba2-7b", ep=2, seq_shard_kv=True),
+                        "hybrid family.*A19"),
+        "moe_cp_data": (lambda: build("olmoe-1b-7b", ep=2,
+                                      seq_shard_kv=True), "moe family"),
+        "spec_moe": (lambda: engine_spec("mixtral-8x22b"), "speculative"),
+        "verify_vlm": (lambda: verify("qwen2-vl-7b"), "verify"),
+        "train_ssm": (lambda: train("falcon-mamba-7b"), "training"),
+        "train_encdec": (lambda: train("whisper-base"), "training"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["ep2d", "data_batch", "hybrid_data",
+                                  "moe_cp_data", "spec_moe", "verify_vlm",
+                                  "train_ssm", "train_encdec"])
+def test_process_group_refuses_what_is_not_ported(case):
+    """``ep2d`` (its all-to-alls need the data group), the batch over the
+    data group, context-parallel decode of a family but the dense one,
+    and speculative decoding, the verify step and training of a non-dense
+    family raise NotImplementedError by name; every other family builds
+    over groups (tests/test_torch_pg_families.py)."""
+    call, words = _refusal(case)
+    with pytest.raises(NotImplementedError, match=words):
+        call()
 
 
 def test_spec_verify_and_training_refuse_process_group():

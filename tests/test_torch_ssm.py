@@ -58,7 +58,7 @@ from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime.engine import Engine as TEngine
 from repro_torch.runtime.requests import Request as TRequest
 from repro_torch.runtime.requests import State as TState
-from repro_torch.weights import _convert, from_jax_params
+from repro_torch.weights import from_jax_params
 from test_torch_engine_paged import _drive, _gen_trace
 
 LAYER_TOL, LOGIT_TOL, STATE_TOL = 1e-5, 1e-4, 1e-5
@@ -224,8 +224,10 @@ def _layer_pair(version: int, seed: int):
     cfg = _layer_cfg(version)
     init = JS.init_mamba1_params if version == 1 else JS.init_mamba2_params
     jp = perturb(init(jax.random.PRNGKey(seed), cfg, 1), seed)
-    tp = _convert(jax.tree.map(np.asarray, jp), "cpu", None)
     tcfg = tbase.ModelConfig(**dataclasses.asdict(cfg))
+    one = {"layers": {"layer_0": jax.tree.map(np.asarray, jp)}}
+    tp = from_jax_params(one, dataclasses.replace(tcfg, num_layers=1),
+                         device="cpu")["layers"][0]
     return cfg, jp, tcfg, tp
 
 
