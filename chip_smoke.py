@@ -11,11 +11,17 @@ Phases, each printing one JSON line:
             at the main path's shapes and at ragged ones, and time the
             kernel, the plain version and, where one exists, the single
             PyTorch call computing the same function (timed only); K1 also
-            gives bit-identical outputs on 1, 2, 4 and 8 CTAs, is timed on
-            each and beside the composition it replaces (sum over ranks,
-            K2, copy to every rank), and beside a plain copy kernel on the
-            same 8 CTAs moving the same bytes (``budget_bound_ms``, a probe
-            built here and used nowhere in the port); K3 adds the main
+            gives bit-identical outputs on 1, 2, 4 and 8 CTAs and through
+            both vector routes (register, and bulk copies where a row takes
+            the whole CTA), is timed on each route that takes the rows at
+            every served width (d 512 at T 3000 and 12000, 2048, 3584,
+            4096, 6144, 8192) and at Llama's decode and verify sizes (T 8
+            and 32), beside the composition it replaces
+            (sum over ranks, K2, copy to every rank), and beside two copy
+            kernels on the same 8 CTAs moving the same bytes, one through
+            16-byte loads and stores (``budget_bound_ms``) and one through
+            bulk copies (``budget_bound_bulk_ms``), probes built here and
+            used nowhere in the port; K3 adds the main
             path's first prefill split behind an empty cache row
             (``engine``, with the key tiles the live-tile table lets it
             visit), its second split at tp=8 (``engine_tp``: the ranks
@@ -26,11 +32,17 @@ Phases, each printing one JSON line:
             launches on N streams, each with its own peer workspace, at
             (T 2048, d 8192), (T 12000, d 512), (T 1000, d 8190: the
             scalar body) and (T 8, d 8192: fewer rows than CTAs) bf16 and
-            (T 2048, d 4096) float32: every rank's
-            output and new residual bit-equal
-            to the one-card K1's on the same inputs, on 1, 2, 4 and 8 CTAs,
-            within K1_TOL of the plain version, timed with CUDA events
-            beside the one-card K1; (b) N = 2 and 4 processes, each
+            (T 2048, d 4096) float32, and T/N of 1, N, 2N and 8N rows at
+            d 8192 (the one-wait path where T/N is below the CTAs, three
+            phases elsewhere): every rank's output and new residual
+            bit-equal to the one-card K1's on the same inputs, on 1, 2, 4
+            and 8 CTAs, within K1_TOL of the plain version, timed with
+            CUDA events beside the one-card K1, the streams joined after
+            every call (``ms``) and running free (``ms_free``); then the
+            N ranks' calls at T 8 and 1024 captured into N CUDA graphs,
+            one per rank's stream, replayed 20 times on fresh inputs, each
+            replay bit-equal to an eager call and to the one-card K1, and
+            timed; (b) N = 2 and 4 processes, each
             calling ``comm_norm`` in comm mode ``ring`` under
             ``CommCtx(process_group)`` over gloo groups (which carry only
             the CUDA IPC handle exchange): bit-equal to the one-card K1 on
@@ -346,8 +358,12 @@ MANUAL_INT8_FALL_RTOL = 0.1   # int8's fixed-batch loss fall against none's
 TRAIN_STEPS = 6
 
 
-# A plain copy on a K1-sized grid: what that many SMs can move on this
-# card.  Built beside the port's kernels; the port never calls it.
+# Two plain copies on a K1-sized grid: what that many SMs can move on this
+# card, through ordinary 16-byte loads and stores (copy_probe) and through
+# Hopper's bulk copies (bulk_probe: one thread a CTA keeps a ring of
+# cp.async.bulk loads into shared memory in flight and writes each chunk
+# back with a bulk store).  Built beside the port's kernels; the port never
+# calls them.
 COPY_PROBE_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -370,7 +386,72 @@ extern "C" int copy_probe_launch(const void* src, void* dst, long long n16,
       (const uint4*)src, (uint4*)dst, n16);
   return (int)cudaGetLastError();
 }
+
+__device__ __forceinline__ unsigned su32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// chunk: bytes of a bulk copy; n: chunks in all, chunk c to CTA c % grid
+__global__ void __launch_bounds__(32)
+bulk_probe(const char* __restrict__ src, char* __restrict__ dst, long long n,
+           int chunk, int stages) {
+  extern __shared__ __align__(128) unsigned char buf[];
+  uint64_t* full = (uint64_t*)(buf + (size_t)stages * chunk);
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < stages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(su32(full + s))
+                 : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const long long first = blockIdx.x, step = gridDim.x;
+  const long long mine = n > first ? (n - 1 - first) / step + 1 : 0;
+  auto load = [&](long long k) {
+    const int s = (int)(k % stages);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(su32(full + s)), "r"(chunk) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        ::"r"(su32(buf + (size_t)s * chunk)),
+        "l"(src + (first + k * step) * chunk), "r"(chunk),
+        "r"(su32(full + s)) : "memory");
+  };
+  for (long long k = 0; k < mine && k < stages; ++k) load(k);
+  for (long long k = 0; k < mine; ++k) {
+    const int s = (int)(k % stages);
+    unsigned done;
+    do {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done) : "r"(su32(full + s)), "r"((unsigned)((k / stages) & 1))
+          : "memory");
+    } while (!done);
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(dst + (first + k * step) * chunk),
+                 "r"(su32(buf + (size_t)s * chunk)), "r"(chunk) : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (k >= 1) {   // chunk k-1's store has read its stage: refill it
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      if (k - 1 + stages < mine) load(k - 1 + stages);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+extern "C" int bulk_probe_launch(const void* src, void* dst, long long n,
+                                 int chunk, int stages, int ctas,
+                                 void* stream) {
+  const size_t smem = (size_t)stages * chunk + 8 * stages;
+  cudaError_t e = cudaFuncSetAttribute(
+      bulk_probe, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  bulk_probe<<<ctas, 32, smem, (cudaStream_t)stream>>>(
+      (const char*)src, (char*)dst, n, chunk, stages);
+  return (int)cudaGetLastError();
+}
 """
+# the bulk probe's copies: 16 KB chunks in a ring of 12 (192 KB a CTA)
+BULK_PROBE_CHUNK = 16 * 1024
+BULK_PROBE_STAGES = 12
 
 
 def start_copy_probe_build():
@@ -396,6 +477,11 @@ def load_copy_probe(proc_out):
                                       ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p]
     lib.copy_probe_launch.restype = ctypes.c_int
+    lib.bulk_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.bulk_probe_launch.restype = ctypes.c_int
     return lib
 
 
@@ -512,6 +598,184 @@ def check_k3(torch, name, q, k, v, qpos, kpos, *, causal, window=0,
     return case
 
 
+# K1's cases (N, T, d), bf16: Llama's d 8192 at a prefill split and at
+# decode sizes; every served width at a prefill split of N 8 (Whisper-base's
+# 512 at its encoder splits of 3000 and 12000 rows, OLMoE's 2048,
+# Zamba2's and Qwen2-VL's 3584, Falcon-Mamba's and Qwen3-MoE's 4096,
+# Mixtral's 6144, Llama's 8192); d 8190 (the scalar body); one data
+# shard's rows of Qwen3-MoE at D = 2 x R = 4
+K1_CASES = ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
+            + [(8, 32, 8192), (8, 1000, 8190), (8, 2048, 4096),
+               (8, 2048, 3584), (8, 1000, 3584), (8, 12000, 512),
+               (8, 3000, 512), (8, 2048, 2048), (8, 2048, 6144),
+               (4, 1024, 4096), (4, 2048, 4096)])
+# the cases timed, on each vector route that takes them: every served width
+# at N 8, d 8192 and 4096 at the other N, and Llama's decode (T 8) and
+# verify (T 32) sizes
+K1_TIMED = {(8, 12000, 512), (8, 3000, 512), (8, 2048, 2048),
+            (8, 2048, 3584), (8, 2048, 4096), (8, 2048, 6144),
+            (8, 2048, 8192), (4, 2048, 4096), (4, 2048, 8192),
+            (2, 2048, 8192), (8, 8, 8192), (8, 32, 8192), (4, 8, 8192)}
+
+
+def probe_ms(torch, probe, nbytes: int, ctas: int) -> tuple:
+    """(copy probe ms, bulk probe ms): ``nbytes`` moved (half read, half
+    written, in bulk-probe chunks) by each probe on ``ctas`` CTAs."""
+    chunks = max(1, nbytes // 2 // BULK_PROBE_CHUNK)
+    src = torch.empty(chunks * BULK_PROBE_CHUNK, dtype=torch.uint8,
+                      device="cuda")
+    dst = torch.empty_like(src)
+
+    def copy():
+        rc = probe.copy_probe_launch(
+            src.data_ptr(), dst.data_ptr(), src.numel() // 16, ctas,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"copy probe: CUDA error {rc}")
+
+    def bulk():
+        rc = probe.bulk_probe_launch(
+            src.data_ptr(), dst.data_ptr(), chunks, BULK_PROBE_CHUNK,
+            BULK_PROBE_STAGES, ctas, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"bulk probe: CUDA error {rc}")
+    # the bulk probe copies exactly: held on its output
+    src.random_(0, 256)
+    bulk()
+    torch.cuda.synchronize()
+    if not torch.equal(src, dst):
+        raise AssertionError("bulk probe: the copy differs from its source")
+    return time_ms(torch, copy), time_ms(torch, bulk)
+
+
+def k1_kernel_cases(torch, seed: int, probe) -> dict:
+    """K1 (one card) at every K1_CASES shape: bit-identical on 1, 2, 4 and
+    8 CTAs and through each vector route that takes the rows, within
+    K1_TOL of the plain version; the K1_TIMED shapes timed on each such
+    route (forced through ``K1._launch``) beside the bound and
+    both 8-CTA probes.  Returns the kernel line's row."""
+    from repro_torch.core import fused_collectives as FC
+    from repro_torch.distributed.context import CommCtx
+    from repro_torch.kernels import ar_rmsnorm as K1
+    dev, bf16 = "cuda", torch.bfloat16
+    gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
+    k1_err, row = 0.0, None
+    for n, t, d1 in K1_CASES:
+        x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
+        r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
+                        dtype=bf16)
+        w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5
+             ).to(bf16)
+        out, new_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
+        vec = K1.pipelined(x, r, w)
+        group = K1.row_group(d1, bf16)
+        # the bulk route takes rows of a whole CTA only
+        routes = (("scalar",) if not vec else ("register", "bulk")
+                  if group[1] == K1.CTA_THREADS else ("register",))
+        chosen = K1.route(d1, bf16, n, t, K1.MAX_CTAS, vec)
+        for c in CTA_SWEEP:
+            for rt in routes:
+                out1, new_res1 = K1._launch(
+                    x, r, w, 1e-6, c, None if rt == "scalar" else rt)
+                torch.cuda.synchronize()
+                if not (torch.equal(out, out1)
+                        and torch.equal(new_res, new_res1)):
+                    raise AssertionError(
+                        f"K1 N={n} T={t} d={d1}: {c} CTAs on the {rt} route "
+                        f"differ from {K1.MAX_CTAS} CTAs on the {chosen} "
+                        f"route")
+        p_out, p_res = K1.ar_rmsnorm_plain(x, r, w)
+        err = max(check_close(f"K1 out N={n} T={t} d={d1}", out, p_out,
+                              K1_TOL, K1_TOL),
+                  check_close(f"K1 residual N={n} T={t} d={d1}", new_res,
+                              p_res, K1_TOL, K1_TOL))
+        k1_err = max(k1_err, err)
+        group = K1.row_group(d1, bf16)
+        case = {"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
+                "d": d1, "dtype": "bfloat16", "max_abs_err": err,
+                "tol": K1_TOL, "ctas_bit_identical": list(CTA_SWEEP),
+                "routes_bit_identical": list(routes), "route": chosen,
+                "group_threads": group[1] if group else None,
+                "rows_at_once": group[2] if group else 1,
+                "rows_per_cta": (K1.rows_per_cta(t, d1, bf16, K1.MAX_CTAS)
+                                 if group else -(-t // K1.MAX_CTAS))}
+        if (n, t, d1) == (8, 2048, 8192):
+            # the composition K1 replaces: sum over ranks, K2, all-gather
+            ctx = CommCtx(mode="fused", use_pallas=True, tp=n)
+            c_out, c_res = FC.comm_norm(x, r, w, ctx=ctx)
+            case["composition_max_abs_err"] = max(
+                check_close("K1 vs composition", out, c_out, K1_TOL, K1_TOL),
+                check_close("K1 vs composition residual", new_res, c_res,
+                            K1_TOL, K1_TOL))
+            case["ms_by_ctas"] = {str(c): time_ms(
+                torch, lambda c=c: K1.ar_rmsnorm(x, r, w, ctas=c))
+                for c in CTA_SWEEP}
+            case.update(
+                plain_ms=time_ms(
+                    torch, lambda: K1.ar_rmsnorm_plain(x, r, w), iters=3),
+                composition_ms=time_ms(
+                    torch, lambda: FC.comm_norm(x, r, w, ctx=ctx)),
+                library_ms=None)
+        if (n, t, d1) in K1_TIMED:
+            # each input read once, each output written once
+            nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
+            flops = (n + 5) * t * d1
+            for rt in routes:
+                case[f"ms_{rt}"] = time_ms(torch, lambda rt=rt: K1._launch(
+                    x, r, w, 1e-6, K1.MAX_CTAS,
+                    None if rt == "scalar" else rt))
+            case["ms"] = case[f"ms_{chosen}"]
+            # the same bytes through the plain and the bulk copy on the
+            # same 8 CTAs
+            case["budget_bound_ms"], case["budget_bound_bulk_ms"] = probe_ms(
+                torch, probe, nbytes, K1.MAX_CTAS)
+            case.update(bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                     flops / FP32_FLOPS) * 1e3,
+                        bound_by="bytes")
+            for key, name in (("ms", "achieved"), ("ms_register", "register"),
+                              ("ms_bulk", "bulk"),
+                              ("budget_bound_ms", "budget"),
+                              ("budget_bound_bulk_ms", "budget_bulk")):
+                if key in case:
+                    case[f"{name}_gb_per_s"] = nbytes / case[key] / 1e6
+        if (n, t, d1) == (8, 2048, 8192):
+            case["achieved_gb_per_s_1cta"] = (
+                nbytes / case["ms_by_ctas"]["1"] / 1e6)
+            row = case
+        emit(case)
+        del x, r, out, out1, p_out, p_res
+    # with a data axis comm_norm runs K1 once per data shard on views of
+    # that shard's rows (each rank's slab contiguous, the ranks D·T rows
+    # apart): bit-equal to K1 on contiguous copies, and held
+    dp, n, t, d1 = 2, 4, 1024, 4096
+    x = torch.randn(n, dp * t, d1, generator=gen1, device=dev, dtype=bf16)
+    r = torch.randn(n, dp * t // n, d1, generator=gen1, device=dev,
+                    dtype=bf16)
+    w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5).to(bf16)
+    for g in range(dp):
+        xv, rv = x[:, g * t:(g + 1) * t], r[:, g * t // n:(g + 1) * t // n]
+        out, new_res = K1.ar_rmsnorm(xv, rv, w)
+        c_out, c_res = K1.ar_rmsnorm(xv.contiguous(), rv.contiguous(), w)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, c_out) and torch.equal(new_res, c_res)):
+            raise AssertionError(f"K1 on data shard {g}'s views differs "
+                                 f"from K1 on copies")
+        p_out, p_res = K1.ar_rmsnorm_plain(xv, rv, w)
+        err = max(check_close(f"K1 views shard {g}", out, p_out, K1_TOL,
+                              K1_TOL),
+                  check_close(f"K1 views shard {g} residual", new_res, p_res,
+                              K1_TOL, K1_TOL))
+        k1_err = max(k1_err, err)
+        emit({"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
+              "d": d1, "data_shard": g, "data_shards": dp, "views": True,
+              "dtype": "bfloat16", "max_abs_err": err, "tol": K1_TOL,
+              "bit_identical_to_copies": True})
+    del x, r, out, c_out, p_out, p_res
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = k1_err
+    return row
+
+
 def kernel_phase(torch, seed: int, probe):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K3
@@ -553,116 +817,7 @@ def kernel_phase(torch, seed: int, probe):
             rows["fused_residual_rmsnorm"] = case
         emit(case)
 
-    # K1: N ranks' partials (N, T, d) and residual slices (N, T/N, d)
-    from repro_torch.core import fused_collectives as FC
-    from repro_torch.distributed.context import CommCtx
-    from repro_torch.kernels import ar_rmsnorm as K1
-    gen1 = torch.Generator(device="cuda").manual_seed(seed + 1)
-    k1_err = 0.0
-    # Qwen3-MoE's d 4096 at tp=8 and on one data shard's 4 ranks (timed)
-    for n, t, d1 in ([(n, t, 8192) for n in (2, 4, 8) for t in (8, 2048)]
-                     + [(8, 32, 8192), (8, 1000, 8190), (8, 2048, 4096),
-                        (8, 2048, 3584), (8, 1000, 3584), (8, 12000, 512),
-                        (4, 1024, 4096), (4, 2048, 4096)]):
-        x = torch.randn(n, t, d1, generator=gen1, device=dev, dtype=bf16)
-        r = torch.randn(n, t // n, d1, generator=gen1, device=dev,
-                        dtype=bf16)
-        w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5
-             ).to(bf16)
-        out, new_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
-        for c in CTA_SWEEP[:-1]:
-            out1, new_res1 = K1.ar_rmsnorm(x, r, w, ctas=c)
-            torch.cuda.synchronize()
-            if not (torch.equal(out, out1) and torch.equal(new_res, new_res1)):
-                raise AssertionError(f"K1 N={n} T={t} d={d1}: {c} and "
-                                     f"{K1.MAX_CTAS} CTAs differ")
-        p_out, p_res = K1.ar_rmsnorm_plain(x, r, w)
-        err = max(check_close(f"K1 out N={n} T={t} d={d1}", out, p_out,
-                              K1_TOL, K1_TOL),
-                  check_close(f"K1 residual N={n} T={t} d={d1}", new_res,
-                              p_res, K1_TOL, K1_TOL))
-        k1_err = max(k1_err, err)
-        case = {"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
-                "d": d1, "dtype": "bfloat16", "max_abs_err": err,
-                "tol": K1_TOL, "ctas_bit_identical": list(CTA_SWEEP)}
-        if (n, t, d1) == (8, 2048, 8192):
-            # the composition K1 replaces: sum over ranks, K2, all-gather
-            ctx = CommCtx(mode="fused", use_pallas=True, tp=n)
-            c_out, c_res = FC.comm_norm(x, r, w, ctx=ctx)
-            case["composition_max_abs_err"] = max(
-                check_close("K1 vs composition", out, c_out, K1_TOL, K1_TOL),
-                check_close("K1 vs composition residual", new_res, c_res,
-                            K1_TOL, K1_TOL))
-            # each input read once, each output written once
-            nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
-            flops = (n + 5) * t * d1
-            ms_ctas = {c: time_ms(torch, lambda c=c: K1.ar_rmsnorm(
-                x, r, w, ctas=c)) for c in CTA_SWEEP}
-            # the same bytes through a plain copy on the same 8 CTAs
-            src = torch.empty(nbytes // 32 * 16, dtype=torch.uint8,
-                              device=dev)    # half read, half written
-            dst = torch.empty_like(src)
-
-            def copy():
-                rc = probe.copy_probe_launch(
-                    src.data_ptr(), dst.data_ptr(), src.numel() // 16,
-                    K1.MAX_CTAS, torch.cuda.current_stream().cuda_stream)
-                if rc:
-                    raise RuntimeError(f"copy probe: CUDA error {rc}")
-            case.update(
-                ms=ms_ctas[K1.MAX_CTAS],
-                ms_by_ctas={str(c): ms for c, ms in ms_ctas.items()},
-                budget_bound_ms=time_ms(torch, copy),
-                plain_ms=time_ms(
-                    torch, lambda: K1.ar_rmsnorm_plain(x, r, w), iters=3),
-                composition_ms=time_ms(
-                    torch, lambda: FC.comm_norm(x, r, w, ctx=ctx)),
-                bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                             flops / FP32_FLOPS) * 1e3,
-                bound_by="bytes", library_ms=None)
-            del src, dst
-            case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
-            case["achieved_gb_per_s_1cta"] = nbytes / ms_ctas[1] / 1e6
-            case["budget_gb_per_s"] = nbytes / case["budget_bound_ms"] / 1e6
-            rows["ar_rmsnorm"] = case
-        elif d1 == 512 or (n, t, d1) == (4, 2048, 4096):
-            # Whisper's encoder split: short rows (1 KB a rank); one data
-            # shard's prefill split at D = 2 x R = 4: timed
-            nbytes = 2 * (n + 1) * t * d1 * 2 + d1 * 2
-            case.update(ms=time_ms(torch, lambda: K1.ar_rmsnorm(x, r, w)),
-                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                        bound_by="bytes")
-            case["achieved_gb_per_s"] = nbytes / case["ms"] / 1e6
-        emit(case)
-        del x, r, out, out1, p_out, p_res
-    # with a data axis comm_norm runs K1 once per data shard on views of
-    # that shard's rows (each rank's slab contiguous, the ranks D·T rows
-    # apart): bit-equal to K1 on contiguous copies, and held
-    dp, n, t, d1 = 2, 4, 1024, 4096
-    x = torch.randn(n, dp * t, d1, generator=gen1, device=dev, dtype=bf16)
-    r = torch.randn(n, dp * t // n, d1, generator=gen1, device=dev,
-                    dtype=bf16)
-    w = (torch.randn(d1, generator=gen1, device=dev).abs() + 0.5).to(bf16)
-    for g in range(dp):
-        xv, rv = x[:, g * t:(g + 1) * t], r[:, g * t // n:(g + 1) * t // n]
-        out, new_res = K1.ar_rmsnorm(xv, rv, w)
-        c_out, c_res = K1.ar_rmsnorm(xv.contiguous(), rv.contiguous(), w)
-        torch.cuda.synchronize()
-        if not (torch.equal(out, c_out) and torch.equal(new_res, c_res)):
-            raise AssertionError(f"K1 on data shard {g}'s views differs "
-                                 f"from K1 on copies")
-        p_out, p_res = K1.ar_rmsnorm_plain(xv, rv, w)
-        err = max(check_close(f"K1 views shard {g}", out, p_out, K1_TOL,
-                              K1_TOL),
-                  check_close(f"K1 views shard {g} residual", new_res, p_res,
-                              K1_TOL, K1_TOL))
-        k1_err = max(k1_err, err)
-        emit({"phase": "kernels", "kernel": "ar_rmsnorm", "N": n, "T": t,
-              "d": d1, "data_shard": g, "data_shards": dp, "views": True,
-              "dtype": "bfloat16", "max_abs_err": err, "tol": K1_TOL,
-              "bit_identical_to_copies": True})
-    del x, r, out, c_out, p_out, p_res
-    torch.cuda.empty_cache()
+    rows["ar_rmsnorm"] = k1_kernel_cases(torch, seed, probe)
 
     k3_err = 0.0
 
@@ -792,7 +947,6 @@ def kernel_phase(torch, seed: int, probe):
         del q, k, v
         torch.cuda.empty_cache()
     rows["fused_residual_rmsnorm"]["max_abs_err"] = k2_err
-    rows["ar_rmsnorm"]["max_abs_err"] = k1_err
     rows["flash_attention"]["max_abs_err"] = k3_err
     return rows
 
@@ -4475,6 +4629,10 @@ K1P_CASES = ((2048, 8192, "bfloat16"), (12000, 512, "bfloat16"),
              (2048, 4096, "float32"), (1000, 8190, "bfloat16"),
              (8, 8192, "bfloat16"))
 K1P_LOCAL_RANKS = (2, 4, 8)        # one process, one stream a rank
+# a CUDA graph of the N ranks' calls, one per rank's stream, replayed on
+# fresh inputs: a decode's T (one wait) and a prefill split's (three phases)
+K1P_GRAPH_T = (8, 1024)
+K1P_GRAPH_REPLAYS = 20
 K1P_PROC_RANKS = (2, 4)            # one process a rank
 K1P_ITERS = 20
 K1P_PROC_ITERS = 5
@@ -4485,6 +4643,13 @@ K1P_TIMEOUT_S = 600
 # a sleep kernel that holds back k1_peer's timed calls while the host
 # enqueues them (~70 ms at the H100's clock), doubled while too short
 K1P_GATE_CYCLES = 1 << 27
+
+
+def k1p_small(n: int) -> tuple:
+    """The one-wait path's cases at N ranks, d 8192 bf16: T/N of 1, N, 2N
+    and 8N rows a rank (the one-wait path where T/N is below the CTAs, the
+    three phases elsewhere; the CTA sweep crosses between them)."""
+    return tuple((c * n, 8192, "bfloat16") for c in (1, n, 2 * n, 8 * n))
 
 
 def gated_ms(torch, fn, iters: int) -> tuple:
@@ -4518,6 +4683,28 @@ def gated_ms(torch, fn, iters: int) -> tuple:
                          "within the gate")
 
 
+def free_ms(torch, streams, call, iters: int = K1P_ITERS) -> tuple:
+    """(device ms, host ms) of one call of N ranks when each rank's stream
+    runs its calls back to back, the ranks meeting only through the
+    kernel's flags, as one process a rank runs them: ``call(k)`` enqueues
+    rank k's call on the current stream; ``iters`` calls a rank are
+    enqueued behind one gate and joined once (``gated_ms`` joins the
+    streams after every call)."""
+    main = torch.cuda.current_stream()
+
+    def batch():
+        for s in streams:
+            s.wait_stream(main)
+        for _ in range(iters):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    call(k)
+        for s in streams:
+            main.wait_stream(s)
+    ms, host = gated_ms(torch, batch, 1)
+    return ms / iters, host / iters
+
+
 def k1p_inputs(torch, seed: int, n: int, t: int, d: int, dtype):
     """Every rank's partial (n, T, d) and residual chunk (n, T/n, d) and
     the weight, from the seed on the card: equal in every process."""
@@ -4538,8 +4725,88 @@ def k1p_bytes(n: int, t: int, d: int, size: int) -> dict:
             * t * d * size}
 
 
+def k1_peer_graph(torch, seed: int, n: int, ws, streams, t: int,
+                  d: int) -> dict:
+    """N ranks' calls captured into N CUDA graphs, one on each rank's
+    stream (as one process a rank would capture its own), replayed
+    K1P_GRAPH_REPLAYS times on fresh inputs; each replay's outputs
+    bit-equal to an eager call on the same inputs through the same
+    workspaces (the device epoch runs on through both) and to the one-card
+    K1.  Returns the case's line, with the replay's device ms."""
+    from repro_torch.kernels import ar_rmsnorm as K1
+    from repro_torch.kernels import ar_rmsnorm_peer as K1P
+
+    main = torch.cuda.current_stream()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7 * n + t)
+    x = torch.empty(n, t, d, dtype=torch.bfloat16, device="cuda")
+    r = torch.empty(n, t // n, d, dtype=torch.bfloat16, device="cuda")
+    w = (torch.randn(d, generator=gen, device="cuda").abs() + 0.5).to(x.dtype)
+
+    def fresh():
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        r.copy_(torch.randn(r.shape, generator=gen, device="cuda"))
+
+    def on_streams(fn):
+        for s in streams:
+            s.wait_stream(main)
+        outs = []
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs.append(fn(k))
+        for s in streams:
+            main.wait_stream(s)
+        return outs
+
+    def eager(k):
+        return K1P.ar_rmsnorm_peer(x[k:k + 1], r[k:k + 1], w,
+                                   workspace=ws[k], ctas=K1.MAX_CTAS)
+    fresh()
+    on_streams(eager)
+    torch.cuda.synchronize()
+    graphs, captured = [], []
+    before = K1P.ar_rmsnorm_peer.launches
+    for k, s in enumerate(streams):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            captured.append(eager(k))
+        graphs.append(graph)
+    if K1P.ar_rmsnorm_peer.launches != before + n:
+        raise AssertionError("the captured calls did not reach the kernel")
+
+    def replay():
+        on_streams(lambda k: graphs[k].replay())
+    for i in range(K1P_GRAPH_REPLAYS):
+        fresh()
+        replay()
+        want = on_streams(eager)
+        ref_out, ref_res = K1.ar_rmsnorm(x, r, w, ctas=K1.MAX_CTAS)
+        torch.cuda.synchronize()
+        for k, ((o, nr), (eo, enr)) in enumerate(zip(captured, want)):
+            if not (torch.equal(o, eo) and torch.equal(nr, enr)
+                    and torch.equal(o[0], ref_out[k])
+                    and torch.equal(nr[0], ref_res[k])):
+                raise AssertionError(
+                    f"K1 peer graph N={n} T={t}: replay {i}, rank {k} "
+                    f"differs from the eager call")
+    ms, host = gated_ms(torch, replay, K1P_ITERS)
+    eager_ms, eager_host = gated_ms(torch, lambda: on_streams(eager),
+                                    K1P_ITERS)
+    free, free_host = free_ms(torch, streams, lambda k: graphs[k].replay())
+    eager_free, eager_free_host = free_ms(torch, streams, eager)
+    del graphs
+    return {"phase": "k1_peer", "mode": "graph", "N": n, "T": t, "d": d,
+            "dtype": "bfloat16", "ctas": K1.MAX_CTAS,
+            "one_wait": K1P.small_t(t, n, K1.MAX_CTAS),
+            "replays": K1P_GRAPH_REPLAYS, "bit_equal_to_eager": True,
+            "bit_equal_to_one_card_k1": True, "ms": ms, "host_ms": host,
+            "eager_ms": eager_ms, "eager_host_ms": eager_host,
+            "ms_free": free, "host_ms_free": free_host,
+            "eager_ms_free": eager_free, "eager_host_ms_free": eager_free_host,
+            "iters": K1P_ITERS}
+
+
 def k1_peer_local(torch, seed: int, cases=K1P_CASES,
-                  ranks=K1P_LOCAL_RANKS) -> None:
+                  ranks=K1P_LOCAL_RANKS, small=True) -> None:
     """k1_peer (a), in a process of its own: N ranks as N launches on N
     streams, each with its own workspace (``PeerWorkspace.local``), at
     every ``cases`` shape (K1P_CASES, or pg_families' served rows) and N
@@ -4558,7 +4825,8 @@ def k1_peer_local(torch, seed: int, cases=K1P_CASES,
         ws = PeerWorkspace.local(n, rows=K1P_ROWS, d=K1P_D,
                                  dtype=torch.bfloat16, device="cuda")
         streams = [torch.cuda.Stream() for _ in range(n)]
-        for t, d, dtype in cases:
+        extra = [c for c in k1p_small(n) if c not in cases] if small else []
+        for t, d, dtype in [*cases, *extra]:
             x, r, w = k1p_inputs(torch, seed, n, t, d, dtype)
 
             def run(ctas):
@@ -4595,12 +4863,18 @@ def k1_peer_local(torch, seed: int, cases=K1P_CASES,
             summary["max_abs_err"] = max(summary["max_abs_err"], err)
             size = x.element_size()
             ms, host = gated_ms(torch, lambda: run(K1.MAX_CTAS), K1P_ITERS)
+            free, free_host = free_ms(torch, streams, lambda k: (
+                K1P.ar_rmsnorm_peer(x[k:k + 1], r[k:k + 1], w,
+                                    workspace=ws[k], ctas=K1.MAX_CTAS)))
             case = {"phase": "k1_peer", "mode": "one_process", "N": n,
                     "T": t, "d": d, "dtype": dtype, "ctas": K1.MAX_CTAS,
                     "bit_equal_to_one_card_k1": True,
                     "ctas_bit_identical": list(CTA_SWEEP),
+                    "one_wait_at_ctas": [c for c in CTA_SWEEP
+                                         if K1P.small_t(t, n, c)],
                     "max_abs_err": err, "tol": K1_TOL, "ms": ms,
-                    "host_ms": host, "iters": K1P_ITERS,
+                    "host_ms": host, "ms_free": free,
+                    "host_ms_free": free_host, "iters": K1P_ITERS,
                     "one_card_k1_ms": time_ms(torch, lambda: K1.ar_rmsnorm(
                         x, r, w, ctas=K1.MAX_CTAS)),
                     **k1p_bytes(n, t, d, size)}
@@ -4617,6 +4891,9 @@ def k1_peer_local(torch, seed: int, cases=K1P_CASES,
                                library_ms=None)
             emit(case)
             del x, r, w, ref_out, ref_res, p_out, p_res
+        if small:
+            for t in K1P_GRAPH_T:
+                emit(k1_peer_graph(torch, seed, n, ws, streams, t, K1P_D))
         for one in ws:
             one.close()
         torch.cuda.empty_cache()
@@ -6361,7 +6638,7 @@ def main() -> int:
     if args.k1_peer_local and args.k1_peer_cases:
         k1_peer_local(torch, args.seed,
                       cases=[tuple(c) for c in args.k1_peer_cases],
-                      ranks=(PG_RING_WORLD,))
+                      ranks=(PG_RING_WORLD,), small=False)
         return 0
     if args.k1_peer_local:
         k1_peer_local(torch, args.seed)
@@ -6384,15 +6661,19 @@ def main() -> int:
     probe = start_copy_probe_build()
     info = build.build()
     emit({"phase": "build", "seconds": info["seconds"],
-          "built": info["built"],
+          "built": info["built"], "done_at": info["done_at"],
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
                     for name, log in info["ptxas"].items()}})
     for name in build.SOURCES:
         build.load(name)
 
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, args.seed, load_copy_probe(probe))
+    t1 = time.perf_counter()
     rows["ar_rmsnorm_peer"] = k1_peer_phase(args.seed)
+    emit({"phase": "kernel_seconds", "kernels": t1 - t0,
+          "k1_peer": time.perf_counter() - t1})
     # the main paths: launches are counted from 0 over each engine run
     kw = dict(torch=torch, np=np, seed=args.seed, trace_dir=args.trace_dir)
     online = online_phase(**kw)

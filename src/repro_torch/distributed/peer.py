@@ -4,10 +4,10 @@ kernel's ``comm_hbm`` buffer and its semaphores
 (``src/repro/kernels/ring_ar_rmsnorm.py``).
 
 A ``PeerWorkspace`` is one rank's view of a model group's buffers: its own
-allocation (flags, N receive slots, a ``gathered`` chunk;
+allocation (flags and the call epoch the kernel advances, N receive slots,
+a ``gathered`` chunk, two publish blocks for the one-wait path;
 ``ar_rmsnorm_peer.workspace_bytes``), every peer's mapped into this
-process, the kernel's pointer tables, and the epoch the flags count calls
-by.  It is sized for the largest forward a run makes at the model's
+process, and the kernel's pointer tables.  It is sized for the largest forward a run makes at the model's
 width and dtype: the scheduler's (``SchedulerConfig.max_forward_tokens``)
 under the engine, ``direct_rows``' for direct ``ModelApi.prefill`` /
 ``decode_step`` calls (the hybrid's chunks, an encoder's frames).  A
@@ -55,20 +55,15 @@ def _device(device) -> torch.device:
 class PeerWorkspace:
     """One rank's view of a model group's peer-mapped buffers."""
 
-    def __init__(self, *, rank: int, bases, rows: int, slot: int,
+    def __init__(self, *, rank: int, bases, rows: int, slot: int, pub: tuple,
                  device: torch.device, own: int, opened=(), group=None):
         self.rank, self.n = rank, len(bases)
         self.rows, self.slot_bytes = rows, slot
+        self.pub_bytes, self.pub_res = pub
         self.device = device
-        self.tables = K.tables(bases, rank, slot)
-        self.epoch = 0
+        self.tables = K.tables(bases, rank, slot, *pub)
         self._own, self._opened, self._group = own, list(opened), group
         self.closed = False
-
-    def next_epoch(self) -> int:
-        """The next call's epoch: one more than the last, on every rank."""
-        self.epoch += 1
-        return self.epoch
 
     @classmethod
     def create(cls, groups: Groups, *, rows: int, d: int, dtype,
@@ -80,8 +75,9 @@ class PeerWorkspace:
         device = _device(device)
         n, rank = groups.model_size, groups.model_rank
         slot = K.slot_bytes(rows, d, dtype, n)
+        pub = K.pub_bytes(rows, d, dtype, n)
         lib = K._lib()
-        own = _alloc(lib, device, K.workspace_bytes(n, slot))
+        own = _alloc(lib, device, K.workspace_bytes(n, slot, pub[0]))
         handle = ctypes.create_string_buffer(K.HANDLE_BYTES)
         build.check_status(lib, lib.peer_get_handle(own, handle),
                            "peer_get_handle")
@@ -101,7 +97,7 @@ class PeerWorkspace:
             build.check_status(lib, rc, f"peer_open_handle (rank {p})")
             bases.append(ptr.value)
             opened.append(ptr.value)
-        return cls(rank=rank, bases=bases, rows=rows, slot=slot,
+        return cls(rank=rank, bases=bases, rows=rows, slot=slot, pub=pub,
                    device=device, own=own, opened=opened,
                    group=groups.model)
 
@@ -112,11 +108,12 @@ class PeerWorkspace:
         N ranks' launches on N streams."""
         device = _device(device)
         slot = K.slot_bytes(rows, d, dtype, n)
+        pub = K.pub_bytes(rows, d, dtype, n)
         lib = K._lib()
-        owns = [_alloc(lib, device, K.workspace_bytes(n, slot))
+        owns = [_alloc(lib, device, K.workspace_bytes(n, slot, pub[0]))
                 for _ in range(n)]
-        return [cls(rank=r, bases=owns, rows=rows, slot=slot, device=device,
-                    own=owns[r]) for r in range(n)]
+        return [cls(rank=r, bases=owns, rows=rows, slot=slot, pub=pub,
+                    device=device, own=owns[r]) for r in range(n)]
 
     def close(self) -> None:
         """Wait for the card, unmap the peers' buffers and free this

@@ -13,12 +13,18 @@ the full normed ``(1, T, d)`` and the new residual chunk out.  The
 kernel's bits equal the one-card K1's on the same inputs, on any grid.
 
 The kernel reaches its peers only through a ``distributed.peer.
-PeerWorkspace``: per rank a flag block, N receive slots and a
-``gathered`` chunk, mapped into every peer.  ``tables`` turns the
-workspace's base addresses into the kernel's pointer tables (host
-layout, testable without a card).  Each call raises the workspace's
-epoch by one; the flags carry it (see the source note for why two waits a
-call suffice and what bounds the kernel).
+PeerWorkspace``: per rank a flag block (with the call epoch), N receive
+slots, a ``gathered`` chunk and two publish blocks, mapped into every
+peer.  ``tables`` turns the workspace's base addresses into the kernel's
+pointer tables (host layout, testable without a card).  Two paths, with
+the one-card K1's row engine and bits: three phases (push reduce-scatter,
+add+norm of the owned chunk, pull all-gather; two flag waits), and for a
+small T (``small_t``: decode and verify) one wait, after which every rank
+computes every row from the rows its peers published into the publish
+block of the call's parity.  The kernel reads and advances the epoch in
+device memory, so a call can be captured into a CUDA graph and replayed
+(see the source note for why the waits suffice and what bounds the
+kernel).
 
 ``ar_rmsnorm_peer`` is the wrapper: on CPU and meta tensors it runs
 ``ar_rmsnorm_peer_plain`` over the context's process group; on CUDA
@@ -39,10 +45,13 @@ from repro_torch.kernels.fused_rmsnorm import fused_residual_rmsnorm_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024
-# a rank's workspace: the flags, then N receive slots, then `gathered`;
-# arrive is (MAX_CTAS, MAX_RANKS) and ready (MAX_CTAS,) uint64
+# a rank's workspace: the flags, then N receive slots, then `gathered`,
+# then the two publish blocks (parity 0, 1); in the flag block arrive is
+# (MAX_CTAS, MAX_RANKS) uint64, ready, pub and epoch (MAX_CTAS,) each
 ARRIVE_OFFSET = 0
 READY_OFFSET = MAX_CTAS * MAX_RANKS * 8
+PUB_FLAG_OFFSET = 1024
+EPOCH_OFFSET = 2048
 FLAG_BYTES = 4096
 SLOT_ALIGN = 256
 HANDLE_BYTES = 64                  # sizeof(cudaIpcMemHandle_t)
@@ -54,31 +63,66 @@ class PeerTables(ctypes.Structure):
     """``struct PeerTables`` of the CUDA source.  This rank's own entries
     of ``push``, ``recv`` and ``arrive_out`` are null: never read."""
     _fields_ = [("push", _ptrs), ("recv", _ptrs), ("gathered", _ptrs),
-                ("arrive_out", _ptrs), ("ready", _ptrs),
+                ("arrive_out", _ptrs), ("ready", _ptrs), ("pub", _ptrs),
+                ("pub_flag", _ptrs),
                 ("arrive_in", ctypes.c_void_p),
                 ("gathered_own", ctypes.c_void_p),
-                ("ready_own", ctypes.c_void_p)]
+                ("ready_own", ctypes.c_void_p),
+                ("epoch", ctypes.c_void_p),
+                ("pub_stride", ctypes.c_ulonglong),
+                ("pub_res", ctypes.c_ulonglong)]
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def small_t(t: int, n: int, ctas: int) -> bool:
+    """Whether a call takes the one-wait path: fewer rows a rank (T/N)
+    than CTAs, as a decode or verify step has."""
+    return t // n < ctas
+
+
+def small_rows(rows: int, n: int) -> int:
+    """The most rows a one-wait call of a workspace for ``rows`` takes:
+    T/N below MAX_CTAS, and no more than the workspace's forwards."""
+    return min(rows // n, MAX_CTAS - 1) * n
 
 
 def slot_bytes(rows: int, d: int, dtype: torch.dtype, n: int) -> int:
     """One receive slot (and ``gathered``): a chunk of the largest forward,
     ``rows // n`` rows of d elements, rounded up to SLOT_ALIGN bytes."""
     size = torch.empty((), dtype=dtype).element_size()
-    raw = (rows // n) * d * size
-    return -(-raw // SLOT_ALIGN) * SLOT_ALIGN
+    return _aligned((rows // n) * d * size)
 
 
-def workspace_bytes(n: int, slot: int) -> int:
-    """A rank's workspace: the flags, N receive slots, ``gathered``."""
-    return FLAG_BYTES + (n + 1) * slot
+def pub_bytes(rows: int, d: int, dtype: torch.dtype, n: int) -> tuple:
+    """One publish block of the one-wait path, for a workspace of
+    ``rows``: (its bytes, the residual's offset in it).  It holds a rank's
+    partial of ``small_rows`` rows, then its residual chunk of those, each
+    rounded up to SLOT_ALIGN bytes; a workspace has two, one per parity
+    of the call epoch."""
+    size = torch.empty((), dtype=dtype).element_size()
+    t = small_rows(rows, n)
+    x_bytes = _aligned(t * d * size)
+    return x_bytes + _aligned((t // n) * d * size), x_bytes
 
 
-def tables(bases, rank: int, slot: int) -> PeerTables:
+def workspace_bytes(n: int, slot: int, pub: int) -> int:
+    """A rank's workspace: the flags, N receive slots, ``gathered`` and
+    the two publish blocks of ``pub`` bytes."""
+    return FLAG_BYTES + (n + 1) * slot + 2 * pub
+
+
+def tables(bases, rank: int, slot: int, pub: int,
+           pub_res: int) -> PeerTables:
     """The kernel's pointer tables for ``rank`` from every rank's
     workspace base address (``bases[p]``; this rank's own is its local
     pointer): rank r pushes chunk c into peer c's slot r and raises
     arrive[b][r] there, reads its own slots and arrive flags, and pulls
-    every rank's ``gathered`` after its ready[b]."""
+    every rank's ``gathered`` after its ready[b]; in a one-wait call it
+    publishes into its own publish block, raises its pub[b] and reads
+    every rank's publish block after that rank's pub[b]."""
     n = len(bases)
     if not 1 <= n <= MAX_RANKS or not 0 <= rank < n:
         raise ValueError(f"rank {rank} of {n}; the kernel takes 1 to "
@@ -87,6 +131,8 @@ def tables(bases, rank: int, slot: int) -> PeerTables:
     for p, base in enumerate(bases):
         tab.gathered[p] = base + FLAG_BYTES + n * slot
         tab.ready[p] = base + READY_OFFSET
+        tab.pub[p] = base + FLAG_BYTES + (n + 1) * slot
+        tab.pub_flag[p] = base + PUB_FLAG_OFFSET
         if p != rank:
             tab.push[p] = base + FLAG_BYTES + rank * slot
             tab.recv[p] = bases[rank] + FLAG_BYTES + p * slot
@@ -94,6 +140,8 @@ def tables(bases, rank: int, slot: int) -> PeerTables:
     tab.arrive_in = bases[rank] + ARRIVE_OFFSET
     tab.gathered_own = tab.gathered[rank]
     tab.ready_own = tab.ready[rank]
+    tab.epoch = bases[rank] + EPOCH_OFFSET
+    tab.pub_stride, tab.pub_res = pub, pub_res
     return tab
 
 
@@ -148,6 +196,13 @@ def check_inputs(x, residual, weight, workspace, ctas: int,
                          f"{workspace.rows})")
     if not 1 <= ctas <= MAX_CTAS:
         raise ValueError(f"ctas={ctas} outside [1, {MAX_CTAS}]")
+    if small_t(t, n, ctas) and (
+            t * d * x.element_size() > workspace.pub_res
+            or need > workspace.pub_bytes - workspace.pub_res):
+        raise ValueError(f"T={t} x d={d} takes the one-wait path; the "
+                         f"workspace's publish blocks hold "
+                         f"{workspace.pub_res} bytes of x (T up to "
+                         f"{small_rows(workspace.rows, n)})")
     if not pipelined(x, residual, weight) and d * 4 > _MAX_SMEM:
         raise ValueError(f"d={d} exceeds the scalar body's shared-memory "
                          f"row buffer ({_MAX_SMEM // 4} floats)")
@@ -175,7 +230,7 @@ def _lib():
                      "peer_open_handle", "peer_close_handle"):
             getattr(lib, name).restype = i
         fn.argtypes = [ctypes.POINTER(PeerTables), p, p, p, p, p, i, i, i, i,
-                       ctypes.c_float, ctypes.c_ulonglong, i, i, i, p]
+                       ctypes.c_float, i, i, i, i, p]
         fn.restype = i
     return lib
 
@@ -187,7 +242,8 @@ def ar_rmsnorm_peer(x, residual, weight, ctx=None, *, eps: float = 1e-6,
     version over ``ctx``'s process group; on CUDA the kernel on ``ctas``
     CTAs (1 to 8, the same on every rank) over ``workspace`` (default:
     ``ctx.groups.peer``).  Every rank must make the same calls in the same
-    order, and none inside a CUDA graph capture (it raises there)."""
+    order; a call may be captured into a CUDA graph (the kernel draws its
+    epoch from the workspace on the card)."""
     if needs_grad(x, residual, weight):
         raise RuntimeError(
             "kernel K1 (comm mode 'ring') has no backward: train with comm "
@@ -196,12 +252,6 @@ def ar_rmsnorm_peer(x, residual, weight, ctx=None, *, eps: float = 1e-6,
         return ar_rmsnorm_peer_plain(x, residual, weight, ctx, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if torch.cuda.is_current_stream_capturing():
-        # a graph would replay this call's epoch, which the flags already
-        # hold: every wait would pass at once, reading slots still in flight
-        raise RuntimeError("ar_rmsnorm_peer cannot be captured into a CUDA "
-                           "graph: its flag epoch is drawn on the host for "
-                           "each call")
     if workspace is None and ctx is not None and ctx.groups is not None:
         workspace = ctx.groups.peer
     check_inputs(x, residual, weight, workspace, ctas,
@@ -218,9 +268,8 @@ def ar_rmsnorm_peer(x, residual, weight, ctx=None, *, eps: float = 1e-6,
         rc = lib.ar_rmsnorm_peer(
             ctypes.byref(workspace.tables), x.data_ptr(), residual.data_ptr(),
             weight.data_ptr(), out.data_ptr(), new_res.data_ptr(),
-            workspace.n, workspace.rank, t, d, float(eps),
-            workspace.next_epoch(), _DTYPES[x.dtype], int(vec), int(ctas),
-            stream)
+            workspace.n, workspace.rank, t, d, float(eps), _DTYPES[x.dtype],
+            int(vec), int(small_t(t, workspace.n, ctas)), int(ctas), stream)
     build.check_status(lib, rc, "ar_rmsnorm_peer")
     ar_rmsnorm_peer.launches += 1
     return out, new_res

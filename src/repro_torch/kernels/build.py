@@ -36,8 +36,12 @@ SOURCES = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per source: K3's wgmma body needs ptxas to spend registers on keeping its
-# wgmma groups in flight, or it serializes them (warning C7512)
-EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "--register-usage-level=10")}
+# wgmma groups in flight, or it serializes them (warning C7512); the
+# one-card K1 instantiates its kernels for every rank count and group size,
+# and nvcc optimizes them on 4 threads.  (The cross-rank K1 built that way
+# ran slower at N 2 in a trial, so it builds on one.)
+EXTRA_FLAGS = {"flash_attention": ("-Xptxas", "--register-usage-level=10"),
+               "ar_rmsnorm": ("-split-compile=4",)}
 
 _INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
@@ -86,7 +90,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, object]:
     """Compile every named source whose library is missing, all at once.
 
     Returns ``{"seconds": wall time, "built": [names], "ptxas": {name:
-    nvcc's resource report}}``; raises with nvcc's output on failure."""
+    nvcc's resource report}, "done_at": {name: seconds from the start
+    until its nvcc was seen done}}``; raises with nvcc's output on
+    failure."""
     names = list(SOURCES if names is None else names)
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,10 +107,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, object]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports, failed = {}, []
+    reports, failed, seconds = {}, [], {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
+        seconds[name] = time.perf_counter() - t0   # at least its own time
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
@@ -112,7 +119,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, object]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs),
-            "ptxas": reports}
+            "ptxas": reports, "done_at": seconds}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,6 +17,7 @@ to CTA mapping and the ragged fallback.
 """
 import dataclasses
 import json
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -484,6 +485,136 @@ def test_k1_input_checks_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="row buffer"):
         K1.check_inputs(torch.zeros(1, 1, 60000), torch.zeros(1, 1, 60000),
                         torch.zeros(60000))
+
+
+def test_k1_input_checks_refuse_rows_and_routes_past_the_kernel(
+        monkeypatch):
+    """Row indices are int32 in the kernel; only the two vector routes can
+    be forced, the bulk route only on rows of a whole CTA, and the public
+    wrapper takes no route."""
+    x, res, w = torch.zeros(4, 16, 64), torch.zeros(4, 4, 64), torch.zeros(64)
+    monkeypatch.setattr(K1, "MAX_ROWS", 15)
+    with pytest.raises(ValueError, match="int32"):
+        K1.check_inputs(x, res, w)
+    monkeypatch.setattr(K1, "MAX_ROWS", 16)
+    K1.check_inputs(x, res, w)
+    with pytest.raises(ValueError, match="register or bulk"):
+        K1._launch(x, res, w, 1e-6, 8, "scalar")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K1._launch(x, res, w, 1e-6, 8, "bulk")
+    with pytest.raises(TypeError):
+        K1.ar_rmsnorm(x, res, w, route_name="bulk")
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="whole CTA"):
+        K1._pick_route("bulk", 4096, bf, 8, 2048, 8, True)
+    assert K1._pick_route("bulk", 8192, bf, 2, 8, 8, True) == "bulk"
+    assert K1._pick_route("register", 8192, bf, 8, 2048, 8, True) == \
+        "register"
+    assert K1._pick_route("bulk", 8190, bf, 8, 2048, 8, False) == "scalar"
+    out, _ = K1.ar_rmsnorm(x, res, w)   # CPU: plain
+    assert out.shape == x.shape
+
+
+def _cuda_constant(name: str) -> int:
+    from repro_torch.kernels import build
+    text = (build.CSRC / "ar_rmsnorm_row.cuh").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert len(found) == 1, name
+    return int(found[0])
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (512, torch.bfloat16, (64, 32, 16)),       # Whisper-base: 16 rows a CTA
+    (1152, torch.bfloat16, (144, 128, 4)),     # Gemma3-1B
+    (2048, torch.bfloat16, (256, 128, 4)),     # OLMoE
+    (3584, torch.bfloat16, (448, 256, 2)),     # Zamba2, Qwen2-VL
+    (4096, torch.bfloat16, (512, 256, 2)),     # Falcon-Mamba, Qwen3-MoE
+    (6144, torch.bfloat16, (768, 512, 1)),     # Mixtral: the whole CTA
+    (8192, torch.bfloat16, (1024, 512, 1)),    # Llama
+    (4096, torch.float32, (1024, 512, 1)),
+    (64, torch.float32, (16, 32, 16)),         # a row smaller than a warp
+    (8190, torch.bfloat16, None),              # not whole 16-byte vectors
+    (8192, torch.float32, None),               # 2048 vectors: scalar body
+    (16384, torch.bfloat16, None),
+])
+def test_k1_row_group_rule_mirrors_the_cuda_source(d, dtype, want):
+    """``row_group`` is the rule of ``csrc/ar_rmsnorm_row.cuh``: its
+    constants are the header's, every vector of a row has one owner, a
+    group's size is one of the kernels' template instances (a power of
+    two from a warp to the CTA) and its groups fill the CTA within the
+    named barriers (ids 1-15, groups of several warps at most 8)."""
+    assert K1.CTA_THREADS == _cuda_constant("kCtaThreads")
+    assert K1.VECTORS == _cuda_constant("kMaxVec")
+    assert K1.row_group(d, dtype) == want
+    if want is None:
+        return
+    nv, g, rows = want
+    assert g in (32, 64, 128, 256, 512) and nv <= g * K1.VECTORS
+    assert rows * g == K1.CTA_THREADS
+    assert g == 32 or rows <= 8
+
+
+def test_k1_row_groups_cover_every_vector_row():
+    """Over every bf16 width of whole vectors up to 8192: a row's group is
+    the smallest of the kernels' group sizes that holds it in two vectors
+    a thread, so a CTA runs as many rows as that allows."""
+    sizes = (32, 64, 128, 256, 512)
+    for d in range(8, 8193, 8):
+        nv, g, rows = K1.row_group(d, torch.bfloat16)
+        assert g == min(s for s in sizes if s * K1.VECTORS >= nv)
+        assert rows == K1.CTA_THREADS // g
+
+
+def test_k1_kernels_take_every_group_size_of_the_rule():
+    """The CUDA source picks a compile-time instance for each group size
+    the rule gives (``K1_BY_GROUP``)."""
+    from repro_torch.kernels import build
+    text = (build.CSRC / "ar_rmsnorm_row.cuh").read_text()
+    macro = text[text.index("#define K1_BY_GROUP"):]
+    macro = macro[:macro.index(")\n\n")]
+    for g in (32, 64, 128, 256, 512):
+        assert f"__VA_ARGS__, {g}>" in macro
+
+
+def test_k1_route_rule_picks_by_width_dtype_and_ranks():
+    """``route`` takes the bulk route at rows of a whole CTA (either
+    dtype) at BULK_RANKS ranks with at least BULK_MIN_ROWS rows a CTA, the
+    register route at other vector rows (fewer ranks, decode and verify
+    sizes, rows of a group smaller than the CTA), the scalar body where
+    the rows are not vectors."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert K1.BULK_RANKS == 8 and K1.BULK_MIN_ROWS == 16
+    assert K1.route(8192, bf, 8, 2048, 8) == "bulk"
+    assert K1.route(6144, bf, 8, 2048, 8) == "bulk"
+    assert K1.route(4096, f32, 8, 2048, 8) == "bulk"
+    assert K1.route(8192, bf, 8, 128, 8) == "bulk"       # 16 rows a CTA
+    assert K1.route(8192, bf, 8, 120, 8) == "register"   # 15
+    assert K1.route(8192, bf, 8, 32, 2) == "bulk"        # 16 on 2 CTAs
+    assert K1.route(8192, bf, 8, 8, 8) == "register"     # decode
+    assert K1.route(8192, bf, 8, 32, 8) == "register"    # verify
+    assert K1.route(8192, bf, 4, 2048, 8) == "register"
+    assert K1.route(8192, bf, 2, 2048, 8) == "register"
+    assert K1.route(4096, bf, 8, 2048, 8) == "register"  # 256 threads a row
+    assert K1.route(512, bf, 8, 12000, 8) == "register"
+    assert K1.route(8192, bf, 8, 2048, 8, vec=False) == "scalar"
+
+
+@pytest.mark.parametrize("t,d,ctas,want", [
+    (2048, 8192, 8, 256), (8, 8192, 8, 1), (32, 8192, 8, 4),
+    (32, 8192, 2, 16), (3, 8192, 8, 1), (12000, 512, 8, 1504),
+    (17, 512, 8, 16), (2048, 4096, 1, 2048)])
+def test_k1_rows_per_cta_follow_the_grid(t, d, ctas, want):
+    """The rows the first CTA takes: its groups' rows over the launched
+    grid, which has no CTA without a row group to run
+    (``csrc/ar_rmsnorm.cu`` launch)."""
+    assert K1.rows_per_cta(t, d, torch.bfloat16, ctas) == want
+    # the kernel's mapping: row r is CTA (r // R) % grid's
+    per = K1.row_group(d, torch.bfloat16)[2]
+    grid = min(ctas, -(-t // per))
+    counts = [0] * grid
+    for row in range(t):
+        counts[(row // per) % grid] += 1
+    assert max(counts) == want
 
 
 # --------------------------------------------------------------------------
