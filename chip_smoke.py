@@ -252,7 +252,30 @@ Phases, each printing one JSON line:
             and decode wall ms (time-sliced); then K1's cross-rank form at
             N 2 timed
             at each full-width model's largest and smallest served rows
-            (``k1_peer_families``, a process of its own);
+            (``k1_peer_families``, a process of its own); Qwen3-MoE-235B
+            (``ep2d`` at data size 1, 4 of 94 layers) is served the same
+            way;
+19d. pg_data  the data group, four processes of its own
+            (``--pg-data-rank``) on a (data 2, model 2) mesh over gloo in
+            ``ring``, each model group with its own K1 peer workspace:
+            Qwen3-MoE-235B-A22B at full width (4 of 94 layers, bf16) with
+            the batch over the data group (a prefill of 4 x 1024 tokens,
+            each process its data shard's 2 rows, ``ep2d``'s three
+            all-to-alls over the data group, then 8 greedy decode steps),
+            then float32 twins: the small ep2d model and the reduced
+            Llama with the batch over data (4 x 48 tokens, 4 steps), and
+            the reduced Zamba2's context-parallel decode over the data
+            group (2 rows, each data rank 128 of a 256-slot seeded shared
+            cache, 8 steps); gates: each shard's model ranks emit equal
+            tokens, K1-peer launches equal splits·(1+2L) (the hybrid's
+            splits·(1+L+n_inv)) per forward and no other add+norm kernel,
+            the peer kernel bit-equal to the one-card K1 at every (T,
+            CTAs) each model group served, K3's launches and K3 on every
+            shape the ranks kept, each twin's tokens equal to the rank
+            axis's at D = 2 x R = 2 and its first logits within 1e-5;
+            reported: bf16 tokens against the rank axis, all-to-all
+            calls, bytes and ms a call, per-rank prefill and decode ms
+            (time-sliced) and the phase's seconds;
 20. train_kernels  K2's and K3's autograd Functions (the kernel forward,
             the plain version's backward) against autograd through their
             plain versions on the card at the training step's shapes: K3
@@ -3470,11 +3493,12 @@ def hybrid_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
 
 
 def to_device(tree, dev):
-    """A parameter tree (dicts, lists, tensors) on ``dev``."""
+    """A parameter tree (dicts, lists, tuples, tensors) on ``dev``."""
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, dev) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        out = [to_device(v, dev) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
     return tree.to(dev)
 
 
@@ -5155,17 +5179,20 @@ def rank_axis_calls(torch, fn) -> tuple:
 
 
 def check_peer_shapes(torch, spy_dir: Path, counts: dict,
-                      label: str = "pg_ring") -> tuple:
+                      label: str = "pg_ring",
+                      ranks=range(PG_RING_WORLD)) -> tuple:
     """K1's cross-rank form at every (T, CTAs) the served forwards gave
-    it: the ranks' saved inputs stacked, the one-card K1 run on them, each
-    rank's output and new residual bit-equal to it, and it within K1_TOL
-    of the plain version.  Returns (rows for the report, max abs error)."""
+    it: the saved inputs of one model group's ranks (world ranks
+    ``ranks``, in model-rank order) stacked, the one-card K1 run on them,
+    each rank's output and new residual bit-equal to it, and it within
+    K1_TOL of the plain version.  Returns (rows for the report, max abs
+    error)."""
     from repro_torch.kernels import ar_rmsnorm as K1
 
     rows, worst = [], 0.0
     for (t, ctas), n_calls in sorted(counts.items()):
         parts = [torch.load(spy_dir / f"r{k}_T{t}_c{ctas}.pt")
-                 for k in range(PG_RING_WORLD)]
+                 for k in ranks]
         w = parts[0]["weight"]
         if not all(torch.equal(p["weight"], w) for p in parts):
             raise AssertionError(f"{label} T={t}: the ranks' weights differ")
@@ -5370,10 +5397,12 @@ def pg_ring_phase(torch, np, seed: int) -> tuple:
 # process, two ranks on the card
 # --------------------------------------------------------------------------
 
-# (registry name, layers (0: all of them), how it is served): MoE and ssm
-# through launch.serve's engine, the hybrid, encdec and vlm by direct
+# (registry name, layers (0: all of them), how it is served): MoE (ep2d at
+# data size 1: every expert on both ranks, each expert's d_ff split) and
+# ssm through launch.serve's engine, the hybrid, encdec and vlm by direct
 # ModelApi calls (the engine cannot hold their caches)
 PGF_MODELS = (("mixtral-8x22b", 4, "serve"), ("olmoe-1b-7b", 16, "serve"),
+              ("qwen3-moe-235b-a22b", 4, "serve"),
               ("falcon-mamba-7b", 8, "serve"), ("zamba2-7b", 12, "direct"),
               ("whisper-base", 0, "direct"), ("qwen2-vl-7b", 4, "direct"))
 PGF_PROMPT_LENS, PGF_NEW_TOKENS = (1024, 640, 384, 128), 8
@@ -5671,12 +5700,13 @@ def pgf_k3_expected(api, how: str, line: dict) -> int:
                      if cfg.family == "hybrid" else cfg.num_layers)
 
 
-def pgf_check_k3(torch, run_dir: Path, name: str, want: int) -> tuple:
+def pgf_check_k3(torch, run_dir: Path, name: str, want: int,
+                 ranks=range(PG_RING_WORLD)) -> tuple:
     """K3 on each rank's kept inputs, shape by shape, against its plain
     version (``check_main_path_k3``; a run whose formula gives no K3 call
     must have kept none).  Returns (K3's max error, the shapes held)."""
     err, shapes = 0.0, []
-    for k in range(PG_RING_WORLD):
+    for k in ranks:
         kept = torch.load(run_dir / f"k3_r{k}.pt")
         if not want:
             if kept:
@@ -5880,6 +5910,436 @@ def pg_families_phase(torch, np, seed: int) -> tuple:
         emit(dict(ln, phase="k1_peer_families", card=card))
     worst = max(worst, json_lines(out)[-1]["k1_peer_local"]["max_abs_err"])
     emit({"phase": "pg_families_seconds", "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    return launches, worst, k3_launches, k3_err
+
+
+# --------------------------------------------------------------------------
+# pg_data: the data group over process groups, four (data, model) ranks on
+# the card
+# --------------------------------------------------------------------------
+
+PGD_MESH = (2, 2)                  # (data, model): world rank = d·2 + m
+PGD_WORLD = PGD_MESH[0] * PGD_MESH[1]
+PGD_TIMEOUT_S = 600
+# the runs, in order: Qwen3-MoE-235B at full width (bf16, QWEN3_LAYERS),
+# the batch over data; then float32 twins, TF32 off: identity_data_phase's
+# ep2d model and a reduced dense model with the batch over data, and the
+# reduced Zamba2 decoding context-parallel over the data group
+PGD_RUNS = ("qwen3_full", "ep2d_twin", "dense_twin", "hybrid_cp_twin")
+PGD_TWIN_ROWS, PGD_TWIN_LEN, PGD_TWIN_DECODE = 4, 48, 4
+PGD_CP_ROWS, PGD_CP_SLOTS, PGD_CP_LEN = 2, 256, 200
+PGD_LOGIT_TOL = 1e-5               # float32 twins against the rank axis
+
+
+def pgd_model(run: str):
+    """(cfg, pcfg, how) of a pg_data run: ``how`` is "batch" (the batch
+    over the data group: a prefill, its KV written, greedy decode steps)
+    or "cp" (context-parallel decode from a seeded cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    if run == "qwen3_full":
+        return (dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                                    num_layers=QWEN3_LAYERS),
+                pgf_pcfg(), "batch")
+    base = dict(comm_mode="ring", attn_impl="pallas", use_pallas_norm=True,
+                split_unit=16, tokenweave_min_tokens=32)
+    if run == "ep2d_twin":
+        return (ModelConfig(name="small-moe-ep2d", family="moe",
+                            num_layers=2, d_model=256, num_heads=8,
+                            num_kv_heads=2, head_dim=32, d_ff=512,
+                            vocab_size=509, num_experts=4,
+                            num_experts_per_tok=2, moe_d_ff=256,
+                            moe_partition="ep2d", qk_norm=True,
+                            dtype="float32"),
+                ParallelConfig(**base), "batch")
+    if run == "dense_twin":
+        return (dataclasses.replace(get_config("llama3.3-70b").reduced(),
+                                    vocab_size=509),
+                ParallelConfig(**base), "batch")
+    return (dataclasses.replace(get_config("zamba2-7b").reduced(),
+                                vocab_size=509),
+            ParallelConfig(seq_shard_kv=True, **base), "cp")
+
+
+def pgd_shape(run: str) -> tuple:
+    """(global rows, prompt tokens, decode steps) of a pg_data run."""
+    if run == "qwen3_full":
+        return EP2D_ROWS, EP2D_LEN, PGF_DECODE
+    if run == "hybrid_cp_twin":
+        return PGD_CP_ROWS, PGD_CP_LEN, PGF_DECODE
+    return PGD_TWIN_ROWS, PGD_TWIN_LEN, PGD_TWIN_DECODE
+
+
+def pgd_cut(tree, like, groups):
+    """A process's part of a rank-axis tree of tensors (dicts and lists):
+    on each axis where ``like`` (the process's tree) is smaller, the model
+    rank's slice (1 of tp) or the data rank's 1/D (rows or cache slots)."""
+    if isinstance(tree, dict):
+        return {k: pgd_cut(v, like[k], groups) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [pgd_cut(v, w, groups) for v, w in zip(tree, like)]
+        return out if isinstance(tree, list) else tuple(out)
+    t = tree
+    for a, (m, n) in enumerate(zip(tree.shape, like.shape)):
+        if m == n:
+            continue
+        if n == 1 and m == groups.model_size:
+            t = t.narrow(a, groups.model_rank, 1)
+        elif m == n * groups.data_size:
+            t = t.narrow(a, groups.data_rank * n, n)
+        else:
+            raise AssertionError(f"pgd_cut: {tuple(tree.shape)} against "
+                                 f"{tuple(like.shape)}")
+    return t.contiguous()
+
+
+def pgd_cp_cache(torch, np, seed: int, cfg, pcfg):
+    """The context-parallel run's seeded rank-axis cache on the CPU (tp=2,
+    D = 2): every float 0.5·N(0, 1), each row holding its PGD_CP_LEN
+    positions; and the first step's tokens."""
+    from repro_torch.models.build import build_model
+
+    def fill(t, rng):
+        if isinstance(t, dict):
+            return {k: fill(v, rng) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            out = [fill(v, rng) for v in t]
+            return out if isinstance(t, list) else tuple(out)
+        if t.dtype.is_floating_point:
+            return torch.from_numpy(
+                (0.5 * rng.randn(*t.shape)).astype(np.float32))
+        pos = np.full(t.shape, -1, np.int32)
+        pos[:, :PGD_CP_LEN] = np.arange(PGD_CP_LEN)
+        return torch.from_numpy(pos)
+    api = build_model(cfg, pcfg, tp=PGD_MESH[1], ep=PGD_MESH[0])
+    rng = np.random.RandomState(seed + 51)
+    cache = fill(api.init_cache(PGD_CP_ROWS, PGD_CP_SLOTS, device="cpu"),
+                 rng)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (PGD_CP_ROWS, 1)))
+    return cache, tokens
+
+
+def pgd_drive(torch, np, api, params, seed: int, run: str) -> dict:
+    """One pg_data run through ``api`` (the rank axis at D = 2 x R = 2, or
+    one process of the groups) by direct ``ModelApi`` calls: for "batch"
+    runs a prefill of the seeded global batch (a process takes its data
+    shard's rows), its KV written into a slot cache, then greedy decode
+    steps; for "cp" greedy context-parallel decode steps from the seeded
+    cache (a process takes its part of it).  Returns the tokens of every
+    step, rows by position, and the first logits on the host."""
+    from repro_torch.layers.embedding import sharded_argmax
+    from repro_torch.runtime import kv_cache as KC
+
+    cfg, pcfg, how = pgd_model(run)
+    b, s, steps = pgd_shape(run)
+    groups, dev = api.groups, "cuda"
+    ctx = api.comm_ctx
+    outs = []
+    with torch.no_grad():
+        if how == "batch":
+            rng = np.random.RandomState(seed + 40)
+            tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (b, s)))
+            if groups is not None:
+                n = b // groups.data_size
+                tokens = tokens[groups.data_rank * n:
+                                (groups.data_rank + 1) * n]
+            rows = tokens.shape[0]
+            cache = api.init_cache(b, s + steps, device=dev)
+            logits, kv = api.prefill(params, tokens.to(dev), None, None)
+            KC.insert_chunk(cache, kv, torch.zeros(rows, device=dev),
+                            torch.arange(rows, device=dev))
+            del kv
+            first = logits.float().cpu()
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size, ctx=ctx)
+            start = s
+        else:
+            cache, tok = pgd_cp_cache(torch, np, seed, cfg, pcfg)
+            if groups is not None:
+                cache = pgd_cut(cache, api.init_cache(
+                    PGD_CP_ROWS, PGD_CP_SLOTS, device="cpu"), groups)
+            cache = to_device(cache, dev)
+            tok, rows, first, start = tok.to(dev), PGD_CP_ROWS, None, s
+        for j in range(steps):
+            outs.append(tok[:, 0].tolist())
+            pos = torch.full((rows, 1), start + j, dtype=torch.int32,
+                             device=dev)
+            logits, cache = api.decode_step(params, tok, cache, pos)
+            if first is None:
+                first = logits.float().cpu()
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"pg_data {run}: step {j}'s logits are "
+                                     f"not finite")
+            tok = sharded_argmax(logits, vocab_size=cfg.vocab_size, ctx=ctx)
+        outs.append(tok[:, 0].tolist())
+    if not all(0 <= t < cfg.vocab_size for row in outs for t in row):
+        raise AssertionError(f"pg_data {run}: tokens {outs} outside the "
+                             f"vocabulary")
+    return {"tokens": outs, "first": first}
+
+
+class a2a_spy:
+    """Each ``collectives.all_to_all`` call while the block runs: the rows'
+    bytes a process sends and its wall ms between two device syncs
+    (time-sliced with the other ranks, gloo's host staging included)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives as COL
+        self.mod, self.real = COL, COL.all_to_all
+        torch, real, calls = self.torch, self.real, self.calls
+
+        def spy(x, ctx, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(x, ctx, **kw)
+            torch.cuda.synchronize()
+            calls.append((x.numel() * x.element_size(),
+                          (time.perf_counter() - t) * 1e3))
+            return out
+        COL.all_to_all = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_to_all = self.real
+        return False
+
+
+def pgd_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
+    """One of pg_data's four processes: gloo groups over a (data 2, model
+    2) mesh, then every PGD_RUNS run over them in comm mode ``ring`` (K1's
+    cross-rank form in every add+norm slot, over its model group's peer
+    workspace sized by ``peer.direct_rows`` for one data shard's rows),
+    this rank's weights (``ModelApi.init``: its model rank's slice, its
+    data shard's ep2d experts), under ``k1_peer_spy``, ``a2a_spy`` and
+    ``api_timings``, K3's inputs kept at the first call of each shape;
+    each run's result, spy records and K3 inputs go to ``out_dir``/<run>/."""
+    import contextlib
+
+    import torch.distributed as dist
+    from repro_torch.distributed import peer
+    from repro_torch.launch.mesh import init_groups, make_mesh
+    from repro_torch.models.build import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = init_groups(make_mesh(PGD_MESH, ("data", "model")),
+                       backend="gloo", init_method=f"file://{out_dir}/store",
+                       rank=rank, world_size=PGD_WORLD)
+    try:
+        for run in PGD_RUNS:
+            run_dir = out_dir / run
+            run_dir.mkdir(exist_ok=True)
+            cfg, pcfg, how = pgd_model(run)
+            b, s, _ = pgd_shape(run)
+            rows = peer.direct_rows(cfg, batch=b, chunk=s if how == "batch"
+                                    else 1, dp=1 if how == "cp"
+                                    else PGD_MESH[0])
+            groups = peer.attach(base, rows=rows, d=cfg.d_model,
+                                 dtype=getattr(torch, cfg.dtype),
+                                 device="cuda")
+            api = build_model(cfg, pcfg, tp=PGD_MESH[1], ep=PGD_MESH[0],
+                              groups=groups)
+            params = api.init(seed, device="cuda")
+            k3_inputs = {}
+            undo = capture_k3_inputs(k3_inputs)
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                stack.callback(undo)
+                timing = stack.enter_context(api_timings(torch))
+                a2a = stack.enter_context(a2a_spy(torch))
+                spy = stack.enter_context(k1_peer_spy(torch, run_dir, rank))
+                before = spy.launches
+                got = pgd_drive(torch, np, api, params, seed, run)
+                launches = dict(read_launches(),
+                                ar_rmsnorm_peer=spy.launches - before)
+            torch.save(got.pop("first"), run_dir / f"logits_r{rank}.pt")
+            (run_dir / f"result_r{rank}.json").write_text(json.dumps(dict(
+                got, launches=launches, ms=timing.ms, a2a=a2a.calls,
+                workspace_rows=rows, coords=[groups.data_rank,
+                                             groups.model_rank])))
+            offload(k3_inputs)
+            torch.save(list(k3_inputs.values()), run_dir / f"k3_r{rank}.pt")
+            groups.peer.close()
+            del params, api, k3_inputs, groups
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def pgd_expected(run: str) -> tuple:
+    """(K1-peer launches, K3 launches) each process of a run must make:
+    per forward, per weave split, the entry norm and each block's slot
+    (none where a shard's tokens do not divide over the ranks: the
+    vanilla fallback), K3 once per attention layer of each prefill
+    split."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.build import build_model
+    cfg, pcfg, how = pgd_model(run)
+    b, s, steps = pgd_shape(run)
+    # the rank axis at data size 1 runs one shard's rows as a process does
+    one = build_model(cfg, pcfg, tp=PGD_MESH[1],
+                      ep=PGD_MESH[0] if how == "cp" else 1)
+    if how == "cp":
+        slots = cfg.num_layers + cfg.num_layers // cfg.shared_attn_period
+        return steps * norm_launches(one, b, 1, decode=True,
+                                     slots=slots), 0
+    b //= PGD_MESH[0]
+    slots = 2 * cfg.num_layers
+    splits = 1 + TR.weave_decision_info(b, s, tp=PGD_MESH[1],
+                                        pcfg=pcfg).weave
+    return (norm_launches(one, b, s, decode=False, slots=slots)
+            + steps * norm_launches(one, b, 1, decode=True, slots=slots),
+            splits * cfg.num_layers)
+
+
+def pgd_check(torch, np, seed: int, run_dir: Path, run: str) -> tuple:
+    """One pg_data run's gates: the model ranks of each data shard emit
+    equal tokens (every rank, for the context-parallel run), each
+    process's K1-peer launches equal ``pgd_expected``'s and its calls its
+    model group's, no other add+norm kernel, the peer kernel bit-equal to
+    the one-card K1 at every (T, CTAs) each model group served
+    (``check_peer_shapes``), K3's launches on every rank equal the
+    formula and K3 within its tolerance on every rank's inputs; a twin's
+    tokens equal to the rank axis's at D = 2 x R = 2 and each rank's
+    first logits within PGD_LOGIT_TOL of its slice (bf16: the tokens
+    reported).  Emits its line; returns (rank 0's K1-peer launches, the
+    worst K1-peer error, rank 0's K3 launches, K3's worst error)."""
+    from repro_torch.models.build import build_model
+
+    cfg, pcfg, how = pgd_model(run)
+    twin = run != "qwen3_full"
+    res = [json.loads((run_dir / f"result_r{w}.json").read_text())
+           for w in range(PGD_WORLD)]
+    tp = PGD_MESH[1]
+    for w, r in enumerate(res):
+        if r["coords"] != list(divmod(w, tp)):
+            raise AssertionError(f"pg_data {run}: rank {w} at {r['coords']}")
+    shards = [[w for w in range(PGD_WORLD) if w // tp == d]
+              for d in range(PGD_MESH[0])]
+    same = (range(PGD_WORLD),) if how == "cp" else shards
+    for ranks in same:
+        if any(res[w]["tokens"] != res[ranks[0]]["tokens"] for w in ranks):
+            raise AssertionError(f"pg_data {run}: ranks {list(ranks)}' "
+                                 f"tokens differ")
+    want, want_k3 = pgd_expected(run)
+    for w, r in enumerate(res):
+        got = r["launches"]
+        if (got["ar_rmsnorm_peer"] != want or got["ar_rmsnorm"]
+                or got["fused_residual_rmsnorm"]
+                or got["flash_attention"] != want_k3):
+            raise AssertionError(f"pg_data {run} rank {w}: launches {got}, "
+                                 f"expected {want} of ar_rmsnorm_peer alone "
+                                 f"and {want_k3} of flash_attention")
+    worst, shapes = 0.0, []
+    for d, ranks in enumerate(shards):
+        group = [json.loads((run_dir / f"calls_r{w}.json").read_text())
+                 ["calls"] for w in ranks]
+        if any(g != group[0] for g in group) or len(group[0]) != want:
+            raise AssertionError(f"pg_data {run}: data shard {d}'s model "
+                                 f"ranks made other K1-peer calls")
+        counts = {}
+        for c in group[0]:
+            counts[tuple(c)] = counts.get(tuple(c), 0) + 1
+        rows, err = check_peer_shapes(torch, run_dir, counts,
+                                      label=f"pg_data {run} shard {d}",
+                                      ranks=ranks)
+        worst = max(worst, err)
+        shapes += [dict(row, data_shard=d) for row in rows]
+    k3_err, k3_shapes = pgf_check_k3(torch, run_dir, f"pg_data {run}",
+                                     want_k3, ranks=range(PGD_WORLD))
+    # the rank axis at D = 2 x R = 2 on the card, the same seeded weights
+    axis = build_model(cfg, pcfg, tp=tp, ep=PGD_MESH[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = axis.init(seed, device="cuda")
+    ref = pgd_drive(torch, np, axis, params, seed, run)
+    del params
+    n = len(ref["tokens"][0]) // (1 if how == "cp" else PGD_MESH[0])
+    tokens_equal, logit_err = [], 0.0
+    for w, r in enumerate(res):
+        d, m = divmod(w, tp)
+        lo = 0 if how == "cp" else d * n
+        tokens_equal.append(r["tokens"] == [row[lo:lo + n]
+                                            for row in ref["tokens"]])
+        mine = torch.load(run_dir / f"logits_r{w}.pt")
+        logit_err = max(logit_err, max_err(
+            mine, ref["first"][m:m + 1, lo:lo + n]))
+    a2a = [r["a2a"] for r in res]
+    out = {"phase": "pg_data", "run": run, "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "mesh": {"data": PGD_MESH[0],
+                                        "model": PGD_MESH[1]},
+           "backend": "gloo", "comm_mode": pcfg.comm_mode,
+           "how": ("the batch over the data group" if how == "batch"
+                   else "context-parallel decode over the data group"),
+           "rows_per_process": len(res[0]["tokens"][0]),
+           "workspace_rows": res[0]["workspace_rows"],
+           "launches_rank0": res[0]["launches"],
+           "expected_peer_launches": want, "expected_k3_launches": want_k3,
+           "k3_shapes_held": k3_shapes, "k3_max_abs_err": k3_err,
+           "peer_shapes": shapes, "tokens_rank0": res[0]["tokens"],
+           "tokens_equal_rank_axis": tokens_equal,
+           "first_logits_max_abs_err_vs_rank_axis": logit_err,
+           "all_to_all_calls": [len(c) for c in a2a],
+           "all_to_all_bytes_rank0": sum(nb for nb, _ in a2a[0]),
+           "all_to_all_ms_per_call": [
+               statistics.median(ms for _, ms in c) if c else None
+               for c in a2a],
+           "all_to_all_ms_by_bytes_rank0": {
+               str(nb): [ms for b, ms in a2a[0] if b == nb]
+               for nb in sorted({b for b, _ in a2a[0]})},
+           "prefill_ms": [r["ms"]["prefill"] for r in res],
+           "decode_ms_median": [statistics.median(r["ms"]["decode_step"])
+                                for r in res],
+           "gated": twin, "card": card_line()}
+    emit(out)
+    if twin and not (all(tokens_equal) and logit_err <= PGD_LOGIT_TOL):
+        raise AssertionError(f"pg_data {run}: tokens {tokens_equal} or "
+                             f"first logits (max error {logit_err}) differ "
+                             f"from the rank axis's at D = 2 x R = 2")
+    if cfg.moe_partition == "ep2d" and not all(a2a):
+        raise AssertionError(f"pg_data {run}: a rank made no all-to-all")
+    return (res[0]["launches"]["ar_rmsnorm_peer"], worst,
+            res[0]["launches"]["flash_attention"], k3_err)
+
+
+def pg_data_phase(torch, np, seed: int) -> tuple:
+    """The data group one (data, model) rank per process: four processes
+    on the card (``pgd_rank``; gloo carries the groups' collectives and
+    ``ep2d``'s all-to-alls, CUDA IPC each model group's K1 peer buffers)
+    run PGD_RUNS, gated by ``pgd_check``.  Returns (rank 0's K1-peer
+    launches over every run, the worst K1-peer error, rank 0's K3
+    launches, K3's worst error)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="pg_data_"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+          "--pg-data-dir", str(out_dir), "--pg-data-rank"]
+    launches, worst, k3_launches, k3_err = 0, 0.0, 0, 0.0
+    try:
+        run_children([me + [str(k)] for k in range(PGD_WORLD)], cwd=ROOT,
+                     env=env, timeout=PGD_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        for run in PGD_RUNS:
+            n, err, n_k3, err_k3 = pgd_check(torch, np, seed, out_dir / run,
+                                             run)
+            launches += n
+            worst = max(worst, err)
+            k3_launches += n_k3
+            k3_err = max(k3_err, err_k3)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "pg_data_seconds", "ranks_s": ranks_s,
           "seconds": time.perf_counter() - t0})
     return launches, worst, k3_launches, k3_err
 
@@ -6623,6 +7083,9 @@ def main() -> int:
     ap.add_argument("--pg-families-dir", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--k1-peer-cases", type=json.loads,
                     help=argparse.SUPPRESS)
+    # pg_data's ranks (pg_data_phase starts them)
+    ap.add_argument("--pg-data-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pg-data-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -6646,6 +7109,9 @@ def main() -> int:
     if args.pg_families_rank is not None:
         pgf_rank(torch, np, args.seed, args.pg_families_rank,
                  args.pg_families_dir)
+        return 0
+    if args.pg_data_rank is not None:
+        pgd_rank(torch, np, args.seed, args.pg_data_rank, args.pg_data_dir)
         return 0
     if args.k1_peer_rank is not None:
         k1_peer_rank(torch, args.seed, args.k1_peer_rank, args.k1_peer_world,
@@ -6738,6 +7204,13 @@ def main() -> int:
     (family_launches, pg_families_err, family_k3,
      family_k3_err) = pg_families_phase(torch, np, args.seed)
     peer_launches += family_launches
+    # the data group: four (data, model) ranks, ep2d's all-to-alls, the
+    # batch over the data group, context-parallel decode over it
+    data_launches, pg_data_err, data_k3, data_k3_err = pg_data_phase(
+        torch, np, args.seed)
+    peer_launches += data_launches
+    family_k3 += data_k3
+    family_k3_err = max(family_k3_err, data_k3_err)
     # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
     t0 = time.perf_counter()
     train_kernels_phase(torch, args.seed)
@@ -6771,7 +7244,8 @@ def main() -> int:
     rows["ar_rmsnorm"]["max_abs_err"] = max(
         rows["ar_rmsnorm"]["max_abs_err"], tuned_k1_err)
     rows["ar_rmsnorm_peer"]["max_abs_err"] = max(
-        rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err, pg_families_err)
+        rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err, pg_families_err,
+        pg_data_err)
     # the meta-device dry run and the examples: host work, after every
     # timed phase
     dryrun_phase(torch)

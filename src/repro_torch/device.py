@@ -22,10 +22,17 @@ def generator(device: torch.device, seed: int):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def randn_ranks(gen, shape, *, rank=None, device, dtype) -> torch.Tensor:
+def randn_ranks(gen, shape, *, rank=None, data_rank=None, device,
+                dtype) -> torch.Tensor:
     """``torch.randn(shape)`` from ``gen``, the draw of all tp ranks along
     its leading axis; with ``rank``, model rank ``rank``'s slice of it as a
     tensor of its own (the whole draw is freed at once), so that one
-    process's weights equal its slice of the tp-rank draw."""
+    process's weights equal its slice of the tp-rank draw.  With
+    ``data_rank`` too the draw's two leading axes are (data, model), as an
+    ``ep2d`` expert weight's, and (data_rank, rank)'s slice is kept."""
     w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
-    return w if rank is None else w[rank:rank + 1].clone()
+    if rank is None:
+        return w
+    if data_rank is None:
+        return w[rank:rank + 1].clone()
+    return w[data_rank:data_rank + 1, rank:rank + 1].clone()

@@ -14,8 +14,12 @@ entries: all tp ranks on the rank axis, this process's one rank under
     gather_ranks  (R, ...) -> (tp, ...), every rank's tensor, rank-major
     psum_dp       (D_loc, ...) -> (D_loc, ...), the sum over the data shards
     pmax_dp       (D_loc, ...) -> (D_loc, ...), the max over the data shards
+    all_to_all    (R_x, D_loc, N, ...) -> (R_x, D_loc, N, ...), each data
+                  shard's N rows cut into D tiles, tile j to shard j
 
-where D_loc is ``ctx.dp`` on the rank axis and 1 in a process.
+where D_loc is ``ctx.dp`` on the rank axis and 1 in a process, and R_x is
+R or 1 (a tensor the same on every model rank, as ``ep2d``'s routed
+rows).
 ``psum``, ``pmax`` and ``gather_ranks`` take a ``ctx`` of None as the
 rank axis.
 
@@ -23,10 +27,13 @@ The rank axis's reductions are its operations over dim 0: the sum in
 float32, rank 0 first, rounded once (``kernels.ar_rmsnorm.rank_sum``).
 Under ``process_group`` they are ``all_reduce``, ``reduce_scatter_tensor``
 and ``all_gather_into_tensor`` over ``ctx.groups.model`` (``.data`` for
-the ``_dp`` pair): a sum runs in float32 on the wire and is rounded once to
-x's dtype, or in x's dtype under ``ctx.bf16_wire``; a max and a gather move
-x's dtype.  Called on a side stream, NCCL orders its work after that
-stream's, and the stream waits for the result.
+the ``_dp`` pair), and ``all_to_all`` (on the rank axis the index op of
+``lax.all_to_all(tiled=True)``) is ``all_to_all_single`` over
+``ctx.groups.data``: a sum runs in float32 on the wire and is rounded
+once to x's dtype, or in x's dtype under ``ctx.bf16_wire``; a max, a
+gather and an all-to-all move x's dtype.  Called on a side stream, NCCL
+orders its work after that stream's, and the stream waits for the
+result.
 
 While ``analysis.op_costs`` counts a call (``recording``), every
 collective reports its kind (the reference's HLO names), the bytes of
@@ -35,8 +42,7 @@ result spans every data shard folded into the batch, and a data-axis
 one carries the model ranks), its group size and its axis, and its
 body's tensor ops are not counted as the model's (on the rank axis a
 collective is an operation over dim 0).  ``note`` reports a collective
-that a caller computes with index ops (the ``ep2d`` all-to-alls,
-``layers/moe.py``), with one device's result bytes.
+with one device's result bytes.
 """
 from __future__ import annotations
 
@@ -86,11 +92,11 @@ def _reports(kind: str, axis: str, per_rank):
     the group size)."""
     def wrap(fn):
         @functools.wraps(fn)
-        def inner(x, ctx):
+        def inner(x, ctx, **kw):
             if not _RECORDERS or _RECORDERS[-1].inside:
-                return fn(x, ctx)
+                return fn(x, ctx, **kw)
             with _RECORDERS[-1].collective():
-                out = fn(x, ctx)
+                out = fn(x, ctx, **kw)
             note(kind, *per_rank(out, x, ctx), axis)
             return out
         return inner
@@ -215,3 +221,47 @@ def pmax_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
         return x.amax(dim=0, keepdim=True).expand_as(x).contiguous()
     return _all_reduce(_one(x), dist.ReduceOp.MAX, ctx.groups.data,
                        x.dtype)[None]
+
+
+def _tiles(out, x, ctx):
+    """An all-to-all's rows (R_x, D_loc, N, ...): one data shard's result
+    bytes as a data-axis result that carries all R local ranks (a tensor
+    the same on every rank, R_x = 1, counts R copies), the data group."""
+    rows = out[0] if isinstance(out, tuple) else out
+    return (_nbytes(rows) / rows.shape[1] * ctx.local_ranks / rows.shape[0],
+            ctx.dp)
+
+
+@_reports("all-to-all", "data", _tiles)
+def all_to_all(x: torch.Tensor, ctx: C.CommCtx, *, ids=None):
+    """``lax.all_to_all(x, "data", 0, 0, tiled=True)`` of each data
+    shard's (N, ...): x (R_x, D_loc, N, ...) -> the same shape, data shard
+    j holding tile j (rows ``[j·N/D, (j+1)·N/D)``) of every shard, shard
+    by shard.  ``ids`` (R_x, D_loc, N), an integer per row (``ep2d``'s
+    local expert ids), rides the same exchange and comes back beside it:
+    (rows, ids).  A recorder sees one all-to-all of the rows' bytes (the
+    ids add 1/d of them).  On the rank axis an index op over the D_loc =
+    ``ctx.dp`` shards; under ``process_group`` ``all_to_all_single`` over
+    the data group (gloo takes CUDA tensors)."""
+    if not _grouped(ctx):
+        def swap(t):
+            dp, n = t.shape[1], t.shape[2]
+            if dp != ctx.dp or n % dp:
+                raise ValueError(f"{n} rows of {dp} data shards do not "
+                                 f"tile over ctx.dp={ctx.dp}")
+            return t.unflatten(2, (dp, n // dp)).transpose(1, 2).flatten(
+                2, 3)
+        return swap(x) if ids is None else (swap(x), swap(ids))
+    if x.shape[:2] != (1, 1) or x.shape[2] % ctx.dp:
+        raise ValueError(f"a process holds one rank of one data shard, "
+                         f"whose rows tile over {ctx.dp}: x "
+                         f"{tuple(x.shape)}")
+
+    def swap(t):
+        if ctx.dp == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out[0, 0], t[0, 0], group=ctx.groups.data)
+        return out
+    return swap(x) if ids is None else (swap(x), swap(ids))

@@ -13,8 +13,10 @@ under the engine, ``direct_rows``' for direct ``ModelApi.prefill`` /
 ``decode_step`` calls (the hybrid's chunks, an encoder's frames).  A
 forward larger than the workspace raises; nothing falls back.
 
-``PeerWorkspace.create`` is collective over the model group: each rank
-allocates its buffer, the ranks exchange CUDA IPC handles with
+``PeerWorkspace.create`` is collective over the model group (on a
+(data, model) mesh each data shard's model group has buffers of its own,
+and ``close`` waits for that group alone): each rank allocates its
+buffer, the ranks exchange CUDA IPC handles with
 ``all_gather_object`` (gloo or NCCL both carry Python objects) and open
 each other's (a rank uses its own buffer's local pointer: CUDA refuses to
 open a process's own handle).  ``PeerWorkspace.local`` makes N ranks' in
@@ -143,13 +145,18 @@ def attach(groups: Groups, *, rows: int, d: int, dtype, device) -> Groups:
         groups, rows=rows, d=d, dtype=dtype, device=device))
 
 
-def direct_rows(cfg, *, batch: int, chunk: int) -> int:
+def direct_rows(cfg, *, batch: int, chunk: int, dp: int = 1) -> int:
     """The most token rows one forward of a run of direct ``ModelApi``
     calls gives an add+norm slot: a prefill chunk's ``batch`` x ``chunk``
     (an image's patch rows counted in ``chunk``), a decode step's
     ``batch``, and for the encdec family the encoder's ``batch`` x
     ``max_source_positions`` frames: the ``rows`` of ``attach`` for a run
-    with no ``SchedulerConfig``."""
+    with no ``SchedulerConfig``.  With the batch over ``dp`` data shards
+    a process's forwards hold one shard's ``batch`` / ``dp`` rows."""
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{dp} data shards")
+    batch //= dp
     rows = batch * max(chunk, 1)
     if cfg.family == "encdec":
         rows = max(rows, batch * cfg.max_source_positions)

@@ -20,14 +20,15 @@ world size) share a card, since NCCL refuses two ranks on one device
 rank and the world size come from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``; ``--init-method env://``) or from
 ``--rank`` / ``--world-size`` with a ``file://`` store.  The mesh is
-(data 1, model = world size), as the engine serves it.  ``--arch`` takes
-every family the engine serves: dense, MoE (``expert`` and ``ffn``; an
-``ep2d`` model needs the data group, ROADMAP.md A19), ssm, and vlm as
-text.  The hybrid and encdec families are refused by name: the engine
-cannot hold their caches, and they are served by direct
-``ModelApi.prefill`` / ``decode_step`` calls.  ``--comm-mode ring``
-runs every add+norm slot as K1's cross-rank form on CUDA (the model
-group's peer buffers are made before the first forward,
+(data 1, model = world size), as the engine serves it (``Engine``
+refuses a data axis, as the reference's does).  ``--arch`` takes every
+family the engine serves: dense, MoE (``expert``, ``ffn``, and ``ep2d``
+with every expert on every rank and each expert's d_ff over the model
+group), ssm, and vlm as text.  The hybrid and encdec families are
+refused by name: the engine cannot hold their caches, and they are
+served by direct ``ModelApi.prefill`` / ``decode_step`` calls.
+``--comm-mode ring`` runs every add+norm slot as K1's cross-rank form on
+CUDA (the model group's peer buffers are made before the first forward,
 ``distributed.peer.attach``), its plain version over the group on the
 CPU.
 

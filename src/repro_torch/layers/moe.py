@@ -8,12 +8,18 @@ partitionings, batched over the rank axis R and the data rank axis D
              fine).  (mixtral)
     ep2d   : experts over the data axis (data shard d holds experts
              [d·E/D, (d+1)·E/D)) and each expert's d_ff over the model
-             ranks.  (qwen3-moe)  The reference dispatches by destination
-             data shard with ``all_to_all(tiled=True)`` over ``data``,
-             dispatches again into per-expert buffers on arrival, and sends
-             the outputs home with a third all-to-all; on the one-device
-             rank axes each all-to-all is an index op (``_ep2d_dispatch``,
-             ``_ep2d_combine``).
+             ranks.  (qwen3-moe)  The reference queues each token's
+             assignments by destination data shard and sends their rows
+             and local expert ids with ``all_to_all(tiled=True)`` over
+             ``data``, dispatches again into per-expert buffers on arrival,
+             and sends the outputs home with a third all-to-all.  The port
+             runs each dispatch as a send half and a receive half around
+             ``collectives.all_to_all`` (``_ep2d_dispatch``,
+             ``_ep2d_combine``): an index op on the one-device rank axes,
+             ``all_to_all_single`` over the data group under
+             ``process_group``, where a process routes, queues and drops
+             its own data shard's tokens and runs its own experts' d_ff
+             slice.
 
 In all three the output is partial over the model ranks, as
 ``layers.mlp``'s is, so the layer's AllReduce is still the one
@@ -36,12 +42,14 @@ import torch.nn.functional as F
 
 from repro_torch.device import randn_ranks
 from repro_torch.distributed import collectives as COL
+from repro_torch.distributed.context import CommCtx
 
 # named ranges around moe_forward's parts, so a profile can split their
 # device time (chip_smoke.py's MoE breakdown)
 ROUTE_RANGE = "repro_torch.moe.route"        # router product, softmax, top-k
 DISPATCH_RANGE = "repro_torch.moe.dispatch"  # queues, scatter, gather (ep2d:
-#                                              both dispatches, the a2a)
+#                                              both dispatches, the a2a of
+#                                              rows and ids)
 EXPERTS_RANGE = "repro_torch.moe.experts"    # the batched expert products
 COMBINE_RANGE = "repro_torch.moe.combine"    # gather (ep2d: the a2a back),
 #                                              weight, sum over k
@@ -79,20 +87,22 @@ def expert_offsets(cfg, tp: int, device, ranks=None) -> torch.Tensor:
 
 
 def init_moe_params(gen: torch.Generator, cfg, tp: int, ep: int = 1, *,
-                    device, dtype, rank=None):
+                    device, dtype, rank=None, data_rank=None):
     """Random MoE weights with the reference's scales: router and expert
     inputs d^-0.5, expert down d_ff^-0.5.  The router is replicated
     ``(d, E)`` and float32 whatever ``dtype``; expert weights are
     ``(R, E_loc, d, f_loc)`` (``w_down`` ``(R, E_loc, f_loc, d)``), and
     ``(D, R, ...)`` for ``ep2d``, D = ``ep``.  With ``rank``, model rank
-    ``rank``'s expert weights, each drawn whole and cut at once (not
-    ``ep2d``)."""
+    ``rank``'s expert weights (for ``ep2d`` with ``data_rank``, the
+    (data_rank, rank) slice, ``(1, 1, ...)``), each drawn whole and cut at
+    once (``device.randn_ranks``)."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     e_loc, f_loc = local_sizes(cfg, tp, ep)
-    lead = (ep, tp) if cfg.moe_partition == "ep2d" else (tp,)
-    if rank is not None and len(lead) > 1:
-        raise NotImplementedError("one rank's ep2d experts are not drawn: "
-                                  "they split over the data group too")
+    ep2d = cfg.moe_partition == "ep2d"
+    lead = (ep, tp) if ep2d else (tp,)
+    if rank is not None and ep2d and data_rank is None:
+        raise ValueError("one rank's ep2d experts need its data_rank too: "
+                         "they split over the data group")
     s = d ** -0.5
 
     def w(*shape, scale, dt=dtype):
@@ -100,8 +110,9 @@ def init_moe_params(gen: torch.Generator, cfg, tp: int, ep: int = 1, *,
                            dtype=dt) * scale
 
     def expert(*shape, scale):
-        return randn_ranks(gen, lead + shape, rank=rank, device=device,
-                           dtype=dtype) * scale
+        return randn_ranks(gen, lead + shape, rank=rank,
+                           data_rank=data_rank if ep2d else None,
+                           device=device, dtype=dtype) * scale
 
     return {"router": w(d, e, scale=s, dt=torch.float32),
             "w_gate": expert(e_loc, d, f_loc, scale=s),
@@ -209,107 +220,130 @@ def _combine(out_buf, slot, flat_w, t: int, k: int):
     return gathered.reshape(r, t, k, d).sum(dim=2)
 
 
-def _ep2d_dispatch(xs, topi, *, e_loc: int, cs: int, cap2: int):
-    """``ep2d``'s dispatch on the data rank axis.  xs (D, T_loc, d) each
-    data shard's tokens, topi (D, T_loc, k).
-
-    First each shard queues its assignments by destination shard, ``cs``
-    a destination, in token order (the send buffers, (D, D·cs)).  The
-    all-to-all then hands shard j the concatenation, over source shards s
-    in order, of s's buffer for j: its D·cs arrival rows.  Each shard
-    queues its arrivals again, by local expert, ``cap2`` an expert, in
-    arrival order, so the drops there depend on the source order.
-
-    Returns (buf (D, e_loc, cap2, d), slot (D, T_loc·k) each assignment's
-    send row j·cs + p or -1 where dropped, slot2 (D, D·cs) each arrival
-    row's buffer row or -1 where empty or dropped)."""
-    dp, t_loc, k = topi.shape
+def _ep2d_send(xs, topi, *, dp: int, e_loc: int, cs: int):
+    """The first dispatch's send half.  xs (N, T_loc, d) and topi (N,
+    T_loc, k), N the data shards held here (D on the rank axis, 1 in a
+    process).  Each shard queues its assignments by destination shard,
+    ``cs`` a destination, in token order.  Returns (its send buffer's rows
+    (N, D·cs, d), zero where empty, and their local expert ids (N, D·cs),
+    -1 where empty; slot (N, T_loc·k), each assignment's send row j·cs + p
+    or -1 where dropped)."""
+    n, t_loc, k = topi.shape
     d = xs.shape[-1]
-    dev = xs.device
-    flat = topi.reshape(dp, t_loc * k)
+    flat = topi.reshape(n, t_loc * k)
     dest = flat // e_loc                                # destination shard
     pos = _queue(dest, dp)
     keep = pos < cs
     slot = torch.where(keep, dest * cs + pos, -1)
-    tok = torch.arange(t_loc, device=dev).repeat_interleave(k)
-    # the send buffers as tables: each send row's token (t_loc: empty) and
-    # local expert (-1: empty), (D_src, D_dst·cs)
-    send_tok = _fill(tok, keep, slot, dp * cs, t_loc)
+    tok = torch.arange(t_loc, device=xs.device).repeat_interleave(k)
+    send_tok = _fill(tok, keep, slot, dp * cs, t_loc)   # t_loc: empty
     send_eid = _fill(flat % e_loc, keep, slot, dp * cs, -1)
-    # all_to_all(tiled): arrival row s·cs + p on shard j is send row
-    # j·cs + p of shard s
-    rt = dp * cs
-    recv_tok = send_tok.reshape(dp, dp, cs).transpose(0, 1).reshape(dp, rt)
-    recv_eid = send_eid.reshape(dp, dp, cs).transpose(0, 1).reshape(dp, rt)
-    valid = recv_eid >= 0
-    le = torch.where(valid, recv_eid, e_loc)            # e_loc = trash bin
+    rows = torch.cat([xs, xs.new_zeros(n, 1, d)], dim=1)  # row t_loc is 0
+    return (rows.gather(1, send_tok[..., None].expand(-1, -1, d)), send_eid,
+            slot)
+
+
+def _ep2d_receive(rows, eids, *, e_loc: int, cap2: int):
+    """The second dispatch, on arrival: rows (N, D·cs, d) and their local
+    expert ids (N, D·cs), source shard after source shard.  Each shard
+    queues its arrivals by local expert, ``cap2`` an expert, in arrival
+    order, so the drops here depend on the source order.  Returns (buf
+    (N, e_loc, cap2, d), zero where unfilled; slot2 (N, D·cs), each
+    arrival row's buffer row or -1 where empty or dropped)."""
+    n, rt, d = rows.shape
+    valid = eids >= 0
+    le = torch.where(valid, eids, e_loc)                # e_loc = trash bin
     pos2 = _queue(le, e_loc + 1)
     keep2 = valid & (pos2 < cap2)
     slot2 = torch.where(keep2, le * cap2 + pos2, -1)
-    arrival = _fill(torch.arange(rt, device=dev), keep2, slot2,
+    arrival = _fill(torch.arange(rt, device=rows.device), keep2, slot2,
                     e_loc * cap2, rt)                   # rt: empty
-    # each buffer row's (source shard, token); empty rows read a zero row
-    src_shard = torch.arange(dp, device=dev).repeat_interleave(cs)
-    src_shard = torch.cat([src_shard, src_shard.new_zeros(1)])
-    recv_tok = torch.cat([recv_tok, recv_tok.new_full((dp, 1), t_loc)], 1)
-    rows = torch.cat([xs, xs.new_zeros(dp, 1, d)], dim=1)
-    buf = rows[src_shard[arrival], recv_tok.gather(1, arrival)]
-    return buf.reshape(dp, e_loc, cap2, d), slot, slot2
+    rows = torch.cat([rows, rows.new_zeros(n, 1, d)], dim=1)
+    buf = rows.gather(1, arrival[..., None].expand(-1, -1, d))
+    return buf.reshape(n, e_loc, cap2, d), slot2
 
 
-def _ep2d_combine(out_buf, slot, slot2, topw, *, cs: int):
-    """The all-to-all back and the combine at each token's home shard.
-    out_buf (D, R, e_loc, cap2, d) partial over the model ranks; slot,
-    slot2 as ``_ep2d_dispatch`` gives them; topw (D, T_loc, k) (the
-    weights never left home).  Assignment a of shard s sent to send row
-    j·cs + p arrived at row s·cs + p of shard j; its output is that row's
-    buffer row (zero where dropped at either dispatch).  Returns the
-    output (R, D·T_loc, d), partial over the ranks."""
-    dp, r, e_loc, cap2, d = out_buf.shape
-    _, t_loc, k = topw.shape
+def _ep2d_dispatch(xs, topi, *, e_loc: int, cs: int, cap2: int, ctx):
+    """``ep2d``'s two dispatches around the all-to-all of the rows and
+    their local expert ids over the data axis (``collectives.all_to_all``,
+    tiled: arrival row s·cs + p on shard j is send row j·cs + p of shard
+    s).  xs (N, T_loc, d), topi (N, T_loc, k).  Returns (buf (N, e_loc,
+    cap2, d), slot (N, T_loc·k) each assignment's send row or -1, slot2
+    (N, D·cs) each arrival row's buffer row or -1)."""
+    rows, eids, slot = _ep2d_send(xs, topi, dp=ctx.dp, e_loc=e_loc, cs=cs)
+    rows, eids = COL.all_to_all(rows[None], ctx, ids=eids[None])
+    buf, slot2 = _ep2d_receive(rows[0], eids[0], e_loc=e_loc, cap2=cap2)
+    return buf, slot, slot2
+
+
+def _ep2d_reply(out_buf, slot2):
+    """The return's send half: out_buf (N, R, e_loc, cap2, d), partial
+    over the model ranks -> (R, N, D·cs, d), each arrival row's output at
+    its arrival row (zero where empty or dropped)."""
+    n, r, e_loc, cap2, d = out_buf.shape
     trash = e_loc * cap2
-    flat = torch.cat([out_buf.reshape(dp, r, trash, d),
-                      out_buf.new_zeros(dp, r, 1, d)], dim=2)
-    sent = slot.clamp_min(0)
-    j, p = sent // cs, sent % cs
-    home = torch.arange(dp, device=slot.device)[:, None]
-    row = slot2[j, home * cs + p]                       # (D, T_loc·k)
-    row = torch.where((slot >= 0) & (row >= 0), row, trash)
-    gathered = flat[j, :, row]                          # (D, T_loc·k, R, d)
-    gathered = gathered * topw.reshape(dp, t_loc * k, 1, 1).to(
+    flat = torch.cat([out_buf.reshape(n, r, trash, d),
+                      out_buf.new_zeros(n, r, 1, d)], dim=2)
+    row = torch.where(slot2 >= 0, slot2, trash)
+    back = flat.gather(2, row[:, None, :, None].expand(-1, r, -1, d))
+    return back.transpose(0, 1)
+
+
+def _ep2d_home(reply, slot, topw):
+    """The combine at each token's home shard: reply (R, N, D·cs, d), the
+    output of each of its send rows at that row; slot as
+    ``_ep2d_dispatch`` gives it; topw (N, T_loc, k) (the weights never
+    left home).  Returns (R, N·T_loc, d), partial over the ranks."""
+    r, n, rt, d = reply.shape
+    _, t_loc, k = topw.shape
+    flat = torch.cat([reply, reply.new_zeros(r, n, 1, d)], dim=2)
+    idx = torch.where(slot >= 0, slot, rt)              # (N, T_loc·k)
+    gathered = flat.gather(2, idx[None, :, :, None].expand(r, -1, -1, d))
+    gathered = gathered * topw.reshape(1, n, t_loc * k, 1).to(
         gathered.dtype)
-    out = gathered.reshape(dp, t_loc, k, r, d).sum(dim=2)
-    return out.permute(2, 0, 1, 3).reshape(r, dp * t_loc, d)
+    return gathered.reshape(r, n, t_loc, k, d).sum(dim=3).reshape(
+        r, n * t_loc, d)
 
 
-def _ep2d_forward(params, xt, cfg, dp: int):
-    """``ep2d`` over xt (R, D·T_loc, d), the same on every rank: routing
-    and dispatch run once (they are the same on every rank), the expert
-    products on each rank's d_ff slice."""
+def _ep2d_combine(out_buf, slot, slot2, topw, *, ctx):
+    """The all-to-all back and the combine at home: out_buf (N, R, e_loc,
+    cap2, d) partial over the model ranks; slot, slot2 as
+    ``_ep2d_dispatch`` gives them; topw (N, T_loc, k).  Assignment a of
+    shard s sent to send row j·cs + p arrived at row s·cs + p of shard j;
+    its output is that row's buffer row (zero where dropped at either
+    dispatch).  Returns the output (R, N·T_loc, d), partial over the
+    ranks."""
+    reply = COL.all_to_all(_ep2d_reply(out_buf, slot2), ctx)
+    return _ep2d_home(reply, slot, topw)
+
+
+def _ep2d_forward(params, xs, cfg, ctx):
+    """``ep2d`` over xs (N, T_loc, d), each of the N data shards held here
+    one after the other: the D = ``ctx.dp`` shards on the rank axis, where
+    routing and dispatch run once for every rank (they are the same on
+    each), or this process's one.  The expert products run on each rank's
+    d_ff slice.  Returns (out (R, N·T_loc, d), partial over the ranks,
+    aux (N,))."""
     record = torch.profiler.record_function
-    r, t, d = xt.shape
-    t_loc, k = t // dp, cfg.num_experts_per_tok
-    e_loc, _ = local_sizes(cfg, r, dp)
-    if params["w_gate"].shape[:2] != (dp, r):
+    n, t_loc, d = xs.shape
+    dp, k = ctx.dp, cfg.num_experts_per_tok
+    e_loc, _ = local_sizes(cfg, ctx.tp, dp)
+    want = (n, ctx.local_ranks)
+    if params["w_gate"].shape[:2] != want:
         raise ValueError(f"ep2d expert weights hold (D, R) = "
                          f"{tuple(params['w_gate'].shape[:2])}, the input "
-                         f"({dp}, {r})")
-    xs = xt[0].reshape(dp, t_loc, d)
+                         f"{want}")
     with record(ROUTE_RANGE):
         topw, topi, aux = _route(xs, params["router"], cfg)
     cs = max(int(math.ceil(t_loc * k / dp * cfg.capacity_factor)), 4)
     cap2 = int(math.ceil(dp * cs / e_loc * cfg.capacity_factor))
-    # each all-to-all moves a device's D·cs rows of d (its send buffer)
-    a2a = dp * cs * d * xs.element_size()
     with record(DISPATCH_RANGE):
         buf, slot, slot2 = _ep2d_dispatch(xs, topi, e_loc=e_loc, cs=cs,
-                                          cap2=cap2)
-    COL.note("all-to-all", a2a, dp)
+                                          cap2=cap2, ctx=ctx)
     with record(EXPERTS_RANGE):
         out_buf = _expert_ffn(buf[:, None], params)
     with record(COMBINE_RANGE):
-        out = _ep2d_combine(out_buf, slot, slot2, topw, cs=cs)
-    COL.note("all-to-all", a2a, dp)
+        out = _ep2d_combine(out_buf, slot, slot2, topw, ctx=ctx)
     return out, aux
 
 
@@ -326,15 +360,25 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1, ctx=None):
     ``ctx`` (a ``CommCtx``) gives the model group's size tp and the model
     rank of the first local rank: under ``process_group`` R = 1 is model
     rank ``ctx.rank`` of ``ctx.tp``, and in ``expert`` mode it holds
-    experts [rank·E/tp, (rank+1)·E/tp).  Without one, the R local ranks
-    are all tp ranks (``expert``/``ffn``; ``ep2d`` runs on the rank
-    axes only)."""
+    experts [rank·E/tp, (rank+1)·E/tp).  For ``ep2d`` under
+    ``process_group`` x is this process's data shard's tokens (``dp`` is
+    1), D is the data group's size ``ctx.dp``, the weights are the
+    process's (1, 1, E/D, ...) and the all-to-alls go over the data group.
+    Without one, the R local ranks are all tp ranks."""
     r, b, s, d = x.shape
     tp, first = (r, 0) if ctx is None else (ctx.tp, ctx.rank)
     if b % dp:
         raise ValueError(f"{b} rows do not split over {dp} data shards")
     if cfg.moe_partition == "ep2d":
-        out, aux = _ep2d_forward(params, x.reshape(r, b * s, d), cfg, dp)
+        if ctx is not None and ctx.process_group:
+            if dp != 1:
+                raise ValueError("a process holds one data shard's rows: "
+                                 "dp is the data group's, ctx.dp")
+            out, aux = _ep2d_forward(params, x.reshape(1, b * s, d), cfg,
+                                     ctx)
+            return out.reshape(r, b, s, d), aux
+        out, aux = _ep2d_forward(params, x[0].reshape(dp, b * s // dp, d),
+                                 cfg, CommCtx(tp=r, dp=dp))
         aux = aux.expand(r, dp) if dp > 1 else aux.expand(r)
         return out.reshape(r, b, s, d), aux
     t_loc = b * s // dp

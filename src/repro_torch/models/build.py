@@ -23,12 +23,16 @@ on their own (nothing crosses data shards in them).  ``specs`` reads
 the reference's layout off a parameter tree (``weights.py``).
 
 ``groups`` (``launch.mesh.init_groups``) puts the model on the
-``process_group`` backend: this process holds one model rank (params,
-caches and logits with a rank axis of 1) and every family's calls pass
-the groups on.  It is ported for the serving calls of every family but
-``ep2d`` at data size 1, and for the dense family's context-parallel
-decode over the data group; ``ep2d``, the batch over the data group, the
-verify step and training refuse it by name (ROADMAP.md)."""
+``process_group`` backend: this process holds one (data, model) rank
+(params, caches and logits with a rank axis of 1; an ``ep2d`` layer's
+experts of its data shard) and every family's calls pass the groups on.
+``ep`` is then the data group's size.  It is ported for the serving
+calls of every family, for the transformer families' batch over the
+data group (a process's calls take its data shard's rows; ``ep2d``'s
+all-to-alls go over the data group) and for the context-parallel decode
+of the transformer families and the hybrid over it; the verify step and
+training refuse it by name (ROADMAP.md), and the families without a data
+axis refuse one on either backend."""
 from __future__ import annotations
 
 import dataclasses
@@ -78,11 +82,15 @@ class ModelApi:
                 f"(ROADMAP.md)")
 
     def init(self, seed: int = 0, *, device=None, dtype=None):
-        """Random weights; with ``groups`` this process's model rank's
-        slice of the tp-rank weights drawn from ``seed``."""
+        """Random weights; with ``groups`` this process's (data, model)
+        rank's slice of the weights drawn from ``seed``: its model rank's
+        of every sharded leaf, and its data rank's of an ``ep2d`` expert
+        weight."""
         kw = {"ep": self.ep} if self.mod is transformer else {}
         if self.groups is not None:
             kw["rank"] = self.groups.model_rank
+            if self.cfg.is_moe and self.cfg.moe_partition == "ep2d":
+                kw["data_rank"] = self.groups.data_rank
         return self.mod.init_params(self.cfg, seed=seed, device=device,
                                     dtype=dtype, tp=self.tp, **kw)
 
@@ -159,21 +167,6 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
     if tp < 1 or ep < 1:
         raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
     mod = FAMILIES[cfg.family]
-    if groups is not None:
-        if cfg.family == "moe" and cfg.moe_partition == "ep2d":
-            raise NotImplementedError(
-                "ep2d over the process_group backend is not ported: its "
-                "all-to-alls need the data group (ROADMAP.md A19)")
-        if ep > 1 and not pcfg.seq_shard_kv:
-            raise NotImplementedError(
-                "the batch over the data group is not ported (ROADMAP.md "
-                "A19); the process_group backend takes context-parallel "
-                "decode (seq_shard_kv) at ep > 1")
-        if ep > 1 and cfg.family != "dense":
-            raise NotImplementedError(
-                f"context-parallel decode over the data group is ported "
-                f"for the dense family, not the {cfg.family} family "
-                f"(ROADMAP.md A19)")
     if ep > 1 and not (mod is transformer or (
             mod is hybrid and pcfg.seq_shard_kv)):
         raise NotImplementedError(

@@ -39,8 +39,10 @@ every shard.  A batch split over D is not ported for this family.
 
 With ``groups`` each process holds one model rank (R = 1: ``init_params(
 rank=)``, the shared block's ``lora_b`` cut on its rank axis, axis 1),
-the embedding's sum and the slots run over the model group, and the
-data size is 1 (``models.build`` refuses more; ROADMAP.md A19).
+the embedding's sum and the slots run over the model group; under
+``seq_shard_kv`` at a data group of D > 1 each data rank holds C/D slots
+of every shared cache and the shared block's decode combines over the
+data group (its batch over D stays unported, as on the rank axis).
 """
 from __future__ import annotations
 
@@ -136,8 +138,9 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
     """Invocation g of the shared attention block over every split.
     Prefill: the splits attend ``cache_inv``'s KV (earlier chunks) and
     every earlier split's; returns the chunk's (k, v, pos).  Decode: each
-    split writes and reads its own rows of ``cache_inv`` in place; returns
-    the cache dict."""
+    split writes and reads its own rows of ``cache_inv`` in place (under
+    ``seq_shard_kv`` its data rank's slots, combined over the data axis
+    that ``weave.ctx`` names); returns the cache dict."""
     acfg, lay = _shared_layout(cfg, weave.ctx.tp)
     p_eff = dict(shared["attn"])
     lora_a = shared["lora_a"][g]
@@ -159,7 +162,7 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
             rows = h.shape[1]
             a_part, _ = A.attn_decode(
                 p_eff, u, A.cache_rows(cache_inv, off, rows), **geo,
-                seq_shards=dp if pcfg.seq_shard_kv else None)
+                seq_shards=dp if pcfg.seq_shard_kv else None, ctx=weave.ctx)
             off += rows
         else:
             a_part, kv = A.attn_prefill(p_eff, u, kv_prefix=kv_prev,
@@ -189,20 +192,22 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     ``train``: no cache and none returned; each shared-block invocation
     and each Mamba-2 layer under ``remat`` when ``pcfg.remat``.
     ``groups``: this process holds one model rank of the model group (R
-    = 1) at data size 1."""
+    = 1) and, at ``dp`` > 1, one data rank of a context-parallel decode
+    (the whole batch, its C/D slots of each shared cache)."""
     _check_dp(dp, pcfg.seq_shard_kv)
     tp = TR._model_ranks(params, groups)
-    if groups is not None and (train or dp > 1):
+    if groups is not None and train:
         raise NotImplementedError(
-            "the hybrid family over the process_group backend serves at "
-            "data size 1 and does not train (ROADMAP.md A17, A19)")
+            "the hybrid family over the process_group backend does not "
+            "train (ROADMAP.md A17)")
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
+                       dp=1 if groups is None else dp)
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
                          ctx=ctx)
     # the complete embedding: every shared-block input reuses it
@@ -326,7 +331,9 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
     ``max_len`` per invocation) for ``batch`` rows on ``device`` (CUDA
     unless given); with ``seq_shard_kv`` the shared caches' ``max_len``
     slots lie over ``dp`` data shards, in the unsharded layout.  With
-    ``groups``, this process's model rank's (R = 1)."""
+    ``groups``, this process's model rank's (R = 1) and, under
+    ``seq_shard_kv``, its data rank's ``max_len`` / ``dp`` slots of each
+    shared cache."""
     device = resolve_device(device)
     _check_dp(dp, seq_shard_kv)
     if max_len % dp:
@@ -335,10 +342,11 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
     n_inv, _ = _n_groups(cfg)
     acfg = _shared_attn_cfg(cfg)
     ranks = None if groups is None else 1
+    slots = max_len if groups is None else max_len // dp
     return {"mamba": S.init_mamba2_state(batch, cfg, tp, cfg.num_layers,
                                          device=device, dtype=dtype,
                                          ranks=ranks),
-            "shared": [A.init_kv_cache(batch, max_len, acfg, tp,
+            "shared": [A.init_kv_cache(batch, slots, acfg, tp,
                                        dtype=dtype, device=device,
                                        ranks=ranks)
                        for _ in range(n_inv)]}

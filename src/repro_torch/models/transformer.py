@@ -15,12 +15,17 @@ The tp ranks sit on a leading rank axis R of one device
 the reference's pytree, activations are ``(R, B, S, d)``, and the
 AllReduce + residual + RMSNorm slots go through
 ``core.fused_collectives.comm_norm`` (kernel K1 in ``ring`` mode).  With
-``groups`` (``launch.mesh.init_groups``) each process holds one model
-rank instead, R = 1 (``init_params(rank=)``, ``weights.take_rank``), and
-the slots, the embedding's offsets, a MoE layer's experts and the LM
-head's shard follow ``CommCtx(backend="process_group")``; under
-``seq_shard_kv`` each data rank holds C/D slots of every full-attention
-cache and context-parallel decode combines over the data group.
+``groups`` (``launch.mesh.init_groups``) each process holds one (data,
+model) rank instead, R = 1 (``init_params(rank=, data_rank=)``,
+``weights.take_rank``), and the slots, the embedding's offsets, a MoE
+layer's experts and the LM head's shard follow
+``CommCtx(backend="process_group")``.  With the batch over the data
+group a process's batch is its data shard's rows alone (the weave, the
+fallback and the slots' token ownership follow them, as each shard's on
+the rank axis) and an ``ep2d`` layer's all-to-alls go over the data
+group; under ``seq_shard_kv`` each data rank holds C/D slots of every
+full-attention cache and context-parallel decode combines over the data
+group.
 
 The reference's ``data`` axis is the data rank axis D (``dp``), used two
 ways, as the reference uses it:
@@ -114,7 +119,8 @@ def layer_kinds(cfg: ModelConfig) -> List[LayerKind]:
 # --------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
-                tp: int = 1, ep: int = 1, rank: Optional[int] = None):
+                tp: int = 1, ep: int = 1, rank: Optional[int] = None,
+                data_rank: Optional[int] = None):
     """Random weights for ``tp`` ranks from a seeded ``torch.Generator`` on
     ``device`` (CUDA unless given), with the reference's scales (attention
     and MLP inputs d^-0.5, MLP down d_ff^-0.5, embedding 0.02, LM head
@@ -125,9 +131,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
     ``weights.from_jax_params`` instead.
 
     With ``rank``, model rank ``rank``'s weights alone
-    (``weights.take_rank`` of the tp-rank draw, the same values): each
-    leaf is drawn whole and cut at once, so the peak is one whole leaf
-    beside the rank's tree, never the whole model."""
+    (``weights.take_rank`` of the tp-rank draw, the same values; an
+    ``ep2d`` layer's experts at ``data_rank`` too): each leaf is drawn
+    whole and cut at once, so the peak is one whole leaf beside the
+    rank's tree, never the whole model."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has its own model module "
                          f"(models.build.build_model picks it)")
@@ -165,7 +172,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
         lp = {"attn": attn, "norm_attn": ones(), "norm_ffn": ones()}
         if cfg.is_moe:
             lp["moe"] = X.init_moe_params(gen, cfg, tp, ep, device=device,
-                                          dtype=dtype, rank=rank)
+                                          dtype=dtype, rank=rank,
+                                          data_rank=data_rank)
         else:
             lp["mlp"] = {"w_gate": rnd((d, f // tp), s),
                          "w_up": rnd((d, f // tp), s),
@@ -327,15 +335,20 @@ def _moe(params, h, cfg, dp: int, seq_shard_kv: bool, ctx: CommCtx):
     ``ep2d`` still dispatches every shard's copy of the tokens, as the
     reference's shards do, and keeps shard 0's output (all D are equal);
     ``expert``/``ffn`` have nothing to exchange.  ``ctx`` names the model
-    ranks the local ones are (a process's one under ``process_group``).
-    The aux loss is the same on every rank (routing reads the replicated
-    input): rank 0's, or this process's rank's."""
-    if dp > 1 and not seq_shard_kv:
-        out, aux = X.moe_forward(params, h, cfg, dp=dp)
-        return out, aux[0]
-    if dp > 1 and cfg.moe_partition == "ep2d":
-        out, aux = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg, dp=dp)
-        return out[:, :h.shape[1]], aux[0, :1]
+    ranks the local ones are (a process's one under ``process_group``),
+    and under ``process_group`` h is the process's own rows: its data
+    shard's (the batch over D) or its copy of the whole batch, routed
+    through the data group's all-to-alls for ``ep2d``.  The aux loss is
+    the same on every rank (routing reads the replicated input): rank
+    0's, or this process's rank's."""
+    if dp > 1 and not ctx.process_group:
+        if not seq_shard_kv:
+            out, aux = X.moe_forward(params, h, cfg, dp=dp)
+            return out, aux[0]
+        if cfg.moe_partition == "ep2d":
+            out, aux = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg,
+                                     dp=dp)
+            return out[:, :h.shape[1]], aux[0, :1]
     out, aux = X.moe_forward(params, h, cfg, ctx=ctx)
     return out, aux[:1]
 
@@ -579,21 +592,17 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     pass ``positions``, ``block_tables`` and ``packed_slots`` as CPU
     tensors and nothing is read back from the device.
 
-    ``groups``: this process holds one model rank of ``groups``'
-    model group (params with a rank axis of 1) and, at ``dp`` =
-    ``groups.data_size`` > 1, one data rank of a context-parallel decode.
+    ``groups``: this process holds one model rank of ``groups``' model
+    group (params with a rank axis of 1) and, at ``dp`` =
+    ``groups.data_size`` > 1, one data rank: ``tokens`` are its data
+    shard's rows (the batch over D) or, under ``pcfg.seq_shard_kv``, the
+    whole batch of a context-parallel decode.
     """
     tp = _model_ranks(params, groups)
-    if groups is not None:
-        if train:
-            raise NotImplementedError(
-                "training over the process_group backend is not ported "
-                "(autograd-aware collectives; ROADMAP.md)")
-        if dp > 1 and not pcfg.seq_shard_kv:
-            raise NotImplementedError(
-                "the batch over the data group is not ported; the "
-                "process_group backend takes context-parallel decode "
-                "(seq_shard_kv) at dp > 1")
+    if groups is not None and train:
+        raise NotImplementedError(
+            "training over the process_group backend is not ported "
+            "(autograd-aware collectives; ROADMAP.md)")
     b = tokens.shape[0]
     s = tokens.shape[1] + (0 if extra_embeds is None
                            else extra_embeds.shape[1])
@@ -602,8 +611,12 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     if train and (cache is not None or decode or packed):
         raise ValueError("a training forward takes no cache")
     paged_decode = decode and block_tables is not None and not packed
-    b_loc, dsplit = data_layout(b, dp, pcfg)
-    if dsplit > 1 and (packed or block_tables is not None):
+    # the data shards folded into this batch: under groups a process
+    # holds one shard's rows
+    b_loc, dsplit = (b, 1) if groups is not None else data_layout(b, dp,
+                                                                   pcfg)
+    if (dp > 1 and not pcfg.seq_shard_kv
+            and (packed or block_tables is not None)):
         raise ValueError("packed steps and the paged pool run at data size "
                          "1, as the reference's engine serves them")
     if positions is None:
@@ -806,9 +819,9 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
     shards, or (``seq_shard_kv``) every full-attention layer's
     ``max_len`` slots over them (shard d owning ``[d·C/D, (d+1)·C/D)``;
     the sliding-window ring buffers stay whole).  With ``groups`` the
-    cache is this process's: one rank's heads and, under
-    ``seq_shard_kv``, its data rank's C/D slots of each full-attention
-    layer."""
+    cache is this process's: one rank's heads and its data rank's part,
+    C/D slots of each full-attention layer under ``seq_shard_kv``, else
+    ``batch`` / D rows (its data shard's)."""
     device = resolve_device(device)
     if seq_shard_kv and max_len % dp:
         raise ValueError(f"max_len={max_len} does not split over {dp} "
@@ -817,8 +830,9 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
         raise ValueError(f"batch={batch} does not split over {dp} data "
                          f"shards")
     if groups is not None:
+        rows = batch if seq_shard_kv else batch // dp
         return [A.init_kv_cache(
-            batch, max_len // dp if seq_shard_kv and k.window == 0
+            rows, max_len // dp if seq_shard_kv and k.window == 0
             else max_len, cfg, tp, window=k.window, dtype=dtype,
             device=device, ranks=1) for k in layer_kinds(cfg)]
     return [A.init_kv_cache(batch, max_len, cfg, tp, window=k.window,

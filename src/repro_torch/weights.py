@@ -36,8 +36,10 @@ parameters of one process of a ``process_group`` model
 (``distributed/context.py``); ``take_rank`` cuts the same slice out of
 this package's dict.  Both cut each leaf on the axis ``_walk`` names for
 it: the leading axis of a layer's or the embedding's leaf, axis 1 of the
-hybrid's ``shared.lora_b``.  They take every family's tree but an
-``ep2d`` MoE's.
+hybrid's ``shared.lora_b``, and an ``ep2d`` expert weight's two leading
+(data, model) axes at (``data_rank``, r), (D, R, E/D, ...) -> (1, 1,
+E/D, ...): a process of a (data, model) mesh holds its data shard's
+experts' d_ff slice.
 
 ``from_jax_params`` also takes the reference's tree with torch leaves
 (``to_jax_layout``'s output, a checkpoint restored by
@@ -84,43 +86,55 @@ def _torch_tree(tree, device, dtype):
     return {k: one(k, v) for k, v in tree.items()}
 
 
-def _check_rank_slicing(cfg) -> None:
-    """One model rank's slice is cut for every tree but an ``ep2d`` MoE's,
-    whose experts also split over the data group (ROADMAP.md A19)."""
-    if cfg.family == "moe" and cfg.moe_partition == "ep2d":
-        raise NotImplementedError(
-            f"one rank's parameters are not cut for {cfg.name!r}: ep2d "
-            f"experts split over the data group too (ROADMAP.md A19)")
-
-
 def _narrow(t, axis: int, rank: int):
     """Rank ``rank``'s slice of ``t`` on ``axis`` (a view)."""
     return t[(slice(None),) * axis + (slice(rank, rank + 1),)]
 
 
-def take_rank(params, rank: int, cfg):
-    """This package's parameter dict at tp ranks -> model rank ``rank``'s:
-    every sharded leaf's slice on its rank axis as a copy of its own (so
-    the full tree can be freed), replicated leaves as they are."""
-    _check_rank_slicing(cfg)
+def _data_rank(cfg, data_rank):
+    """The data rank an ``ep2d`` tree is cut at (0 for other trees)."""
+    if cfg.family == "moe" and cfg.moe_partition == "ep2d":
+        if data_rank is None:
+            raise ValueError(f"{cfg.name!r} splits its experts over the "
+                             f"data axis too: pass data_rank")
+        return data_rank
+    return 0
+
+
+def _cut(t, kind, lead, rank, data_rank):
+    """Model rank ``rank``'s slice of a leaf of ``kind`` (a view): on axis
+    ``lead`` of a sharded leaf, on the (data, model) axes of an ``ep2d``
+    one."""
+    if kind == "ep2d":
+        return _narrow(_narrow(t, lead, data_rank), lead + 1, rank)
+    return _narrow(t, lead, rank)
+
+
+def take_rank(params, rank: int, cfg, data_rank=None):
+    """This package's parameter dict at tp ranks -> model rank ``rank``'s
+    (and, for an ``ep2d`` tree, data rank ``data_rank``'s): every sharded
+    leaf's slice on its rank axes as a copy of its own (so the full tree
+    can be freed), replicated leaves as they are."""
+    data_rank = _data_rank(cfg, data_rank)
 
     def cut(t, kind, lead):
-        if kind != "sharded":
+        if kind not in ("sharded", "ep2d"):
             return t
-        return _narrow(t, lead, rank).clone(
+        return _cut(t, kind, lead, rank, data_rank).clone(
             memory_format=torch.contiguous_format)
     return _walk(params, cfg, None, cut, None, layer_axis=False)
 
 
 def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None,
-                    rank=None):
+                    rank=None, data_rank=None):
     """Reference pytree (numpy leaves) -> this package's parameter dict,
     on ``device`` (CUDA unless given); with ``rank``, model rank
-    ``rank``'s parameters alone (a rank axis of size 1), cut from views
-    before anything is copied."""
+    ``rank``'s parameters alone (a rank axis of size 1; an ``ep2d``
+    tree's experts at ``data_rank`` too), cut from views before anything
+    is copied."""
     device = resolve_device(device)
     if rank is not None:
-        _check_rank_slicing(cfg)
+        data_rank = _data_rank(cfg, data_rank)
 
     def layers(tree, n):
         if "layer_0" in tree:
@@ -142,7 +156,7 @@ def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None,
             return t[0]
         if kind == "per_invocation":
             return t[:, 0]
-        return t if rank is None else _narrow(t, lead, rank)
+        return t if rank is None else _cut(t, kind, lead, rank, data_rank)
     return _torch_tree(_walk(tree, cfg, pcfg, leaf, None, layer_axis=False),
                        device, dtype)
 

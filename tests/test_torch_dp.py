@@ -861,16 +861,24 @@ def test_build_refuses_a_data_axis_where_unported(name):
         assert api.ep == 2
 
 
-@pytest.mark.parametrize("entry", ["init", "init_cache"])
+@pytest.mark.parametrize("entry", ["init", "init_cache", "init_rank"])
 def test_data_axis_entry_points_default_to_cuda(entry, monkeypatch):
     """``ep`` and ``dp`` change no device: without one the weights and
-    the caches go to CUDA and raise where there is none."""
+    the caches go to CUDA and raise where there is none, one (data,
+    model) rank's weights under groups (``init(rank=, data_rank=)``)
+    too."""
+    from repro_torch.distributed.context import Groups
     cfg = tbase.ModelConfig(**dataclasses.asdict(
         jconfigs.get_config(EP2D).reduced()))
     api = t_build_model(cfg, tbase.ParallelConfig(), tp=2, ep=2)
+    one = t_build_model(cfg, tbase.ParallelConfig(), tp=2, ep=2,
+                        groups=Groups(model=None, data=None, model_rank=1,
+                                      data_rank=1, model_size=2,
+                                      data_size=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {"init": lambda: api.init(0),
-             "init_cache": lambda: api.init_cache(4, 16)}
+             "init_cache": lambda: api.init_cache(4, 16),
+             "init_rank": lambda: one.init(0)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     params = api.init(0, device="cpu")

@@ -5,12 +5,19 @@ the rank-axis path on the same inputs and, at tp=2, to the JAX reference.
 Two worlds are spawned once for the module (``torch.multiprocessing.spawn``,
 a ``file://`` store): world 2 runs the meshes (data 1, model 2) and
 (data 2, model 1), world 4 the meshes (data 1, model 4) and (data 2,
-model 2); world 2 then runs ``launch.serve``'s main.  Every rank runs
-every case of a mesh and writes its results to an ``.npz``; the tests
-read them and compute the rank-axis side here.
-The reference runs at tp=2 in one subprocess (XLA host devices,
-``conftest.run_distributed``) on weights the port draws and hands over in
-the reference's layout (``weights.to_jax_layout``), while the worlds run.
+model 2); world 2 then runs ``launch.serve``'s main (the reduced
+qwen3-moe-235b-a22b, ``ep2d``, among its models).  Every rank runs every
+case of a mesh and writes its results to an ``.npz``; the tests read
+them and compute the rank-axis side here.  The data meshes run the data
+group: ``all_to_all``, the batch over it (the ep2d model and the tiny
+dense model at (2, 2), each process its data shard's rows) and
+context-parallel decode over it (zamba2-7b and olmoe-1b-7b at (2, 2),
+the ep2d model at (2, 1)).
+The reference runs on 4 XLA host devices in one subprocess
+(``conftest.run_distributed``), at tp=2 and, for the ep2d model with the
+batch over data, at (data 2, model 2), on weights the port draws and
+hands over in the reference's layout (``weights.to_jax_layout``), while
+the worlds run.
 
 Comm mode ``ring`` runs K1's cross-rank wrapper, whose CPU form is its
 plain version over the group (``kernels/ar_rmsnorm_peer.py``): held to the
@@ -93,6 +100,15 @@ def _coll_inputs(tp, dp=1, seed=0):
     x *= np.exp2(rng.randint(-6, 6, size=x.shape)).astype(np.float32)
     y = rng.randn(dp, 40).astype(np.float32)
     return x, y
+
+
+def _a2a_inputs(tp, dp):
+    """(R, D, N, 6) rows, N = 4·D, with magnitudes over 12 binades, and
+    (1, D, N) integer tags."""
+    rng = np.random.RandomState(30 + 10 * tp + dp)
+    x = rng.randn(tp, dp, 4 * dp, 6).astype(np.float32)
+    x *= np.exp2(rng.randint(-6, 6, size=x.shape)).astype(np.float32)
+    return x, rng.randint(-1, 9, size=(1, dp, 4 * dp))
 
 
 def _wire_input(tp):
@@ -226,6 +242,16 @@ def _case_collectives(groups, out, dp):
         yt = yt if dtype == "f32" else yt.bfloat16()
         out[f"psum_dp/{key}"] = TCL.psum_dp(yt, ctx).float().numpy()
         out[f"pmax_dp/{key}"] = TCL.pmax_dp(yt, ctx).float().numpy()
+    if dp > 1:
+        a, ids = _a2a_inputs(tp, dp)
+        ctx = CommCtx(tp=tp, dp=dp, backend="process_group", groups=groups)
+        for dtype in ("f32", "bf16"):
+            x = torch.from_numpy(a[r:r + 1, d:d + 1])
+            x = x if dtype == "f32" else x.bfloat16()
+            rows, tags = TCL.all_to_all(x, ctx, ids=torch.from_numpy(
+                ids[:, d:d + 1]))
+            out[f"a2a/{dtype}"] = rows.float().numpy()
+            out[f"a2a/{dtype}/ids"] = tags.numpy()
     if dp == 1:
         w = torch.from_numpy(_wire_input(tp)[r:r + 1]).bfloat16()
         for wire in (False, True):
@@ -400,6 +426,276 @@ def _case_cp_decode(groups, out):
             out[f"cp/{n}{i}"] = lay[n].numpy()
 
 
+# --------------------------------------------------------------------------
+# the data group: the batch over it, ep2d's all-to-alls, context-parallel
+# decode of every family that has one
+# --------------------------------------------------------------------------
+
+EP2D = "qwen3-moe-235b-a22b"
+EP2D_SEED = 6
+# the ep2d model at D = 2 x R = 2, the batch over data: (phase, the weave
+# splits) -> (global rows, seed); 16 decode rows a data shard reach the
+# decode split's floor at tp=2
+DATA_CASES = {("prefill", True): (4, 81), ("decode", True): (32, 82),
+              ("decode", False): (8, 83)}
+DATA_MODES = ("fused", "ring")
+DATA_LEN = 48                     # prefill tokens a row: the weave cuts them
+DATA_SLOTS = 32                   # decode cache cells
+CP_FAMILIES = ("zamba2-7b", "olmoe-1b-7b")   # at (2, 2); ep2d at (2, 1)
+CP_ROWS, CP_SLOTS = 2, 64         # the ep2d model decodes one row
+
+
+def _ep2d_cfg():
+    from repro_torch.configs import get_config
+    return get_config(EP2D).reduced()
+
+
+def _ep2d_params(tp, dp):
+    return TT.init_params(_ep2d_cfg(), seed=EP2D_SEED, device="cpu", tp=tp,
+                          ep=dp)
+
+
+def _data_inputs(cfg, tp, phase, b, seed):
+    """A case of DATA_CASES (numpy, the rank axis's layout): prefill
+    tokens (b, DATA_LEN); or a decode step's tokens and positions (row 1
+    free) over a random slot cache of DATA_SLOTS cells per layer, k/v
+    (tp, b, C, kv heads / tp, dh)."""
+    rng = np.random.RandomState(seed)
+    if phase == "prefill":
+        return {"tokens": rng.randint(0, cfg.vocab_size, (b, DATA_LEN))}
+    lay = TT.A.attention_layout(tp, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim)
+    lengths = rng.randint(1, DATA_SLOTS - 4, size=b)
+    cache = []
+    for _ in range(cfg.num_layers):
+        shape = (tp, b, DATA_SLOTS, lay.kv_store, cfg.head_dim)
+        pos = np.full((b, DATA_SLOTS), -1, np.int32)
+        for i, n in enumerate(lengths):
+            pos[i, :n] = np.arange(n)
+        cache.append({"k": rng.randn(*shape).astype(np.float32),
+                      "v": rng.randn(*shape).astype(np.float32),
+                      "pos": pos})
+    positions = lengths[:, None].astype(np.int32)
+    positions[1, 0] = -1
+    return {"cache": cache, "positions": positions,
+            "tokens": rng.randint(0, cfg.vocab_size, (b, 1))}
+
+
+def _ref_cache_np(cache):
+    """A ``_data_inputs`` cache -> the reference's stacked layout: k/v (L,
+    B, C, kv heads, dh), pos (L, B, C)."""
+    def heads(a):
+        a = np.moveaxis(a, 0, 2)
+        return a.reshape(a.shape[:2] + (-1,) + a.shape[4:])
+    return {"k": np.stack([heads(c["k"]) for c in cache]),
+            "v": np.stack([heads(c["v"]) for c in cache]),
+            "pos": np.stack([c["pos"] for c in cache])}
+
+
+def _cut(full, like, groups):
+    """This process's part of a rank-axis tree: on each axis where the
+    process's tree (``like``) is smaller, the model rank's slice (1 of
+    tp) or the data rank's (1/D of the rows or of the slots)."""
+    from test_torch_pg_families import _leaves, _map
+    shapes = {p: t.shape for p, t in _leaves(like)}
+    tp, dp = groups.model_size, groups.data_size
+    r, d = groups.model_rank, groups.data_rank
+
+    def cut(path, t):
+        for a, (m, n) in enumerate(zip(t.shape, shapes[path])):
+            if m == n:
+                continue
+            if n == 1 and m == tp:
+                t = t.narrow(a, r, 1)
+            elif m == n * dp:
+                t = t.narrow(a, d * n, n)
+            else:
+                raise AssertionError((path, t.shape, shapes[path]))
+        return t.contiguous()
+    return _map(cut, full)
+
+
+class _decisions:
+    """Every ``weave_decision_info`` call's (b, s, decode, weave, split,
+    reason) while the block runs."""
+
+    def __enter__(self):
+        self.orig, self.infos = TT.weave_decision_info, []
+
+        def record(b, s, **kw):
+            info = self.orig(b, s, **kw)
+            self.infos.append([b, s, bool(kw.get("decode")), info.weave,
+                               list(info.split or []), info.reason])
+            return info
+        TT.weave_decision_info = record
+        return self.infos
+
+    def __exit__(self, *exc):
+        TT.weave_decision_info = self.orig
+        return False
+
+
+def _data_run(api, params, inp, rows=None, rank=None):
+    """One DATA_CASES step through ``api``: (logits, the chunk's KV or the
+    cache, the decisions); ``rows`` and ``rank`` cut the inputs to one
+    process's data shard and model rank."""
+    rows = slice(None) if rows is None else rows
+    tokens = torch.from_numpy(inp["tokens"][rows])
+    with _decisions() as infos, torch.no_grad():
+        if "cache" not in inp:
+            lg, kv = api.prefill(params, tokens, None, None)
+            kv = [{"k": k, "v": v, "pos": p} for k, v, p in kv]
+        else:
+            cache = _torch_cache([{n: a[:, rows] if n != "pos" else a[rows]
+                                   for n, a in c.items()}
+                                  for c in inp["cache"]], rank)
+            lg, kv = api.decode_step(
+                params, tokens, cache,
+                torch.from_numpy(inp["positions"][rows]))
+    return lg, kv, infos
+
+
+def _case_data_batch(groups, out):
+    """The batch over the data group at (2, 2): the ep2d model in every
+    DATA_CASES step, the tiny dense model's prefill and two decode steps,
+    in ``fused`` and ``ring``; each process runs its data shard's rows."""
+    tp, dp = groups.model_size, groups.data_size
+    r, d = groups.model_rank, groups.data_rank
+    cfg = _ep2d_cfg()
+    for mode in DATA_MODES:
+        api = build_model(cfg, _pcfg(comm_mode=mode), tp=tp, ep=dp,
+                          groups=groups)
+        params = api.init(EP2D_SEED, device="cpu")
+        for (phase, weave), (b, seed) in DATA_CASES.items():
+            inp = _data_inputs(cfg, tp, phase, b, seed)
+            n = b // dp
+            lg, kv, infos = _data_run(api, params, inp,
+                                      slice(d * n, (d + 1) * n), r)
+            key = f"data/ep2d/{mode}/{phase}/{int(weave)}"
+            out[key + "/logits"] = lg.numpy()
+            out[key + "/decisions"] = np.asarray(json.dumps(infos))
+            for i, layer in enumerate(kv):
+                for name, t in layer.items():
+                    out[f"{key}/{name}{i}"] = t.numpy()
+    dense = take_rank(_params(tp), r, _cfg())
+    for mode in DATA_MODES:
+        api = build_model(_cfg(), _pcfg(comm_mode=mode), tp=tp, ep=dp,
+                          groups=groups)
+        for i, lg, tok, cache in _dense_data_steps(api, dense, d, r):
+            key = f"data/dense/{mode}/{i}"
+            out[key + "/logits"] = lg.numpy()
+            if tok is not None:
+                out[key + "/tokens"] = tok.numpy()
+            for j, layer in enumerate(cache):      # the next step
+                for name, t in layer.items():      # writes in place
+                    out[f"{key}/{name}{j}"] = t.numpy().copy()
+
+
+def _dense_data_steps(api, params, d=None, r=None):
+    """The tiny dense model with the batch over the data axis: a prefill
+    of 4 rows (the weave cutting each shard's rows; row 1 ends in 5
+    padding tokens), then two greedy decode steps of 8 rows over a random
+    cache.  Yields (step, logits, tokens, the prefill's chunk KV or the
+    cache); ``d`` and ``r`` cut the rows and heads to one process's."""
+    dp = api.ep
+
+    def rows(b):
+        return slice(None) if d is None else slice(d * b // dp,
+                                                   (d + 1) * b // dp)
+    rng = np.random.RandomState(90)
+    b = 4
+    tokens = torch.from_numpy(rng.randint(0, CFG["vocab_size"],
+                                          (b, DATA_LEN)))
+    positions = torch.arange(DATA_LEN, dtype=torch.int32).repeat(b, 1)
+    positions[1, -5:] = -1
+    with torch.no_grad():
+        lg, kv = api.prefill(params, tokens[rows(b)], None,
+                             positions[rows(b)])
+    yield 0, lg, None, [{"k": k, "v": v, "pos": p} for k, v, p in kv]
+    layers, dtok, lengths = _cache_inputs(api.tp, 8, 32, seed=91)
+    sl = rows(8)
+    cache = _torch_cache([{"k": c["k"][:, sl], "v": c["v"][:, sl],
+                           "pos": c["pos"][sl]} for c in layers], r)
+    tok, pos = torch.from_numpy(dtok)[sl], _decode_positions(lengths)[sl]
+    for i in (1, 2):
+        with torch.no_grad():
+            lg, cache = api.decode_step(params, tok, cache, pos)
+        tok = sample(lg, vocab_size=CFG["vocab_size"],
+                     ctx=api.comm_ctx)[:, None]
+        yield i, lg, tok, cache
+        pos = torch.where(pos >= 0, pos + 1, pos)
+
+
+def _cp_model(name, tp, dp):
+    """A context-parallel case's (cfg, pcfg, rank-axis weights): the
+    reduced model at (dp, tp) under ``seq_shard_kv``, the CP_FAMILIES'
+    weights perturbed as tests/test_torch_pg_families.py draws them."""
+    from test_torch_pg_families import _params as family_params
+    pcfg = _pcfg(seq_shard_kv=True)
+    if name == EP2D:
+        return _ep2d_cfg(), pcfg, _ep2d_params(tp, dp)
+    from repro_torch.configs import get_config
+    return get_config(name).reduced(), pcfg, family_params(name)
+
+
+def _cp_cache(api, rows):
+    """A random rank-axis cache of ``rows`` rows and CP_SLOTS cells
+    (floats 0.5·N(0, 1), row i holding ``lengths[i]`` positions), and
+    the first step's tokens and positions."""
+    from test_torch_pg_families import _map
+    rng = np.random.RandomState(95)
+    lengths = rng.randint(41, CP_SLOTS - 4, size=rows)
+
+    def fill(path, t):
+        if t.dtype.is_floating_point:
+            return torch.from_numpy(
+                (0.5 * rng.randn(*t.shape)).astype(np.float32))
+        pos = np.full(t.shape, -1, np.int32)
+        for i, n in enumerate(lengths):
+            pos[i, :n] = np.arange(n)
+        return torch.from_numpy(pos)
+    cache = _map(fill, api.init_cache(rows, CP_SLOTS, device="cpu"))
+    tokens = torch.from_numpy(rng.randint(0, api.cfg.vocab_size, (rows, 1)))
+    return cache, tokens, torch.from_numpy(lengths[:, None].astype(np.int32))
+
+
+def _cp_steps(api, params, cache, tok, pos):
+    """Two greedy context-parallel decode steps: [(logits, tokens)] and
+    the cache, updated in place."""
+    steps = []
+    for _ in range(2):
+        with torch.no_grad():
+            lg, cache = api.decode_step(params, tok, cache, pos)
+        tok = sample(lg, vocab_size=api.cfg.vocab_size,
+                     ctx=api.comm_ctx)[:, None]
+        steps.append((lg, tok))
+        pos = pos + 1
+    return steps, cache
+
+
+def _case_cp_families(groups, out):
+    """Context-parallel decode over the data group: CP_FAMILIES at (2, 2),
+    the ep2d model at (2, 1), one row of each data rank's C/D slots."""
+    from test_torch_pg_families import _leaves
+    tp, dp, r = groups.model_size, groups.data_size, groups.model_rank
+    for name in (CP_FAMILIES if tp == 2 else (EP2D,)):
+        cfg, pcfg, full = _cp_model(name, tp, dp)
+        axis = build_model(cfg, pcfg, tp=tp, ep=dp)
+        api = build_model(cfg, pcfg, tp=tp, ep=dp, groups=groups)
+        params = (api.init(EP2D_SEED, device="cpu") if name == EP2D
+                  else take_rank(full, r, cfg))
+        rows = 1 if name == EP2D else CP_ROWS
+        cache, tok, pos = _cp_cache(axis, rows)
+        cache = _cut(cache, api.init_cache(rows, CP_SLOTS, device="cpu"),
+                     groups)
+        steps, cache = _cp_steps(api, params, cache, tok, pos)
+        for i, (lg, t) in enumerate(steps):
+            out[f"cpf/{name}/logits{i}"] = lg.numpy()
+            out[f"cpf/{name}/tokens{i}"] = t.numpy()
+        for path, t in _leaves(cache):
+            out[f"cpf/{name}/cache/{path}"] = t.numpy()
+
+
 def _worker(rank, world, tmp, ref_path):
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     torch.set_num_threads(1)
@@ -419,10 +715,14 @@ def _worker(rank, world, tmp, ref_path):
             _case_model(groups, out)
             _case_engine(groups, out)
             if n_model == 2:
-                ref_params = dict(np.load(ref_path))
+                ref_params = {k: v for k, v in np.load(ref_path).items()
+                              if not k.startswith("ep2d/")}
                 _case_reference(groups, out, _nest(ref_params))
         else:
             _case_cp_decode(groups, out)
+            _case_cp_families(groups, out)
+            if n_model == 2:
+                _case_data_batch(groups, out)
         np.savez(f"{tmp}/{n_data}x{n_model}_r{rank}.npz", **out)
         dist.destroy_process_group()
     if world == 2:
@@ -433,23 +733,27 @@ SERVE = ["--arch", "llama3.3-70b", "--reduced", "--prompt-lens", "20,9",
          "--new-tokens", "3", "--seed", "2"]
 
 
+SERVE_EP2D = ["--arch", EP2D, "--reduced", "--prompt-lens", "20,9",
+              "--new-tokens", "3", "--seed", "2", "--comm-mode", "ring"]
+
+
 def _case_serve(rank, tmp):
     """``launch.serve``'s main in a world of 2 over gloo, in comm modes
-    ``fused`` (its default) and ``ring``."""
+    ``fused`` (its default) and ``ring``, and the ep2d model in ``ring``
+    (data size 1: every expert on both ranks, each expert's d_ff split)."""
     import contextlib
     import io
     from repro_torch.launch import serve
-    for mode in ("fused", "ring"):
+    for name, argv in (("serve", SERVE), ("serve_ring",
+                                          SERVE + ["--comm-mode", "ring"]),
+                       ("serve_ep2d", SERVE_EP2D)):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = serve.main(SERVE + ["--device", "cpu",
-                                     "--init-method",
-                                     f"file://{tmp}/store_serve_{mode}",
-                                     "--rank", str(rank), "--world-size",
-                                     "2"]
-                            + (["--comm-mode", mode] if mode != "fused"
-                               else []))
-        name = "serve" if mode == "fused" else f"serve_{mode}"
+            rc = serve.main(argv + ["--device", "cpu",
+                                    "--init-method",
+                                    f"file://{tmp}/store_{name}",
+                                    "--rank", str(rank), "--world-size",
+                                    "2"])
         np.savez(f"{tmp}/{name}_r{rank}.npz", rc=np.asarray(rc),
                  line=np.asarray(buf.getvalue()))
 
@@ -484,7 +788,8 @@ def _flat(tree, prefix=""):
 # --------------------------------------------------------------------------
 
 _JAX_SIDE = r"""
-import json
+import json, sys
+sys.path.insert(0, TESTS_)
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import PartitionSpec as P
 from repro.configs.base import ModelConfig, ParallelConfig
@@ -495,7 +800,7 @@ from repro.runtime.requests import Request
 from repro.runtime.scheduler import SchedulerConfig
 
 CFG, PCFG, TRACES, PARAMS, OUT = CFG_, PCFG_, TRACES_, PARAMS_, OUT_
-mesh = jax.make_mesh((1, 2), ('data', 'model'),
+mesh = jax.make_mesh((1, 2), ('data', 'model'), devices=jax.devices()[:2],
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 cfg = ModelConfig(**CFG)
 pcfg = ParallelConfig(comm_mode='fused', use_pallas_norm=False, **PCFG)
@@ -507,6 +812,7 @@ for key, a in np.load(PARAMS).items():
     for p in path:
         node = node.setdefault(p, {})
     node[leaf] = jnp.asarray(a)
+ep2d = tree.pop('ep2d')
 out = {}
 for name, (sched, traces) in TRACES.items():
     jit_cache, toks = {}, []
@@ -532,6 +838,53 @@ f = jax.jit(jax.shard_map(
     mesh=mesh, in_specs=(api.specs(), P(), api.cache_specs(), P(), P()),
     out_specs=P(None, None, 'model'), check_vma=False))
 out['ref/logits'] = np.asarray(f(tree, tokens, cache, positions, last))
+
+# the ep2d model at (data 2, model 2), the batch over data, in 'fused'
+# (the reference's 'ring' without Pallas falls back to it)
+import test_torch_pg as PG
+from repro import configs as C
+from repro.models import transformer as JT
+decisions = []
+orig_info = JT.weave_decision_info
+def record(b, s, **kw):
+    info = orig_info(b, s, **kw)
+    decisions.append([b, s, bool(kw.get('decode')), info.weave,
+                      list(info.split or []), info.reason])
+    return info
+JT.weave_decision_info = record
+m22 = jax.make_mesh((2, 2), ('data', 'model'),
+                    axis_types=(jax.sharding.AxisType.Auto,) * 2)
+cfg = C.get_config(PG.EP2D).reduced()
+pcfg = ParallelConfig(comm_mode='fused', use_pallas_norm=False, **PCFG)
+api = build_model(cfg, pcfg, tp=2, ep=2)
+for (phase, weave), (b, seed) in PG.DATA_CASES.items():
+    if phase == 'decode' and not weave:
+        continue
+    inp = PG._data_inputs(PG._ep2d_cfg(), 2, phase, b, seed)
+    tok = inp['tokens'].astype(np.int32)
+    decisions.clear()
+    if phase == 'prefill':
+        pos = np.broadcast_to(np.arange(PG.DATA_LEN, dtype=np.int32),
+                              tok.shape).copy()
+        g = jax.jit(jax.shard_map(
+            lambda p, t, ps: T.prefill(p, t, None, cfg=cfg, pcfg=pcfg,
+                                       positions=ps)[0],
+            mesh=m22, in_specs=(api.specs(), P('data'), P('data')),
+            out_specs=P('data', None, 'model'), check_vma=False))
+        lg = g(ep2d, tok, pos)
+    else:
+        cache = {k: jnp.asarray(v)
+                 for k, v in PG._ref_cache_np(inp['cache']).items()}
+        g = jax.jit(jax.shard_map(
+            lambda p, t, c, ps: T.decode_step(p, t, c, cfg=cfg, pcfg=pcfg,
+                                              positions=ps)[0],
+            mesh=m22, in_specs=(api.specs(), P('data'), api.cache_specs(),
+                                P('data')),
+            out_specs=P('data', None, 'model'), check_vma=False))
+        lg = g(ep2d, tok, cache, inp['positions'])
+    out[f'ep2d/{phase}/logits'] = np.asarray(lg)
+    out[f'ep2d/{phase}/decisions'] = np.asarray(json.dumps(decisions))
+JT.weave_decision_info = orig_info
 np.savez(OUT, **out)
 print('PASS')
 """
@@ -540,7 +893,9 @@ print('PASS')
 def _reference_code(params_path, out_path):
     code = _JAX_SIDE
     traces = {k: (sched, v) for k, (sched, v) in ENGINE_TRACES.items()}
-    for key, val in (("CFG_", repr(CFG)), ("PCFG_", repr(PCFG)),
+    for key, val in (("TESTS_", repr(os.path.dirname(
+                         os.path.abspath(__file__)))),
+                     ("CFG_", repr(CFG)), ("PCFG_", repr(PCFG)),
                      ("TRACES_", repr(traces)),
                      ("PARAMS_", repr(str(params_path))),
                      ("OUT_", repr(str(out_path)))):
@@ -556,6 +911,8 @@ def worlds(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pg")
     params = _params(2)
     flat = _flat(to_jax_layout(params, _cfg(), _pcfg()))
+    flat.update(_flat(to_jax_layout(_ep2d_params(2, 2), _ep2d_cfg(),
+                                    _pcfg()), "ep2d/"))
     np.savez(tmp / "ref_params.npz", **flat)
     ref_error = []
 
@@ -563,7 +920,7 @@ def worlds(tmp_path_factory):
         try:
             run_distributed(_reference_code(tmp / "ref_params.npz",
                                             tmp / "ref.npz"),
-                            n_devices=2, timeout=600)
+                            n_devices=4, timeout=600)
         except BaseException as e:           # re-raised after the join
             ref_error.append(e)
     ref = threading.Thread(target=reference)
@@ -594,7 +951,7 @@ def worlds(tmp_path_factory):
     got = {mesh: [dict(np.load(tmp / f"{mesh[0]}x{mesh[1]}_r{w}.npz"))
                   for w in range(mesh[0] * mesh[1])]
            for meshes in WORLDS.values() for mesh in meshes}
-    for name in ("serve", "serve_ring"):
+    for name in ("serve", "serve_ring", "serve_ep2d"):
         got[name] = [dict(np.load(tmp / f"{name}_r{w}.npz"))
                      for w in range(2)]
     got["ref"] = dict(np.load(tmp / "ref.npz"))
@@ -864,6 +1221,246 @@ def test_cp_decode_matches_rank_axis(worlds, mesh):
 
 
 # --------------------------------------------------------------------------
+# the data group: all_to_all, the batch over it, CP decode of the families
+# --------------------------------------------------------------------------
+
+def _close_leaf(got, want):
+    """Within 1e-5 of max(1, the leaf's largest magnitude)."""
+    want = np.asarray(want, np.float32)
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_all_to_all_matches_rank_axis(worlds, mesh, dtype):
+    """``collectives.all_to_all`` over the data group (gloo's
+    ``all_to_all_single``) equals the rank axis's index op bit for bit,
+    rows and the ids that ride with them."""
+    dp, tp = mesh
+    a, ids = _a2a_inputs(tp, dp)
+    x = torch.from_numpy(a)
+    x = x if dtype == "f32" else x.bfloat16()
+    want, want_ids = TCL.all_to_all(x, CommCtx(tp=tp, dp=dp),
+                                    ids=torch.from_numpy(ids))
+    assert not torch.equal(want_ids, torch.from_numpy(ids))
+    for w, got in enumerate(worlds[mesh]):
+        d, r = divmod(w, tp)
+        np.testing.assert_array_equal(got[f"a2a/{dtype}"],
+                                      want[r:r + 1, d:d + 1].float().numpy())
+        np.testing.assert_array_equal(got[f"a2a/{dtype}/ids"],
+                                      want_ids[:, d:d + 1].numpy())
+
+
+_DATA_AXIS = {}
+
+
+def _data_axis(mode, case):
+    """The rank axis's (logits, KV or cache, decisions) of a DATA_CASES
+    step at D = 2 x R = 2, once per test session."""
+    if (mode, case) not in _DATA_AXIS:
+        cfg = _ep2d_cfg()
+        api = build_model(cfg, _pcfg(comm_mode=mode), tp=2, ep=2)
+        b, seed = DATA_CASES[case]
+        _DATA_AXIS[mode, case] = _data_run(
+            api, _ep2d_params(2, 2), _data_inputs(cfg, 2, case[0], b, seed))
+    return _DATA_AXIS[mode, case]
+
+
+def _check_shard_layers(got, key, layers, d, r, n):
+    """Each layer's KV or cache leaves of data shard d, model rank r (n
+    rows a shard) against the rank axis's."""
+    rows = slice(d * n, (d + 1) * n)
+    for i, layer in enumerate(layers):
+        for name, t in layer.items():
+            if name == "pos":
+                np.testing.assert_array_equal(got[f"{key}/{name}{i}"],
+                                              t[rows].numpy())
+            else:
+                _close_leaf(got[f"{key}/{name}{i}"],
+                            t[r:r + 1, rows].numpy())
+
+
+@pytest.mark.parametrize("case", list(DATA_CASES),
+                         ids=["prefill_weave", "decode_split",
+                              "decode_unsplit"])
+@pytest.mark.parametrize("mode", DATA_MODES)
+def test_ep2d_batch_over_data_group_matches_rank_axis(worlds, mode, case):
+    """The reduced qwen3-moe-235b-a22b (``ep2d``) at (data 2, model 2),
+    each process on its data shard's rows, its experts' d_ff slice and the
+    data group's all-to-alls: logits within 1e-5 and KV within 1e-5 of
+    max(1, |leaf|) of the rank axis's at D = 2 x R = 2, and every forward's
+    weave decision (made on one shard's rows) the rank axis's."""
+    lg, kv, infos = _data_axis(mode, case)
+    phase, weave = case
+    n = DATA_CASES[case][0] // 2
+    key = f"data/ep2d/{mode}/{phase}/{int(weave)}"
+    assert infos[0][0] == n and infos[0][3] == weave
+    for w, got in enumerate(worlds[(2, 2)]):
+        d, r = divmod(w, 2)
+        assert json.loads(str(got[key + "/decisions"])) == infos
+        _close(got[key + "/logits"], lg[r:r + 1, d * n:(d + 1) * n].numpy())
+        _check_shard_layers(got, key, kv, d, r, n)
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("mode", DATA_MODES)
+def test_ep2d_batch_over_data_group_matches_reference(worlds, mode, phase):
+    """The same model against the JAX reference's ``shard_map`` at (data 2,
+    model 2) on the same weights: a woven prefill and a decode step whose
+    batch split takes rows of both shards; logits within 1e-4, and the
+    reference's weave decisions."""
+    case = (phase, True)
+    want = worlds["ref"][f"ep2d/{phase}/logits"]      # (B, 1, V_pad)
+    n = DATA_CASES[case][0] // 2
+    key = f"data/ep2d/{mode}/{phase}/1"
+    for w, got in enumerate(worlds[(2, 2)]):
+        d, r = divmod(w, 2)
+        v_loc = got[key + "/logits"].shape[-1]
+        _close(got[key + "/logits"][0],
+               want[d * n:(d + 1) * n, :, r * v_loc:(r + 1) * v_loc],
+               TOL_REF)
+        assert json.loads(str(got[key + "/decisions"])) == json.loads(
+            str(worlds["ref"][f"ep2d/{phase}/decisions"]))
+
+
+@pytest.mark.parametrize("mode", DATA_MODES)
+def test_dense_batch_over_data_group_matches_rank_axis(worlds, mode):
+    """The tiny dense model at (data 2, model 2) with the batch over data:
+    a woven prefill and two greedy decode steps, logits within 1e-5,
+    tokens equal, KV and caches within 1e-5 of max(1, |leaf|)."""
+    api = build_model(_cfg(), _pcfg(comm_mode=mode), tp=2, ep=2)
+    for i, lg, tok, cache in _dense_data_steps(api, _params(2)):
+        n = lg.shape[1] // 2
+        key = f"data/dense/{mode}/{i}"
+        for w, got in enumerate(worlds[(2, 2)]):
+            d, r = divmod(w, 2)
+            _close(got[key + "/logits"],
+                   lg[r:r + 1, d * n:(d + 1) * n].numpy())
+            if tok is not None:
+                np.testing.assert_array_equal(got[key + "/tokens"],
+                                              tok[d * n:(d + 1) * n].numpy())
+            _check_shard_layers(got, key, cache, d, r, n)
+
+
+@pytest.mark.parametrize("name", list(CP_FAMILIES) + [EP2D])
+def test_cp_decode_of_families_over_data_group_matches_rank_axis(worlds,
+                                                                 name):
+    """Context-parallel decode over the data group: the reduced zamba2-7b
+    (the shared attention's caches) and olmoe-1b-7b (``expert``) at (2, 2),
+    the ep2d model at (2, 1) with one row (each data rank dispatching its
+    copy through the all-to-alls): two greedy steps, logits within 1e-5,
+    tokens equal, each process's caches and states within 1e-5 of max(1,
+    |leaf|) of its part of the rank axis's."""
+    from test_torch_pg_families import _leaves
+    mesh = (2, 1) if name == EP2D else (2, 2)
+    dp, tp = mesh
+    cfg, pcfg, full = _cp_model(name, tp, dp)
+    api = build_model(cfg, pcfg, tp=tp, ep=dp)
+    cache, tok, pos = _cp_cache(api, 1 if name == EP2D else CP_ROWS)
+    steps, cache = _cp_steps(api, full, cache, tok, pos)
+    for w, got in enumerate(worlds[mesh]):
+        d, r = divmod(w, tp)
+        for i, (lg, t) in enumerate(steps):
+            _close(got[f"cpf/{name}/logits{i}"], lg[r:r + 1].numpy())
+            np.testing.assert_array_equal(got[f"cpf/{name}/tokens{i}"],
+                                          t.numpy())
+        groups = Groups(model=None, data=None, model_rank=r, data_rank=d,
+                        model_size=tp, data_size=dp)
+        like = {p: torch.from_numpy(got[f"cpf/{name}/cache/{p}"])
+                for p, _ in _leaves(cache)}
+        from test_torch_pg_families import _map
+        mine = _cut(cache, _map(lambda p, t: like[p], cache), groups)
+        for p, t in _leaves(mine):
+            _close_leaf(like[p].numpy(), t.numpy())
+
+
+def test_serve_launcher_serves_ep2d_at_data_size_1(worlds):
+    """``launch.serve --arch qwen3-moe-235b-a22b --reduced --comm-mode
+    ring`` in a world of 2 (mesh 1 x 2: every expert on both ranks, each
+    expert's d_ff split): the ranks agree, and rank 0's tokens are the
+    rank axis's ``ring`` engine's at tp=2 on the same seeded weights."""
+    from repro_torch.configs import get_config
+    assert [int(r["rc"]) for r in worlds["serve_ep2d"]] == [0, 0]
+    line = json.loads(str(worlds["serve_ep2d"][0]["line"]))
+    assert line["ranks_agree"] and line["arch"] == EP2D + "-reduced"
+    cfg = get_config(EP2D).reduced()
+    api = build_model(cfg, tbase.ParallelConfig(
+        comm_mode="ring", attn_impl="pallas", use_pallas_norm=True), tp=2)
+    params = api.init(2, device="cpu")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (20, 9)]
+    assert line["tokens"] == _serve(api, params, dict(), prompts, [3, 3])
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_ep2d_rank_cut_three_ways(coords):
+    """One (data, model) rank's ep2d tree: ``take_rank(..., data_rank=)``
+    of the 2 x 2 draw equals ``from_jax_params(rank=, data_rank=)`` of the
+    reference's layout, which equals ``ModelApi.init`` under groups; its
+    expert weights are (1, 1, E/D, ...)."""
+    d, r = coords
+    cfg = _ep2d_cfg()
+    full = _ep2d_params(2, 2)
+    want = take_rank(full, r, cfg, data_rank=d)
+    ref = _nest(_flat(to_jax_layout(full, cfg, _pcfg())))
+    got = from_jax_params(ref, cfg, _pcfg(), device="cpu", rank=r,
+                          data_rank=d)
+    groups = Groups(model=None, data=None, model_rank=r, data_rank=d,
+                    model_size=2, data_size=2)
+    api = build_model(cfg, _pcfg(), tp=2, ep=2, groups=groups)
+    init = api.init(EP2D_SEED, device="cpu")
+    assert want["layers"][0]["moe"]["w_up"].shape[:3] == (1, 1, 2)
+    exp = _flat(want)
+    for tree in (got, init):
+        flat = _flat(tree)
+        assert flat.keys() == exp.keys()
+        for k in flat:
+            np.testing.assert_array_equal(flat[k], exp[k])
+    with pytest.raises(ValueError, match="data_rank"):
+        take_rank(full, r, cfg)
+
+
+def test_dry_run_all_to_alls_of_ep2d_unchanged():
+    """The meta dry run of the ep2d model at D = 2 x R = 2 (a woven
+    prefill of 4 x 48 tokens and a decode step of 32 rows): two
+    all-to-alls per MoE call, each the device's send buffer, D·cs rows of
+    d (the local expert ids ride with the rows), cs from each call's
+    tokens per data shard, as before ``collectives.all_to_all``."""
+    import math
+    from repro_torch.analysis import op_costs
+    cfg = _ep2d_cfg()
+    api = build_model(cfg, _pcfg(), tp=2, ep=2)
+    params = api.init(0, device="meta")
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    _, pre = op_costs.measure(api.prefill, params, i32(4, DATA_LEN), None,
+                              i32(4, DATA_LEN), devices=4, ride=2)
+    cache = api.init_cache(32, DATA_SLOTS, device="meta")
+    _, dec = op_costs.measure(api.decode_step, params, i32(32, 1), cache,
+                              i32(32, 1), devices=4, ride=2)
+    k = cfg.num_experts_per_tok
+    # tokens a data shard per MoE call: each weave split's of one shard's
+    # rows (prefill 2 rows cut along the sequence, decode 16 rows)
+    pf = TT.weave_decision_info(2, DATA_LEN, tp=2, pcfg=api.pcfg).split
+    dc = TT.weave_decision_info(16, 1, tp=2, pcfg=api.pcfg,
+                                decode=True).split
+    assert pf and dc
+    for costs, calls in ((pre, [2 * n for n in pf]), (dec, list(dc))):
+        want = []
+        for t_loc in calls:
+            cs = max(math.ceil(t_loc * k / 2 * cfg.capacity_factor), 4)
+            want += [2 * cs * cfg.d_model * 4] * 2
+        got = [c.result_bytes for c in costs.collectives
+               if c.kind == "all-to-all"]
+        assert got == want * cfg.num_layers
+        assert all(c.group_size == 2 for c in costs.collectives
+                   if c.kind == "all-to-all")
+
+
+# --------------------------------------------------------------------------
 # refusals (in process: nothing here reaches a collective)
 # --------------------------------------------------------------------------
 
@@ -896,14 +1493,19 @@ def _refusal(case):
         api = build(name)
         api.train_loss(None, {"tokens": torch.zeros(1, 4, dtype=torch.long),
                               "labels": torch.zeros(1, 4, dtype=torch.long)})
+    def engine_data(name):
+        api = build(name, ep=2)
+        Engine(api, api.init(0, device="cpu"), SchedulerConfig(**SCHED),
+               device="cpu")
     return {
-        "ep2d": (lambda: build("qwen3-moe-235b-a22b"), "ep2d.*A19"),
-        "data_batch": (lambda: build("llama3.3-70b", ep=2),
-                       "batch over the data group.*A19"),
-        "hybrid_data": (lambda: build("zamba2-7b", ep=2, seq_shard_kv=True),
-                        "hybrid family.*A19"),
-        "moe_cp_data": (lambda: build("olmoe-1b-7b", ep=2,
-                                      seq_shard_kv=True), "moe family"),
+        "hybrid_batch_data": (lambda: build("zamba2-7b", ep=2),
+                              "ep=2.*hybrid family"),
+        "ssm_data": (lambda: build("falcon-mamba-7b", ep=2),
+                     "ep=2.*ssm family"),
+        "encdec_data": (lambda: build("whisper-base", ep=2),
+                        "ep=2.*encdec family"),
+        "engine_data": (lambda: engine_data("llama3.3-70b"),
+                        "data size 1, not ep=2"),
         "spec_moe": (lambda: engine_spec("mixtral-8x22b"), "speculative"),
         "verify_vlm": (lambda: verify("qwen2-vl-7b"), "verify"),
         "train_ssm": (lambda: train("falcon-mamba-7b"), "training"),
@@ -911,15 +1513,17 @@ def _refusal(case):
     }[case]
 
 
-@pytest.mark.parametrize("case", ["ep2d", "data_batch", "hybrid_data",
-                                  "moe_cp_data", "spec_moe", "verify_vlm",
-                                  "train_ssm", "train_encdec"])
+@pytest.mark.parametrize("case", ["hybrid_batch_data", "ssm_data",
+                                  "encdec_data", "engine_data", "spec_moe",
+                                  "verify_vlm", "train_ssm", "train_encdec"])
 def test_process_group_refuses_what_is_not_ported(case):
-    """``ep2d`` (its all-to-alls need the data group), the batch over the
-    data group, context-parallel decode of a family but the dense one,
-    and speculative decoding, the verify step and training of a non-dense
-    family raise NotImplementedError by name; every other family builds
-    over groups (tests/test_torch_pg_families.py)."""
+    """The hybrid's batch over the data group, a data axis for the ssm
+    and encdec families, the engine at data size 2, and speculative
+    decoding, the verify step and training of a non-dense family raise
+    NotImplementedError by name; every family builds over groups at data
+    size 1 (tests/test_torch_pg_families.py), the transformer families
+    with the batch over the data group, and they and the hybrid under
+    context-parallel decode over it."""
     call, words = _refusal(case)
     with pytest.raises(NotImplementedError, match=words):
         call()
