@@ -276,6 +276,28 @@ Phases, each printing one JSON line:
             reported: bf16 tokens against the rank axis, all-to-all
             calls, bytes and ms a call, per-rank prefill and decode ms
             (time-sliced) and the phase's seconds;
+19e. pg_spec  speculative decoding the same way, two processes of its
+            own (``--pg-spec-rank``) serving through ``launch.serve`` in
+            ``ring`` over gloo: Llama-3.3-70B at full width (4 of 80
+            layers, bf16) on prompt-lookup prompts (one seeded 64-token
+            block repeated to 1800/1200/700/300 tokens), 32 new tokens,
+            gamma 3: spec off, the n-gram draft over legacy slots and
+            packed over the paged pool, a model draft (the target
+            drafting for itself over the same groups with a K1 workspace
+            of its own) packed; then the reduced float32 twin of each and
+            a seeded stochastic packed run (temperature 0.2, top-p 0.9);
+            gates: the ranks agree, verify steps, proposals and accepted
+            drafts in every spec run, K1-peer launches equal splits·(1+2L)
+            over the target's and the rollout forwards and no other
+            add+norm kernel, the peer kernel bit-equal to the one-card K1
+            at every served (T, CTAs) (verify windows and rollout splits
+            among them), K3's launches (prefill, packed and rollout
+            splits) and K3 on every kept shape, a packed run's verify-only
+            segments among them, the twins' greedy tokens equal spec
+            off's and every twin's tokens and counters the rank axis's
+            ``ring`` engine's at tp=2; reported: bf16 tokens against spec
+            off, acceptance, tokens per verified step, verify step and
+            rollout forward medians (time-sliced);
 20. train_kernels  K2's and K3's autograd Functions (the kernel forward,
             the plain version's backward) against autograd through their
             plain versions on the card at the training step's shapes: K3
@@ -1555,17 +1577,16 @@ def packed_phase(torch, np, seed: int, trace_dir: Path, *, tp: int,
 # speculative decoding at full width: engine_spec and verify_weave
 # --------------------------------------------------------------------------
 
-SPEC_BLOCK, SPEC_NEW_TOKENS, SPEC_GAMMA = 64, 64, 3
+SPEC_NEW_TOKENS, SPEC_GAMMA = 64, 3
 VERIFY_ROWS, VERIFY_CACHE, VERIFY_FILLED = 128, 1024, 960
 VERIFY_REL_FRO = 1e-2          # weave-on logits against the unsplit call's
 
 
 def spec_prompts(np, seed: int, vocab: int):
     """One seeded 64-token block repeated up to each of PROMPT_LENS:
-    prompt-lookup traffic (code editing, retrieval-grounded chat)."""
-    block = np.random.RandomState(seed + 15).randint(0, vocab,
-                                                     SPEC_BLOCK).tolist()
-    return [(block * -(-n // SPEC_BLOCK))[:n] for n in PROMPT_LENS]
+    prompt-lookup traffic (``launch.serve.lookup_prompts``)."""
+    from repro_torch.launch.serve import lookup_prompts
+    return lookup_prompts(np, seed, vocab, PROMPT_LENS)
 
 
 def serve_steps(torch, eng, Request, prompts, new_tokens: int, store: dict):
@@ -5222,6 +5243,12 @@ def check_peer_shapes(torch, spy_dir: Path, counts: dict,
     return rows, worst
 
 
+def first_differences(got: list, want: list) -> list:
+    """Per request, the first token that differs (None: all equal)."""
+    return [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+            for g, w in zip(got, want)]
+
+
 def first_divergence(group: list, axis: list, calls: list,
                      axis_calls: list) -> dict:
     """Set the served calls (``group[k]``: rank k's (calls, digests))
@@ -5359,10 +5386,7 @@ def pg_ring_phase(torch, np, seed: int) -> tuple:
         done = {r.rid: r.output for r in done}
         want = [done[i] for i in range(len(prompts))]
         same = line["tokens"] == want
-        # per request: the first token that differs (None: all equal)
-        first_diff = [next((i for i, (a, b) in enumerate(zip(g, w_))
-                            if a != b), None)
-                      for g, w_ in zip(line["tokens"], want)]
+        first_diff = first_differences(line["tokens"], want)
         calls_vs_axis = first_divergence(group, axis, calls, axis_calls)
         first = calls_vs_axis["first_input_difference"]
         if first is not None:
@@ -5452,13 +5476,16 @@ def pgf_prompts(np, seed: int, cfg) -> list:
 
 
 class api_timings:
-    """Wall ms of every ``ModelApi.prefill`` and ``decode_step`` while
-    the block runs, each between two device syncs (under process groups
-    the ranks' time-sliced share of the card and gloo's copies
-    included)."""
+    """Wall ms of every ``ModelApi`` call of ``names`` (default
+    ``prefill`` and ``decode_step``) while the block runs, each between
+    two device syncs (under process groups the ranks' time-sliced share
+    of the card and gloo's copies included), and each call's token rows
+    (``rows``)."""
 
-    def __init__(self, torch):
-        self.torch, self.ms = torch, {"prefill": [], "decode_step": []}
+    def __init__(self, torch, names=("prefill", "decode_step")):
+        self.torch = torch
+        self.ms = {n: [] for n in names}
+        self.rows = {n: [] for n in names}
 
     def __enter__(self):
         from repro_torch.models.build import ModelApi
@@ -5466,12 +5493,13 @@ class api_timings:
         self.real = {n: getattr(ModelApi, n) for n in self.ms}
 
         def timed(name, fn):
-            def call(api, *args, **kw):
+            def call(api, params, tokens, *args, **kw):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                out = fn(api, *args, **kw)
+                out = fn(api, params, tokens, *args, **kw)
                 torch.cuda.synchronize()
                 self.ms[name].append((time.perf_counter() - t) * 1e3)
+                self.rows[name].append(int(tokens.numel()))
                 return out
             return call
         for name, fn in self.real.items():
@@ -6344,6 +6372,324 @@ def pg_data_phase(torch, np, seed: int) -> tuple:
     return launches, worst, k3_launches, k3_err
 
 
+# --------------------------------------------------------------------------
+# pg_spec: speculative decoding one model rank per process, two ranks on
+# the card
+# --------------------------------------------------------------------------
+
+PGS_GAMMA, PGS_NEW_TOKENS = 3, 32
+PGS_TIMEOUT_S = 900
+# a temperature low enough that the random target gives the n-gram
+# proposals a share of its mass: the draws accept some and reject some
+PGS_STOCHASTIC = ("--temperature", "0.2", "--top-p", "0.9")
+# the runs, each at full width (Llama-3.3-70B, 4 layers, bf16) and as the
+# reduced float32 twin, in order: spec off, then the n-gram draft over
+# legacy slots (two-dispatch) and packed over the pool, the target as its
+# own model draft packed; the twin adds a seeded stochastic packed run
+PGS_RUNS = {"off": (), "ngram_slots": (),
+            "ngram_packed": ("--packed",),
+            "model_packed": ("--packed", "--draft", "model"),
+            "stochastic": ("--packed",) + PGS_STOCHASTIC}
+PGS_TIMED = ("prefill", "decode_step", "verify_step", "packed_step",
+             "forward")
+
+
+def pgs_runs(twin: bool) -> list:
+    return [(name, twin) for name in PGS_RUNS
+            if twin or name != "stochastic"]
+
+
+def pgs_argv(seed: int, name: str, twin: bool) -> list:
+    """``launch.serve``'s argv for a pg_spec run (no rank, no store)."""
+    argv = ["--arch", "llama3.3-70b", "--comm-mode", "ring", "--backend",
+            "gloo", "--world-size", str(PG_RING_WORLD), "--seed", str(seed),
+            "--prompt-lens", ",".join(map(str, PROMPT_LENS)),
+            "--new-tokens", str(PGS_NEW_TOKENS), "--lookup"]
+    argv += ["--reduced"] if twin else ["--layers", "4"]
+    if name != "off":
+        argv += ["--spec-gamma", str(PGS_GAMMA), *PGS_RUNS[name]]
+    return argv
+
+
+def pgs_dir(name: str, twin: bool) -> str:
+    return f"{name}_{'twin' if twin else 'full'}"
+
+
+def pgs_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
+    """One of pg_spec's two processes: every run of ``pgs_runs`` through
+    ``launch.serve``'s ``main`` under ``k1_peer_spy`` (K1's cross-rank
+    form in every add+norm slot of the target's and the draft's forwards),
+    ``api_timings`` over PGS_TIMED, K3's inputs kept at the first call of
+    each shape and each model-draft rollout forward's (rows, length);
+    each run's result, spy records and K3 inputs go to
+    ``out_dir``/<run>/."""
+    import contextlib
+    import io
+
+    from repro_torch.runtime import spec as SP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for twin in (False, True):
+        for name, _ in pgs_runs(twin):
+            run_dir = out_dir / pgs_dir(name, twin)
+            run_dir.mkdir(exist_ok=True)
+            argv = pgs_argv(seed, name, twin) + [
+                "--init-method", f"file://{run_dir}/store", "--rank",
+                str(rank)]
+            k3_inputs, rollouts = {}, []
+            real_next = SP.ModelDraft._next_tokens
+
+            def next_tokens(draft, tokens, *a, real_next=real_next,
+                            rollouts=rollouts):
+                rollouts.append(list(tokens.shape))
+                return real_next(draft, tokens, *a)
+            undo = capture_k3_inputs(k3_inputs)
+            reset_launches()
+            buf = io.StringIO()
+            with contextlib.ExitStack() as stack:
+                stack.callback(undo)
+                stack.callback(setattr, SP.ModelDraft, "_next_tokens",
+                               real_next)
+                SP.ModelDraft._next_tokens = next_tokens
+                timing = stack.enter_context(api_timings(torch, PGS_TIMED))
+                stack.enter_context(contextlib.redirect_stdout(buf))
+                rc = serve_spied(torch, run_dir, argv)
+            if rc:
+                raise AssertionError(f"pg_spec {pgs_dir(name, twin)}: "
+                                     f"launch.serve exit {rc}")
+            line = (json_lines(buf.getvalue()) or [{}])[0]
+            line.update(ms=timing.ms, rows=timing.rows, rollouts=rollouts,
+                        k3_launches=read_launches()["flash_attention"])
+            (run_dir / f"result_r{rank}.json").write_text(json.dumps(line))
+            offload(k3_inputs)
+            torch.save(list(k3_inputs.values()), run_dir / f"k3_r{rank}.pt")
+            del k3_inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def pgs_expected(cfg, line: dict, rollouts: list) -> tuple:
+    """(K1-peer launches, K3 launches) a run must make: per forward, per
+    weave split, the entry norm and each block's two slots, the target's
+    forwards (``launch.serve``'s forwards and weave forwards) and the
+    model draft's rollout forwards alike (their weave decided as a
+    prefill's; the draft is the target's model, L layers); K3 once per
+    attention layer of each prefill split, of each packed step's split
+    (verify windows are segments) and of each rollout forward's
+    split."""
+    from repro_torch.models import transformer as TR
+    pcfg = pgf_pcfg()
+    splits = line["forwards"] + line["weave_forwards"]
+    k3 = (splits if line["spec"]["packed"]
+          else line["prefill_splits"]) * cfg.num_layers
+    peer = splits * (1 + 2 * cfg.num_layers)
+    for b, s in rollouts:
+        n = 1 + TR.weave_decision_info(b, s, tp=PG_RING_WORLD,
+                                       pcfg=pcfg).weave
+        peer += n * (1 + 2 * cfg.num_layers)
+        k3 += n * cfg.num_layers
+    return peer, k3
+
+
+def pgs_rank_axis(torch, np, argv: list):
+    """The rank axis's ``ring`` engine at tp=2 on the card with the
+    launcher's weights, prompts, scheduler, draft and sampling for
+    ``argv``: (tokens, ``spec`` counters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import spec as SP
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.requests import Request
+    from repro_torch.runtime.scheduler import SchedulerConfig
+
+    args = serve.parse(argv)
+    cfg = get_config(args.arch)
+    cfg = (cfg.reduced() if args.reduced
+           else dataclasses.replace(cfg, num_layers=args.layers))
+    api = build_model(cfg, pgf_pcfg(), tp=PG_RING_WORLD)
+    params = api.init(args.seed, device="cuda")
+    draft = None
+    if args.spec_gamma and args.draft == "model":
+        draft = SP.ModelDraft(api, params, args.spec_gamma)
+    eng = Engine(api, params, SchedulerConfig(
+        spec_gamma=args.spec_gamma, paged=args.packed, packed=args.packed),
+        draft=draft, seed=args.seed, temperature=args.temperature,
+        top_p=args.top_p)
+    prompts = serve.prompts_of(np, args, cfg.vocab_size)
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(rid=i, prompt=p,
+                                max_new_tokens=args.new_tokens))
+    done = {r.rid: r.output for r in eng.run()}
+    sp = eng.stats.spec
+    return ([done[i] for i in range(len(prompts))],
+            {"verify_steps": sp.verify_steps, "proposed": sp.draft_proposed,
+             "accepted": sp.draft_accepted, "emitted": sp.emitted})
+
+
+def pgs_check(torch, np, seed: int, run_dir: Path, name: str, twin: bool,
+              off_tokens: list) -> tuple:
+    """One pg_spec run's gates: the ranks agree; a spec run verified
+    windows, proposed drafts and accepted some; K1-peer launches equal
+    ``pgs_expected`` (target and draft forwards) and nothing else ran an
+    add+norm kernel, the ranks' K1-peer calls equal and bit-equal to the
+    one-card K1 at every served (T, CTAs) (``check_peer_shapes``: verify
+    windows and rollout forwards included); K3's launches equal on both
+    ranks and K3 held on every kept shape (``pgf_check_k3``), a packed
+    run's verify-only steps among them; a twin's greedy tokens equal
+    spec off's, and every twin's tokens and ``spec`` counters the rank
+    axis's ``ring`` engine's at tp=2 on the card.  Emits its line;
+    returns (rank 0's K1-peer launches, the worst K1-peer error, rank 0's
+    K3 launches, K3's worst error, the tokens)."""
+    from repro_torch.configs import get_config
+
+    label = f"pg_spec {pgs_dir(name, twin)}"
+    cfg = get_config("llama3.3-70b")
+    cfg = cfg.reduced() if twin else dataclasses.replace(cfg, num_layers=4)
+    res = [json.loads((run_dir / f"result_r{k}.json").read_text())
+           for k in range(PG_RING_WORLD)]
+    line, spec = res[0], res[0]["spec"]
+    if not line["ranks_agree"]:
+        raise AssertionError(f"{label}: the ranks' tokens differ")
+    if res[1]["rollouts"] != line["rollouts"]:
+        raise AssertionError(f"{label}: the ranks' draft forwards differ")
+    if name != "off" and not (spec["verify_steps"] > 0
+                              and spec["proposed"] > 0
+                              and spec["accepted"] > 0):
+        raise AssertionError(f"{label}: no window verified, no draft "
+                             f"proposed or none accepted: {spec}")
+    want, want_k3 = pgs_expected(cfg, line, line["rollouts"])
+    got = line["launches"]
+    if (got["ar_rmsnorm_peer"] != want or got["ar_rmsnorm"]
+            or got["fused_residual_rmsnorm"]):
+        raise AssertionError(f"{label}: launches {got}, expected {want} of "
+                             f"ar_rmsnorm_peer alone")
+    k3_counts = [got["flash_attention"]] + [r["k3_launches"] for r in res]
+    if any(n != want_k3 for n in k3_counts):
+        raise AssertionError(f"{label}: K3 launches {k3_counts}, expected "
+                             f"{want_k3}")
+    k3_err, k3_shapes = pgf_check_k3(torch, run_dir, label, want_k3)
+    # q (segments, longest segment, ...): verify windows alone
+    verify_only = [sh for sh in k3_shapes if sh[0][1] == PGS_GAMMA + 1]
+    if spec["packed"] and name != "off" and not verify_only:
+        raise AssertionError(f"{label}: K3 held no verify-only packed step "
+                             f"({k3_shapes})")
+    group = []
+    for k in range(PG_RING_WORLD):
+        log = json.loads((run_dir / f"calls_r{k}.json").read_text())
+        group.append(([tuple(c) for c in log["calls"]], log["digests"]))
+    calls = group[0][0]
+    if any(g[0] != calls for g in group) or len(calls) != want:
+        raise AssertionError(f"{label}: the ranks' K1-peer calls differ, or "
+                             f"miss the slot count")
+    counts = {}
+    for c in calls:
+        counts[c] = counts.get(c, 0) + 1
+    shapes, err = check_peer_shapes(torch, run_dir, counts, label=label)
+    tokens = line["tokens"]
+    timed = {n: [r["ms"][n] for r in res] for n in PGS_TIMED}
+    # a verify step: verify_step, or a packed step of verify windows
+    # alone (no more rows than max_batch windows, padded)
+    verify_ms = [ms for r in res for ms, rows in zip(
+        r["ms"]["verify_step"] + r["ms"]["packed_step"],
+        r["rows"]["verify_step"] + r["rows"]["packed_step"])
+        if rows <= 64]
+    emitted = spec["emitted"]
+    out = {"phase": "pg_spec", "run": name, "model": line["arch"],
+           "layers": line["layers"], "dtype": line["dtype"],
+           "world_size": PG_RING_WORLD, "backend": line["backend"],
+           "gamma": spec["gamma"], "draft": spec["draft"],
+           "packed": spec["packed"],
+           "stochastic": name == "stochastic",
+           "prompt_lens": list(PROMPT_LENS), "new_tokens": PGS_NEW_TOKENS,
+           "forwards": line["forwards"],
+           "weave_forwards": line["weave_forwards"],
+           "rollout_forwards": len(line["rollouts"]),
+           "rollout_shapes": sorted({tuple(r) for r in line["rollouts"]}),
+           "verify_steps": spec["verify_steps"],
+           "proposed": spec["proposed"], "accepted": spec["accepted"],
+           "emitted": emitted,
+           "acceptance_rate": (spec["accepted"] / spec["proposed"]
+                               if spec["proposed"] else 0.0),
+           "tokens_per_step": (emitted / (emitted - spec["accepted"])
+                               if emitted > spec["accepted"] else 0.0),
+           "launches_rank0": got, "expected_peer_launches": want,
+           "formula": "splits·(1+2L) + rollout splits·(1+2L_draft)",
+           "expected_k3_launches": want_k3, "k3_shapes_held": k3_shapes,
+           "k3_verify_only_shapes": verify_only, "k3_max_abs_err": k3_err,
+           "peer_shapes": shapes, "ranks_agree": True,
+           "verify_step_ms_median_time_sliced": (
+               statistics.median(verify_ms) if verify_ms else None),
+           "ms_median_time_sliced": {
+               n: [statistics.median(v) if v else None for v in ms]
+               for n, ms in timed.items()},
+           "wall_s_time_sliced": line["wall_s"],
+           "gated": twin, "card": card_line()}
+    if off_tokens is not None:
+        out["first_token_differing_from_spec_off"] = first_differences(
+            tokens, off_tokens)
+    if twin:
+        axis_tokens, axis_spec = pgs_rank_axis(
+            torch, np, pgs_argv(seed, name, twin))
+        same = (axis_tokens == tokens and all(
+            axis_spec[k] == spec[k] for k in axis_spec))
+        out["tokens_and_counters_equal_rank_axis_ring_tp2"] = same
+        emit(out)
+        greedy_ok = name == "stochastic" or off_tokens is None or (
+            tokens == off_tokens)
+        if not (same and greedy_ok):
+            raise AssertionError(f"{label}: tokens or counters differ from "
+                                 f"the rank axis's ring at tp=2 ({axis_spec}"
+                                 f" vs {spec}) or from spec off's")
+    else:
+        emit(out)
+    return got["ar_rmsnorm_peer"], err, got["flash_attention"], k3_err, \
+        tokens
+
+
+def pg_spec_phase(torch, np, seed: int) -> tuple:
+    """Speculative decoding one model rank per process: two processes on
+    the card (``pgs_rank``; gloo carries the groups' collectives, CUDA IPC
+    K1's peer buffers, the target's workspace and the model draft's own)
+    serve the prompt-lookup requests through ``launch.serve`` in comm mode
+    ``ring``, gated by ``pgs_check``.  Returns (rank 0's K1-peer launches
+    over every run, the worst K1-peer error, rank 0's K3 launches, K3's
+    worst error)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="pg_spec_"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+          "--pg-spec-dir", str(out_dir), "--pg-spec-rank"]
+    launches, worst, k3_launches, k3_err = 0, 0.0, 0, 0.0
+    try:
+        run_children([me + [str(k)] for k in range(PG_RING_WORLD)],
+                     cwd=ROOT, env=env, timeout=PGS_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        for twin in (False, True):
+            off = None
+            for name, _ in pgs_runs(twin):
+                n, err, n_k3, err_k3, tokens = pgs_check(
+                    torch, np, seed, out_dir / pgs_dir(name, twin), name,
+                    twin, off)
+                if name == "off":
+                    off = tokens
+                launches += n
+                worst = max(worst, err)
+                k3_launches += n_k3
+                k3_err = max(k3_err, err_k3)
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "pg_spec_seconds", "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    return launches, worst, k3_launches, k3_err
+
+
 def grads_of(torch, fn, inputs, g_out):
     """(outputs, d(sum of outputs . g_out) / d inputs) through autograd."""
     leaves = [t.detach().requires_grad_(True) for t in inputs]
@@ -7086,6 +7432,9 @@ def main() -> int:
     # pg_data's ranks (pg_data_phase starts them)
     ap.add_argument("--pg-data-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--pg-data-dir", type=Path, help=argparse.SUPPRESS)
+    # pg_spec's ranks (pg_spec_phase starts them)
+    ap.add_argument("--pg-spec-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pg-spec-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -7112,6 +7461,9 @@ def main() -> int:
         return 0
     if args.pg_data_rank is not None:
         pgd_rank(torch, np, args.seed, args.pg_data_rank, args.pg_data_dir)
+        return 0
+    if args.pg_spec_rank is not None:
+        pgs_rank(torch, np, args.seed, args.pg_spec_rank, args.pg_spec_dir)
         return 0
     if args.k1_peer_rank is not None:
         k1_peer_rank(torch, args.seed, args.k1_peer_rank, args.k1_peer_world,
@@ -7211,6 +7563,12 @@ def main() -> int:
     peer_launches += data_launches
     family_k3 += data_k3
     family_k3_err = max(family_k3_err, data_k3_err)
+    # speculative decoding the same way: verify windows, model drafts
+    spec_launches, pg_spec_err, spec_k3, spec_k3_err = pg_spec_phase(
+        torch, np, args.seed)
+    peer_launches += spec_launches
+    family_k3 += spec_k3
+    family_k3_err = max(family_k3_err, spec_k3_err)
     # training: the kernels inside autograd, Gemma3-1B's steps, launch.train
     t0 = time.perf_counter()
     train_kernels_phase(torch, args.seed)
@@ -7245,7 +7603,7 @@ def main() -> int:
         rows["ar_rmsnorm"]["max_abs_err"], tuned_k1_err)
     rows["ar_rmsnorm_peer"]["max_abs_err"] = max(
         rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err, pg_families_err,
-        pg_data_err)
+        pg_data_err, pg_spec_err)
     # the meta-device dry run and the examples: host work, after every
     # timed phase
     dryrun_phase(torch)

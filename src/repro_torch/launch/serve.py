@@ -32,6 +32,22 @@ CUDA (the model group's peer buffers are made before the first forward,
 ``distributed.peer.attach``), its plain version over the group on the
 CPU.
 
+``--spec-gamma N`` serves with speculative decoding: the n-gram draft
+(``--draft ngram``, the default) or a model draft (``--draft model``:
+the target drafting for itself, a ``spec.ModelDraft`` over the target's
+config and params through a ``ModelApi`` of its own over the same
+groups, the path a separate draft model takes, with drafts that the
+random target accepts; under ``ring`` on CUDA it gets a K1 workspace of
+its own, sized for its rollout forwards, ``spec.rollout_rows``).  ``--packed`` serves packed steps over the paged
+pool (the default is two-dispatch over legacy slots);
+``--temperature`` / ``--top-p`` sample, every rank's generator seeded
+from ``--seed``; ``--lookup`` makes prompt-lookup prompts (one seeded
+64-token block repeated up to each length).
+
+    torchrun --nproc-per-node=8 -m repro_torch.launch.serve \
+        --arch llama3.3-70b --layers 4 --comm-mode ring --packed \
+        --lookup --spec-gamma 3 [--draft model]
+
 Without CUDA, ``--device cuda`` (the default) stops with an error; run
 from ``src/`` with no PYTHONPATH (``src/sitecustomize.py`` would load the
 reference's jax shim).
@@ -66,7 +82,38 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-lens", default="1800,1200,700,300")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lookup", action="store_true",
+                    help="prompts repeating one seeded 64-token block")
+    ap.add_argument("--packed", action="store_true",
+                    help="packed steps over the paged pool")
+    ap.add_argument("--spec-gamma", type=int, default=0,
+                    help="draft tokens per verify window (0: no spec)")
+    ap.add_argument("--draft", default="ngram", choices=("ngram", "model"))
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     return ap.parse_args(argv)
+
+
+LOOKUP_BLOCK = 64
+
+
+def lookup_prompts(np, seed: int, vocab: int, lens) -> list:
+    """Prompt-lookup traffic (code editing, retrieval-grounded chat): one
+    block of LOOKUP_BLOCK tokens drawn from ``seed + 15`` repeated up to
+    each of ``lens``."""
+    block = np.random.RandomState(seed + 15).randint(
+        0, vocab, LOOKUP_BLOCK).tolist()
+    return [(block * -(-n // LOOKUP_BLOCK))[:n] for n in lens]
+
+
+def prompts_of(np, args, vocab: int) -> list:
+    """The requests' prompts: random tokens from ``--seed``, or with
+    ``--lookup`` ``lookup_prompts``."""
+    lens = [int(n) for n in args.prompt_lens.split(",")]
+    if args.lookup:
+        return lookup_prompts(np, args.seed, vocab, lens)
+    rng = np.random.RandomState(args.seed)
+    return [rng.randint(0, vocab, n).tolist() for n in lens]
 
 
 def main(argv=None) -> int:
@@ -80,6 +127,7 @@ def main(argv=None) -> int:
     from repro_torch.distributed import peer
     from repro_torch.launch.mesh import init_groups, make_mesh
     from repro_torch.models.build import build_model
+    from repro_torch.runtime import spec as SP
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.requests import Request
     from repro_torch.runtime.scheduler import SchedulerConfig
@@ -113,20 +161,36 @@ def main(argv=None) -> int:
     groups = init_groups(make_mesh((1, world), ("data", "model")),
                          backend=backend, init_method=args.init_method,
                          rank=rank, world_size=world)
+    workspaces = []
     try:
         pcfg = ParallelConfig(comm_mode=args.comm_mode, attn_impl="pallas",
                               use_pallas_norm=True)
-        sched = SchedulerConfig()
-        if args.comm_mode == "ring" and device.type == "cuda":
-            groups = peer.attach(
-                groups, rows=sched.max_forward_tokens(world), d=cfg.d_model,
-                dtype=getattr(torch, cfg.dtype), device=device)
-        api = build_model(cfg, pcfg, tp=world, groups=groups)
+        sched = SchedulerConfig(spec_gamma=args.spec_gamma,
+                                paged=args.packed, packed=args.packed)
+        ring = args.comm_mode == "ring" and device.type == "cuda"
+        prompts = prompts_of(np, args, cfg.vocab_size)
+
+        def on_groups(rows):
+            """The groups with a K1 workspace of ``rows`` under ring."""
+            if not ring:
+                return groups
+            g = peer.attach(groups, rows=rows, d=cfg.d_model,
+                            dtype=getattr(torch, cfg.dtype), device=device)
+            workspaces.append(g.peer)
+            return g
+        api = build_model(cfg, pcfg, tp=world, groups=on_groups(
+            sched.max_forward_tokens(world)))
         params = api.init(args.seed, device=device)
-        rng = np.random.RandomState(args.seed)
-        prompts = [rng.randint(0, cfg.vocab_size, int(n)).tolist()
-                   for n in args.prompt_lens.split(",")]
-        eng = Engine(api, params, sched, device=device)
+        draft = None
+        if args.spec_gamma and args.draft == "model":
+            longest = min(sched.max_len,
+                          max(map(len, prompts)) + args.new_tokens)
+            d_api = build_model(cfg, pcfg, tp=world, groups=on_groups(
+                SP.rollout_rows(sched.max_batch, longest, args.spec_gamma)))
+            draft = SP.ModelDraft(d_api, params, args.spec_gamma)
+        eng = Engine(api, params, sched, draft=draft, seed=args.seed,
+                     temperature=args.temperature, top_p=args.top_p,
+                     device=device)
         for i, p in enumerate(prompts):
             eng.add_request(Request(rid=i, prompt=p,
                                     max_new_tokens=args.new_tokens))
@@ -162,10 +226,17 @@ def main(argv=None) -> int:
                 "prefill_splits": prefill_splits,
                 "launches": {k: after[k] - before[k] for k in after},
                 "wall_s": wall_s, "ranks_agree": same,
+                "spec": {"gamma": args.spec_gamma,
+                         "draft": args.draft if args.spec_gamma else None,
+                         "packed": args.packed,
+                         "verify_steps": eng.stats.spec.verify_steps,
+                         "proposed": eng.stats.spec.draft_proposed,
+                         "accepted": eng.stats.spec.draft_accepted,
+                         "emitted": eng.stats.spec.emitted},
                 "tokens": [tokens[rid] for rid in sorted(tokens)]}),
                 flush=True)
-        if groups.peer is not None:
-            groups.peer.close()
+        for ws in workspaces:
+            ws.close()
         return 0 if same else 1
     finally:
         dist.destroy_process_group()

@@ -30,9 +30,10 @@ experts of its data shard) and every family's calls pass the groups on.
 calls of every family, for the transformer families' batch over the
 data group (a process's calls take its data shard's rows; ``ep2d``'s
 all-to-alls go over the data group) and for the context-parallel decode
-of the transformer families and the hybrid over it; the verify step and
-training refuse it by name (ROADMAP.md), and the families without a data
-axis refuse one on either backend."""
+of the transformer families and the hybrid over it, and for the
+transformer families' verify step (speculative decoding); training
+refuses it by name (ROADMAP.md), and the families without a data axis
+refuse one on either backend."""
 from __future__ import annotations
 
 import dataclasses
@@ -149,7 +150,6 @@ class ModelApi:
                                     **self._dp, **kw)
 
     def verify_step(self, params, tokens, cache, positions, **kw):
-        self._refuse_groups("the speculative verify step")
         return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)

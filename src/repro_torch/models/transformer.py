@@ -778,7 +778,8 @@ def decode_step(params, tokens, cache, *, cfg, pcfg, positions,
 
 
 def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
-                mrope_positions=None, block_tables=None, dp: int = 1):
+                mrope_positions=None, block_tables=None, dp: int = 1,
+                groups: Optional[Groups] = None):
     """Speculative multi-token verify: tokens (B, gamma+1) are the
     pending decode input followed by the draft, positions -1 where a row
     has no (or a short) draft.  Returns (local logits (R, B, gamma+1,
@@ -787,7 +788,7 @@ def verify_step(params, tokens, cache, *, cfg, pcfg, positions,
     rejected positions on the host).  The decode path at S = gamma+1."""
     return decode_step(params, tokens, cache, cfg=cfg, pcfg=pcfg,
                        positions=positions, mrope_positions=mrope_positions,
-                       block_tables=block_tables, dp=dp)
+                       block_tables=block_tables, dp=dp, groups=groups)
 
 
 def packed_step(params, tokens, cache, *, cfg, pcfg, positions, seg_slots,

@@ -72,12 +72,14 @@ them.
 
 The engine serves at ``api.tp``: the tp ranks sit on the rank axis of
 one device (``distributed/context.py``), and the params must carry that
-axis.  Under ``api.groups`` (the ``process_group`` backend, every
-family above but the ``ep2d`` MoE) each process runs its own Engine on
-the same requests with one model rank's params: the scheduler is
-deterministic and every rank
-samples the same token (``sampler.sample`` over the model group), so all
-ranks take the same steps; speculative decoding refuses it.  It runs
+axis.  Under ``api.groups`` (the ``process_group`` backend at data size
+1, every family above) each process runs its own Engine on the same
+requests with one model rank's params: the scheduler is deterministic,
+every rank samples the same token (``sampler.sample`` over the model
+group) and verifies the same windows (``spec.verify_tokens`` over it;
+a ``ModelDraft`` runs its own rank's draft over the same groups, so
+its proposals agree), and the host-side commits and rollbacks follow
+from those, so all ranks take the same steps.  It runs
 on CUDA unless it is given ``device="cpu"``; with no device and no CUDA
 it raises.  The host builds every step's index arrays (block
 tables, packed segment owners, positions) in numpy and hands them to the
@@ -110,6 +112,16 @@ from repro_torch.runtime.requests import Request, State, reset_for_requeue
 from repro_torch.runtime.sampler import sample
 from repro_torch.runtime.scheduler import (PackedPlan, Scheduler,
                                            SchedulerConfig)
+
+
+def _same_groups(a: ModelApi, b: ModelApi) -> bool:
+    """Whether two ModelApis run at one tp over the same process groups:
+    ``Groups`` compares only ranks and sizes, so the ``torch.distributed``
+    groups themselves are compared by identity."""
+    if (a.tp, a.groups) != (b.tp, b.groups):
+        return False
+    return a.groups is None or (a.groups.model is b.groups.model
+                                and a.groups.data is b.groups.data)
 
 
 @dataclasses.dataclass
@@ -325,10 +337,6 @@ class Engine:
                     "windows)")
         self.spec_gamma = int(scfg.spec_gamma)
         self.draft = None
-        if self.spec_gamma and api.groups is not None:
-            raise NotImplementedError(
-                "speculative decoding over the process_group backend is "
-                "not ported (ROADMAP.md)")
         if self.spec_gamma:
             if self._is_ssm:
                 raise ValueError("speculative decoding rolls back KV "
@@ -343,6 +351,13 @@ class Engine:
                     "key an earlier query needs); use the paged backend")
             self.draft = draft if draft is not None else SP.make_draft(
                 "ngram", self.spec_gamma, ngram=scfg.spec_ngram)
+            d_api = getattr(self.draft, "api", None)
+            if d_api is not None and not _same_groups(d_api, api):
+                raise ValueError(
+                    f"the model draft runs at tp={d_api.tp} over groups "
+                    f"{d_api.groups}, the target at tp={api.tp} over "
+                    f"{api.groups}: every rank must propose the same "
+                    f"tokens from its own rank's draft")
             if self.draft.gamma < self.spec_gamma:
                 raise ValueError(
                     f"draft gamma {self.draft.gamma} < scheduler "
@@ -758,7 +773,7 @@ class Engine:
         n_acc, emit = SP.verify_tokens(
             logits, torch.from_numpy(draft), self.generator,
             vocab_size=self.api.cfg.vocab_size, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p)
+            top_k=self.top_k, top_p=self.top_p, ctx=self.api.comm_ctx)
         out = torch.stack([n_acc, emit.long()]).cpu().numpy()
         return out[0], out[1]
 

@@ -18,8 +18,15 @@ prefill and can cross the weave's threshold.
 Both rules take logits ``(R, B, gamma+1, V_loc)`` on the rank axis and
 reduce over dim 0 where the reference reduces over the mesh axis; the
 stochastic rule draws its uniforms and Gumbel noise from an explicit
-``torch.Generator``.  Drafting is host work on the requests' token
-lists; ``ModelDraft`` runs its rollout forwards on the params' device.
+``torch.Generator``.  Under a ``process_group`` ``ctx``
+(``distributed/context.py``) the logits are this process's shard (1, B,
+gamma+1, V_loc) and every reduction over the ranks goes over the model
+group (``distributed/collectives.py``), as ``sampler.sample``'s do; every
+rank draws the same uniforms and all tp shards' Gumbel noise in the same
+order, so a seeded verification is the rank axis's, token for token.
+Drafting is host work on the requests' token lists; ``ModelDraft`` runs
+its rollout forwards on the params' device, over its ``ModelApi``'s
+groups when it has them.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.layers import embedding as E
 from repro_torch.runtime.sampler import (filtered_logits, gumbel_argmax,
                                          vocab_cols)
@@ -43,15 +51,17 @@ def _leading_accepts(accept) -> torch.Tensor:
     return torch.cumprod(accept.long(), dim=1).sum(dim=1)
 
 
-def verify_greedy(logits, draft, *, vocab_size: int):
+def verify_greedy(logits, draft, *, vocab_size: int, ctx=None):
     """Greedy verification.  logits (R, B, gamma+1, V_loc); draft (B,
     gamma) integer, -1 = no proposal.  Returns (n_acc (B,), emit (B,)):
     the accepted draft tokens and the one extra committed token, the
     target argmax at the first mismatch (correction) or at the window's
-    end (bonus)."""
+    end (bonus).  ``ctx``: a ``process_group`` CommCtx when the logits are
+    one process's shard."""
     gamma = draft.shape[1]
     draft = draft.to(logits.device)
-    tgt = E.sharded_argmax(logits, vocab_size=vocab_size)    # (B, gamma+1)
+    tgt = E.sharded_argmax(logits, vocab_size=vocab_size,
+                           ctx=ctx)                          # (B, gamma+1)
     match = (draft == tgt[:, :gamma]) & (draft >= 0)
     n_acc = _leading_accepts(match)
     emit = torch.gather(tgt, 1, n_acc[:, None])[:, 0]
@@ -60,30 +70,32 @@ def verify_greedy(logits, draft, *, vocab_size: int):
 
 def verify_sample(logits, draft, generator: torch.Generator, *,
                   vocab_size: int, temperature: float = 1.0, top_k: int = 0,
-                  top_p: float = 1.0):
+                  top_p: float = 1.0, ctx=None):
     """Stochastic rejection-sampling verification (the deterministic-
     proposal rule of the module docstring) against the temperature/
     top-k/top-p-filtered softmax.  Draws, in order: gamma uniforms per
     row, Gumbel noise over the window's first gamma positions (the
     residuals), Gumbel noise over its last (the bonus).  Returns
-    (n_acc (B,), emit (B,))."""
-    r, b, s, v_loc = logits.shape
+    (n_acc (B,), emit (B,)).  ``ctx``: a ``process_group`` CommCtx when
+    the logits are one process's shard."""
+    _, b, _, v_loc = logits.shape
     gamma = draft.shape[1]
     draft = draft.to(logits.device).long()
     lg = filtered_logits(logits, vocab_size=vocab_size,
-                         temperature=temperature, top_k=top_k, top_p=top_p)
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         ctx=ctx)
 
     # p_target(draft_i | window prefix): a stable softmax over all ranks
-    m = lg.amax(dim=-1).amax(dim=0)                           # (B, S)
-    z = torch.exp(lg - m[None, ..., None]).sum(dim=-1).sum(dim=0)
-    lo = torch.arange(r, device=lg.device)[:, None, None] * v_loc
+    m = C.pmax(lg.amax(dim=-1), ctx)                          # (B, S)
+    z = C.psum(torch.exp(lg - m[None, ..., None]).sum(dim=-1), ctx)
+    lo = vocab_cols(lg, ctx)[..., 0]          # (R, 1, 1): each first id
     d_loc = draft[None] - lo                                  # (R, B, gamma)
     in_range = (d_loc >= 0) & (d_loc < v_loc) & (draft >= 0)[None]
     picked = torch.gather(lg[:, :, :gamma], 3,
                           d_loc.clamp(0, v_loc - 1)[..., None])[..., 0]
-    p_draft = torch.where(
+    p_draft = C.psum(torch.where(
         in_range, torch.exp(picked - m[None, :, :gamma]) / z[None, :, :gamma],
-        0.0).sum(dim=0)                                       # (B, gamma)
+        0.0), ctx)                                            # (B, gamma)
 
     u = torch.rand((b, gamma), generator=generator, device=lg.device)
     accept = (u < p_draft) & (draft >= 0)
@@ -91,12 +103,12 @@ def verify_sample(logits, draft, generator: torch.Generator, *,
 
     # residual samples: the drafted token's mass removed at each position,
     # the rest renormalized, by Gumbel-max over the masked logits
-    drafted_here = (vocab_cols(lg) == draft[None, ..., None]) & \
+    drafted_here = (vocab_cols(lg, ctx) == draft[None, ..., None]) & \
         (draft >= 0)[None, ..., None]                         # (R,B,gamma,V)
     residual = torch.where(drafted_here, float("-inf"), lg[:, :, :gamma])
-    res = gumbel_argmax(residual, generator, vocab_size=vocab_size)
+    res = gumbel_argmax(residual, generator, vocab_size=vocab_size, ctx=ctx)
     bonus = gumbel_argmax(lg[:, :, gamma:], generator,
-                          vocab_size=vocab_size)[:, 0]
+                          vocab_size=vocab_size, ctx=ctx)[:, 0]
     cand = torch.cat([res, bonus[:, None]], dim=1)            # (B, gamma+1)
     emit = torch.gather(cand, 1, n_acc[:, None])[:, 0]
     return n_acc, emit
@@ -104,14 +116,15 @@ def verify_sample(logits, draft, generator: torch.Generator, *,
 
 def verify_tokens(logits, draft, generator=None, *, vocab_size: int,
                   temperature: float = 0.0, top_k: int = 0,
-                  top_p: float = 1.0):
+                  top_p: float = 1.0, ctx=None):
     """Greedy verification at temperature 0, rejection sampling above."""
     if temperature <= 0.0:
-        return verify_greedy(logits, draft, vocab_size=vocab_size)
+        return verify_greedy(logits, draft, vocab_size=vocab_size, ctx=ctx)
     if generator is None:
         raise ValueError("stochastic verification needs a torch.Generator")
     return verify_sample(logits, draft, generator, vocab_size=vocab_size,
-                         temperature=temperature, top_k=top_k, top_p=top_p)
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         ctx=ctx)
 
 
 # ==========================================================================
@@ -163,7 +176,9 @@ class ModelDraft(DraftProposer):
     on the params' device.  Stateless, as the reference's: no KV cache,
     lengths bucketed to ``len_bucket``, the batch padded to a multiple of
     ``max_batch``.  Its greediness affects only the acceptance rate, never
-    the committed tokens."""
+    the committed tokens.  Over process groups (``api.groups``) each
+    process holds its model rank's draft params and the argmax goes over
+    the model group, so every rank proposes the same tokens."""
 
     def __init__(self, api, params, gamma: int, *, len_bucket: int = 64,
                  max_batch: int = 8):
@@ -182,8 +197,8 @@ class ModelDraft(DraftProposer):
         r, _, _, d = h.shape
         idx = last_idx[None, :, None, None].expand(r, -1, 1, d)
         lg = E.lm_head_logits(self.params["embedding"], torch.gather(h, 2, idx))
-        return E.sharded_argmax(lg, vocab_size=self.api.cfg.vocab_size
-                                )[:, 0].cpu().numpy()
+        return E.sharded_argmax(lg, vocab_size=self.api.cfg.vocab_size,
+                                ctx=self.api.comm_ctx)[:, 0].cpu().numpy()
 
     def propose(self, contexts):
         ctxs = [list(c) for c in contexts]
@@ -207,6 +222,18 @@ class ModelDraft(DraftProposer):
             for i in range(len(ctxs)):
                 props[i].append(int(nxt[i]))
         return props
+
+
+def rollout_rows(requests: int, max_len: int, gamma: int, *,
+                 len_bucket: int = 64, max_batch: int = 8) -> int:
+    """The most token rows one ``ModelDraft`` rollout forward carries for
+    up to ``requests`` contexts of at most ``max_len`` tokens (the rollout
+    appends up to gamma - 1 of its own): the padded batch times the
+    bucketed length.  The ``rows`` of the draft's K1 peer workspace
+    (``distributed.peer.attach``)."""
+    b = max_batch * (-(-max(requests, 1) // max_batch))
+    return b * max(len_bucket, -(-(max_len + gamma - 1) // len_bucket)
+                   * len_bucket)
 
 
 def make_draft(kind: str, gamma: int, *, ngram: int = 3) -> DraftProposer:

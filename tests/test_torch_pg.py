@@ -58,6 +58,7 @@ from repro_torch.layers.embedding import (sharded_argmax,
                                           sharded_softmax_xent)
 from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model
+from repro_torch.runtime import spec as TSP
 from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.requests import Request
 from repro_torch.runtime.sampler import sample
@@ -80,6 +81,17 @@ N_REF = 2                         # two-dispatch reference traces at tp=2
 
 def _cfg():
     return tbase.ModelConfig(**CFG)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The rank axis's side runs here in many tiny ops: one intra-op
+    thread, as the spawned ranks run, keeps them from spinning against
+    the other test workers' threads on a loaded host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pcfg(**kw):
@@ -194,18 +206,57 @@ def _packed_trace(seed):
     return prompts, [int(rng.randint(2, 9)) for _ in prompts]
 
 
+LOOKUP_BLOCK = 8
+GAMMA = 3
+SELF_KINDS = {2: 2, 4: 1}         # the self-draft engine's kinds a tp runs
+SPEC_COUNTERS = ("verify_steps", "draft_proposed", "draft_accepted",
+                 "emitted")
+
+
+def _lookup_traces(trial0, n):
+    """Prompt-lookup traces: each prompt repeats one seeded block of
+    LOOKUP_BLOCK tokens up to its length, so the n-gram draft proposes
+    from the first decode step on."""
+    out = []
+    for trial in range(trial0, trial0 + n):
+        rng = np.random.RandomState(trial)
+        block = [int(t) for t in rng.randint(0, CFG["vocab_size"],
+                                             LOOKUP_BLOCK)]
+        prompts = [(block * 8)[:int(rng.randint(12, 60))]
+                   for _ in range(int(rng.randint(2, 5)))]
+        out.append((prompts, [int(rng.randint(6, 13)) for _ in prompts]))
+    return out
+
+
 ENGINE_TRACES = {"two": (SCHED, _traces(7000, N_REF)),
-                 "packed": (PACKED, [_packed_trace(7100)])}
+                 "packed": (PACKED, [_packed_trace(7100)]),
+                 "two_spec": (dict(SCHED, spec_gamma=GAMMA),
+                              _lookup_traces(7215, 1)),
+                 "packed_spec": (dict(PACKED, spec_gamma=GAMMA),
+                                 _lookup_traces(7300, 1))}
 
 
-def _serve(api, params, sched, prompts, outs, **kw):
+def _serve_stats(api, params, sched, prompts, outs, **kw):
+    """(each request's tokens, the engine's ``spec/*`` counters)."""
     eng = Engine(api, params, SchedulerConfig(**sched), device="cpu", **kw)
     for i, (p, n) in enumerate(zip(prompts, outs)):
         eng.add_request(Request(rid=i, prompt=p, max_new_tokens=n))
     got = {r.rid: r.output for r in eng.run()}
     if eng.block_mgr is not None:            # the pool drained
         assert not eng.block_mgr.tables and not any(eng.block_mgr.alloc.ref)
-    return [got[i] for i in range(len(prompts))]
+    return ([got[i] for i in range(len(prompts))],
+            [getattr(eng.stats.spec, c) for c in SPEC_COUNTERS])
+
+
+def _serve(api, params, sched, prompts, outs, **kw):
+    return _serve_stats(api, params, sched, prompts, outs, **kw)[0]
+
+
+def _serve_traces(api, params, sched, traces, **kw):
+    """Every trace's tokens and the counters summed over the traces."""
+    runs = [_serve_stats(api, params, sched, p, n, **kw) for p, n in traces]
+    return ([t for t, _ in runs],
+            [int(sum(c)) for c in zip(*(c for _, c in runs))])
 
 
 def _sampler_logits(tp):
@@ -367,11 +418,20 @@ def _case_engine(groups, out):
                        groups=groups)
     for name, (sched, traces) in ENGINE_TRACES.items():
         for kind, kw in (("greedy", {}), ("stochastic", STOCHASTIC)):
-            toks = [_serve(api, params, sched, p, n, seed=11, **kw)
-                    for p, n in traces]
-            out[f"eng/{name}/{kind}"] = np.asarray(json.dumps(toks))
+            out[f"eng/{name}/{kind}"] = np.asarray(json.dumps(
+                _serve_traces(api, params, sched, traces, seed=11, **kw)))
         out[f"eng/{name}/ring"] = np.asarray(json.dumps(
-            [_serve(ring, params, sched, p, n) for p, n in traces]))
+            _serve_traces(ring, params, sched, traces)))
+    # the target as its own draft over the groups: drafts are accepted
+    sched, traces = ENGINE_TRACES["two_spec"]
+    for kind, kw in (("greedy", {}), ("stochastic", STOCHASTIC))[:SELF_KINDS[
+            tp]]:
+        out[f"eng/self_draft/{kind}"] = np.asarray(json.dumps(_serve_traces(
+            api, params, sched, traces, seed=11,
+            draft=TSP.ModelDraft(api, params, GAMMA, len_bucket=16,
+                                 max_batch=2), **kw)))
+    _case_verify(groups, out)
+    _case_draft(groups, out)
     ctx = api.comm_ctx
     lg = torch.from_numpy(_sampler_logits(tp)[r:r + 1])
     for s in range(3):
@@ -379,6 +439,65 @@ def _case_engine(groups, out):
         out[f"sampler/{s}"] = sample(lg, vocab_size=tp * 12 - 2,
                                      generator=gen, ctx=ctx,
                                      **STOCHASTIC).numpy()
+
+
+def _verify_inputs(tp):
+    """Verification inputs at ``tp`` ranks: logits (tp, B, GAMMA+1, V_loc)
+    with no near-tie (permutations of values 0.37 apart, the largest in
+    the padded vocab tail at one row), drafts (B, GAMMA) holding the
+    target argmax for a prefix of 0..GAMMA tokens, -1 holes and, in the
+    last row, the padded tail; and the vocab size."""
+    rng = np.random.RandomState(60 + tp)
+    v_loc, b = 12, 8
+    vocab = tp * v_loc - 2
+    full = np.stack([rng.permutation(tp * v_loc) * 0.37
+                     for _ in range(b * (GAMMA + 1))]).astype(np.float32)
+    full = full.reshape(b, GAMMA + 1, tp * v_loc)
+    tgt = np.argmax(full[..., :vocab], axis=-1)
+    draft = rng.randint(-1, vocab, (b, GAMMA))
+    for i in range(b):
+        draft[i, :i % (GAMMA + 1)] = tgt[i, :i % (GAMMA + 1)]
+    draft[-1, 0] = vocab + 1
+    full[-1, 0, vocab:] += 100.0
+    logits = full.reshape(b, GAMMA + 1, tp, v_loc).transpose(2, 0, 1, 3)
+    return np.ascontiguousarray(logits), draft, vocab
+
+
+def _case_verify(groups, out):
+    """``verify_greedy`` and ``verify_sample`` (3 seeds) on this rank's
+    shard of fixed logits, over the model group."""
+    tp, r = groups.model_size, groups.model_rank
+    ctx = CommCtx(tp=tp, backend="process_group", groups=groups)
+    logits, draft, vocab = _verify_inputs(tp)
+    lg, dr = torch.from_numpy(logits[r:r + 1]), torch.from_numpy(draft)
+    n_acc, emit = TSP.verify_greedy(lg, dr, vocab_size=vocab, ctx=ctx)
+    out["verify/greedy"] = torch.stack([n_acc, emit.long()]).numpy()
+    for s in range(3):
+        n_acc, emit = TSP.verify_sample(
+            lg, dr, torch.Generator().manual_seed(s), vocab_size=vocab,
+            ctx=ctx, **STOCHASTIC)
+        out[f"verify/sample/{s}"] = torch.stack([n_acc, emit.long()]).numpy()
+
+
+def _draft_model(tp):
+    """A one-layer draft of the tiny model at ``tp`` ranks: (cfg, weights,
+    contexts to propose for)."""
+    cfg = dataclasses.replace(_cfg(), num_layers=1)
+    params = TT.init_params(cfg, seed=9, device="cpu", tp=tp)
+    rng = np.random.RandomState(9)
+    ctxs = [[int(t) for t in rng.randint(0, CFG["vocab_size"], n)]
+            for n in (5, 23, 17)]
+    return cfg, params, ctxs
+
+
+def _case_draft(groups, out):
+    """A ``ModelDraft`` over the groups: each rank its rank's draft."""
+    tp, r = groups.model_size, groups.model_rank
+    cfg, params, ctxs = _draft_model(tp)
+    api = build_model(cfg, _pcfg(), tp=tp, groups=groups)
+    draft = TSP.ModelDraft(api, take_rank(params, r, cfg), GAMMA,
+                           len_bucket=16, max_batch=2)
+    out["draft/proposals"] = np.asarray(draft.propose(ctxs))
 
 
 def _case_reference(groups, out, ref_params):
@@ -737,16 +856,25 @@ SERVE_EP2D = ["--arch", EP2D, "--reduced", "--prompt-lens", "20,9",
               "--new-tokens", "3", "--seed", "2", "--comm-mode", "ring"]
 
 
+SERVE_SPEC = ["--arch", "llama3.3-70b", "--reduced", "--prompt-lens",
+              "150,70", "--new-tokens", "10", "--seed", "2", "--lookup",
+              "--spec-gamma", str(GAMMA), "--comm-mode", "ring"]
+SERVES = {"serve": SERVE, "serve_ring": SERVE + ["--comm-mode", "ring"],
+          "serve_ep2d": SERVE_EP2D, "serve_spec": SERVE_SPEC,
+          "serve_ep2d_spec": SERVE_EP2D + ["--spec-gamma", str(GAMMA),
+                                           "--packed", "--lookup"]}
+
+
 def _case_serve(rank, tmp):
     """``launch.serve``'s main in a world of 2 over gloo, in comm modes
-    ``fused`` (its default) and ``ring``, and the ep2d model in ``ring``
-    (data size 1: every expert on both ranks, each expert's d_ff split)."""
+    ``fused`` (its default) and ``ring``, the ep2d model in ``ring`` (data
+    size 1: every expert on both ranks, each expert's d_ff split), and
+    both with speculative decoding on prompt-lookup prompts (n-gram
+    draft; the ep2d model packed over the pool)."""
     import contextlib
     import io
     from repro_torch.launch import serve
-    for name, argv in (("serve", SERVE), ("serve_ring",
-                                          SERVE + ["--comm-mode", "ring"]),
-                       ("serve_ep2d", SERVE_EP2D)):
+    for name, argv in SERVES.items():
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = serve.main(argv + ["--device", "cpu",
@@ -951,7 +1079,7 @@ def worlds(tmp_path_factory):
     got = {mesh: [dict(np.load(tmp / f"{mesh[0]}x{mesh[1]}_r{w}.npz"))
                   for w in range(mesh[0] * mesh[1])]
            for meshes in WORLDS.values() for mesh in meshes}
-    for name in ("serve", "serve_ring", "serve_ep2d"):
+    for name in SERVES:
         got[name] = [dict(np.load(tmp / f"{name}_r{w}.npz"))
                      for w in range(2)]
     got["ref"] = dict(np.load(tmp / "ref.npz"))
@@ -1107,29 +1235,104 @@ def test_prefill_and_decode_match_rank_axis(worlds, tp):
                                           lay["pos"].numpy())
 
 
+def _spec_served(engine, counters):
+    """A spec trace's summed counters show verified windows and drafts;
+    a trace without spec has none."""
+    verify_steps, proposed = counters[:2]
+    if ENGINE_TRACES[engine][0].get("spec_gamma"):
+        assert verify_steps > 0 and proposed > 0, (engine, counters)
+    else:
+        assert counters == [0] * len(SPEC_COUNTERS)
+
+
 @pytest.mark.parametrize("kind", ["greedy", "stochastic"])
 @pytest.mark.parametrize("engine", list(ENGINE_TRACES))
 @pytest.mark.parametrize("tp", [2, 4])
 def test_engine_tokens_equal_rank_axis(worlds, tp, engine, kind):
+    """Each process's engine over the groups: tokens and ``spec/*``
+    counters (summed over the traces) equal to the rank axis's, greedy
+    and seeded stochastic, speculative traces (verify windows over slots
+    and packed over the pool) included."""
     api = build_model(_cfg(), _pcfg(), tp=tp)
     sched, traces = ENGINE_TRACES[engine]
-    want = [_serve(api, _params(tp), sched, p, n, seed=11,
-                   **(STOCHASTIC if kind == "stochastic" else {}))
-            for p, n in traces]
+    want = _serve_traces(api, _params(tp), sched, traces, seed=11,
+                         **(STOCHASTIC if kind == "stochastic" else {}))
+    _spec_served(engine, want[1])
     for got in worlds[(1, tp)]:
-        assert json.loads(str(got[f"eng/{engine}/{kind}"])) == want
+        assert json.loads(str(got[f"eng/{engine}/{kind}"])) == list(want)
 
 
 @pytest.mark.parametrize("engine", list(ENGINE_TRACES))
 @pytest.mark.parametrize("tp", [2, 4])
 def test_ring_engine_tokens_equal_rank_axis(worlds, tp, engine):
     """Comm mode ``ring``: every slot through K1's cross-rank wrapper on
-    each process against the rank axis's K1, greedy."""
+    each process against the rank axis's K1, greedy; tokens and
+    ``spec/*`` counters."""
     api = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=tp)
     sched, traces = ENGINE_TRACES[engine]
-    want = [_serve(api, _params(tp), sched, p, n) for p, n in traces]
+    want = _serve_traces(api, _params(tp), sched, traces)
     for got in worlds[(1, tp)]:
-        assert json.loads(str(got[f"eng/{engine}/ring"])) == want
+        assert json.loads(str(got[f"eng/{engine}/ring"])) == list(want)
+
+
+@pytest.mark.parametrize("tp, kind", [(2, "greedy"), (2, "stochastic"),
+                                      (4, "greedy")])
+def test_self_draft_engine_equals_rank_axis(worlds, tp, kind):
+    """The tiny model as its own ``ModelDraft`` over the groups (every
+    rank rolling out its own rank's weights, the argmax over the model
+    group) on the ``two_spec`` traces: tokens and ``spec/*`` counters
+    equal to the rank axis's, and drafts accepted (greedy: every
+    proposal; stochastic: some, not all)."""
+    api = build_model(_cfg(), _pcfg(), tp=tp)
+    params = _params(tp)
+    sched, traces = ENGINE_TRACES["two_spec"]
+    want = _serve_traces(api, params, sched, traces, seed=11,
+                         draft=TSP.ModelDraft(api, params, GAMMA,
+                                              len_bucket=16, max_batch=2),
+                         **(STOCHASTIC if kind == "stochastic" else {}))
+    _, proposed, accepted, _ = want[1]
+    assert 0 < accepted <= proposed
+    assert (accepted == proposed) == (kind == "greedy")
+    for got in worlds[(1, tp)]:
+        assert json.loads(str(got[f"eng/self_draft/{kind}"])) == list(want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_verify_rules_over_groups_equal_rank_axis(worlds, tp):
+    """``verify_greedy`` and ``verify_sample`` (temperature 0.8, top-p 0.9,
+    3 seeds) with a group ctx on each rank's shard of fixed logits: (n_acc,
+    emit) equal to the rank axis's on the whole logits, drafts accepted
+    and rejected, and the padded vocab tail never emitted."""
+    logits, draft, vocab = _verify_inputs(tp)
+    lg, dr = torch.from_numpy(logits), torch.from_numpy(draft)
+    n_acc, emit = TSP.verify_greedy(lg, dr, vocab_size=vocab)
+    want = {"greedy": torch.stack([n_acc, emit.long()]).numpy()}
+    assert sorted(set(n_acc.tolist())) == list(range(GAMMA + 1))
+    for s in range(3):
+        n_acc, emit = TSP.verify_sample(
+            lg, dr, torch.Generator().manual_seed(s), vocab_size=vocab,
+            **STOCHASTIC)
+        want[f"sample/{s}"] = torch.stack([n_acc, emit.long()]).numpy()
+    acc = np.concatenate([want[f"sample/{s}"][0] for s in range(3)])
+    assert acc.max() > 0 and acc.min() == 0
+    for key, w in want.items():
+        assert (w[1] < vocab).all()
+        for got in worlds[(1, tp)]:
+            np.testing.assert_array_equal(got[f"verify/{key}"], w)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_model_draft_over_groups_equals_rank_axis(worlds, tp):
+    """A one-layer ``ModelDraft`` built over the groups (each process its
+    rank's draft weights): every rank's proposals equal the rank axis's
+    draft's on the same contexts."""
+    cfg, params, ctxs = _draft_model(tp)
+    draft = TSP.ModelDraft(build_model(cfg, _pcfg(), tp=tp), params,
+                           GAMMA, len_bucket=16, max_batch=2)
+    want = np.asarray(draft.propose(ctxs))
+    assert want.shape == (len(ctxs), GAMMA)
+    for got in worlds[(1, tp)]:
+        np.testing.assert_array_equal(got["draft/proposals"], want)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -1471,7 +1674,7 @@ def _fake_groups(model=2, data=1):
 
 def _refusal(case):
     """What stays refused over the process_group backend: (the call,
-    the words its NotImplementedError names)."""
+    the words its error names[, the error when not NotImplementedError])."""
     from repro_torch.configs import get_config
 
     def build(name, ep=1, **pcfg):
@@ -1482,12 +1685,8 @@ def _refusal(case):
     def engine_spec(name):
         api = build(name)
         Engine(api, api.init(0, device="cpu"),
-               SchedulerConfig(**dict(PACKED, spec_gamma=3)), device="cpu")
-
-    def verify(name):
-        api = build(name)
-        api.verify_step(None, torch.zeros(1, 4, dtype=torch.long), None,
-                        torch.zeros(1, 4, dtype=torch.int32))
+               SchedulerConfig(**dict(SCHED, spec_gamma=GAMMA)),
+               device="cpu")
 
     def train(name):
         api = build(name)
@@ -1506,38 +1705,65 @@ def _refusal(case):
                         "ep=2.*encdec family"),
         "engine_data": (lambda: engine_data("llama3.3-70b"),
                         "data size 1, not ep=2"),
-        "spec_moe": (lambda: engine_spec("mixtral-8x22b"), "speculative"),
-        "verify_vlm": (lambda: verify("qwen2-vl-7b"), "verify"),
         "train_ssm": (lambda: train("falcon-mamba-7b"), "training"),
         "train_encdec": (lambda: train("whisper-base"), "training"),
+        # the reference's own refusal, raised on either backend
+        "spec_ssm": (lambda: engine_spec("falcon-mamba-7b"),
+                     "speculative decoding rolls back KV positions; ssm "
+                     "state has no token axis", ValueError),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["hybrid_batch_data", "ssm_data",
-                                  "encdec_data", "engine_data", "spec_moe",
-                                  "verify_vlm", "train_ssm", "train_encdec"])
+                                  "encdec_data", "engine_data", "train_ssm",
+                                  "train_encdec", "spec_ssm"])
 def test_process_group_refuses_what_is_not_ported(case):
     """The hybrid's batch over the data group, a data axis for the ssm
-    and encdec families, the engine at data size 2, and speculative
-    decoding, the verify step and training of a non-dense family raise
-    NotImplementedError by name; every family builds over groups at data
-    size 1 (tests/test_torch_pg_families.py), the transformer families
-    with the batch over the data group, and they and the hybrid under
-    context-parallel decode over it."""
-    call, words = _refusal(case)
-    with pytest.raises(NotImplementedError, match=words):
+    and encdec families, the engine at data size 2, and training of a
+    non-dense family raise NotImplementedError by name, and speculative
+    decoding of an ssm model the reference's ValueError; every family
+    builds over groups at data size 1 (tests/test_torch_pg_families.py),
+    the transformer families with the batch over the data group,
+    speculative decoding and the verify step, and they and the hybrid
+    under context-parallel decode over it."""
+    call, words, *exc = _refusal(case)
+    with pytest.raises(*(exc or [NotImplementedError]), match=words):
         call()
 
 
-def test_spec_verify_and_training_refuse_process_group():
+@pytest.mark.parametrize("draft_on", ["rank_axis", "other_rank",
+                                      "other_tp", "other_group"])
+def test_engine_refuses_a_draft_off_the_target_groups(draft_on):
+    """A ``ModelDraft`` must run at the target's tp over the target's
+    groups (its own rank's draft weights), else the ranks could propose
+    different tokens: a draft on the rank axis, over another model rank's
+    groups, at another tp or over another ``torch.distributed`` group of
+    the same size and rank raises ValueError; one over the same groups
+    is taken."""
     api = build_model(_cfg(), _pcfg(), tp=2, groups=_fake_groups())
     params = take_rank(_params(2), 0, _cfg())
-    with pytest.raises(NotImplementedError, match="speculative"):
-        Engine(api, params, SchedulerConfig(**dict(PACKED, spec_gamma=3)),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="verify"):
-        api.verify_step(params, torch.zeros(1, 4, dtype=torch.long), None,
-                        torch.zeros(1, 4, dtype=torch.int32))
+    cfg, dparams, _ = _draft_model(2)
+    groups = {"rank_axis": None,
+              "other_rank": dataclasses.replace(_fake_groups(),
+                                                model_rank=1),
+              "other_tp": _fake_groups(model=4),
+              "other_group": dataclasses.replace(_fake_groups(),
+                                                 model=object())}[draft_on]
+    tp = 4 if draft_on == "other_tp" else 2
+    d_api = build_model(cfg, _pcfg(), tp=tp, groups=groups)
+    sched = SchedulerConfig(**dict(SCHED, spec_gamma=GAMMA))
+    with pytest.raises(ValueError, match="model draft runs at tp="):
+        Engine(api, params, sched, device="cpu", draft=TSP.ModelDraft(
+            d_api, dparams, GAMMA))
+    same = build_model(cfg, _pcfg(), tp=2, groups=_fake_groups())
+    eng = Engine(api, params, sched, device="cpu", draft=TSP.ModelDraft(
+        same, take_rank(dparams, 0, cfg), GAMMA))
+    assert eng.draft.api.groups == api.groups
+
+
+def test_training_refuses_process_group():
+    api = build_model(_cfg(), _pcfg(), tp=2, groups=_fake_groups())
+    params = take_rank(_params(2), 0, _cfg())
     with pytest.raises(NotImplementedError, match="training"):
         api.train_loss(params, {"tokens": torch.zeros(1, 4, dtype=torch.long),
                                 "labels": torch.zeros(1, 4,
@@ -1667,3 +1893,56 @@ def test_serve_launcher_ring_matches_the_rank_axis_ring_engine(worlds):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (20, 9)]
     assert line["tokens"] == _serve(api, params, dict(), prompts, [3, 3])
+
+
+def _serve_rank_axis(argv, **sched):
+    """The rank axis's engine at tp=2 on ``launch.serve``'s seeded weights
+    and prompts for ``argv`` (its comm mode), with ``sched``: (tokens,
+    ``spec/*`` counters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    args = serve.parse(argv)
+    cfg = get_config(args.arch).reduced()
+    api = build_model(cfg, tbase.ParallelConfig(
+        comm_mode=args.comm_mode, attn_impl="pallas", use_pallas_norm=True),
+        tp=2)
+    prompts = serve.prompts_of(np, args, cfg.vocab_size)
+    return _serve_stats(api, api.init(args.seed, device="cpu"), sched,
+                        prompts, [args.new_tokens] * len(prompts))
+
+
+def test_serve_launcher_spec_ring_equals_spec_off(worlds):
+    """``launch.serve --spec-gamma 3 --lookup --comm-mode ring`` in a
+    world of 2 over gloo: the ranks agree, windows were verified and
+    drafts accepted, and its greedy tokens equal the rank axis's ``ring``
+    engine's with speculation off (and its counters those of the rank
+    axis's with it on)."""
+    assert [int(r["rc"]) for r in worlds["serve_spec"]] == [0, 0]
+    line = json.loads(str(worlds["serve_spec"][0]["line"]))
+    assert line["ranks_agree"] and line["comm_mode"] == "ring"
+    spec = line["spec"]
+    assert spec["gamma"] == GAMMA and spec["draft"] == "ngram"
+    assert spec["verify_steps"] > 0 and spec["proposed"] > 0
+    off, counters = _serve_rank_axis(SERVE_SPEC)
+    assert counters == [0] * len(SPEC_COUNTERS)
+    assert line["tokens"] == off
+    _, counters = _serve_rank_axis(SERVE_SPEC, spec_gamma=GAMMA)
+    assert [spec[k] for k in ("verify_steps", "proposed", "accepted",
+                              "emitted")] == counters
+
+
+def test_serve_launcher_spec_ep2d_equals_rank_axis(worlds):
+    """The ep2d model at data size 1 with speculative decoding, packed
+    over the pool (``--spec-gamma 3 --packed --lookup --comm-mode
+    ring``): the ranks agree, and tokens and counters equal the rank
+    axis's engine with the same scheduler (MoE tokens depend on the
+    batch, so the reference is the same speculative engine)."""
+    assert [int(r["rc"]) for r in worlds["serve_ep2d_spec"]] == [0, 0]
+    line = json.loads(str(worlds["serve_ep2d_spec"][0]["line"]))
+    assert line["ranks_agree"] and line["spec"]["packed"]
+    tokens, counters = _serve_rank_axis(
+        SERVES["serve_ep2d_spec"], spec_gamma=GAMMA, paged=True, packed=True)
+    assert counters[0] > 0
+    assert line["tokens"] == tokens
+    assert [line["spec"][k] for k in ("verify_steps", "proposed",
+                                      "accepted", "emitted")] == counters

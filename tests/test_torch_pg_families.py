@@ -53,6 +53,9 @@ TOL, TOL_REF = 1e-5, 1e-4
 MODELS = ("mixtral-8x22b", "olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b",
           "whisper-base", "qwen2-vl-7b")
 ENGINE_MODELS = ("olmoe-1b-7b", "falcon-mamba-7b")
+SPEC_MODELS = ("olmoe-1b-7b",)    # engine traces with speculative decoding
+VERIFY_MODELS = ("mixtral-8x22b", "qwen2-vl-7b")   # verify_step logits
+GAMMA = 3
 MODES = ("fused", "ring")
 PCFG = dict(tokenweave=True, remat=False, split_unit=16,
             tokenweave_min_tokens=32)
@@ -66,6 +69,17 @@ SEED = 5
 
 def _cfg(name):
     return get_config(name).reduced()
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The rank axis's side runs here in many tiny ops: one intra-op
+    thread, as the spawned ranks run, keeps them from spinning against
+    the other test workers' threads on a loaded host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pcfg(mode):
@@ -254,12 +268,47 @@ def _prompts(cfg, seed):
             [4, 6, 3])
 
 
-def _serve(api, params, prompts, outs):
-    eng = Engine(api, params, SchedulerConfig(**SCHED), device="cpu")
+def _serve(api, params, prompts, outs, **sched):
+    """Serve ``prompts`` with ``sched`` over SCHED: (tokens, the
+    ``spec/*`` counters)."""
+    eng = Engine(api, params, SchedulerConfig(**dict(SCHED, **sched)),
+                 device="cpu")
     for i, (p, n) in enumerate(zip(prompts, outs)):
         eng.add_request(Request(rid=i, prompt=p, max_new_tokens=n))
     got = {r.rid: r.output for r in eng.run()}
-    return [got[i] for i in range(len(prompts))]
+    sp = eng.stats.spec
+    return ([got[i] for i in range(len(prompts))],
+            [sp.verify_steps, sp.draft_proposed, sp.draft_accepted,
+             sp.emitted])
+
+
+def _lookup_prompts(cfg, seed):
+    """Prompts repeating one seeded 6-token block, and new tokens."""
+    block = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                6).tolist()
+    return [(block * 8)[:n] for n in (29, 13, 40)], [8, 10, 7]
+
+
+def _verify(api, params, cache_cut=None):
+    """One ``verify_step`` of DECODE_B windows of GAMMA + 1 tokens over
+    the random decode cache, each window rewriting its row's last GAMMA
+    + 1 cells (row 1 with a one-token draft, the rest padding): the
+    logits."""
+    full = build_model(api.cfg, api.pcfg, tp=TP)
+    cache, _, pos, step = _decode_inputs(full)
+    if cache_cut is not None:
+        cache = cache_cut(cache)
+    rng = np.random.RandomState(13)
+    tokens = torch.from_numpy(rng.randint(0, api.cfg.vocab_size,
+                                          (DECODE_B, GAMMA + 1)))
+    positions = pos - GAMMA - 1 + torch.arange(GAMMA + 1, dtype=torch.int32)
+    positions[1, 2:] = -1
+    kw = {}
+    if "mrope_positions" in step:                 # M-RoPE ids 40 below
+        kw["mrope_positions"] = (positions - 40)[:, None].repeat(1, 3, 1)
+    with torch.no_grad():
+        logits, _ = api.verify_step(params, tokens, cache, positions, **kw)
+    return logits
 
 
 # --------------------------------------------------------------------------
@@ -304,7 +353,15 @@ def _worker(rank, tmp):
                 _flat_out(f"{key}/dc/cache", dc_cache, out)
                 if name in ENGINE_MODELS:
                     out[f"{key}/engine"] = np.asarray(json.dumps(
-                        _serve(api, params, *_prompts(cfg, 3))))
+                        _serve(api, params, *_prompts(cfg, 3))[0]))
+                if name in SPEC_MODELS:
+                    out[f"{key}/engine_spec"] = np.asarray(json.dumps(
+                        _serve(api, params, *_lookup_prompts(cfg, 4),
+                               spec_gamma=GAMMA)))
+                if name in VERIFY_MODELS:
+                    out[f"{key}/verify"] = _verify(
+                        api, params, lambda c: _rank_cut(c, like, rank)
+                    ).numpy()
     finally:
         K1P.ar_rmsnorm_peer = real
         dist.destroy_process_group()
@@ -561,10 +618,42 @@ def test_ring_takes_k1_peer_at_every_slot(world, name):
 def test_engine_tokens_equal_rank_axis(world, name, mode):
     cfg = _cfg(name)
     api = build_model(cfg, _pcfg(mode), tp=TP)
-    want = _serve(api, _params(name), *_prompts(cfg, 3))
+    want, _ = _serve(api, _params(name), *_prompts(cfg, 3))
     assert sum(len(t) for t in want) == 13
     for got in world["ranks"]:
         assert json.loads(str(got[f"{name}/{mode}/engine"])) == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", SPEC_MODELS)
+def test_engine_spec_equals_rank_axis(world, name, mode):
+    """OLMoE (``expert``) with speculative decoding over slots (n-gram
+    draft, gamma 3) on prompt-lookup prompts: each rank's tokens and
+    ``spec/*`` counters equal the rank axis's with the same scheduler
+    (MoE tokens depend on the batch: the reference is the same
+    speculative engine), windows verified and drafts proposed."""
+    cfg = _cfg(name)
+    api = build_model(cfg, _pcfg(mode), tp=TP)
+    want = _serve(api, _params(name), *_lookup_prompts(cfg, 4),
+                  spec_gamma=GAMMA)
+    assert want[1][0] > 0 and want[1][1] > 0
+    for got in world["ranks"]:
+        assert json.loads(str(got[f"{name}/{mode}/engine_spec"])) == \
+            list(want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", VERIFY_MODELS)
+def test_verify_step_matches_rank_axis(world, name, mode):
+    """``ModelApi.verify_step`` over the groups (Mixtral's ``ffn`` MoE
+    routing a process's own window rows; Qwen2-VL as text, M-RoPE ids 40
+    below the 1-D positions): each rank's logits within 1e-5 of its slice
+    of the rank axis's."""
+    api = build_model(_cfg(name), _pcfg(mode), tp=TP)
+    want = _verify(api, _params(name))
+    assert want.shape[2] == GAMMA + 1
+    for r, got in enumerate(world["ranks"]):
+        _close(got[f"{name}/{mode}/verify"], want[r:r + 1].numpy())
 
 
 @pytest.mark.parametrize("phase", ["pf", "dc"])
