@@ -320,7 +320,30 @@ Phases, each printing one JSON line:
             restart ("resumed from checkpoint step 6") and an
             uninterrupted run, final losses within 1e-3 relative; then
             ``--manual-sync --mesh 2x1x2`` (int8 pod reduce, reduced
-            Gemma3-1B) for 4 steps, its loss falling.
+            Gemma3-1B) for 4 steps, its loss falling;
+22b. pg_train  the dense family's train steps one (pod, data, model)
+            rank per process, four processes of its own
+            (``--pg-train-rank``) on a (pod 2, data 1, model 2) mesh over
+            gloo: Gemma3-1B at full width (6 of 26 layers: one
+            local/global period, bf16, ``fused``, remat on, 2 x 1024
+            tokens a data-parallel shard), 3 steps of ``make_train_step``
+            (ZeRO-1: each rank its chunk of ``m`` / ``v``) and 3 of
+            ``make_manual_sync_train_step`` with the int8 pod reduce;
+            gates: every loss and gradient norm finite and equal on every
+            rank, K2's and K3's launches on every step and rank equal to
+            splits (the entry norm) and splits·L·2 (remat recomputes each
+            layer), K3 and K2 held on every kept input; then the float32
+            twin (reduced width, 2 layers, one local and one global, the
+            weave forced, 2 steps each) against the rank axis at D = 2 x
+            R = 2 on the card: losses within 1e-5 relative, the ZeRO-1
+            step's params within 2e-4, the first int8 pod reduce's inputs
+            through the rank axis's ``compressed_psum`` bit-equal; and
+            ``launch.train`` over groups (four processes, train_resume's
+            ``--manual-sync`` run failing at step 2 beside the ranks, then
+            resumed): the final loss within 1e-3 of train_resume's rank
+            axis run; reported: per-rank step ms (time-sliced), peak GB,
+            ``m`` / ``v`` bytes per rank against the rank axis's, the
+            gradient reduces' bytes and ms a step, the phase's seconds.
 
 The kernels phase holds K2 and K1 at the families' widths too (d 4096,
 3584, 1152 and 512, K1 timed at Whisper's 8 x 1500-row split and at one
@@ -6900,7 +6923,9 @@ def logged_losses(out: str) -> list:
             if ln.startswith("[train] step")]
 
 
-def train_resume_phase(torch) -> None:
+def train_resume_phase(torch) -> float:
+    """The driver on the card (module docstring, 22); returns the final
+    loss of its ``--manual-sync --mesh 2x1x2`` run."""
     import shutil
     root = ROOT / "build" / "train_resume"
     shutil.rmtree(root, ignore_errors=True)
@@ -6935,6 +6960,7 @@ def train_resume_phase(torch) -> None:
     if not (len(manual) == 2 and all(map(math.isfinite, manual))):
         raise AssertionError(f"train_resume: manual-sync losses {manual}")
     manual_sync_phase(torch)
+    return manual[-1]
 
 
 def manual_sync_phase(torch) -> None:
@@ -6989,6 +7015,467 @@ def manual_sync_phase(torch) -> None:
             <= MANUAL_INT8_FALL_RTOL * fall["none"]):
         raise AssertionError(f"manual_sync: fixed-batch loss falls {fall}")
 
+
+
+# --------------------------------------------------------------------------
+# pg_train: the dense family's train steps one (pod, data, model) rank per
+# process, four ranks on the card
+# --------------------------------------------------------------------------
+
+PGT_MESH = (2, 1, 2)               # (pod, data, model): world rank = p·2 + m
+PGT_WORLD = 4
+PGT_TIMEOUT_S = 400
+PGT_VARIANTS = ("auto", "int8")    # make_train_step; manual with compress_pod
+PGT_LOSS_RTOL, PGT_PARAM_TOL = 1e-5, 2e-4
+PGT_DRIVER = ["--reduced", "--steps", "4", "--batch", "4", "--seq", "64",
+              "--mesh", "2x1x2", "--manual-sync"]     # train_resume's manual
+PGT_DRIVER_FAIL = 2
+
+
+def pgt_model(run: str):
+    """(cfg, pcfg, rows, seq, steps) of a pg_train run: "full" is
+    Gemma3-1B at full width, bf16, one local/global period (6 of 26
+    layers), 2 x 1024 tokens a data-parallel shard, 3 steps; "twin" its
+    float32 twin (the reduced config, 2 layers, one local and one global,
+    2 x 64 tokens a shard, the weave forced), 2 steps.  ``fused``, K2 and
+    K3 inside autograd, remat on."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    kw = dict(comm_mode="fused", attn_impl="pallas", use_pallas_norm=True,
+              remat=True, dp_axes=("pod", "data"), grad_compression="int8")
+    if run == "full":
+        return (dataclasses.replace(get_config("gemma3-1b"), num_layers=6),
+                ParallelConfig(**kw, split_unit=64,
+                               tokenweave_min_tokens=256), 4, 1024, 3)
+    return (dataclasses.replace(get_config("gemma3-1b").reduced(),
+                                num_layers=2, local_global_period=2),
+            ParallelConfig(**kw, split_unit=16, tokenweave_min_tokens=32),
+            4, 64, 2)
+
+
+def pgt_expected(api, run: str) -> dict:
+    """Each step's K2 and K3 launches on every rank: the entry norm per
+    weave split (Gemma's sandwich slots take the unfused add+norm), K3
+    per split and layer, twice under remat (the backward recomputes each
+    layer's forward)."""
+    from repro_torch.models import transformer as TR
+    cfg, pcfg, rows, seq, _ = pgt_model(run)
+    splits = 1 + TR.weave_decision_info(rows // api.ep, seq, tp=api.tp,
+                                        pcfg=pcfg).weave
+    return {"fused_residual_rmsnorm": splits,
+            "flash_attention": splits * cfg.num_layers * (1 + pcfg.remat),
+            "splits": splits}
+
+
+class pgt_spy:
+    """While the block runs: the wall ms and float32 bytes of every
+    gradient reduce over the groups (``_GroupLayout.sync_model`` and
+    ``reduce_dp``, between device syncs: time-sliced with the other
+    ranks, gloo's host staging included) and of every int8 pod reduce
+    (int8 payload and float32 scales), and the first int8 reduce's inputs
+    and outputs on the host."""
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.int8 = torch, [], None
+
+    def __enter__(self):
+        from repro_torch.training import compression as TC
+        from repro_torch.training import train_step as TS
+        torch, calls = self.torch, self.calls
+        self.saved = [(TS._GroupLayout, n, getattr(TS._GroupLayout, n))
+                      for n in ("sync_model", "reduce_dp")]
+        self.saved.append((TC, "compress_grads", TC.compress_grads))
+
+        def timed(kind, real, nbytes):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real(*args)
+                torch.cuda.synchronize()
+                calls.append((kind, nbytes(args),
+                              (time.perf_counter() - t) * 1e3))
+                return out
+            return run
+
+        def model_bytes(args):
+            layout, grads = args
+            return sum(g.numel() * 4 for g, k in zip(grads, layout.kinds)
+                       if k == "replicated")
+
+        def dp_bytes(args):
+            return sum(g.numel() * 4 for g in args[1])
+        for (owner, name, real), nbytes in zip(self.saved[:2],
+                                               (model_bytes, dp_bytes)):
+            setattr(owner, name, timed(name, real, nbytes))
+        real_int8 = self.saved[2][2]
+        flat = torch.utils._pytree.tree_flatten
+
+        def int8(grads, ef, specs=None, group=None):
+            n = [g.numel() for g in flat(grads)[0]]
+            keep = [tuple(i for i, a in enumerate(s) if a is not None)
+                    for s in flat(specs, is_leaf=lambda v:
+                                  isinstance(v, tuple))[0]]
+            # int8 payload, one float32 scale per device block
+            nbytes = sum(n) + 4 * len(n)
+            out = timed("int8_pod", real_int8, lambda a: nbytes)(
+                grads, ef, specs, group)
+            if self.int8 is None:
+                self.int8 = {k: [t.detach().cpu() for t in flat(v)[0]]
+                             for k, v in (("x", grads), ("e", ef),
+                                          ("reduced", out[0]),
+                                          ("e_new", out[1]))}
+                self.int8["keep"] = keep
+            return out
+        setattr(TC, "compress_grads", int8)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+        return False
+
+
+def pgt_drive(torch, api, run: str, variant: str, seed: int,
+              on_step=None) -> dict:
+    """``PGT_*`` steps of one variant through ``api`` (the rank axis at
+    D = 2 x R = 2, or one process of the groups), from ``seed``:
+    losses, grad norms, each step's wall ms and K2/K3 launches, the
+    final state."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (make_manual_sync_train_step,
+                                                 make_train_step)
+    cfg, _, rows, seq, steps = pgt_model(run)
+    mesh = make_mesh(PGT_MESH, ("pod", "data", "model"))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    if variant == "auto":
+        step, init = make_train_step(api, mesh, None, ocfg, dp_size=api.ep)
+    else:
+        step, init = make_manual_sync_train_step(api, mesh, None, ocfg,
+                                                 compress_pod=True)
+    state = list(init(seed, device="cuda"))
+    data = SyntheticLM(vocab=cfg.vocab_size, seq_len=seq, global_batch=rows,
+                       seed=seed)
+    out = {"loss": [], "gnorm": [], "ms": [], "launches": []}
+    for i in range(steps):
+        before = read_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = step(*state, data.batch(i))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        after = read_launches()
+        out["launches"].append({k: after[k] - before[k] for k in after})
+        state = [got[0], got[1], *got[3:]]
+        out["loss"].append(float(got[2]["loss"]))
+        out["gnorm"].append(float(got[2]["grad_norm"]))
+    out["state"] = state
+    return out
+
+
+def pgt_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
+    """One of pg_train's four processes: gloo groups over a (pod 2, data 1,
+    model 2) mesh on the card, then each run's variants (``pgt_drive``)
+    under ``pgt_spy``, K2's and K3's inputs kept at the first call of each
+    shape; results, spy records and kept inputs go to ``out_dir``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_groups, make_mesh
+    from repro_torch.models.build import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    groups = init_groups(make_mesh(PGT_MESH, ("pod", "data", "model")),
+                         backend="gloo", init_method=f"file://{out_dir}/store",
+                         rank=rank, world_size=PGT_WORLD)
+    try:
+        for run in ("full", "twin"):
+            cfg, pcfg, *_ = pgt_model(run)
+            api = build_model(cfg, pcfg, tp=PGT_MESH[2], ep=PGT_MESH[0],
+                              groups=groups)
+            k3_inputs, k2_inputs = {}, {}
+            undo = [capture_k3_inputs(k3_inputs),
+                    capture_k2_inputs(k2_inputs)]
+            result = {"coords": [groups.pod_rank, groups.data_rank,
+                                 groups.model_rank],
+                      "expected": pgt_expected(api, run)}
+            try:
+                for variant in PGT_VARIANTS:
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    with pgt_spy(torch) as spy:
+                        got = pgt_drive(torch, api, run, variant, seed)
+                    state = got.pop("state")
+                    opt = state[1]
+                    got["peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+                    got["mv_bytes"] = sum(
+                        t.numel() * t.element_size() for k in ("m", "v")
+                        for t in torch.utils._pytree.tree_flatten(
+                            opt[k])[0])
+                    got["reduce"] = spy.calls
+                    result[variant] = got
+                    if run == "twin":
+                        torch.save({"params": [
+                            t.detach().cpu() for t in
+                            torch.utils._pytree.tree_flatten(state[0])[0]],
+                            "int8": spy.int8},
+                            out_dir / f"{run}_{variant}_r{rank}.pt")
+                    del state, opt
+                    offload(k3_inputs)
+                    for key, (ts, eps) in k2_inputs.items():
+                        k2_inputs[key] = ([t.cpu() for t in ts], eps)
+            finally:
+                for u in undo:
+                    u()
+            torch.save(list(k3_inputs.values()), out_dir / f"k3_{run}_r{rank}.pt")
+            torch.save(list(k2_inputs.values()), out_dir / f"k2_{run}_r{rank}.pt")
+            (out_dir / f"{run}_r{rank}.json").write_text(json.dumps(result))
+            del api, k3_inputs, k2_inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def pgt_twin_check(torch, np, seed: int, out_dir: Path,
+                   res: list) -> dict:
+    """The float32 twin against the rank axis at D = 2 x R = 2 on the card
+    (TF32 off): every rank's losses within 1e-5 relative, the ZeRO-1
+    step's params within 2e-4 of max(1, a leaf's largest magnitude) of
+    its slice, and each model rank's first int8 pod reduce replayed
+    through the rank axis's ``compressed_psum`` bit-equal.  The int8
+    step's params are reported: its quantizer is discontinuous and the
+    groups sum each gradient in another order."""
+    from repro_torch.models.build import build_model
+    from repro_torch.training import compression as TC
+    from repro_torch.weights import take_rank
+
+    cfg, pcfg, *_ = pgt_model("twin")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    axis = build_model(cfg, pcfg, tp=PGT_MESH[2], ep=PGT_MESH[0])
+    out = {}
+    for variant in PGT_VARIANTS:
+        ref = pgt_drive(torch, axis, "twin", variant, seed)
+        worst_loss, worst_param = 0.0, 0.0
+        for w, r in enumerate(res):
+            got = r[variant]
+            worst_loss = max(worst_loss, max(
+                abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                    ref["loss"])))
+            kept = torch.load(out_dir / f"twin_{variant}_r{w}.pt")
+            want = torch.utils._pytree.tree_flatten(
+                take_rank(ref["state"][0], r["coords"][2], cfg))[0]
+            for a, b in zip(kept["params"], want):
+                b = b.detach().float().cpu()
+                worst_param = max(worst_param, float(
+                    (a.float() - b).abs().max()) / max(
+                    1.0, float(b.abs().max())))
+        out[variant] = {"loss_rel_err": worst_loss,
+                        "param_err": worst_param,
+                        "rank_axis_losses": ref["loss"]}
+        if worst_loss > PGT_LOSS_RTOL or (
+                variant == "auto" and worst_param > PGT_PARAM_TOL):
+            raise AssertionError(f"pg_train twin {variant}: losses off by "
+                                 f"{worst_loss}, params by {worst_param}")
+        del ref
+    bits = []
+    for m in range(PGT_MESH[2]):
+        pods = [torch.load(out_dir / f"twin_int8_r{w}.pt")["int8"]
+                for w in range(PGT_WORLD) if res[w]["coords"][2] == m]
+        equal = True
+        for i, keep in enumerate(pods[0]["keep"]):
+            x = torch.cat([p["x"][i] for p in pods]).cuda()
+            e = torch.cat([p["e"][i] for p in pods]).cuda()
+            reduced, e_new = TC.compressed_psum(x, e, keep)
+            for p, pod in enumerate(pods):
+                equal &= torch.equal(pod["reduced"][i].cuda(), reduced.to(
+                    pod["reduced"][i].dtype))
+                equal &= torch.equal(pod["e_new"][i].cuda(), e_new[p:p + 1])
+        bits.append(equal)
+    out["int8_reduce_bit_equal"] = bits
+    if not all(bits):
+        raise AssertionError(f"pg_train twin: the int8 pod reduce differs "
+                             f"from the rank axis's {bits}")
+    return out
+
+
+def pgt_driver_start(root: Path, name: str) -> list:
+    """One round of ``launch.train`` over groups on the card: four
+    processes (gloo, each its (pod, data, model) rank of ``--mesh 2x1x2``)
+    of train_resume's ``--manual-sync`` configuration, "fail" failing at
+    step PGT_DRIVER_FAIL (exit 42 on every rank), "resume" resuming its
+    checkpoint and finishing.  Returns the processes, started."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    extra = ["--fail-at-step", str(PGT_DRIVER_FAIL)] if name == "fail" else []
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *PGT_DRIVER,
+         *extra, "--ckpt-dir", str(root / "ckpt"), "--rank", str(k),
+         "--world-size", str(PGT_WORLD), "--init-method",
+         f"file://{root}/store_{name}"], cwd=SRC, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for k in range(PGT_WORLD)]
+
+
+def pgt_driver_wait(procs: list, name: str) -> str:
+    """Wait for a round's processes (every one stopped before this
+    returns or raises); rank 0's standard output."""
+    try:
+        got = [p.communicate(timeout=PGT_TIMEOUT_S) + (p.returncode,)
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = 42 if name == "fail" else 0
+    for k, (stdout, stderr, rc) in enumerate(got):
+        if rc != want:
+            raise AssertionError(f"pg_train driver {name} rank {k} exited "
+                                 f"{rc}: {stdout}{stderr[-3000:]}")
+    return got[0][0]
+
+
+def pgt_driver_check(out: str, manual_loss: float, seconds: float) -> dict:
+    """The resumed run's gates: it resumed at PGT_DRIVER_FAIL and its
+    final loss is within 1e-3 of the rank axis's run of the same
+    configuration (``manual_loss``, train_resume's)."""
+    if f"resumed from checkpoint step {PGT_DRIVER_FAIL}" not in out:
+        raise AssertionError(f"pg_train driver: no resume: {out}")
+    final = logged_losses(out)[-1]
+    rel = abs(final - manual_loss) / abs(manual_loss)
+    line = {"phase": "pg_train_driver", "final_loss": final,
+            "rank_axis_final_loss": manual_loss, "rel_diff": rel,
+            "rtol": RESUME_RTOL, "seconds": seconds}
+    emit(line)
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"pg_train driver: final loss {final} against "
+                             f"the rank axis's {manual_loss}")
+    return line
+
+
+def pg_train_phase(torch, np, seed: int, manual_loss: float) -> tuple:
+    """The dense family's training one (pod, data, model) rank per process:
+    four processes on the card (``pgt_rank``; gloo carries every
+    collective, the backward's and the optimizer's), gated on Gemma3-1B
+    at full width (finite losses and norms equal on every rank, K2's and
+    K3's launches on every step against ``pgt_expected``, both held on
+    every kept input), the float32 twin against the rank axis
+    (``pgt_twin_check``) and the driver's resume (``pgt_driver_*``).
+    Returns (rank 0's K2 and K3 launches over the full-width steps, K2's
+    and K3's worst errors)."""
+    import os
+    import tempfile
+    from repro_torch.models.build import build_model
+
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="pg_train_"))
+    driver_dir = Path(tempfile.mkdtemp(prefix="pg_train_driver_"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+          "--pg-train-dir", str(out_dir), "--pg-train-rank"]
+    # the driver's failing round beside the ranks, its resume beside the
+    # checks: each is mostly its processes' start
+    driver = pgt_driver_start(driver_dir, "fail")
+    try:
+        run_children([me + [str(k)] for k in range(PGT_WORLD)], cwd=ROOT,
+                     env=env, timeout=PGT_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        pgt_driver_wait(driver, "fail")
+        driver = pgt_driver_start(driver_dir, "resume")
+        res = {run: [json.loads((out_dir / f"{run}_r{w}.json").read_text())
+                     for w in range(PGT_WORLD)] for run in ("full", "twin")}
+        k2 = k3 = 0
+        k2_err = k3_err = 0.0
+        for run, ranks in res.items():
+            cfg, pcfg, rows, seq, steps = pgt_model(run)
+            want = ranks[0]["expected"]
+            for w, r in enumerate(ranks):
+                if r["coords"] != [w // 2, 0, w % 2]:
+                    raise AssertionError(f"pg_train {run}: rank {w} at "
+                                         f"{r['coords']}")
+                for variant in PGT_VARIANTS:
+                    got = r[variant]
+                    if not all(map(math.isfinite,
+                                   got["loss"] + got["gnorm"])):
+                        raise AssertionError(f"pg_train {run} {variant} "
+                                             f"rank {w}: {got['loss']} "
+                                             f"{got['gnorm']}")
+                    if (got["loss"] != ranks[0][variant]["loss"]
+                            or got["gnorm"] != ranks[0][variant]["gnorm"]):
+                        raise AssertionError(f"pg_train {run} {variant}: "
+                                             f"the ranks' losses differ")
+                    for i, n in enumerate(got["launches"]):
+                        if any(n[k] != want[k] for k in
+                               ("fused_residual_rmsnorm", "flash_attention")):
+                            raise AssertionError(
+                                f"pg_train {run} {variant} rank {w} step "
+                                f"{i}: launches {n}, expected {want}")
+            if run == "full":
+                k2 = sum(n["fused_residual_rmsnorm"] for v in PGT_VARIANTS
+                         for n in ranks[0][v]["launches"])
+                k3 = sum(n["flash_attention"] for v in PGT_VARIANTS
+                         for n in ranks[0][v]["launches"])
+            for w in range(PGT_WORLD):
+                kept = torch.load(out_dir / f"k3_{run}_r{w}.pt")
+                k3_err = max(k3_err, check_main_path_k3(
+                    torch, dict(enumerate(kept)), f"pg_train {run} rank {w}",
+                    PGT_MESH[2]))
+                kept2 = torch.load(out_dir / f"k2_{run}_r{w}.pt")
+                k2_err = max(k2_err, check_main_path_k2(
+                    torch, {i: ([t.cuda() for t in ts], eps)
+                            for i, (ts, eps) in enumerate(kept2)},
+                    f"pg_train {run} rank {w}"))
+            axis = build_model(cfg, pcfg, tp=PGT_MESH[2], ep=PGT_MESH[0])
+            axis_mv = 8 * sum(t.numel() for t in torch.utils._pytree.
+                              tree_flatten(axis.init(seed,
+                                                     device="meta"))[0])
+            line = {"phase": "pg_train", "run": run, "model": cfg.name,
+                    "layers": cfg.num_layers, "d_model": cfg.d_model,
+                    "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                    "mesh": dict(zip(("pod", "data", "model"), PGT_MESH)),
+                    "backend": "gloo", "comm_mode": pcfg.comm_mode,
+                    "remat": pcfg.remat, "tokens_per_shard": rows // 2 * seq,
+                    "weave_splits": want["splits"],
+                    "expected_launches_per_step": want}
+            for variant in PGT_VARIANTS:
+                per = [r[variant] for r in ranks]
+                calls = per[0]["reduce"]
+                line[variant] = {
+                    "losses": per[0]["loss"], "grad_norms": per[0]["gnorm"],
+                    "step_ms_per_rank": [p["ms"] for p in per],
+                    "peak_gb_per_rank": [p["peak_gb"] for p in per],
+                    "mv_bytes_per_rank": [p["mv_bytes"] for p in per],
+                    "mv_bytes_rank_axis": axis_mv,
+                    "launches_rank0": per[0]["launches"],
+                    "reduce_bytes_per_step": sum(
+                        c[1] for c in calls) / steps,
+                    "reduce_ms_per_step": sum(c[2] for c in calls) / steps,
+                    "reduce_ms_by_kind_rank0": {
+                        kind: [c[2] for c in calls if c[0] == kind]
+                        for kind in sorted({c[0] for c in calls})},
+                    "reduce_bytes_by_kind_rank0": {
+                        kind: sum(c[1] for c in calls if c[0] == kind)
+                        for kind in sorted({c[0] for c in calls})}}
+            if run == "twin":
+                line["vs_rank_axis"] = pgt_twin_check(torch, np, seed,
+                                                      out_dir, ranks)
+            line["card"] = card_line()
+            emit(line)
+        pgt_driver_check(pgt_driver_wait(driver, "resume"), manual_loss,
+                         time.perf_counter() - t0)
+    finally:
+        for p in driver:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(driver_dir, ignore_errors=True)
+    emit({"phase": "pg_train_seconds", "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    return k2, k3, k2_err, k3_err
 
 
 # --------------------------------------------------------------------------
@@ -7435,6 +7922,9 @@ def main() -> int:
     # pg_spec's ranks (pg_spec_phase starts them)
     ap.add_argument("--pg-spec-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--pg-spec-dir", type=Path, help=argparse.SUPPRESS)
+    # pg_train's ranks (pg_train_phase starts them)
+    ap.add_argument("--pg-train-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pg-train-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -7464,6 +7954,9 @@ def main() -> int:
         return 0
     if args.pg_spec_rank is not None:
         pgs_rank(torch, np, args.seed, args.pg_spec_rank, args.pg_spec_dir)
+        return 0
+    if args.pg_train_rank is not None:
+        pgt_rank(torch, np, args.seed, args.pg_train_rank, args.pg_train_dir)
         return 0
     if args.k1_peer_rank is not None:
         k1_peer_rank(torch, args.seed, args.k1_peer_rank, args.k1_peer_world,
@@ -7575,19 +8068,24 @@ def main() -> int:
     *gemma, gemma_k2_err = train_gemma_phase(torch, np, args.seed,
                                              args.trace_dir)
     paths.append(tuple(gemma))
-    train_resume_phase(torch)
+    manual_loss = train_resume_phase(torch)
+    # training one (pod, data, model) rank per process
+    pgt_k2, pgt_k3, pgt_k2_err, pgt_k3_err = pg_train_phase(
+        torch, np, args.seed, manual_loss)
     emit({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
     launches = {name: sum(p[0][name] for p in paths)
                 for name in paths[0][0]}
     launches["ar_rmsnorm_peer"] = peer_launches
-    launches["flash_attention"] += family_k3
+    launches["flash_attention"] += family_k3 + pgt_k3
+    launches["fused_residual_rmsnorm"] += pgt_k2
     # the K3 error over every shape the main paths gave it, too, and K2's
     # over training's
     rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"], family_k3_err,
+        rows["flash_attention"]["max_abs_err"], family_k3_err, pgt_k3_err,
         *(p[1] for p in paths))
     rows["fused_residual_rmsnorm"]["max_abs_err"] = max(
-        rows["fused_residual_rmsnorm"]["max_abs_err"], gemma_k2_err)
+        rows["fused_residual_rmsnorm"]["max_abs_err"], gemma_k2_err,
+        pgt_k2_err)
     for tp in (1, 8):
         sampler_phase(torch, np, args.seed, tp=tp)
     for moe in ("", "ffn", "expert"):

@@ -26,14 +26,18 @@ rank axis.
 The rank axis's reductions are its operations over dim 0: the sum in
 float32, rank 0 first, rounded once (``kernels.ar_rmsnorm.rank_sum``).
 Under ``process_group`` they are ``all_reduce``, ``reduce_scatter_tensor``
-and ``all_gather_into_tensor`` over ``ctx.groups.model`` (``.data`` for
-the ``_dp`` pair), and ``all_to_all`` (on the rank axis the index op of
+and ``all_gather_into_tensor`` over ``ctx.groups.model`` (``.dp``, the
+data-parallel group, for the ``_dp`` pair), and ``all_to_all`` (on the rank axis the index op of
 ``lax.all_to_all(tiled=True)``) is ``all_to_all_single`` over
 ``ctx.groups.data``: a sum runs in float32 on the wire and is rounded
 once to x's dtype, or in x's dtype under ``ctx.bf16_wire``; a max, a
 gather and an all-to-all move x's dtype.  Called on a side stream, NCCL
 orders its work after that stream's, and the stream waits for the
-result.
+result.  Where autograd records a call under ``process_group``,
+``psum``, ``psum_scatter``, ``all_gather``, ``gather_ranks`` and
+``psum_dp`` carry a backward (the Functions below), ``token_shard_slice``
+is a slice and ``pmax`` carries no gradient; ``pmax_dp`` and
+``all_to_all`` serve only.
 
 While ``analysis.op_costs`` counts a call (``recording``), every
 collective reports its kind (the reference's HLO names), the bytes of
@@ -53,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import context as C
+from repro_torch.kernels import autograd as AG
 from repro_torch.kernels.ar_rmsnorm import rank_sum
 
 
@@ -145,12 +150,111 @@ def _all_reduce(x: torch.Tensor, op, group, dtype) -> torch.Tensor:
     return buf.to(x.dtype)
 
 
+def _reduce_scatter(x: torch.Tensor, group, size: int, dtype):
+    """(T, ...) partials -> (T // size, ...), this rank's rows of the sum,
+    summed in ``dtype`` and rounded once to x's dtype."""
+    t = x.shape[0]
+    if t % size:
+        raise ValueError(f"{t} rows do not scatter over {size} ranks")
+    wire = x.to(dtype).contiguous()
+    out = wire.new_empty((t // size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, wire, group=group)
+    return out.to(x.dtype)
+
+
+def _all_gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """(C, ...) -> (size · C, ...), every rank's rows, rank-major."""
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+# Under process_group a collective that autograd records is one of three
+# Functions.  Each backward is derived from the rank axis's form: a
+# process's input gradient is its rank's slice of what autograd gives
+# through the operation over dim 0, where a value the same on every rank
+# (a sum, a gathered tensor) carries, in each process, that process's
+# share of its cotangent, the shares summing to it over the group (the
+# loss is computed on every model rank and seeded so that the seeds sum
+# to one, ``training/train_step.py``).  So the sum's backward sums the
+# shares (all-reduce), the reduce-scatter's gathers each rank's rows of
+# the cotangent (all-gather), and the all-gather's, whose copies on every
+# rank the rank axis reads as one tensor expanded R times, sums the
+# copies' cotangents and keeps the rank's rows (reduce-scatter).  Sums in
+# the backward travel as the forward's do (float32 unless ``bf16_wire``)
+# and are rounded once.  A backward runs on the stream autograd runs the
+# node on, the forward's: NCCL orders its work after that stream's, and
+# the stream waits for the result, as in the forward.
+
+class _AllReduceSum(torch.autograd.Function):
+    """``psum`` and ``psum_dp``: the sum over ``group``; its backward the
+    all-reduce of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, bf16_wire: bool):
+        ctx.group, ctx.bf16_wire = group, bf16_wire
+        return _all_reduce(x, dist.ReduceOp.SUM, group,
+                           x.dtype if bf16_wire else torch.float32)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _all_reduce(g, dist.ReduceOp.SUM, ctx.group,
+                           g.dtype if ctx.bf16_wire
+                           else torch.float32), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``psum_scatter``: this rank's rows of the sum; its backward the
+    all-gather of the rows' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, bf16_wire: bool):
+        ctx.group, ctx.size = group, size
+        return _reduce_scatter(x, group, size,
+                               x.dtype if bf16_wire else torch.float32)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.size), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` and ``gather_ranks``: every rank's rows; its
+    backward the reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, bf16_wire: bool):
+        ctx.group, ctx.size, ctx.bf16_wire = group, size, bf16_wire
+        return _all_gather(x, group, size)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.size,
+                               g.dtype if ctx.bf16_wire
+                               else torch.float32), None, None, None
+
+
+def _sum(x, group, ctx: C.CommCtx) -> torch.Tensor:
+    if AG.needs_grad(x):
+        return _AllReduceSum.apply(x, group, ctx.bf16_wire)
+    return _all_reduce(x, dist.ReduceOp.SUM, group, _wire(x, ctx))
+
+
+def _gather(x, ctx: C.CommCtx) -> torch.Tensor:
+    group = ctx.groups.model
+    if AG.needs_grad(x):
+        return _AllGather.apply(x, group, ctx.tp, ctx.bf16_wire)
+    return _all_gather(x, group, ctx.tp)
+
+
 @_reports("all-reduce", "model", _whole)
 def psum(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return rank_sum(x)
-    x = _one(x)
-    return _all_reduce(x, dist.ReduceOp.SUM, ctx.groups.model, _wire(x, ctx))
+    return _sum(_one(x), ctx.groups.model, ctx)
 
 
 @_reports("reduce-scatter", "model", _per_rank)
@@ -158,13 +262,10 @@ def psum_scatter(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return C.scatter_rows(rank_sum(x), x.shape[0], ctx.dp)
     x = _one(x)
-    t = x.shape[0]
-    if t % ctx.tp:
-        raise ValueError(f"{t} rows do not scatter over {ctx.tp} ranks")
-    wire = x.to(_wire(x, ctx)).contiguous()
-    out = wire.new_empty((t // ctx.tp, *x.shape[1:]))
-    dist.reduce_scatter_tensor(out, wire, group=ctx.groups.model)
-    return out.to(x.dtype)[None]
+    if AG.needs_grad(x):
+        return _ReduceScatter.apply(x, ctx.groups.model, ctx.tp,
+                                    ctx.bf16_wire)[None]
+    return _reduce_scatter(x, ctx.groups.model, ctx.tp, _wire(x, ctx))[None]
 
 
 @_reports("all-gather", "model", _per_rank)
@@ -174,7 +275,7 @@ def all_gather(local: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
         full = C.gather_rows(local, ctx.dp)
         return (full[None] if r == 1
                 else full.expand(r, *full.shape).contiguous())
-    return gather_ranks(local, ctx).flatten(0, 1)[None]
+    return _gather(_one(local), ctx)[None]
 
 
 @_reports("all-gather", "model", _whole)
@@ -182,22 +283,24 @@ def gather_ranks(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return x
     _one(x)
-    out = x.new_empty((ctx.tp, *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=ctx.groups.model)
-    return out
+    return _gather(x, ctx)
 
 
 @_reports("all-reduce", "model", _whole)
 def pmax(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
+    """Under ``process_group`` the max carries no gradient (its input is
+    detached), as the cross-entropy's stability max carries none."""
     if not _grouped(ctx):
         return x.amax(dim=0)
-    x = _one(x)
+    x = _one(x).detach()
     return _all_reduce(x, dist.ReduceOp.MAX, ctx.groups.model, x.dtype)
 
 
 def token_shard_slice(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     """This process's (or each rank's) token range of a token-replicated
-    (R, T, ...): ``context.token_shard_slice``'s placement."""
+    (R, T, ...): ``context.token_shard_slice``'s placement.  Under
+    ``process_group`` a slice, whose own backward (the cotangent in the
+    rank's rows, zeros elsewhere) is the rank's slice of the rank axis's."""
     if not _grouped(ctx):
         return C.token_shard_slice(x, ctx)
     c = x.shape[1] // ctx.tp
@@ -208,8 +311,7 @@ def token_shard_slice(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
 def psum_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
     if not _grouped(ctx):
         return C.psum_dp(x, ctx)
-    return _all_reduce(_one(x), dist.ReduceOp.SUM, ctx.groups.data,
-                       _wire(x, ctx))[None]
+    return _sum(_one(x), ctx.groups.dp, ctx)[None]
 
 
 @_reports("all-reduce", "data", _per_shard)
@@ -219,7 +321,7 @@ def pmax_dp(x: torch.Tensor, ctx: C.CommCtx) -> torch.Tensor:
             raise ValueError(f"x has {x.shape[0]} data shards, "
                              f"ctx.dp={ctx.dp}")
         return x.amax(dim=0, keepdim=True).expand_as(x).contiguous()
-    return _all_reduce(_one(x), dist.ReduceOp.MAX, ctx.groups.data,
+    return _all_reduce(_one(x), dist.ReduceOp.MAX, ctx.groups.dp,
                        x.dtype)[None]
 
 

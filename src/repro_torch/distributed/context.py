@@ -31,9 +31,9 @@ Two backends carry the ranks (``CommCtx.backend``):
   of ``launch.mesh.init_groups``.  Every per-rank tensor keeps its leading
   rank axis, of size ``local_ranks`` = 1, holding this process's rank
   ``rank``; the collectives go over ``groups.model`` (and
-  ``groups.data`` for ``psum_dp`` / ``pmax_dp``).  Each process holds
-  one data shard's rows, so the data-shard placement above never shows
-  in a process's tensors.
+  ``groups.dp``, the data-parallel group, for ``psum_dp`` / ``pmax_dp``;
+  ``dp`` is its size).  Each process holds one data shard's rows, so the
+  data-shard placement above never shows in a process's tensors.
 
 ``bf16_wire`` is the reference's field: ``False`` reduces in float32 on
 the wire and rounds once to x's dtype (``rank_sum``'s contract, up to the
@@ -52,12 +52,15 @@ BACKENDS = ("rank_axis", "process_group")
 
 @dataclasses.dataclass(frozen=True)
 class Groups:
-    """This process's place in a (data, model) mesh of processes
-    (``launch.mesh.init_groups``): its ``torch.distributed`` group over
-    the model axis and over the data axis, its index in each and their
-    sizes; and, for comm mode ``ring`` on CUDA, the model group's
+    """This process's place in a (data, model) or (pod, data, model) mesh
+    of processes (``launch.mesh.init_groups``): its ``torch.distributed``
+    group over the model axis, the data axis, the pod axis and the
+    data-parallel axes (``dp``: pod x data, pod outer, as the rank axis
+    folds ``dp_axes = ("pod", "data")`` into D), its index in each and
+    their sizes; and, for comm mode ``ring`` on CUDA, the model group's
     peer-mapped buffers that K1 reaches its peers through
-    (``distributed.peer.attach``)."""
+    (``distributed.peer.attach``).  A (data, model) mesh has a pod of one
+    (``pod_size`` 1) and a ``dp`` group equal to its data group."""
     model: Any = dataclasses.field(compare=False, repr=False)
     data: Any = dataclasses.field(compare=False, repr=False)
     model_rank: int
@@ -65,6 +68,22 @@ class Groups:
     model_size: int
     data_size: int
     peer: Any = dataclasses.field(default=None, compare=False, repr=False)
+    pod: Any = dataclasses.field(default=None, compare=False, repr=False)
+    dp: Any = dataclasses.field(default=None, compare=False, repr=False)
+    pod_rank: int = 0
+    pod_size: int = 1
+
+    @property
+    def dp_rank(self) -> int:
+        """This process's data-parallel shard: pod index x data size +
+        data index."""
+        return self.pod_rank * self.data_size + self.data_rank
+
+    @property
+    def dp_size(self) -> int:
+        """The data-parallel shards: pod size x data size (D on the rank
+        axis)."""
+        return self.pod_size * self.data_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +112,10 @@ class CommCtx:
             if g is None:
                 raise ValueError("backend 'process_group' needs the groups "
                                  "of launch.mesh.init_groups")
-            if (self.tp, self.dp) != (g.model_size, g.data_size):
+            if (self.tp, self.dp) != (g.model_size, g.dp_size):
                 raise ValueError(f"tp={self.tp}, dp={self.dp} against "
                                  f"groups of model size {g.model_size}, "
-                                 f"data size {g.data_size}")
+                                 f"data-parallel size {g.dp_size}")
 
     @property
     def sharded_residual(self) -> bool:

@@ -77,25 +77,29 @@ def sharded_softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     As the reference: the padded vocabulary tail is -inf, the stability
     max (the max over every rank's shard) carries no gradient, the
     log-sum-exp sums each rank's partial sum of exponentials, and the
-    label's logit is picked from the rank that holds it.  The rank axis
-    only: training over process groups (autograd-aware collectives) is
-    not ported (ROADMAP.md), and ``ctx`` under ``process_group`` raises."""
-    if ctx is not None and ctx.process_group:
-        raise NotImplementedError(
-            "sharded_softmax_xent runs on the rank axis only: training "
-            "over the process_group backend is not ported")
+    label's logit is picked from the rank that holds it.  Under a
+    ``process_group`` ``ctx`` the local shard is the process's rank's
+    (``ctx.rank``), the max is a ``pmax`` over the model group and the two
+    sums are ``psum``s, whose backward sums the ranks' cotangents
+    (``distributed/collectives.py``); the loss is then the same on every
+    model rank."""
+    grouped = ctx is not None and ctx.process_group
     r, b, s, v_loc = logits.shape
     lg = logits.float()
-    lo = torch.arange(r, device=lg.device)[:, None, None, None] * v_loc
+    first = ctx.rank if grouped else 0
+    lo = (torch.arange(r, device=lg.device)[:, None, None, None]
+          + first) * v_loc
     col = lo + torch.arange(v_loc, device=lg.device)
     lg = torch.where(col < vocab_size, lg, float("-inf"))
-    m = lg.detach().amax(dim=-1).amax(dim=0)                    # (B, S)
+    m = lg.detach().amax(dim=-1)                                # (R, B, S)
+    m = C.pmax(m, ctx) if grouped else m.amax(dim=0)            # (B, S)
     se = torch.exp(lg - m[..., None]).sum(dim=-1)               # (R, B, S)
-    lse = torch.log(se.sum(dim=0)) + m
+    lse = torch.log(C.psum(se, ctx) if grouped else se.sum(dim=0)) + m
     local = labels.long()[None] - lo[..., 0]                    # (R, B, S)
     in_range = (local >= 0) & (local < v_loc)
     picked = torch.gather(lg, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
-    correct = torch.where(in_range, picked, 0.0).sum(dim=0)
+    picked = torch.where(in_range, picked, 0.0)
+    correct = C.psum(picked, ctx) if grouped else picked.sum(dim=0)
     valid = labels != ignore_id
     nll = torch.where(valid, lse - correct, 0.0)
     return nll.sum(), valid.sum().to(torch.float32)

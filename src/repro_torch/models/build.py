@@ -26,14 +26,16 @@ the reference's layout off a parameter tree (``weights.py``).
 ``process_group`` backend: this process holds one (data, model) rank
 (params, caches and logits with a rank axis of 1; an ``ep2d`` layer's
 experts of its data shard) and every family's calls pass the groups on.
-``ep`` is then the data group's size.  It is ported for the serving
+``ep`` is then the data-parallel group's size (pod x data).  It is ported for the serving
 calls of every family, for the transformer families' batch over the
 data group (a process's calls take its data shard's rows; ``ep2d``'s
 all-to-alls go over the data group) and for the context-parallel decode
 of the transformer families and the hybrid over it, and for the
-transformer families' verify step (speculative decoding); training
-refuses it by name (ROADMAP.md), and the families without a data axis
-refuse one on either backend."""
+transformer families' verify step (speculative decoding), and for
+the dense family's training (``train_loss``: a process's rows are its
+data-parallel shard's, ``ep`` the pod x data size); training the other
+families over groups is refused by name (ROADMAP.md A17 rest), and the
+families without a data axis refuse one on either backend."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,12 +78,6 @@ class ModelApi:
                        backend=("rank_axis" if self.groups is None
                                 else "process_group"))
 
-    def _refuse_groups(self, what: str) -> None:
-        if self.groups is not None:
-            raise NotImplementedError(
-                f"{what} over the process_group backend is not ported "
-                f"(ROADMAP.md)")
-
     def init(self, seed: int = 0, *, device=None, dtype=None):
         """Random weights; with ``groups`` this process's (data, model)
         rank's slice of the weights drawn from ``seed``: its model rank's
@@ -102,13 +98,29 @@ class ModelApi:
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
 
+    def check_trainable(self) -> None:
+        """Raise, naming the family, where training over ``groups`` is
+        not ported: every family but the dense one (ROADMAP.md A17
+        rest)."""
+        if self.groups is not None and self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family over the "
+                f"process_group backend is not ported (ROADMAP.md A17 "
+                f"rest); the dense family trains over it")
+
     def train_loss(self, params, batch, *, dp: int | None = None):
         """batch {"tokens" (B, S), "labels" (B, S_labels), and per family
         "frames" (encdec), "mrope_positions" / "extra_embeds" (vlm)}, B
         holding ``dp`` (default ``ep``) data shards' rows one after the
-        other -> (loss_sum, denom, aux), each (D,) float32."""
-        self._refuse_groups("training")
+        other -> (loss_sum, denom, aux), each (D,) float32.  With
+        ``groups`` (the dense family) the batch is this process's
+        data-parallel shard's rows and each is (1,)."""
         dp = self.ep if dp is None else dp
+        if self.groups is not None:
+            self.check_trainable()
+            return transformer.train_loss(params, batch, cfg=self.cfg,
+                                          pcfg=self.pcfg, dp=dp,
+                                          groups=self.groups)
         if self.mod is transformer:
             return transformer.train_loss(params, batch, cfg=self.cfg,
                                           pcfg=self.pcfg, dp=dp)
@@ -173,6 +185,11 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
             f"a data axis (ep={ep}) is ported for the transformer families "
             f"and the hybrid's context-parallel decode, not for the "
             f"{cfg.family} family")
+    if (groups is not None and groups.pod_size > 1 and cfg.is_moe
+            and cfg.moe_partition == "ep2d"):
+        raise NotImplementedError(
+            "ep2d experts split over the data axis alone; a pod axis over "
+            "them is not ported (ROADMAP.md A.1)")
     api = ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep, groups=groups)
     api.comm_ctx            # holds tp and ep to the groups' sizes
     return api

@@ -199,7 +199,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     if groups is not None and train:
         raise NotImplementedError(
             "the hybrid family over the process_group backend does not "
-            "train (ROADMAP.md A17)")
+            "train (ROADMAP.md A17 rest)")
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:

@@ -154,8 +154,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     tp = TR._model_ranks(params, groups)
     if groups is not None and train:
         raise NotImplementedError(
-            "training over the process_group backend is not ported "
-            "(autograd-aware collectives; ROADMAP.md)")
+            "the ssm family over the process_group backend does not "
+            "train (ROADMAP.md A17 rest)")
     b, s = tokens.shape
     ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,

@@ -594,15 +594,14 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
     ``groups``: this process holds one model rank of ``groups``' model
     group (params with a rank axis of 1) and, at ``dp`` =
-    ``groups.data_size`` > 1, one data rank: ``tokens`` are its data
-    shard's rows (the batch over D) or, under ``pcfg.seq_shard_kv``, the
-    whole batch of a context-parallel decode.
+    ``groups.dp_size`` > 1, one data-parallel rank: ``tokens`` are its
+    data shard's rows (the batch over D) or, under ``pcfg.seq_shard_kv``,
+    the whole batch of a context-parallel decode.  With ``train`` the
+    slots' collectives carry their backward (``distributed/
+    collectives.py``), and a layer under ``remat`` issues its forward
+    collectives again in the backward, in the same order on every rank.
     """
     tp = _model_ranks(params, groups)
-    if groups is not None and train:
-        raise NotImplementedError(
-            "training over the process_group backend is not ported "
-            "(autograd-aware collectives; ROADMAP.md)")
     b = tokens.shape[0]
     s = tokens.shape[1] + (0 if extra_embeds is None
                            else extra_embeds.shape[1])
@@ -720,26 +719,35 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               dp: int = 1, aux_weight: float = 0.01):
+               dp: int = 1, aux_weight: float = 0.01,
+               groups: Optional[Groups] = None):
     """batch {"tokens" (B, S), "labels" (B, S_labels), and for vlm
     "mrope_positions", "extra_embeds"} -> (loss_sum, denom, aux *
     aux_weight), each (D,) float32: one entry per data shard the batch
     splits over (``data_layout``), as the reference's per-shard values.
     vlm: the image positions in front carry no loss (the hidden rows are
-    cut to the labels' last S_labels)."""
+    cut to the labels' last S_labels).  With ``groups`` the batch is this
+    process's data-parallel shard's rows and each is (1,), the same on
+    every rank of its model group (the cross-entropy's sums run over the
+    group)."""
     h, aux = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
                      mrope_positions=batch.get("mrope_positions"),
                      extra_embeds=batch.get("extra_embeds"), dp=dp,
-                     train=True)
+                     train=True, groups=groups)
     labels = batch["labels"].to(h.device)
     if h.shape[2] != labels.shape[1]:
         h = h[:, :, h.shape[2] - labels.shape[1]:]
     logits = E.lm_head_logits(params["embedding"], h)
-    b_loc, dsplit = data_layout(labels.shape[0], dp, pcfg)
+    ctx = None
+    if groups is not None:
+        ctx = _comm_ctx(pcfg, cfg, 0, groups.model_size, dp=dp,
+                        groups=groups)
+    b_loc, dsplit = ((labels.shape[0], 1) if groups is not None
+                     else data_layout(labels.shape[0], dp, pcfg))
     ls, dn = zip(*(E.sharded_softmax_xent(
         logits[:, d * b_loc:(d + 1) * b_loc],
-        labels[d * b_loc:(d + 1) * b_loc], vocab_size=cfg.vocab_size)
-        for d in range(dsplit)))
+        labels[d * b_loc:(d + 1) * b_loc], vocab_size=cfg.vocab_size,
+        ctx=ctx) for d in range(dsplit)))
     return torch.stack(ls), torch.stack(dn), aux * aux_weight
 
 

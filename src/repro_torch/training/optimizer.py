@@ -6,10 +6,11 @@ same structure, and ``adamw_update`` writes the new values in place.
 ``zero_specs`` / ``opt_state_specs`` are the reference's pure functions
 over shapes and PartitionSpecs (tuples here, in the reference's layout:
 ``weights.reference_specs``): for each leaf, the dims the data axes split
-the optimizer state over.  The layout stays whole on one card: the
-``process_group`` backend (``distributed/context.py``) serves but does not
-train yet, and the process-group train step queued in ROADMAP.md (A17)
-is the one to split ``m`` / ``v`` over the data group by these specs.
+the optimizer state over.  On one card's rank axes the layout stays
+whole.  Over process groups (``training/train_step.py``) each process
+holds its chunk of ``m`` / ``v`` on the dim these specs pick
+(``weights.zero_dims``), ``adamw_update`` runs on the chunks, and
+``global_norm`` counts every part once over the groups.
 
 Weight decay follows the reference's rule, ``ndim >= 2``, counted in the
 reference's layout (``weights.reference_ndims``): there a replicated leaf
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -51,42 +53,45 @@ def _is_spec(x) -> bool:
         e is None or isinstance(e, (str, tuple)) for e in x)
 
 
+def zero_extend(shape, spec, dp_axes, dp_size: int) -> tuple:
+    """One leaf's ZeRO-1 spec: ``spec`` (a tuple) extended with the
+    unused dp axes on the largest free dim of ``shape`` that they divide,
+    as long as the leaf's ndim; unchanged where no dim divides."""
+    n_dp = max(len(dp_axes), 1)
+    per_axis = max(int(round(dp_size ** (1.0 / n_dp))), 1)
+    shape = tuple(shape)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                used.add(a)
+    avail = [a for a in dp_axes if a not in used]
+    if not avail:
+        return tuple(entries)
+    div = per_axis ** len(avail) if len(avail) < n_dp else dp_size
+    best, best_size = -1, 0
+    for i, (dim, s) in enumerate(zip(shape, entries)):
+        if s is None and dim % div == 0 and dim > best_size:
+            best, best_size = i, dim
+    if best < 0:
+        return tuple(entries)
+    entries[best] = tuple(avail) if len(avail) > 1 else avail[0]
+    return tuple(entries)
+
+
 def zero_specs(shapes, pspecs, dp_axes, dp_size: int):
     """Extend each param spec with the (unused) dp axes on a divisible
     free dim, the largest; params already sharded over a dp axis (ep2d
-    experts) only get the remaining axes.  ``shapes``: a tree of shape
-    tuples (or tensors) in the structure of ``pspecs``, a tree of spec
-    tuples.  Returns the tree of extended spec tuples, each as long as its
-    leaf's ndim."""
-    n_dp = max(len(dp_axes), 1)
-    per_axis = max(int(round(dp_size ** (1.0 / n_dp))), 1)
-
-    def extend(shape, spec):
-        shape = tuple(shape)
-        entries = list(spec) + [None] * (len(shape) - len(spec))
-        used = set()
-        for e in entries:
-            for a in (e if isinstance(e, tuple) else (e,)):
-                if a is not None:
-                    used.add(a)
-        avail = [a for a in dp_axes if a not in used]
-        if not avail:
-            return tuple(entries)
-        div = per_axis ** len(avail) if len(avail) < n_dp else dp_size
-        best, best_size = -1, 0
-        for i, (dim, s) in enumerate(zip(shape, entries)):
-            if s is None and dim % div == 0 and dim > best_size:
-                best, best_size = i, dim
-        if best < 0:
-            return tuple(entries)
-        entries[best] = tuple(avail) if len(avail) > 1 else avail[0]
-        return tuple(entries)
-
+    experts) only get the remaining axes (``zero_extend``).  ``shapes``: a
+    tree of shape tuples (or tensors) in the structure of ``pspecs``, a
+    tree of spec tuples.  Returns the tree of extended spec tuples, each
+    as long as its leaf's ndim."""
     spec_leaves, treedef = tree_flatten(pspecs, is_leaf=_is_spec)
     shape_leaves = tree_flatten(shapes, is_leaf=lambda x: isinstance(
         x, (tuple, torch.Size)))[0]
     return tree_unflatten(
-        [extend(getattr(sh, "shape", sh), sp)
+        [zero_extend(getattr(sh, "shape", sh), sp, dp_axes, dp_size)
          for sh, sp in zip(shape_leaves, spec_leaves)], treedef)
 
 
@@ -101,13 +106,23 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, owned=None, group=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of
-    squares."""
+    squares.  Over process groups each process holds a part of every
+    leaf (a model rank's slice, a ZeRO-1 chunk) or a copy of one:
+    ``owned`` (one bool per leaf, in ``tree_flatten`` order) says which
+    of its leaves this process counts, so that every part counts once,
+    and the sum of squares is all-reduced over ``group`` (the processes
+    that hold the parts) before the root."""
+    leaves = tree_flatten(tree)[0]
     total = None
-    for x in tree_flatten(tree)[0]:
+    for x, mine in zip(leaves, owned or [True] * len(leaves)):
         ss = torch.sum(torch.square(x.float()))
+        if not mine:
+            ss = torch.zeros_like(ss)
         total = ss if total is None else total + ss
+    if owned is not None:
+        dist.all_reduce(total, group=group)
     return torch.sqrt(total)
 
 

@@ -30,6 +30,27 @@ that sum plus its own error, and the reduce adds the pods' payloads,
 which counts the sum once per pod (the port reproduces this; ROADMAP.md
 C).  One backward serves both forms.
 
+Over process groups (``api.groups``, ``launch.mesh.init_groups``: one
+(pod, data, model) rank per process, the dense family) a process runs
+its data-parallel shard's rows of the global batch (``_own_rows``).  The
+loss is computed whole on every model rank (the cross-entropy's sums run
+over the model group), so each process seeds its backward with 1/tp:
+the model group's seeds sum to one, and a collective's backward, which
+sums the ranks' cotangents (``distributed/collectives.py``), hands each
+rank's slice the gradient the rank axis gives it (seeding each with 1
+would make every gradient tp times too large, the reference's own note
+on its manual step).  A replicated leaf's gradient then holds only this
+process's uses and is summed over the model group (``_sync_model_axis``);
+a sharded leaf's slice is exact.  ``make_train_step`` holds ZeRO-1
+state: each process keeps its chunk of ``m`` / ``v`` on the dim
+``zero_specs`` picks (``weights.zero_dims``), the chunked gradients are
+reduce-scattered over the data-parallel group and the rest all-reduced,
+AdamW updates the chunks and the params are all-gathered; the global
+norm counts every slice and chunk once (``optimizer.global_norm`` with
+``owned``).  ``make_manual_sync_train_step`` keeps ``m`` / ``v`` whole,
+as the reference's; its gradient is summed over the data-parallel group
+before the int8 pod reduce, which runs over the pod group.
+
 Both builders return ``(step, init_fn)`` with the reference's signatures
 except that ``init_fn`` takes an integer seed, not a PRNG key (the port's
 init draws from a seeded ``torch.Generator``), and a ``device`` (CUDA
@@ -43,13 +64,15 @@ named ranges (``RANGES``) so that a profile can split their device time.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch import weights
 from repro_torch.device import resolve_device
 from repro_torch.training import compression as C
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
-                                            init_opt_state, opt_state_specs)
+                                            global_norm, init_opt_state,
+                                            opt_state_specs)
 
 FORWARD_RANGE = "repro_torch.train.forward"     # the loss
 BACKWARD_RANGE = "repro_torch.train.backward"   # autograd, remat included
@@ -60,7 +83,8 @@ _record = torch.profiler.record_function
 
 
 def _check_layout(api, mesh) -> int:
-    """The data size D, after checking the api against the mesh."""
+    """The data size D, after checking the api (and its groups) against
+    the mesh."""
     pcfg = api.pcfg
     tp, dp = mesh.size(pcfg.tp_axis), mesh.dp_size(pcfg.dp_axes)
     if api.tp != tp or api.ep != dp:
@@ -72,11 +96,33 @@ def _check_layout(api, mesh) -> int:
         raise NotImplementedError(
             "ep2d experts split over the data axis alone; a pod axis over "
             "them is not ported")
+    g = api.groups
+    if g is not None:
+        api.check_trainable()
+        got = (g.pod_size, g.data_size, g.model_size)
+        if got != (mesh.size("pod"), mesh.size("data"), tp):
+            raise ValueError(f"groups of (pod, data, model) sizes {got} "
+                             f"against the mesh {mesh.shape}")
     return dp
 
 
 def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _own_rows(batch, groups):
+    """This process's rows of the global batch: its data-parallel shard's,
+    ``[dp_rank·B/D, (dp_rank+1)·B/D)`` (``transformer.data_layout``'s
+    order); the whole batch without groups."""
+    if groups is None:
+        return batch
+    rows = next(iter(batch.values())).shape[0]
+    if rows % groups.dp_size:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{groups.dp_size} data-parallel shards")
+    n = rows // groups.dp_size
+    lo = groups.dp_rank * n
+    return {k: v[lo:lo + n] for k, v in batch.items()}
 
 
 def _device_of(params) -> torch.device:
@@ -89,11 +135,12 @@ def _decay_mask(api, params):
                     weights.reference_ndims(params, api.cfg, api.pcfg))
 
 
-def _grads(loss, params):
+def _grads(loss, params, seed: float = 1.0):
     """d loss / d every leaf of ``params`` (zeros for an unused leaf), in
-    the structure of ``params``."""
+    the structure of ``params``; the backward seeded with ``seed``."""
     leaves, treedef = tree_flatten(params)
-    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    got = torch.autograd.grad(loss, leaves, torch.full_like(loss, seed),
+                              allow_unused=True)
     return tree_unflatten([torch.zeros_like(p) if g is None else g
                            for p, g in zip(leaves, got)], treedef)
 
@@ -112,14 +159,135 @@ def state_specs(api, params, dp_size: int):
     return pspec, opt_state_specs(shapes, pspec, api.pcfg.dp_axes, dp_size)
 
 
+# --------------------------------------------------------------------------
+# over process groups: one (pod, data, model) rank per process
+# --------------------------------------------------------------------------
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The float32 sum of ``t`` over ``group``, rounded once to its
+    dtype."""
+    buf = t.detach().float()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.dtype)
+
+
+class _GroupLayout:
+    """How one process's leaves lie over the groups (the transformer
+    families' trees: ``weights.leaf_kinds``): each leaf sharded over the
+    model group or replicated on it, and its ZeRO-1 dim over the
+    data-parallel group (``weights.zero_dims``; None: whole on every
+    data-parallel rank), with ``zero=False`` none (the manual step keeps
+    the reference's unchunked state)."""
+
+    def __init__(self, api, params, zero: bool):
+        g = api.groups
+        self.groups = g
+        self.kinds = tree_flatten(weights.leaf_kinds(params, api.cfg,
+                                                     api.pcfg))[0]
+        dims = (weights.zero_dims(params, api.cfg, api.pcfg, g.dp_size)
+                if zero and g.dp_size > 1 else None)
+        self.dims_tree = dims
+        self.dims = (_flat_dims(dims) if dims is not None
+                     else [None] * len(self.kinds))
+
+    def chunks(self, tree):
+        """This process's ZeRO-1 chunk of every leaf (views)."""
+        if self.dims_tree is None:
+            return tree
+        return weights.take_chunk(tree, self.dims_tree, self.groups.dp_rank,
+                                  self.groups.dp_size)
+
+    def sync_model(self, grads: list) -> list:
+        """``_sync_model_axis``: a replicated leaf's gradient summed over
+        the model group (each process holds the part from its own uses);
+        a sharded leaf's slice stays local."""
+        return [_sum_over(g, self.groups.model) if k == "replicated" else g
+                for g, k in zip(grads, self.kinds)]
+
+    def reduce_dp(self, grads: list) -> list:
+        """The data-parallel gradient sum in float32, rounded once: a
+        chunked leaf's reduce-scattered to this process's chunk, the
+        others all-reduced."""
+        g = self.groups
+        out = []
+        for t, dim in zip(grads, self.dims):
+            if g.dp_size == 1:
+                out.append(t)
+            elif dim is None:
+                out.append(_sum_over(t, g.dp))
+            else:
+                moved = t.detach().movedim(dim, 0).float().contiguous()
+                part = moved.new_empty((moved.shape[0] // g.dp_size,
+                                        *moved.shape[1:]))
+                dist.reduce_scatter_tensor(part, moved, group=g.dp)
+                out.append(part.to(t.dtype).movedim(0, dim))
+        return out
+
+    def owned(self) -> list:
+        """Which leaves this process's norm counts, so that over the
+        world every part counts once: a replicated leaf on model rank 0
+        alone, an unchunked leaf on data-parallel rank 0 alone."""
+        g = self.groups
+        return [(k == "sharded" or g.model_rank == 0)
+                and (dim is not None or g.dp_rank == 0)
+                for k, dim in zip(self.kinds, self.dims)]
+
+    @torch.no_grad()
+    def gather_params(self, params: list) -> None:
+        """Every data-parallel rank's updated chunk into each chunked
+        param, in place."""
+        g = self.groups
+        for p, dim in zip(params, self.dims):
+            if dim is not None:
+                n = p.shape[dim] // g.dp_size
+                p.copy_(weights.gather_dim(p.narrow(dim, g.dp_rank * n, n),
+                                           dim, g.dp))
+
+
+def _flat_dims(dims) -> list:
+    """A tree of ints and Nones -> its leaves in ``tree_flatten``'s order,
+    every None kept as a leaf (``tree_flatten`` treats None as an empty
+    node in some torch versions)."""
+    if isinstance(dims, dict):
+        return [x for v in dims.values() for x in _flat_dims(v)]
+    if isinstance(dims, (list, tuple)):
+        return [x for v in dims for x in _flat_dims(v)]
+    return [dims]
+
+
+def _update(api, layout, params, grads, opt, ocfg, gnorm):
+    """AdamW on this process's chunks (``layout``), then every chunked
+    param gathered over the data-parallel group."""
+    decay = tree_flatten(_decay_mask(api, params))[0]
+    with torch.no_grad():
+        chunks = tree_flatten(layout.chunks(params))[0]
+        m_l, v_l = tree_flatten(opt["m"])[0], tree_flatten(opt["v"])[0]
+        if [c.shape for c in chunks] != [m.shape for m in m_l]:
+            raise ValueError("the params' chunks and the optimizer state "
+                             "differ in structure (make the state from "
+                             "these params: init_opt_state)")
+        adamw_update(chunks, grads, {"m": m_l, "v": v_l,
+                                     "step": opt["step"]},
+                     ocfg, gnorm=gnorm, decay_mask=decay)
+    layout.gather_params(tree_flatten(params)[0])
+    return params, opt
+
+
 def make_loss_fn(api, mesh):
     """The global-mean loss over the data shards: params, batch ->
-    float32 scalar."""
+    float32 scalar.  Over groups the batch is this process's rows and
+    the loss this process's part of the global mean (its shard's loss
+    sum over the global token count, and its share of the mean aux): the
+    data-parallel sum of the parts is the loss."""
     _check_layout(api, mesh)
+    g = api.groups
 
     def loss_fn(params, batch):
         ls, dn, aux = api.train_loss(params, batch)
-        return ls.sum() / torch.clamp(dn.sum(), min=1.0) + aux.mean()
+        if g is None:
+            return ls.sum() / torch.clamp(dn.sum(), min=1.0) + aux.mean()
+        denom = torch.clamp(_sum_over(dn.sum(), g.dp), min=1.0)
+        return ls.sum() / denom + aux.sum() / g.dp_size
     return loss_fn
 
 
@@ -128,26 +296,50 @@ def make_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
     """Returns (step, init_fn).  step(params, opt, batch) -> (params, opt,
     metrics); ``batch`` numpy arrays or tensors {"tokens", "labels", ...}
     of the global batch.  init_fn(seed, *, device=None) -> (params,
-    opt)."""
+    opt).
+
+    With ``api.groups`` each process takes its data-parallel shard's rows
+    of the batch, seeds its backward with 1/tp (the loss is computed on
+    every model rank), sums a replicated leaf's gradient over the model
+    group, reduce-scatters each leaf with a ZeRO-1 dim over the
+    data-parallel group (the others are all-reduced), runs AdamW on its
+    chunks of the params against its chunks of ``m`` / ``v``, and
+    all-gathers the params; ``init_fn`` gives its slice of the rank
+    axis's params and its chunks of the state."""
     if _check_layout(api, mesh) != dp_size:
         raise ValueError(f"dp_size={dp_size} differs from the mesh's data "
                          f"size {mesh.dp_size(api.pcfg.dp_axes)}")
     loss_fn = make_loss_fn(api, mesh)
+    g = api.groups
 
     def step(params, opt, batch):
         _trainable(params)
+        batch = _to_device(_own_rows(batch, g), _device_of(params))
         with _record(FORWARD_RANGE):
-            loss = loss_fn(params, _to_device(batch, _device_of(params)))
+            loss = loss_fn(params, batch)
         with _record(BACKWARD_RANGE):
-            grads = _grads(loss, params)
+            grads = _grads(loss, params, 1.0 if g is None
+                           else 1.0 / g.model_size)
         with _record(OPTIMIZER_RANGE):
-            params, opt, gnorm = adamw_update(
-                params, grads, opt, ocfg, decay_mask=_decay_mask(api, params))
-        return params, opt, {"loss": loss.detach(), "grad_norm": gnorm}
+            if g is None:
+                params, opt, gnorm = adamw_update(
+                    params, grads, opt, ocfg,
+                    decay_mask=_decay_mask(api, params))
+                return params, opt, {"loss": loss.detach(),
+                                     "grad_norm": gnorm}
+            lay = _GroupLayout(api, params, zero=True)
+            grads = lay.reduce_dp(lay.sync_model(tree_flatten(grads)[0]))
+            gnorm = global_norm(grads, lay.owned())
+            params, opt = _update(api, lay, params, grads, opt, ocfg, gnorm)
+            loss = _sum_over(loss, g.dp)
+        return params, opt, {"loss": loss, "grad_norm": gnorm}
 
     def init_fn(seed: int, *, device=None):
         params = api.init(seed, device=resolve_device(device))
-        return params, init_opt_state(params)
+        if g is None:
+            return params, init_opt_state(params)
+        return params, init_opt_state(
+            _GroupLayout(api, params, zero=True).chunks(params))
 
     return step, init_fn
 
@@ -162,14 +354,26 @@ def make_manual_sync_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
     metrics), or with ``compress_pod`` step(params, opt, ef, batch) ->
     (params, opt, metrics, ef), ``ef`` the per-pod error feedback, (P,
     ...) float32 per leaf of the reference's layout
-    (``weights.to_jax_layout``), as the reference's.  init_fn(seed, *, device=None) -> (params,
-    opt[, ef])."""
+    (``weights.to_jax_layout``), as the reference's.  init_fn(seed, *,
+    device=None) -> (params, opt[, ef]).
+
+    With ``api.groups`` each process runs its data-parallel shard's rows
+    with the backward seeded 1/tp, then the reference's explicit sums:
+    a replicated leaf's gradient over the model group
+    (``_sync_model_axis``), every gradient over the data-parallel group
+    (the sum the rank axis's autograd gives, which reaches the pod reduce
+    as the reference's VMA transpose hands it over), then with
+    ``compress_pod`` the int8 reduce over the pod group
+    (``compression.compressed_psum``); ``m`` / ``v`` stay whole (the
+    reference's ``ospec = {"m": pspec, ...}``) and ``ef`` is its pod's
+    entry of its model rank's blocks, (1, ...)."""
     pcfg = api.pcfg
     n_dp = _check_layout(api, mesh)
     has_pod = "pod" in mesh.axis_names
     if compress_pod is None:
         compress_pod = pcfg.grad_compression == "int8" and has_pod
     pods = mesh.size("pod")
+    g = api.groups
 
     def shard_losses(params, batch, dp):
         """Each data shard's own token mean plus its aux, summed."""
@@ -178,12 +382,19 @@ def make_manual_sync_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
 
     def body(params, opt, ef, batch):
         _trainable(params)
-        batch = _to_device(batch, _device_of(params))
+        batch = _to_device(_own_rows(batch, g), _device_of(params))
         with _record(FORWARD_RANGE):
             total = shard_losses(params, batch, n_dp)
         with _record(BACKWARD_RANGE):
-            grads = _grads(total, params)
+            grads = _grads(total, params, 1.0 if g is None
+                           else 1.0 / g.model_size)
         with _record(OPTIMIZER_RANGE):
+            if g is not None:
+                lay = _GroupLayout(api, params, zero=False)
+                leaves, treedef = tree_flatten(grads)
+                grads = tree_unflatten(lay.reduce_dp(lay.sync_model(leaves)),
+                                       treedef)
+                total = _sum_over(total, g.dp)
             return sync_and_update(params, opt, ef, grads, total)
 
     def sync_and_update(params, opt, ef, grads, total):
@@ -191,14 +402,18 @@ def make_manual_sync_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
             # every pod's copy of the summed gradient, with its own error,
             # in the reference's layout (its devices' blocks)
             ref = weights.to_jax_layout(grads, api.cfg, pcfg)
+            local = 1 if g is not None else pods
             reduced, ef = C.compress_grads(
-                tree_map(lambda g: g.expand(pods, *g.shape), ref), ef,
-                api.specs(params))
+                tree_map(lambda t: t.expand(local, *t.shape), ref), ef,
+                api.specs(params), None if g is None else g.pod)
             grads = weights.from_jax_params(reduced, api.cfg, pcfg,
                                             device=_device_of(params))
-        grads = tree_map(lambda g: g / n_dp, grads)
+        grads = tree_map(lambda t: t / n_dp, grads)
+        gnorm = (None if g is None else global_norm(
+            grads, _GroupLayout(api, params, zero=False).owned()))
         params, opt, gnorm = adamw_update(
-            params, grads, opt, ocfg, decay_mask=_decay_mask(api, params))
+            params, grads, opt, ocfg, gnorm=gnorm,
+            decay_mask=_decay_mask(api, params))
         metrics = {"loss": total.detach() / n_dp, "grad_norm": gnorm}
         return params, opt, metrics, ef
 
@@ -214,7 +429,7 @@ def make_manual_sync_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
         opt = init_opt_state(params)
         if compress_pod:
             return params, opt, C.init_ef_state(weights.to_jax_layout(
-                params, api.cfg, pcfg), pods)
+                params, api.cfg, pcfg), 1 if g is not None else pods)
         return params, opt
 
     return step, init_fn

@@ -41,6 +41,13 @@ hybrid's ``shared.lora_b``, and an ``ep2d`` expert weight's two leading
 E/D, ...): a process of a (data, model) mesh holds its data shard's
 experts' d_ff slice.
 
+Over process groups (``training/train_step.py``): ``zero_dims`` gives
+each leaf's ZeRO-1 dim and ``take_chunk`` a process's chunk on it;
+``gather_ranks_tree`` and ``gather_pods`` put every process's slices,
+chunks and pod entries back together, so that the launcher writes the
+reference's full logical arrays (``to_jax_layout``), and ``take_pod``
+cuts a process's error feedback out of them.
+
 ``from_jax_params`` also takes the reference's tree with torch leaves
 (``to_jax_layout``'s output, a checkpoint restored by
 ``checkpoint.manager``); ``to_jax_layout`` of the optimizer's ``m`` and
@@ -123,6 +130,144 @@ def take_rank(params, rank: int, cfg, data_rank=None):
         return _cut(t, kind, lead, rank, data_rank).clone(
             memory_format=torch.contiguous_format)
     return _walk(params, cfg, None, cut, None, layer_axis=False)
+
+
+def _zip_map(fn, tree, *others):
+    """``fn`` over the leaves of ``tree`` and the same places of
+    ``others`` (dicts, lists and tuples in ``tree``'s structure; a tuple
+    of ``others`` whose ``tree`` place is a tensor is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
+def _dense_walk(params, cfg, pcfg, leaf):
+    """``_walk`` in the port's structure over a tree whose leaves are
+    sharded on their leading rank axis or replicated: the transformer
+    families' but ``ep2d``'s.  The ZeRO-1 chunks and the gathers over
+    process groups below take these trees alone."""
+    if cfg.family not in ("dense", "moe", "vlm") or (
+            cfg.family == "moe" and cfg.moe_partition == "ep2d"):
+        raise NotImplementedError(
+            f"ZeRO-1 chunks and gathers over process groups take the "
+            f"transformer families' trees, not the {cfg.family} family's "
+            f"(ROADMAP.md A17 rest)")
+    return _walk(params, cfg, pcfg, leaf, None)
+
+
+def leaf_kinds(params, cfg, pcfg=None):
+    """Each leaf's kind, "sharded" (its leading axis is the rank axis) or
+    "replicated", in the port's structure."""
+    return _dense_walk(params, cfg, pcfg, lambda t, kind, lead: kind)
+
+
+def zero_dims(params, cfg, pcfg, dp_size: int):
+    """The port's dim ZeRO-1 splits each leaf's ``m`` / ``v`` over, or
+    None where the leaf stays whole, in the port's structure: the dim
+    ``optimizer.zero_extend`` picks in the reference's layout of the leaf
+    (its spec and shape, the full layer count where the reference stacks
+    the layers), moved to the port's layout.  ``params`` is the rank
+    axis's tree or one process's (its rank axis of 1 is the spec's
+    ``"model"`` axis either way, never picked)."""
+    from repro_torch.training.optimizer import zero_extend
+
+    def leaf(t, kind, lead):
+        rep = kind == "replicated"
+        spec = (None,) * (lead + rep) + (() if rep else ("model",))
+        shape = (cfg.num_layers,) * lead + (1,) * rep + tuple(t.shape)
+        zs = zero_extend(shape, spec, pcfg.dp_axes, dp_size)
+        picked = [i for i, e in enumerate(zs)
+                  if e is not None and (i >= len(spec) or spec[i] is None)]
+        if not picked:
+            return None
+        if picked[0] < lead:
+            raise NotImplementedError(
+                f"ZeRO-1 over the reference's stacked layer axis (a leaf "
+                f"{tuple(t.shape)} of {cfg.num_layers} layers) is not "
+                f"ported")
+        return picked[0] - lead - rep
+    return _dense_walk(params, cfg, pcfg, leaf)
+
+
+def take_chunk(tree, dims, dp_rank: int, dp_size: int):
+    """ZeRO-1 chunk ``dp_rank`` of ``dp_size`` of every leaf of ``tree``
+    (a process's ``m`` / ``v``, or its params or gradients) on its dim in
+    ``dims`` (``zero_dims``), as a view; a leaf whose dim is None
+    whole."""
+    def cut(t, dim):
+        if dim is None:
+            return t
+        n = t.shape[dim] // dp_size
+        return t.narrow(dim, dp_rank * n, n)
+    return _zip_map(cut, tree, dims)
+
+
+def gather_dim(t, dim: int, group):
+    """Every group rank's ``t`` joined on ``dim``, rank-major."""
+    import torch.distributed as dist
+    size = dist.get_world_size(group)
+    if size == 1:
+        return t
+    moved = t.movedim(dim, 0).contiguous()
+    out = moved.new_empty((size * moved.shape[0], *moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def gather_ranks_tree(tree, cfg, groups, dims=None, pcfg=None):
+    """The inverse of ``take_rank`` (and, with ``dims``, of
+    ``take_chunk``) over process groups: every process's tree (its model
+    rank's slice of each sharded leaf; with ``dims`` its ZeRO-1 chunk on
+    those dims) -> the rank axis's whole tree on every process: each
+    chunk gathered over ``groups.dp``, then each sharded leaf over
+    ``groups.model`` on its rank axis.  A collective: every process calls
+    it with trees of the same structure."""
+    kinds = leaf_kinds(tree, cfg, pcfg)
+    if dims is None:
+        dims = _zip_map(lambda t: None, tree)
+
+    def one(t, kind, dim):
+        if dim is not None:
+            t = gather_dim(t, dim, groups.dp)
+        if kind == "sharded":
+            t = gather_dim(t, 0, groups.model)
+        return t
+    return _zip_map(one, tree, kinds, dims)
+
+
+def _model_axis(spec):
+    """The index of ``"model"`` in a reference spec tuple, or None."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
+def take_pod(ef, specs, pod_rank: int, model_rank: int):
+    """A process's part of the int8 pod reduce's error feedback, from the
+    rank axis's (leaves (P, *reference leaf), ``specs`` the reference's
+    specs of the leaves): its pod's entry, (1, ...), and its model rank's
+    block on the spec's ``"model"`` axis."""
+    def cut(e, spec):
+        e = e.narrow(0, pod_rank, 1)
+        axis = _model_axis(spec)
+        return e if axis is None else e.narrow(axis + 1, model_rank, 1)
+    return _zip_map(cut, ef, specs)
+
+
+def gather_pods(ef, specs, groups):
+    """The inverse of ``take_pod`` over process groups: every process's
+    error feedback -> the rank axis's (P, ...) whole on every process.  A
+    collective."""
+    def one(e, spec):
+        e = gather_dim(e, 0, groups.pod)
+        axis = _model_axis(spec)
+        return e if axis is None else gather_dim(e, axis + 1, groups.model)
+    return _zip_map(one, ef, specs)
 
 
 def from_jax_params(params_np, cfg, pcfg=None, device=None, dtype=None,

@@ -54,8 +54,7 @@ from repro_torch.distributed import collectives as TCL
 from repro_torch.distributed.context import CommCtx, Groups
 from repro_torch.kernels.ar_rmsnorm import rank_sum
 from repro_torch.launch.mesh import init_groups, make_mesh
-from repro_torch.layers.embedding import (sharded_argmax,
-                                          sharded_softmax_xent)
+from repro_torch.layers.embedding import sharded_argmax
 from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model
 from repro_torch.runtime import spec as TSP
@@ -1762,17 +1761,22 @@ def test_engine_refuses_a_draft_off_the_target_groups(draft_on):
 
 
 def test_training_refuses_process_group():
-    api = build_model(_cfg(), _pcfg(), tp=2, groups=_fake_groups())
+    """Training over groups is ported for the dense family
+    (tests/test_torch_pg_train.py); the other families refuse it by name,
+    and comm mode ``ring`` (K1 has no backward) refuses a gradient before
+    any collective."""
+    ep2d = build_model(_ep2d_cfg(), _pcfg(), tp=2, groups=_fake_groups())
+    with pytest.raises(NotImplementedError, match="training the moe"):
+        ep2d.train_loss(None, {})
+    api = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=2,
+                      groups=_fake_groups())
     params = take_rank(_params(2), 0, _cfg())
-    with pytest.raises(NotImplementedError, match="training"):
+    for p in torch.utils._pytree.tree_flatten(params)[0]:
+        p.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="K1 .* has no backward"):
         api.train_loss(params, {"tokens": torch.zeros(1, 4, dtype=torch.long),
                                 "labels": torch.zeros(1, 4,
                                                       dtype=torch.long)})
-    ctx = CommCtx(tp=2, backend="process_group", groups=_fake_groups())
-    with pytest.raises(NotImplementedError, match="sharded_softmax_xent"):
-        sharded_softmax_xent(torch.zeros(1, 1, 4, 63),
-                             torch.zeros(1, 4, dtype=torch.long),
-                             vocab_size=125, ctx=ctx)
 
 
 def test_comm_ctx_backends():

@@ -14,7 +14,12 @@ the CPU.
   bound of the reference's own manual-vs-automatic test).  The weave is
   off here (its splits are held in ``test_torch_training.py``): the
   subprocess compiles a third faster;
-- the entry points defaulting to CUDA.
+- the same three variants over process groups: one spawned world of 4
+  gloo processes, each one (pod, data, model) rank
+  (``test_torch_pg_train.replay_reference``), replays them from its
+  slice of the reference's initial params, the weave off: the same
+  bounds, each process's params against its slice of the reference's;
+- the entry points defaulting to CUDA, ``launch.train`` over groups too.
 """
 import dataclasses
 
@@ -40,6 +45,7 @@ from repro_torch.training.data import SyntheticLM as TSyntheticLM
 from repro_torch.training.train_step import (make_manual_sync_train_step,
                                              make_train_step, state_specs)
 from repro_torch.weights import from_jax_params, to_jax_layout
+from test_torch_pg_train import replay_reference, spawn_world
 from test_torch_training import PCFG, PORT_KERNELS, TINY, close_tree
 
 STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_PARAM_TOL = 1e-5, 1e-4, 2e-4
@@ -119,6 +125,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
             init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.main(["--reduced", "--steps", "1"])
+    # over process groups too, before any group is joined
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.main(["--reduced", "--steps", "1", "--mesh", "2x1x2",
+                     "--rank", "0", "--world-size", "4"])
 
 
 # --------------------------------------------------------------------------
@@ -232,3 +242,51 @@ def test_train_steps_match_reference_at_pod2_model2(variant, ref_steps):
     with torch.no_grad():
         got = to_jax_layout(state[0], tcfg, tpcfg)
     close_tree(got, unflatten(z, variant + "/params"), STEP_PARAM_TOL)
+
+
+@pytest.fixture(scope="module")
+def groups_replay(ref_steps, tmp_path_factory):
+    """The world of 4 (pod 2 x data 1 x model 2) replaying the three
+    variants -> every rank's results."""
+    tmp = tmp_path_factory.mktemp("train_steps_pg")
+    torch.save(unflatten(ref_steps, "init"), tmp / "init.pt")
+    kw = dict(STEP_PCFG, **PORT_KERNELS, dp_axes=("pod", "data"),
+              grad_compression="int8")
+    spawn_world(replay_reference, (tmp, TINY, kw, STEPS))
+    return [torch.load(tmp / f"replay_r{w}.pt", weights_only=False)
+            for w in range(4)]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_train_steps_over_groups_match_reference(variant, ref_steps,
+                                                 groups_replay):
+    """One (pod, data, model) rank per process (gloo): each process's
+    losses within 1e-5 and grad norms within 1e-4 relative of the
+    reference's, its params after 3 steps within 2e-4 of its slice of the
+    reference's (``auto``, ``manual``).  The ``int8`` params are not held
+    here: its quantizer is discontinuous, each process sums its gradients
+    in another order than the reference's devices do, and from the second
+    step an element of ``x + error`` on a rounding edge quantizes one
+    step apart (measured: 2.2e-4 and 4.1e-4 after 3 steps on the two
+    model ranks, the rank axis 9.4e-5).  Its reduce is held bit-equal to
+    the rank axis's on the same inputs in
+    ``tests/test_torch_pg_train.py``."""
+    z = ref_steps
+    tcfg = tbase.ModelConfig(**TINY)
+    tpcfg = tbase.ParallelConfig(**STEP_PCFG, **PORT_KERNELS,
+                                 dp_axes=("pod", "data"),
+                                 grad_compression="int8")
+    final = unflatten(z, variant + "/params")
+    for got in groups_replay:
+        pod, m = got["coords"]
+        res = got[variant]
+        np.testing.assert_allclose(res["loss"], z[variant + "/loss"],
+                                   rtol=STEP_LOSS_RTOL)
+        np.testing.assert_allclose(res["gnorm"], z[variant + "/gnorm"],
+                                   rtol=STEP_NORM_RTOL)
+        if variant == "int8":
+            continue
+        want = from_jax_params(final, tcfg, tpcfg, device="cpu", rank=m)
+        with torch.no_grad():
+            close_tree(to_jax_layout(res["params"], tcfg, tpcfg),
+                       to_jax_layout(want, tcfg, tpcfg), STEP_PARAM_TOL)
