@@ -343,7 +343,23 @@ Phases, each printing one JSON line:
             resumed): the final loss within 1e-3 of train_resume's rank
             axis run; reported: per-rank step ms (time-sliced), peak GB,
             ``m`` / ``v`` bytes per rank against the rank axis's, the
-            gradient reduces' bytes and ms a step, the phase's seconds.
+            gradient reduces' bytes and ms a step, the phase's seconds;
+            then, in the same four processes, every other family at full
+            width (bf16, depth cut to fit four ranks' params, grads and
+            ``m`` / ``v`` chunks: OLMoE 2 of 16 layers, Mixtral 1 of
+            56, Qwen3-MoE 1 of 94 on groups of (data 2, model 2) made
+            after the first mesh's, Qwen2-VL 2 of 28 with 64 patch rows,
+            Falcon-Mamba 2 of 64, Zamba2 6 of 81, Whisper-base whole)
+            for 2 ZeRO-1 steps of 2 x 512 positions a data-parallel
+            shard, one ``pg_train_family`` line each: losses and norms
+            finite and equal on every rank, K2's and K3's launches on
+            every step and rank against ``pgt_family_expected``, both
+            held on rank 0's kept inputs, per-rank step ms, peak GB,
+            ``m`` / ``v`` bytes against the rank axis's, gradient-reduce
+            bytes and ms by kind, and the family's float32 twin
+            (reduced) against the rank axis on the card: losses within
+            1e-5 relative, params (Zamba2's reported, ROADMAP.md C2)
+            and ZeRO-1 chunks within 2e-4.
 
 The kernels phase holds K2 and K1 at the families' widths too (d 4096,
 3584, 1152 and 512, K1 timed at Whisper's 8 x 1500-row split and at one
@@ -362,9 +378,14 @@ policy and from the tuned plan in turns, each forward's plan key and
 budget with the CTAs it grants K1 (every K1 grid gated equal to it), K1
 held and timed at each CTA count used, K3 on every shape, step medians
 of both policies, bf16 tokens reported and the float32 twin's at tp=2
-gated equal.  After the identity phases, ``dryrun``: the meta-device dry
-run of every ASSIGNED arch x shape (and Llama-3.3-70B and
-Mixtral-8x22B) on the 16x16 mesh in parallel processes, a status count
+gated equal.  After the ``online`` phase, ``trace_view``: the port's
+trace viewer (``python -m repro_torch.obs.trace_view``, its ``main``)
+on the online phase's traces in ``--validate``, summary and
+``--measured`` modes, each one's exit code and rows.  After the identity
+phases, ``dryrun``: the meta-device dry run of every ASSIGNED arch x
+shape (and Llama-3.3-70B and Mixtral-8x22B) on the 16x16 mesh in
+parallel processes (started at the lowest priority before pg_train, so
+they run beside it and the identity phases), a status count
 and the two paper models' per-device bytes and dominant roofline terms,
 then Llama-3.3-70B at 4 layers and tp=8 built on the card, its
 parameters' memory within 1 % of the dry run's count; and ``examples``:
@@ -2624,6 +2645,42 @@ def online_identity(torch, np, seed: int, total: dict, trace_path: Path):
                                  "launches")}})
     if differ:
         raise AssertionError(f"online tokens differ from offline: {differ}")
+
+
+def trace_view_phase(trace_dir: Path) -> None:
+    """The port's trace viewer (``python -m repro_torch.obs.trace_view``,
+    its ``main`` run here) on the online phase's traces: ``--validate``,
+    the summary and ``--measured``, each one's exit code and its rows (the
+    summary's engine tracks, the measured table's (track, phase) rows).
+    ``--validate`` and the summary must exit 0 on both, and
+    ``--measured`` on the profiled engine's trace."""
+    import contextlib
+    import io
+    from repro_torch.obs import trace_view
+    out = {}
+    for name in ("offline_tp1.json", "online_tp1.json"):
+        got = {}
+        for mode, argv in (("validate", ["--validate"]), ("summary", []),
+                           ("measured", ["--measured"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = trace_view.main([str(trace_dir / name), *argv])
+            text = buf.getvalue().splitlines()
+            # summary: a "track" line per engine track; measured: a row
+            # per (track, phase) between its header and its total
+            rows = (sum(ln.startswith("track ") for ln in text)
+                    if mode == "summary" else max(len(text) - 2, 0)
+                    if mode == "measured" else 0)
+            got[mode] = {"rc": rc, "rows": rows,
+                         "first_line": text[0] if text else ""}
+        out[name] = got
+    emit({"phase": "trace_view", "module": "repro_torch.obs.trace_view",
+          **out})
+    for name, got in out.items():
+        if got["validate"]["rc"] or got["summary"]["rc"] or (
+                name == "offline_tp1.json" and got["measured"]["rc"]):
+            raise AssertionError(f"trace_view on {name}: {got}")
 
 
 def online_phase(torch, np, seed: int, trace_dir: Path,
@@ -7088,22 +7145,24 @@ class pgt_spy:
 
         def timed(kind, real, nbytes):
             def run(*args):
+                n = nbytes(args)        # before reduce_dp consumes them
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = real(*args)
                 torch.cuda.synchronize()
-                calls.append((kind, nbytes(args),
-                              (time.perf_counter() - t) * 1e3))
+                calls.append((kind, n, (time.perf_counter() - t) * 1e3))
                 return out
             return run
 
         def model_bytes(args):
             layout, grads = args
             return sum(g.numel() * 4 for g, k in zip(grads, layout.kinds)
-                       if k == "replicated")
+                       if k in layout.SYNCED)
 
         def dp_bytes(args):
-            return sum(g.numel() * 4 for g in args[1])
+            layout, grads = args
+            return sum(g.numel() * 4 for g, k in zip(grads, layout.kinds)
+                       if k != "ep2d")
         for (owner, name, real), nbytes in zip(self.saved[:2],
                                                (model_bytes, dp_bytes)):
             setattr(owner, name, timed(name, real, nbytes))
@@ -7135,19 +7194,25 @@ class pgt_spy:
         return False
 
 
-def pgt_drive(torch, api, run: str, variant: str, seed: int,
-              on_step=None) -> dict:
-    """``PGT_*`` steps of one variant through ``api`` (the rank axis at
-    D = 2 x R = 2, or one process of the groups), from ``seed``:
-    losses, grad norms, each step's wall ms and K2/K3 launches, the
-    final state."""
+def pgt_axes(mesh: tuple) -> tuple:
+    return ("pod", "data", "model")[3 - len(mesh):]
+
+
+def pgt_drive(torch, api, model: tuple, variant: str, seed: int,
+              mesh: tuple = PGT_MESH, image_rows: int = 8) -> dict:
+    """The steps of one variant of ``model`` (``pgt_model``'s tuple)
+    through ``api`` (the rank axis, or one process of the groups of
+    ``mesh``), from ``seed``, on ``SyntheticLM`` batches with the
+    family's other inputs (``training.data.family_inputs``, vlm's
+    ``image_rows`` patch rows): losses, grad norms, each step's wall ms
+    and K2/K3 launches, the final state."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.data import SyntheticLM, family_inputs
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import (make_manual_sync_train_step,
                                                  make_train_step)
-    cfg, _, rows, seq, steps = pgt_model(run)
-    mesh = make_mesh(PGT_MESH, ("pod", "data", "model"))
+    cfg, _, rows, seq, steps = model
+    mesh = make_mesh(mesh, pgt_axes(mesh))
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=2)
     if variant == "auto":
         step, init = make_train_step(api, mesh, None, ocfg, dp_size=api.ep)
@@ -7162,7 +7227,8 @@ def pgt_drive(torch, api, run: str, variant: str, seed: int,
         before = read_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        got = step(*state, data.batch(i))
+        got = step(*state, family_inputs(cfg, data.batch(i), i, seed=seed,
+                                         image_rows=image_rows))
         torch.cuda.synchronize()
         out["ms"].append((time.perf_counter() - t) * 1e3)
         after = read_launches()
@@ -7172,6 +7238,149 @@ def pgt_drive(torch, api, run: str, variant: str, seed: int,
         out["gnorm"].append(float(got[2]["grad_norm"]))
     out["state"] = state
     return out
+
+
+# every other family: name -> (mesh, layers at full width; None keeps
+# them all).  Zamba2's 6 layers are its first shared-attention block's
+# period; depth is cut to fit four ranks' bf16 params, grads and ZeRO-1
+# m / v chunks in the card's memory.
+PGT_FAMILIES = {"olmoe-1b-7b": (PGT_MESH, 2),
+                "mixtral-8x22b": (PGT_MESH, 1),
+                "qwen3-moe-235b-a22b": ((2, 2), 1),
+                "qwen2-vl-7b": (PGT_MESH, 2),
+                "falcon-mamba-7b": (PGT_MESH, 2),
+                "zamba2-7b": (PGT_MESH, 6),
+                "whisper-base": (PGT_MESH, None)}
+PGT_FAMILY_TOKENS = 512            # a shard row's positions (vlm: patches too)
+# twins whose params are reported, not gated (ROADMAP.md C2): AdamW's
+# m / (sqrt(v) + eps) at elements whose clipped gradient is below eps
+# (Zamba2's gradient norm is ~20, its LoRA B starts at zero) turns the
+# card's batched-vs-single GEMM noise into a part of a step
+PGT_PARAMS_UNHELD = ("zamba2-7b",)
+PGT_VLM_PATCHES = {"full": 64, "twin": 8}
+
+
+def pgt_family_model(name: str, run: str) -> tuple:
+    """(cfg, pcfg, rows, seq, steps) of a family's pg_train run: "full"
+    its registry config at full width (bf16) cut to ``PGT_FAMILIES``'
+    depth, 2 rows of ``PGT_FAMILY_TOKENS`` positions a data-parallel
+    shard (vlm: patch rows in front of the text; encdec: the decoder's
+    tokens, the encoder taking its 1500 frames), 2 ZeRO-1 steps; "twin"
+    the reduced float32 config, 2 rows of 64 positions a shard, the weave
+    forced, 2 steps.  ``fused``, K2 and K3 inside autograd, remat on."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    mesh, layers = PGT_FAMILIES[name]
+    kw = dict(comm_mode="fused", attn_impl="pallas", use_pallas_norm=True,
+              remat=True, dp_axes=pgt_axes(mesh)[:-1])
+    cfg = get_config(name)
+    if run == "full":
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        pcfg = ParallelConfig(**kw, split_unit=64, tokenweave_min_tokens=256)
+        positions = PGT_FAMILY_TOKENS
+    else:
+        cfg = cfg.reduced()
+        pcfg = ParallelConfig(**kw, split_unit=16, tokenweave_min_tokens=32)
+        positions = 64
+    seq = positions - (PGT_VLM_PATCHES[run] if cfg.family == "vlm" else 0)
+    return cfg, pcfg, 4, seq, 2
+
+
+def pgt_family_expected(name: str, run: str) -> dict:
+    """A family's K2 and K3 launches a step on every rank: K2 in every
+    add+norm slot per weave split (the entry norm once, each slot inside
+    a layer twice under remat), K3 in every self attention per split,
+    twice under remat (encdec's cross attention is plain torch, as the
+    reference's): with S splits, L layers and r = 2,
+      moe, vlm  K2 S(1 + 2Lr)            K3 SLr
+      ssm       K2 S(1 + Lr)             K3 0
+      hybrid    K2 S(1 + (L + n_inv)r)   K3 S·n_inv·r  (shared blocks)
+      encdec    K2 Se(1 + 2Le·r) + Sd(1 + 3Ld·r)  K3 Se·Le·r + Sd·Ld·r
+    (Se: the encoder's batch splits, Sd: the decoder's)."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as TR
+    cfg, pcfg, rows, seq, _ = pgt_family_model(name, run)
+    mesh = PGT_FAMILIES[name][0]
+    tp, b = mesh[-1], rows // math.prod(mesh[:-1])
+    r, n = 1 + pcfg.remat, cfg.num_layers
+    patches = PGT_VLM_PATCHES[run] if cfg.family == "vlm" else 0
+
+    def splits(s, family="dense"):
+        return 1 + (TR.weave_decision_info(b, s, tp=tp, pcfg=pcfg,
+                                           family=family).split is not None)
+    if cfg.family in ("moe", "vlm"):
+        sp = splits(seq + patches, cfg.family)
+        k2, k3 = sp * (1 + 2 * n * r), sp * n * r
+    elif cfg.family == "ssm":
+        sp = splits(seq)
+        k2, k3 = sp * (1 + n * r), 0
+    elif cfg.family == "hybrid":
+        sp, inv = splits(seq), n // cfg.shared_attn_period
+        k2, k3 = sp * (1 + (n + inv) * r), sp * inv * r
+    else:
+        se = 1 + (ED.encoder_split(b, cfg.max_source_positions, tp=tp,
+                                   pcfg=pcfg) is not None)
+        sp = splits(seq)
+        k2 = se * (1 + 2 * cfg.encoder_layers * r) + sp * (1 + 3 * n * r)
+        k3 = se * cfg.encoder_layers * r + sp * n * r
+    return {"fused_residual_rmsnorm": k2, "flash_attention": k3,
+            "splits": sp}
+
+
+def pgt_family_runs(torch, seed: int, rank: int, out_dir: Path, groups,
+                    names) -> None:
+    """One rank's family runs over ``groups``: each family at full width
+    (2 ZeRO-1 steps under ``pgt_spy``; rank 0 keeps K2's and K3's inputs
+    at the first call of each shape), then its float32 twin (TF32 off;
+    params and ``m`` / ``v`` chunks kept).  Results go to ``out_dir``."""
+    from repro_torch.models.build import build_model
+    flat = torch.utils._pytree.tree_flatten
+    for name in names:
+        for run in ("full", "twin"):
+            model = pgt_family_model(name, run)
+            cfg, pcfg, *_ = model
+            torch.backends.cuda.matmul.allow_tf32 = False
+            api = build_model(cfg, pcfg, tp=groups.model_size,
+                              ep=groups.dp_size, groups=groups)
+            k3_inputs, k2_inputs, undo = {}, {}, []
+            if rank == 0 and run == "full":
+                undo = [capture_k3_inputs(k3_inputs),
+                        capture_k2_inputs(k2_inputs)]
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            try:
+                with pgt_spy(torch) as spy:
+                    got = pgt_drive(torch, api, model, "auto", seed,
+                                    mesh=PGT_FAMILIES[name][0],
+                                    image_rows=PGT_VLM_PATCHES[run])
+            finally:
+                for u in undo:
+                    u()
+            params, opt = got.pop("state")
+            got["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            got["mv_bytes"] = sum(t.numel() * t.element_size()
+                                  for k in ("m", "v")
+                                  for t in flat(opt[k])[0])
+            got["reduce"] = spy.calls
+            got["coords"] = [groups.pod_rank, groups.data_rank,
+                             groups.model_rank, groups.dp_rank]
+            tag = f"{name}_{run}_r{rank}"
+            if run == "twin":
+                torch.save({k: [t.detach().cpu() for t in flat(v)[0]]
+                            for k, v in (("params", params),
+                                         ("m", opt["m"]), ("v", opt["v"]))},
+                           out_dir / f"{tag}.pt")
+            else:
+                offload(k3_inputs)
+                torch.save({"k3": list(k3_inputs.values()),
+                            "k2": [([t.cpu() for t in ts], eps)
+                                   for ts, eps in k2_inputs.values()]},
+                           out_dir / f"{tag}_kernels.pt")
+            (out_dir / f"{tag}.json").write_text(json.dumps(got))
+            del api, params, opt, got, k3_inputs, k2_inputs
+            gc.collect()
+            torch.cuda.empty_cache()
 
 
 def pgt_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
@@ -7203,7 +7412,8 @@ def pgt_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
                     torch.cuda.reset_peak_memory_stats()
                     base = torch.cuda.memory_allocated()
                     with pgt_spy(torch) as spy:
-                        got = pgt_drive(torch, api, run, variant, seed)
+                        got = pgt_drive(torch, api, pgt_model(run), variant,
+                                        seed)
                     state = got.pop("state")
                     opt = state[1]
                     got["peak_gb"] = (torch.cuda.max_memory_allocated()
@@ -7233,6 +7443,20 @@ def pgt_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
             del api, k3_inputs, k2_inputs
             gc.collect()
             torch.cuda.empty_cache()
+        pgt_family_runs(torch, seed, rank, out_dir, groups,
+                        [n for n, (m, _) in PGT_FAMILIES.items()
+                         if m == PGT_MESH])
+    finally:
+        dist.destroy_process_group()
+    # ep2d's mesh, (data 2, model 2): new groups over the same processes
+    mesh = (2, 2)
+    groups = init_groups(make_mesh(mesh, pgt_axes(mesh)), backend="gloo",
+                         init_method=f"file://{out_dir}/store_data",
+                         rank=rank, world_size=PGT_WORLD)
+    try:
+        pgt_family_runs(torch, seed, rank, out_dir, groups,
+                        [n for n, (m, _) in PGT_FAMILIES.items()
+                         if m == mesh])
     finally:
         dist.destroy_process_group()
 
@@ -7255,7 +7479,7 @@ def pgt_twin_check(torch, np, seed: int, out_dir: Path,
     axis = build_model(cfg, pcfg, tp=PGT_MESH[2], ep=PGT_MESH[0])
     out = {}
     for variant in PGT_VARIANTS:
-        ref = pgt_drive(torch, axis, "twin", variant, seed)
+        ref = pgt_drive(torch, axis, pgt_model("twin"), variant, seed)
         worst_loss, worst_param = 0.0, 0.0
         for w, r in enumerate(res):
             got = r[variant]
@@ -7297,6 +7521,150 @@ def pgt_twin_check(torch, np, seed: int, out_dir: Path,
         raise AssertionError(f"pg_train twin: the int8 pod reduce differs "
                              f"from the rank axis's {bits}")
     return out
+
+
+def pgt_family_twin_check(torch, seed: int, out_dir: Path, name: str,
+                          ranks: list) -> dict:
+    """A family's float32 twin against the rank axis on the card (TF32
+    off): every rank's losses within 1e-5 relative, its params and its
+    ZeRO-1 chunks of ``m`` / ``v`` within 2e-4 of max(1, a leaf's largest
+    magnitude) of its slice and chunk of the rank axis's (the params of
+    ``PGT_PARAMS_UNHELD`` reported with their worst leaf, not gated)."""
+    from repro_torch import weights as W
+    from repro_torch.models.build import build_model
+    flat = torch.utils._pytree.tree_flatten
+    model = pgt_family_model(name, "twin")
+    cfg, pcfg, *_ = model
+    mesh = PGT_FAMILIES[name][0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    axis = build_model(cfg, pcfg, tp=mesh[-1], ep=math.prod(mesh[:-1]))
+    ref = pgt_drive(torch, axis, model, "auto", seed, mesh=mesh,
+                    image_rows=PGT_VLM_PATCHES["twin"])
+    params, opt = ref["state"]
+    worst_loss = worst_param = worst_chunk = 0.0
+    paths = [".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path) for path, _ in
+             torch.utils._pytree.tree_flatten_with_path(params)[0]]
+    worst_at = None
+
+    def err(a, b):
+        if not b.numel():
+            return 0.0
+        b = b.detach().float().cpu()
+        return float((a.float() - b).abs().max()) / max(
+            1.0, float(b.abs().max()))
+    for w, r in enumerate(ranks):
+        worst_loss = max(worst_loss, max(
+            abs(a - b) / abs(b) for a, b in zip(r["loss"], ref["loss"])))
+        _, d, m, q = r["coords"]
+        kept = torch.load(out_dir / f"{name}_twin_r{w}.pt")
+        mine = W.take_rank(params, m, cfg, data_rank=d)
+        dims = W.zero_dims(mine, cfg, pcfg, math.prod(mesh[:-1]))
+        for path, a, b in zip(paths, kept["params"], flat(mine)[0]):
+            if a.shape != b.shape:
+                raise AssertionError(f"pg_train {name} twin rank {w}: "
+                                     f"{tuple(a.shape)} != {tuple(b.shape)}")
+            e = err(a, b)
+            if e > worst_param:
+                worst_param, worst_at = e, [w, path]
+        for k in ("m", "v"):
+            want = flat(W.take_chunk(W.take_rank(opt[k], m, cfg,
+                                                 data_rank=d),
+                                     dims, q, math.prod(mesh[:-1])))[0]
+            for a, b in zip(kept[k], want):
+                if a.shape != b.shape:
+                    raise AssertionError(f"pg_train {name} twin rank {w} "
+                                         f"{k}: {tuple(a.shape)} != "
+                                         f"{tuple(b.shape)}")
+                worst_chunk = max(worst_chunk, err(a, b))
+    out = {"loss_rel_err": worst_loss, "param_err": worst_param,
+           "param_err_at": worst_at, "zero1_chunk_err": worst_chunk,
+           "rank_axis_losses": ref["loss"],
+           "params_gated": name not in PGT_PARAMS_UNHELD}
+    if (worst_loss > PGT_LOSS_RTOL or worst_chunk > PGT_PARAM_TOL
+            or (out["params_gated"] and worst_param > PGT_PARAM_TOL)):
+        raise AssertionError(f"pg_train {name} twin against the rank "
+                             f"axis: {out}")
+    return out
+
+
+def pgt_families_check(torch, seed: int, out_dir: Path) -> tuple:
+    """Every family's pg_train lines: gates on the full-width runs
+    (finite losses and norms, equal on every rank; K2's and K3's
+    launches on every step and rank against ``pgt_family_expected``; both
+    held on rank 0's kept inputs) and the twins (``pgt_family_twin_
+    check``).  Returns (rank 0's K2 and K3 launches over the full-width
+    steps, K2's and K3's worst errors)."""
+    from repro_torch.models.build import build_model
+    k2 = k3 = 0
+    k2_err = k3_err = 0.0
+    for name, (mesh, _) in PGT_FAMILIES.items():
+        cfg, pcfg, rows, seq, steps = pgt_family_model(name, "full")
+        want = pgt_family_expected(name, "full")
+        ranks = [json.loads((out_dir / f"{name}_full_r{w}.json")
+                            .read_text()) for w in range(PGT_WORLD)]
+        for w, r in enumerate(ranks):
+            if not all(map(math.isfinite, r["loss"] + r["gnorm"])):
+                raise AssertionError(f"pg_train {name} rank {w}: "
+                                     f"{r['loss']} {r['gnorm']}")
+            if (r["loss"], r["gnorm"]) != (ranks[0]["loss"],
+                                           ranks[0]["gnorm"]):
+                raise AssertionError(f"pg_train {name}: the ranks' losses "
+                                     f"differ")
+            for i, n in enumerate(r["launches"]):
+                if any(n[k] != want[k] for k in ("fused_residual_rmsnorm",
+                                                 "flash_attention")):
+                    raise AssertionError(f"pg_train {name} rank {w} step "
+                                         f"{i}: launches {n}, expected "
+                                         f"{want}")
+        kept = torch.load(out_dir / f"{name}_full_r0_kernels.pt")
+        fk2 = check_main_path_k2(torch, {i: ([t.cuda() for t in ts], eps)
+                                         for i, (ts, eps) in
+                                         enumerate(kept["k2"])},
+                                 f"pg_train {name}")
+        fk3 = (check_main_path_k3(torch, dict(enumerate(kept["k3"])),
+                                  f"pg_train {name}", mesh[-1])
+               if want["flash_attention"] else 0.0)
+        k2_err, k3_err = max(k2_err, fk2), max(k3_err, fk3)
+        k2 += sum(n["fused_residual_rmsnorm"] for n in ranks[0]["launches"])
+        k3 += sum(n["flash_attention"] for n in ranks[0]["launches"])
+        axis_mv = 8 * sum(t.numel() for t in torch.utils._pytree.tree_flatten(
+            build_model(cfg, pcfg, tp=mesh[-1], ep=math.prod(mesh[:-1]))
+            .init(seed, device="meta"))[0])
+        calls = ranks[0]["reduce"]
+        line = {"phase": "pg_train_family", "model": cfg.name,
+                "family": cfg.family, "moe_partition": (
+                    cfg.moe_partition if cfg.is_moe else None),
+                "layers": cfg.num_layers, "d_model": cfg.d_model,
+                "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                "mesh": dict(zip(pgt_axes(mesh), mesh)), "backend": "gloo",
+                "comm_mode": pcfg.comm_mode, "remat": pcfg.remat,
+                "tokens_per_shard": rows // math.prod(mesh[:-1]) * (
+                    seq + (PGT_VLM_PATCHES["full"] if cfg.family == "vlm"
+                           else 0)),
+                "weave_splits": want["splits"],
+                "expected_launches_per_step": want,
+                "launches_rank0": ranks[0]["launches"],
+                "losses": ranks[0]["loss"], "grad_norms": ranks[0]["gnorm"],
+                "step_ms_per_rank": [r["ms"] for r in ranks],
+                "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+                "mv_bytes_per_rank": [r["mv_bytes"] for r in ranks],
+                "mv_bytes_rank_axis": axis_mv,
+                "reduce_bytes_by_kind_rank0": {
+                    kind: sum(c[1] for c in calls if c[0] == kind) / steps
+                    for kind in sorted({c[0] for c in calls})},
+                "reduce_ms_by_kind_rank0": {
+                    kind: sum(c[2] for c in calls if c[0] == kind) / steps
+                    for kind in sorted({c[0] for c in calls})},
+                "k2_max_abs_err": fk2, "k3_max_abs_err": fk3,
+                "twin": pgt_family_twin_check(torch, seed, out_dir, name, [
+                    json.loads((out_dir / f"{name}_twin_r{w}.json")
+                               .read_text()) for w in range(PGT_WORLD)]),
+                "card": card_line()}
+        emit(line)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return k2, k3, k2_err, k3_err
 
 
 def pgt_driver_start(root: Path, name: str) -> list:
@@ -7374,6 +7742,11 @@ def pg_train_phase(torch, np, seed: int, manual_loss: float) -> tuple:
     driver_dir = Path(tempfile.mkdtemp(prefix="pg_train_driver_"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["GLOO_SOCKET_IFNAME"] = "lo"
+    # four ranks' full-width families share the card: this process's cache
+    # goes back to it, and theirs grow without fragments
+    gc.collect()
+    torch.cuda.empty_cache()
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     me = [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
           "--pg-train-dir", str(out_dir), "--pg-train-rank"]
     # the driver's failing round beside the ranks, its resume beside the
@@ -7464,6 +7837,9 @@ def pg_train_phase(torch, np, seed: int, manual_loss: float) -> tuple:
                                                       out_dir, ranks)
             line["card"] = card_line()
             emit(line)
+        fam = pgt_families_check(torch, seed, out_dir)
+        k2, k3 = k2 + fam[0], k3 + fam[1]
+        k2_err, k3_err = max(k2_err, fam[2]), max(k3_err, fam[3])
         pgt_driver_check(pgt_driver_wait(driver, "resume"), manual_loss,
                          time.perf_counter() - t0)
     finally:
@@ -7765,53 +8141,77 @@ def tuned_plan_phase(torch, np, seed: int, trace_dir: Path):
     return total, max(k3_err, 0.0), peak, k1_err
 
 
-def dryrun_phase(torch) -> None:
-    """``launch.dryrun.run_cell`` for every ASSIGNED arch x shape on the
-    16x16 mesh on meta tensors (one ``python -m repro_torch.launch.dryrun
-    --arch --shape`` process per cell, ``DRYRUN_WORKERS`` at a time, the
-    records in build/dryrun/), and the two paper models the report names
-    (``DRYRUN_REPORTED``): a status count, and for those two each
-    shape's per-device ``memory.args`` in GB and the roofline's dominant
-    term.  Then Llama-3.3-70B cut to 4 layers at tp=8 is built on the
-    card: the memory its parameters take must be within
-    ``DRYRUN_PARAM_RTOL`` of the dry run's parameter bytes of the same
-    cell (tp=8 ranks of one data shard, all on the card's rank axis)."""
+def dryrun_start() -> dict:
+    """Start the dry run's cells (``dryrun_phase``) on the host: a thread
+    that keeps ``DRYRUN_WORKERS`` cell processes running (meta tensors, no
+    card; at the lowest priority, ``nice`` 19, so that they take the
+    host's idle time) while pg_train's time-sliced ranks and the untimed
+    phases after training use the card.  Returns the state
+    ``dryrun_phase`` waits on."""
     import os
+    import threading
 
-    from repro_torch.configs import ASSIGNED, get_config
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.build import build_model
+    from repro_torch.configs import ASSIGNED
 
     out_dir = ROOT / "build" / "dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = [*ASSIGNED, *DRYRUN_REPORTED]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
+    state = {"t0": time.perf_counter(), "out_dir": out_dir, "archs": archs,
+             "failed": []}
+    nice = ["nice", "-n", "19"] if shutil.which("nice") else []
     # the slowest cells first, then train steps, then 32k prefills
     pending = [*DRYRUN_SLOW, *(
         (a, s) for s in ("train_4k", "prefill_32k", "decode_32k",
                          "long_500k") for a in archs
         if (a, s) not in DRYRUN_SLOW)]
-    running, failed = [], []
-    while pending or running:
-        while pending and len(running) < DRYRUN_WORKERS:
-            arch, shape = pending.pop(0)
-            out = out_dir / f"{arch}_{shape}.json"
-            out.unlink(missing_ok=True)
-            log = open(out_dir / f"{arch}_{shape}.log", "w")
-            running.append(((arch, shape), log, subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--out", str(out)], cwd=SRC,
-                env=env, stdout=log, stderr=subprocess.STDOUT)))
-        time.sleep(0.2)
-        for item in [r for r in running if r[2].poll() is not None]:
-            running.remove(item)
-            item[1].close()
-            if item[2].returncode:
-                failed.append(item[0])
+
+    def run():
+        running = []
+        while pending or running:
+            while pending and len(running) < DRYRUN_WORKERS:
+                arch, shape = pending.pop(0)
+                out = out_dir / f"{arch}_{shape}.json"
+                out.unlink(missing_ok=True)
+                log = open(out_dir / f"{arch}_{shape}.log", "w")
+                running.append(((arch, shape), log, subprocess.Popen(
+                    [*nice, sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--out", str(out)],
+                    cwd=SRC, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)))
+            time.sleep(0.2)
+            for item in [r for r in running if r[2].poll() is not None]:
+                running.remove(item)
+                item[1].close()
+                if item[2].returncode:
+                    state["failed"].append(item[0])
+    state["thread"] = threading.Thread(target=run, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def dryrun_phase(torch, state: dict) -> None:
+    """``launch.dryrun.run_cell`` for every ASSIGNED arch x shape on the
+    16x16 mesh on meta tensors (one ``python -m repro_torch.launch.dryrun
+    --arch --shape`` process per cell, ``DRYRUN_WORKERS`` at a time, the
+    records in build/dryrun/; started by ``dryrun_start``, waited on
+    here), and the two paper models the report names
+    (``DRYRUN_REPORTED``): a status count, and for those two each
+    shape's per-device ``memory.args`` in GB and the roofline's dominant
+    term.  Then Llama-3.3-70B cut to 4 layers at tp=8 is built on the
+    card: the memory its parameters take must be within
+    ``DRYRUN_PARAM_RTOL`` of the dry run's parameter bytes of the same
+    cell (tp=8 ranks of one data shard, all on the card's rank axis)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.build import build_model
+
+    state["thread"].join()
+    out_dir, archs, failed = state["out_dir"], state["archs"], state["failed"]
+    t0 = state["t0"]
     if failed:
         raise AssertionError(f"dry run processes failed: {failed} (logs in "
                              f"{out_dir})")
@@ -7988,6 +8388,7 @@ def main() -> int:
     # the main paths: launches are counted from 0 over each engine run
     kw = dict(torch=torch, np=np, seed=args.seed, trace_dir=args.trace_dir)
     online = online_phase(**kw)
+    trace_view_phase(args.trace_dir / "online")
     two = {1: engine_phase(**kw, tp=1, comm_mode="fused"),
            8: engine_phase(**kw, tp=8, comm_mode="ring")}
     packed = {1: packed_phase(**kw, tp=1, comm_mode="fused"),
@@ -8069,6 +8470,9 @@ def main() -> int:
                                              args.trace_dir)
     paths.append(tuple(gemma))
     manual_loss = train_resume_phase(torch)
+    # the dry run's host processes (lowest priority) beside pg_train's
+    # time-sliced ranks and the untimed phases below
+    dry = dryrun_start()
     # training one (pod, data, model) rank per process
     pgt_k2, pgt_k3, pgt_k2_err, pgt_k3_err = pg_train_phase(
         torch, np, args.seed, manual_loss)
@@ -8102,9 +8506,9 @@ def main() -> int:
     rows["ar_rmsnorm_peer"]["max_abs_err"] = max(
         rows["ar_rmsnorm_peer"]["max_abs_err"], pg_ring_err, pg_families_err,
         pg_data_err, pg_spec_err)
-    # the meta-device dry run and the examples: host work, after every
-    # timed phase
-    dryrun_phase(torch)
+    # the meta-device dry run (its cells running since training ended) and
+    # the examples: host work, after every timed phase
+    dryrun_phase(torch, dry)
     examples_phase()
 
     sources = {"ar_rmsnorm": (

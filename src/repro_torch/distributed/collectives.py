@@ -34,10 +34,10 @@ once to x's dtype, or in x's dtype under ``ctx.bf16_wire``; a max, a
 gather and an all-to-all move x's dtype.  Called on a side stream, NCCL
 orders its work after that stream's, and the stream waits for the
 result.  Where autograd records a call under ``process_group``,
-``psum``, ``psum_scatter``, ``all_gather``, ``gather_ranks`` and
-``psum_dp`` carry a backward (the Functions below), ``token_shard_slice``
-is a slice and ``pmax`` carries no gradient; ``pmax_dp`` and
-``all_to_all`` serve only.
+``psum``, ``psum_scatter``, ``all_gather``, ``gather_ranks``,
+``psum_dp`` and ``all_to_all`` carry a backward (the Functions below),
+``token_shard_slice`` is a slice and ``pmax`` carries no gradient;
+``pmax_dp`` serves only.
 
 While ``analysis.op_costs`` counts a call (``recording``), every
 collective reports its kind (the reference's HLO names), the bytes of
@@ -169,7 +169,7 @@ def _all_gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
     return out
 
 
-# Under process_group a collective that autograd records is one of three
+# Under process_group a collective that autograd records is one of four
 # Functions.  Each backward is derived from the rank axis's form: a
 # process's input gradient is its rank's slice of what autograd gives
 # through the operation over dim 0, where a value the same on every rank
@@ -235,6 +235,33 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.group, ctx.size,
                                g.dtype if ctx.bf16_wire
                                else torch.float32), None, None, None
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of a process's (1, 1, N, ...) rows over
+    ``group``: tile j of its N rows to rank j, tile s of the result from
+    rank s."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out[0, 0], t[0, 0], group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all``'s exchange of rows over the data group; its
+    backward the same exchange of the cotangent (a tiled all-to-all is
+    its own inverse: what went to rank j as tile j comes back from it as
+    tile j)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
 
 
 def _sum(x, group, ctx: C.CommCtx) -> torch.Tensor:
@@ -344,7 +371,8 @@ def all_to_all(x: torch.Tensor, ctx: C.CommCtx, *, ids=None):
     (rows, ids).  A recorder sees one all-to-all of the rows' bytes (the
     ids add 1/d of them).  On the rank axis an index op over the D_loc =
     ``ctx.dp`` shards; under ``process_group`` ``all_to_all_single`` over
-    the data group (gloo takes CUDA tensors)."""
+    the data group (gloo takes CUDA tensors), with a backward where
+    autograd records the rows (the exchange back)."""
     if not _grouped(ctx):
         def swap(t):
             dp, n = t.shape[1], t.shape[2]
@@ -362,8 +390,7 @@ def all_to_all(x: torch.Tensor, ctx: C.CommCtx, *, ids=None):
     def swap(t):
         if ctx.dp == 1:
             return t
-        t = t.contiguous()
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out[0, 0], t[0, 0], group=ctx.groups.data)
-        return out
+        if AG.needs_grad(t):
+            return _AllToAll.apply(t, ctx.groups.data)
+        return _exchange(t, ctx.groups.data)
     return swap(x) if ids is None else (swap(x), swap(ids))

@@ -14,13 +14,15 @@ By default the mesh's ranks lie on one device's rank axes
 (``launch/mesh.py``): ``--mesh PODxDATAxMODEL`` builds the model at tp =
 MODEL with the data rank axis D = POD x DATA.  With ``--world-size`` (or
 torchrun's ``WORLD_SIZE``) the mesh is one (pod, data, model) rank per
-process instead (the dense family), over ``launch.mesh.init_groups``:
+process instead (every family), over ``launch.mesh.init_groups``:
 ``--rank`` (or ``RANK``), ``--init-method`` (a ``file://`` store or
 ``env://``), and on CUDA card ``LOCAL_RANK`` modulo the cards there are
 with ``--backend`` NCCL, or gloo once several of the host's ranks share
 a card (``launch.serve.cuda_backend``); the CPU takes gloo.  Each process
 takes its data-parallel shard's rows of every batch
-(``training/train_step.py``).  A checkpoint is gathered from every
+(``training/train_step.py``).  Every family trains: the batch carries
+encdec's stub frames and vlm's patch rows and M-RoPE ids beside the
+tokens (``training.data.family_inputs``).  A checkpoint is gathered from every
 process (its slices, ZeRO-1 chunks and pod entries) and written by world
 rank 0 in the reference's layout, the others waiting for the write at
 the end and at ``--fail-at-step`` (which exits 42 on every rank); on
@@ -86,9 +88,11 @@ def from_checkpoint(tree, cfg, pcfg, device, api=None, zero=False):
 
     g = api.groups if api is not None else None
     rank = None if g is None else g.model_rank
+    data_rank = None if g is None else g.data_rank
 
     def conv(t):
-        return W.from_jax_params(t, cfg, pcfg, device=device, rank=rank)
+        return W.from_jax_params(t, cfg, pcfg, device=device, rank=rank,
+                                 data_rank=data_rank)
     params = conv(tree[0])
     opt = {"m": conv(tree[1]["m"]), "v": conv(tree[1]["v"]),
            "step": tree[1]["step"].to(device)}
@@ -194,7 +198,7 @@ def _run(args, device, mesh, tp, dp, dp_axes, groups, rank):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models.build import build_model
-    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.data import SyntheticLM, family_inputs
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import (make_manual_sync_train_step,
                                                  make_train_step)
@@ -212,7 +216,7 @@ def _run(args, device, mesh, tp, dp, dp_axes, groups, rank):
 
     data = SyntheticLM(vocab=cfg.vocab_size, seq_len=args.seq,
                        global_batch=args.batch)
-    batch0 = data.batch(0)
+    batch0 = family_inputs(cfg, data.batch(0), 0)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 4 + 1))
 
     if args.manual_sync:
@@ -233,7 +237,8 @@ def _run(args, device, mesh, tp, dp, dp_axes, groups, rank):
     latest = CheckpointManager(args.ckpt_dir, async_save=False).latest_step()
     if latest is not None:
         reader = CheckpointManager(args.ckpt_dir, async_save=False)
-        target = to_checkpoint(state, cfg, pcfg)       # its keypaths
+        # its keypaths (gathered: a process's ZeRO-1 chunks may be empty)
+        target = to_checkpoint(state, cfg, pcfg, api, zero=zero)
         restored = reader.restore(latest, target, device="cpu")
         state = from_checkpoint(restored, cfg, pcfg, device, api, zero=zero)
         start_step = latest
@@ -262,7 +267,7 @@ def _run(args, device, mesh, tp, dp, dp_axes, groups, rank):
         t0 = time.time()
         i = start_step
         for i in range(start_step, args.steps):
-            batch = data.batch(i)
+            batch = family_inputs(cfg, data.batch(i), i)
             out = step_fn(*state[:2], *([state[2], batch] if len(state) == 3
                                         else [batch]))
             if len(state) == 3:

@@ -11,6 +11,10 @@ mesh.shape["data"]``): ``ep2d`` experts split over it, the transformer's
 batch splits over it, or, under ``pcfg.seq_shard_kv``, the transformer's
 and the hybrid's full-attention caches split their sequence over it
 (``models/transformer.py``).  Every bound call passes it on as ``dp``.
+The ssm, hybrid and encdec families train at any ``ep`` (``train_loss``
+splits their batch over it); their serving calls refuse ``ep`` > 1 by
+name (the hybrid's under ``seq_shard_kv`` aside): their batch over D is
+not ported for serving (ROADMAP.md A.1).
 
 ``prefill`` passes its keywords on: ``frames`` (encdec), and
 ``mrope_positions`` and ``extra_embeds`` (vlm); ``init_cache`` passes
@@ -32,10 +36,8 @@ data group (a process's calls take its data shard's rows; ``ep2d``'s
 all-to-alls go over the data group) and for the context-parallel decode
 of the transformer families and the hybrid over it, and for the
 transformer families' verify step (speculative decoding), and for
-the dense family's training (``train_loss``: a process's rows are its
-data-parallel shard's, ``ep`` the pod x data size); training the other
-families over groups is refused by name (ROADMAP.md A17 rest), and the
-families without a data axis refuse one on either backend."""
+every family's training (``train_loss``: a process's rows are its
+data-parallel shard's, ``ep`` the pod x data size)."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,36 +93,38 @@ class ModelApi:
         return self.mod.init_params(self.cfg, seed=seed, device=device,
                                     dtype=dtype, tp=self.tp, **kw)
 
+    def _check_serving(self) -> None:
+        """Raise, naming the family, where a serving call meets a data
+        axis that is ported for training alone."""
+        if self.ep > 1 and not (self.mod is transformer or (
+                self.mod is hybrid and self.pcfg.seq_shard_kv)):
+            raise NotImplementedError(
+                f"a data axis (ep={self.ep}) is ported for the "
+                f"{self.cfg.family} family's training, not for its serving "
+                f"calls (ROADMAP.md A.1); the transformer families serve "
+                f"over it, the hybrid under seq_shard_kv")
+
     def init_cache(self, batch: int, max_len: int, *, device=None, **kw):
+        self._check_serving()
         kw.update(self._dp)
         if "dp" in kw:
             kw["seq_shard_kv"] = self.pcfg.seq_shard_kv
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
 
-    def check_trainable(self) -> None:
-        """Raise, naming the family, where training over ``groups`` is
-        not ported: every family but the dense one (ROADMAP.md A17
-        rest)."""
-        if self.groups is not None and self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family over the "
-                f"process_group backend is not ported (ROADMAP.md A17 "
-                f"rest); the dense family trains over it")
-
     def train_loss(self, params, batch, *, dp: int | None = None):
         """batch {"tokens" (B, S), "labels" (B, S_labels), and per family
         "frames" (encdec), "mrope_positions" / "extra_embeds" (vlm)}, B
         holding ``dp`` (default ``ep``) data shards' rows one after the
         other -> (loss_sum, denom, aux), each (D,) float32.  With
-        ``groups`` (the dense family) the batch is this process's
-        data-parallel shard's rows and each is (1,)."""
+        ``groups`` the batch is this process's data-parallel shard's rows
+        and each is (1,)."""
         dp = self.ep if dp is None else dp
         if self.groups is not None:
-            self.check_trainable()
-            return transformer.train_loss(params, batch, cfg=self.cfg,
-                                          pcfg=self.pcfg, dp=dp,
-                                          groups=self.groups)
+            kw = {"dp": dp} if self.mod is transformer else {}
+            return self.mod.train_loss(params, batch, cfg=self.cfg,
+                                       pcfg=self.pcfg, groups=self.groups,
+                                       **kw)
         if self.mod is transformer:
             return transformer.train_loss(params, batch, cfg=self.cfg,
                                           pcfg=self.pcfg, dp=dp)
@@ -141,10 +145,12 @@ class ModelApi:
     def forward(self, params, tokens, positions, **kw):
         """The shared forward with no cache: (hidden (R, B, S, d), chunk
         kv per layer); ``spec.ModelDraft``'s rollout step."""
+        self._check_serving()
         return self.mod.forward(params, tokens, cfg=self.cfg, pcfg=self.pcfg,
                                 positions=positions, **self._dp, **kw)
 
     def prefill(self, params, tokens, cache, positions, **kw):
+        self._check_serving()
         return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
                                 pcfg=self.pcfg, positions=positions,
                                 **self._dp, **kw)
@@ -152,21 +158,25 @@ class ModelApi:
     def init_paged_cache(self, num_blocks: int, block_size: int, *,
                          device=None):
         from repro_torch.runtime.paging import init_paged_cache
+        self._check_serving()
         return init_paged_cache(num_blocks, block_size, self.cfg, self.tp,
                                 device=device,
                                 ranks=self.comm_ctx.local_ranks)
 
     def decode_step(self, params, tokens, cache, positions, **kw):
+        self._check_serving()
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
 
     def verify_step(self, params, tokens, cache, positions, **kw):
+        self._check_serving()
         return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
 
     def packed_step(self, params, tokens, cache, positions, **kw):
+        self._check_serving()
         return self.mod.packed_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
@@ -179,12 +189,6 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
     if tp < 1 or ep < 1:
         raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
     mod = FAMILIES[cfg.family]
-    if ep > 1 and not (mod is transformer or (
-            mod is hybrid and pcfg.seq_shard_kv)):
-        raise NotImplementedError(
-            f"a data axis (ep={ep}) is ported for the transformer families "
-            f"and the hybrid's context-parallel decode, not for the "
-            f"{cfg.family} family")
     if (groups is not None and groups.pod_size > 1 and cfg.is_moe
             and cfg.moe_partition == "ep2d"):
         raise NotImplementedError(

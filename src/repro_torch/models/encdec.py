@@ -54,7 +54,7 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mlp as M
 from repro_torch.models import transformer as TR
-from repro_torch.models.mamba_model import embedding_params, xent
+from repro_torch.models.mamba_model import embedding_params, group_dp, xent
 
 MAX_DECODER_POSITIONS = 4096
 
@@ -170,7 +170,8 @@ def encode(params, frames, *, cfg: ModelConfig, pcfg: ParallelConfig,
     tp = TR._model_ranks(params, groups)
     b, s, _ = frames.shape
     dev = frames.device
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
+                       dp=group_dp(groups))
     x = frames + params["pos_enc"][:s].to(frames.dtype)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
     b1 = encoder_split(b, s, tp=tp, pcfg=pcfg)
@@ -278,7 +279,8 @@ def decoder_forward(params, tokens, *, cfg: ModelConfig,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
+                       dp=group_dp(groups))
     emb = E.embed_tokens(params["embedding"], tokens, ctx=ctx)
     table = params["pos_dec"]
     pos_emb = table[positions.long().clamp(0, table.shape[0] - 1)]
@@ -314,16 +316,18 @@ def decoder_forward(params, tokens, *, cfg: ModelConfig,
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               aux_weight: float = 0.0):
+               aux_weight: float = 0.0, groups: Optional[Groups] = None):
     """batch {"frames" (B, S_enc, d), "tokens" (B, S), "labels" (B, S)} ->
     (loss_sum, denom, aux), each (1,) float32 (no aux loss): the encoder
-    over the frames, the cross caches, the decoder over the tokens."""
-    frames = batch["frames"]
-    enc_out = encode(params, frames, cfg=cfg, pcfg=pcfg, train=True)
-    cross = project_cross_caches(params, enc_out, cfg=cfg, pcfg=pcfg)
+    over the frames, the cross caches, the decoder over the tokens.  With
+    ``groups`` the batch is this process's data-parallel shard's rows."""
+    frames = batch["frames"].to(params["pos_enc"].dtype)
+    kw = dict(cfg=cfg, pcfg=pcfg, groups=groups)
+    enc_out = encode(params, frames, train=True, **kw)
+    cross = project_cross_caches(params, enc_out, **kw)
     h, _ = decoder_forward(params, batch["tokens"].to(frames.device),
-                           cfg=cfg, pcfg=pcfg, cross_kv=cross, train=True)
-    ls, dn = xent(params, h, batch["labels"], cfg)
+                           cross_kv=cross, train=True, **kw)
+    ls, dn = xent(params, h, batch["labels"], cfg, pcfg, groups)
     return ls, dn, torch.zeros_like(ls)
 
 

@@ -196,10 +196,6 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     (the whole batch, its C/D slots of each shared cache)."""
     _check_dp(dp, pcfg.seq_shard_kv)
     tp = TR._model_ranks(params, groups)
-    if groups is not None and train:
-        raise NotImplementedError(
-            "the hybrid family over the process_group backend does not "
-            "train (ROADMAP.md A17 rest)")
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -207,7 +203,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
     ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
-                       dp=1 if groups is None else dp)
+                       dp=MM.group_dp(groups))
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
                          ctx=ctx)
     # the complete embedding: every shared-block input reuses it
@@ -288,11 +284,13 @@ def _train_layers(params, hs, ress, embs, poss, *, cfg, pcfg, weave,
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               aux_weight: float = 0.0):
+               aux_weight: float = 0.0, groups: Optional[Groups] = None):
     """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
-    aux), each (1,) float32 (no aux loss)."""
-    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True)
-    ls, dn = MM.xent(params, h, batch["labels"], cfg)
+    aux), each (1,) float32 (no aux loss).  With ``groups`` the batch is
+    this process's data-parallel shard's rows."""
+    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True,
+                   groups=groups)
+    ls, dn = MM.xent(params, h, batch["labels"], cfg, pcfg, groups)
     return ls, dn, torch.zeros_like(ls)
 
 

@@ -150,14 +150,12 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     would enter the state, so chunks must be exact).  ``train``: no cache
     and none returned, the layers under ``remat`` (``train_layer``).
     ``groups``: this process holds one model rank of the model group (R
-    = 1), as the transformer's ``forward``."""
+    = 1), as the transformer's ``forward``, and in training one
+    data-parallel shard's rows."""
     tp = TR._model_ranks(params, groups)
-    if groups is not None and train:
-        raise NotImplementedError(
-            "the ssm family over the process_group backend does not "
-            "train (ROADMAP.md A17 rest)")
     b, s = tokens.shape
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups)
+    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
+                       dp=group_dp(groups))
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
                          ctx=ctx)
     split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
@@ -203,22 +201,37 @@ def lm_logits_at(params, h, last_idx=None):
     return E.lm_head_logits(params["embedding"], h_last)
 
 
-def xent(params, h, labels, cfg: ModelConfig):
+def group_dp(groups: Optional[Groups]) -> int:
+    """The data size a family without a data axis of its own gives its
+    CommCtx: the data-parallel group's under ``groups`` (a process holds
+    one shard's rows), 1 on the rank axis."""
+    return 1 if groups is None else groups.dp_size
+
+
+def xent(params, h, labels, cfg: ModelConfig, pcfg: ParallelConfig = None,
+         groups: Optional[Groups] = None):
     """(loss_sum, denom), each (1,), of the hidden rows h against
     ``labels``: the per-shard values a family without a data axis
-    returns."""
+    returns.  With ``groups`` the sums run over the model group (the loss
+    is then the same on every model rank)."""
+    ctx = None
+    if groups is not None:
+        ctx = TR._comm_ctx(pcfg, cfg, 0, groups.model_size,
+                           dp=groups.dp_size, groups=groups)
     ls, dn = E.sharded_softmax_xent(
         E.lm_head_logits(params["embedding"], h), labels.to(h.device),
-        vocab_size=cfg.vocab_size)
+        vocab_size=cfg.vocab_size, ctx=ctx)
     return ls[None], dn[None]
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               aux_weight: float = 0.0):
+               aux_weight: float = 0.0, groups: Optional[Groups] = None):
     """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
-    aux), each (1,) float32; a recurrence has no aux loss."""
-    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True)
-    ls, dn = xent(params, h, batch["labels"], cfg)
+    aux), each (1,) float32; a recurrence has no aux loss.  With
+    ``groups`` the batch is this process's data-parallel shard's rows."""
+    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True,
+                   groups=groups)
+    ls, dn = xent(params, h, batch["labels"], cfg, pcfg, groups)
     return ls, dn, torch.zeros_like(ls)
 
 

@@ -339,18 +339,20 @@ def _moe(params, h, cfg, dp: int, seq_shard_kv: bool, ctx: CommCtx):
     and under ``process_group`` h is the process's own rows: its data
     shard's (the batch over D) or its copy of the whole batch, routed
     through the data group's all-to-alls for ``ep2d``.  The aux loss is
-    the same on every rank (routing reads the replicated input): rank
-    0's, or this process's rank's."""
+    the same on every rank (routing reads the replicated input): the
+    mean of the local ranks' copies (each copy's gradient 1/R of the
+    loss's, as each process's is 1/tp under ``process_group``, where the
+    backward's seed is 1/tp), or this process's rank's."""
     if dp > 1 and not ctx.process_group:
         if not seq_shard_kv:
             out, aux = X.moe_forward(params, h, cfg, dp=dp)
-            return out, aux[0]
+            return out, aux.mean(dim=0)
         if cfg.moe_partition == "ep2d":
             out, aux = X.moe_forward(params, h.repeat(1, dp, 1, 1), cfg,
                                      dp=dp)
             return out[:, :h.shape[1]], aux[0, :1]
     out, aux = X.moe_forward(params, h, cfg, ctx=ctx)
-    return out, aux[:1]
+    return out, aux.mean(dim=0, keepdim=True)
 
 
 def cat_kv(a, b):

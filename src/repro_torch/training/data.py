@@ -34,3 +34,29 @@ class SyntheticLM:
             nxt = self._table[toks[:, t], choices[:, t]]
             toks[:, t + 1] = np.where(noise[:, t], rand_tok[:, t], nxt)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def family_inputs(cfg, batch: dict, step: int, *, seed: int = 0,
+                  image_rows: int = 8) -> dict:
+    """``batch`` with the inputs a family's ``train_loss`` takes beside
+    the tokens, drawn from (``seed``, ``step``) for every row at once, so
+    that any data-parallel shard's rows are the same wherever they are
+    cut: encdec's stub frame embeddings ``frames`` (B,
+    ``cfg.max_source_positions``, d), and vlm's ``image_rows`` patch
+    embeddings in front of the text (``extra_embeds`` (B, image_rows,
+    d)) with their M-RoPE ids (``mrope_positions`` (B, 3, image_rows +
+    S), image then text, each row of ids the 1-D positions); float32.
+    Other families' batches come back as they are."""
+    b, s = batch["tokens"].shape
+    rng = np.random.RandomState((seed, step, 1))
+    out = dict(batch)
+    if cfg.family == "encdec":
+        out["frames"] = rng.randn(b, cfg.max_source_positions,
+                                  cfg.d_model).astype(np.float32)
+    elif cfg.family == "vlm":
+        out["extra_embeds"] = rng.randn(b, image_rows,
+                                        cfg.d_model).astype(np.float32)
+        out["mrope_positions"] = np.broadcast_to(
+            np.arange(image_rows + s, dtype=np.int32)[None, None],
+            (b, 3, image_rows + s)).copy()
+    return out

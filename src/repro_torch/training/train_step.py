@@ -31,7 +31,7 @@ which counts the sum once per pod (the port reproduces this; ROADMAP.md
 C).  One backward serves both forms.
 
 Over process groups (``api.groups``, ``launch.mesh.init_groups``: one
-(pod, data, model) rank per process, the dense family) a process runs
+(pod, data, model) rank per process, every family) a process runs
 its data-parallel shard's rows of the global batch (``_own_rows``).  The
 loss is computed whole on every model rank (the cross-entropy's sums run
 over the model group), so each process seeds its backward with 1/tp:
@@ -98,7 +98,6 @@ def _check_layout(api, mesh) -> int:
             "them is not ported")
     g = api.groups
     if g is not None:
-        api.check_trainable()
         got = (g.pod_size, g.data_size, g.model_size)
         if got != (mesh.size("pod"), mesh.size("data"), tp):
             raise ValueError(f"groups of (pod, data, model) sizes {got} "
@@ -172,12 +171,15 @@ def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
 
 
 class _GroupLayout:
-    """How one process's leaves lie over the groups (the transformer
-    families' trees: ``weights.leaf_kinds``): each leaf sharded over the
-    model group or replicated on it, and its ZeRO-1 dim over the
+    """How one process's leaves lie over the groups (any family's tree:
+    ``weights.leaf_kinds``): each leaf sharded over the model group,
+    replicated on it (``replicated``, ``per_invocation``) or one (data,
+    model) rank's experts (``ep2d``), and its ZeRO-1 dim over the
     data-parallel group (``weights.zero_dims``; None: whole on every
     data-parallel rank), with ``zero=False`` none (the manual step keeps
     the reference's unchunked state)."""
+
+    SYNCED = ("replicated", "per_invocation")    # summed over the model
 
     def __init__(self, api, params, zero: bool):
         g = api.groups
@@ -201,20 +203,32 @@ class _GroupLayout:
         """``_sync_model_axis``: a replicated leaf's gradient summed over
         the model group (each process holds the part from its own uses);
         a sharded leaf's slice stays local."""
-        return [_sum_over(g, self.groups.model) if k == "replicated" else g
+        return [_sum_over(g, self.groups.model) if k in self.SYNCED else g
                 for g, k in zip(grads, self.kinds)]
 
     def reduce_dp(self, grads: list) -> list:
         """The data-parallel gradient sum in float32, rounded once: a
         chunked leaf's reduce-scattered to this process's chunk, the
-        others all-reduced."""
+        others all-reduced; an ``ep2d`` leaf's kept (its data rank owns
+        those experts, whose gradient came home from every shard through
+        the all-to-alls' backward).  Consumes ``grads``: each entry is
+        dropped once reduced, so that a whole leaf's gradient is freed as
+        its chunk is made."""
         g = self.groups
         out = []
-        for t, dim in zip(grads, self.dims):
-            if g.dp_size == 1:
+        for i, (dim, kind) in enumerate(zip(self.dims, self.kinds)):
+            t, grads[i] = grads[i], None
+            if g.dp_size == 1 or kind == "ep2d":
                 out.append(t)
             elif dim is None:
                 out.append(_sum_over(t, g.dp))
+            elif isinstance(dim, weights.LayerChunk):
+                # the owner's whole leaf, nothing elsewhere
+                buf = t.detach().float().contiguous()
+                dist.reduce(buf, dist.get_global_rank(g.dp, dim.owner),
+                            group=g.dp)
+                out.append(buf.to(t.dtype) if g.dp_rank == dim.owner
+                           else t.narrow(0, 0, 0))
             else:
                 moved = t.detach().movedim(dim, 0).float().contiguous()
                 part = moved.new_empty((moved.shape[0] // g.dp_size,
@@ -226,10 +240,17 @@ class _GroupLayout:
     def owned(self) -> list:
         """Which leaves this process's norm counts, so that over the
         world every part counts once: a replicated leaf on model rank 0
-        alone, an unchunked leaf on data-parallel rank 0 alone."""
+        alone, an unchunked leaf on data-parallel rank 0 alone, a
+        ``LayerChunk`` leaf on its owner, an ``ep2d`` leaf everywhere
+        (each (data, model) rank holds its own experts)."""
         g = self.groups
-        return [(k == "sharded" or g.model_rank == 0)
-                and (dim is not None or g.dp_rank == 0)
+
+        def on_dp(dim):
+            if isinstance(dim, weights.LayerChunk):
+                return dim.owner == g.dp_rank
+            return dim is not None or g.dp_rank == 0
+        return [k == "ep2d" or ((k not in self.SYNCED or g.model_rank == 0)
+                                and on_dp(dim))
                 for k, dim in zip(self.kinds, self.dims)]
 
     @torch.no_grad()
@@ -238,7 +259,9 @@ class _GroupLayout:
         param, in place."""
         g = self.groups
         for p, dim in zip(params, self.dims):
-            if dim is not None:
+            if isinstance(dim, weights.LayerChunk):
+                p.copy_(weights.broadcast_owned(p, dim, g))
+            elif dim is not None:
                 n = p.shape[dim] // g.dp_size
                 p.copy_(weights.gather_dim(p.narrow(dim, g.dp_rank * n, n),
                                            dim, g.dp))
@@ -328,7 +351,9 @@ def make_train_step(api, mesh, batch_like, ocfg: AdamWConfig,
                 return params, opt, {"loss": loss.detach(),
                                      "grad_norm": gnorm}
             lay = _GroupLayout(api, params, zero=True)
-            grads = lay.reduce_dp(lay.sync_model(tree_flatten(grads)[0]))
+            leaves = lay.sync_model(tree_flatten(grads)[0])
+            del grads
+            grads = lay.reduce_dp(leaves)
             gnorm = global_norm(grads, lay.owned())
             params, opt = _update(api, lay, params, grads, opt, ocfg, gnorm)
             loss = _sum_over(loss, g.dp)

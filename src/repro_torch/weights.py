@@ -145,62 +145,106 @@ def _zip_map(fn, tree, *others):
     return fn(tree, *others)
 
 
-def _dense_walk(params, cfg, pcfg, leaf):
-    """``_walk`` in the port's structure over a tree whose leaves are
-    sharded on their leading rank axis or replicated: the transformer
-    families' but ``ep2d``'s.  The ZeRO-1 chunks and the gathers over
-    process groups below take these trees alone."""
-    if cfg.family not in ("dense", "moe", "vlm") or (
-            cfg.family == "moe" and cfg.moe_partition == "ep2d"):
-        raise NotImplementedError(
-            f"ZeRO-1 chunks and gathers over process groups take the "
-            f"transformer families' trees, not the {cfg.family} family's "
-            f"(ROADMAP.md A17 rest)")
-    return _walk(params, cfg, pcfg, leaf, None)
+class _Place:
+    """Where one leaf of the port's tree lies: its ``kind`` (``_walk``'s),
+    ``axis``, the port leaf's rank axis (a sharded leaf's model axis; an
+    ``ep2d`` one's data axis, its model axis next), ``stacked``, whether
+    the reference stacks it over the layers, and in a layer's leaf
+    ``layer``, the layer's index of ``n_layers`` in its stack."""
+
+    def __init__(self, t, kind: str, axis: int):
+        self.shape, self.kind, self.axis = tuple(t.shape), kind, axis
+        self.stacked, self.layer, self.n_layers = 0, None, 0
+
+
+def _places(params, cfg, pcfg=None):
+    """Every leaf's ``_Place``, in the port's structure: any family's
+    tree, the rank axis's or one process's."""
+    places = _walk(params, cfg, pcfg, _Place, None, layer_axis=False)
+
+    def stack(p, lead):
+        p.stacked = lead - p.axis
+        return p
+    places = _zip_map(stack, places, _walk(params, cfg, pcfg,
+                                           lambda t, kind, lead: lead, None))
+    for k in ("layers", "enc_layers", "dec_layers"):
+        for i, lp in enumerate(places.get(k, ())):
+            for p in _leaves(lp):
+                p.layer, p.n_layers = i, len(places[k])
+    return places
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def leaf_kinds(params, cfg, pcfg=None):
-    """Each leaf's kind, "sharded" (its leading axis is the rank axis) or
-    "replicated", in the port's structure."""
-    return _dense_walk(params, cfg, pcfg, lambda t, kind, lead: kind)
+    """Each leaf's kind in the port's structure: "sharded" (one model
+    rank's slice), "replicated" or "per_invocation" (whole on every model
+    rank) or "ep2d" (one (data, model) rank's experts)."""
+    return _zip_map(lambda p: p.kind, _places(params, cfg, pcfg))
+
+
+class LayerChunk:
+    """The ZeRO-1 "dim" of a layer's leaf whose chunk the reference takes
+    on its stacked layer axis: data-parallel rank ``owner`` (the one whose
+    L/D layers hold this layer) keeps the whole leaf, of ``shape``, the
+    others none of it."""
+
+    def __init__(self, owner: int, shape):
+        self.owner, self.shape = owner, tuple(shape)
 
 
 def zero_dims(params, cfg, pcfg, dp_size: int):
     """The port's dim ZeRO-1 splits each leaf's ``m`` / ``v`` over, or
     None where the leaf stays whole, in the port's structure: the dim
     ``optimizer.zero_extend`` picks in the reference's layout of the leaf
-    (its spec and shape, the full layer count where the reference stacks
-    the layers), moved to the port's layout.  ``params`` is the rank
-    axis's tree or one process's (its rank axis of 1 is the spec's
-    ``"model"`` axis either way, never picked)."""
+    (its spec and shape, the stack's layer count where the reference
+    stacks the layers, the size-1 axis of a replicated leaf), moved to
+    the port's layout; where it picks the stacked layer axis, a
+    ``LayerChunk``.  ``params`` is the rank axis's tree or one process's
+    (its rank axes, of size 1 there, are the spec's ``"model"`` and
+    ``"data"`` axes either way, never picked)."""
     from repro_torch.training.optimizer import zero_extend
 
-    def leaf(t, kind, lead):
-        rep = kind == "replicated"
-        spec = (None,) * (lead + rep) + (() if rep else ("model",))
-        shape = (cfg.num_layers,) * lead + (1,) * rep + tuple(t.shape)
-        zs = zero_extend(shape, spec, pcfg.dp_axes, dp_size)
-        picked = [i for i, e in enumerate(zs)
-                  if e is not None and (i >= len(spec) or spec[i] is None)]
+    def leaf(p):
+        lead = p.stacked
+        shape, spec = list(p.shape), [None] * len(p.shape)
+        if p.kind == "sharded":
+            spec[p.axis] = "model"
+        elif p.kind == "ep2d":
+            spec[p.axis:p.axis + 2] = ["data", "model"]
+        ins = {"replicated": 0, "per_invocation": 1}.get(p.kind)
+        if ins is not None:
+            shape.insert(ins, 1)
+            spec.insert(ins, None)
+        zs = zero_extend((p.n_layers,) * lead + tuple(shape),
+                         (None,) * lead + tuple(spec), pcfg.dp_axes, dp_size)
+        picked = [i - lead for i, e in enumerate(zs)
+                  if e is not None and (i < lead or spec[i - lead] is None)]
         if not picked:
             return None
-        if picked[0] < lead:
-            raise NotImplementedError(
-                f"ZeRO-1 over the reference's stacked layer axis (a leaf "
-                f"{tuple(t.shape)} of {cfg.num_layers} layers) is not "
-                f"ported")
-        return picked[0] - lead - rep
-    return _dense_walk(params, cfg, pcfg, leaf)
+        if picked[0] < 0:
+            return LayerChunk(p.layer // (p.n_layers // dp_size), p.shape)
+        return picked[0] - (ins is not None and picked[0] > ins)
+    return _zip_map(leaf, _places(params, cfg, pcfg))
 
 
 def take_chunk(tree, dims, dp_rank: int, dp_size: int):
     """ZeRO-1 chunk ``dp_rank`` of ``dp_size`` of every leaf of ``tree``
     (a process's ``m`` / ``v``, or its params or gradients) on its dim in
-    ``dims`` (``zero_dims``), as a view; a leaf whose dim is None
-    whole."""
+    ``dims`` (``zero_dims``), as a view; a leaf whose dim is None whole,
+    a ``LayerChunk`` leaf whole on its owner and empty (no rows of its
+    first dim) elsewhere."""
     def cut(t, dim):
         if dim is None:
             return t
+        if isinstance(dim, LayerChunk):
+            return t if dim.owner == dp_rank else t.narrow(0, 0, 0)
         n = t.shape[dim] // dp_size
         return t.narrow(dim, dp_rank * n, n)
     return _zip_map(cut, tree, dims)
@@ -221,22 +265,44 @@ def gather_dim(t, dim: int, group):
 def gather_ranks_tree(tree, cfg, groups, dims=None, pcfg=None):
     """The inverse of ``take_rank`` (and, with ``dims``, of
     ``take_chunk``) over process groups: every process's tree (its model
-    rank's slice of each sharded leaf; with ``dims`` its ZeRO-1 chunk on
-    those dims) -> the rank axis's whole tree on every process: each
-    chunk gathered over ``groups.dp``, then each sharded leaf over
-    ``groups.model`` on its rank axis.  A collective: every process calls
-    it with trees of the same structure."""
-    kinds = leaf_kinds(tree, cfg, pcfg)
+    rank's slice of each sharded leaf, its (data, model) rank's experts of
+    an ``ep2d`` one; with ``dims`` its ZeRO-1 chunk on those dims) -> the
+    rank axis's whole tree on every process: each chunk gathered over
+    ``groups.dp`` (a ``LayerChunk`` leaf broadcast from its owner), then
+    each sharded leaf over ``groups.model`` on its rank axis, an
+    ``ep2d`` leaf over ``groups.model`` and then ``groups.data`` on its
+    two.  A collective: every process calls it with trees of the same
+    structure."""
+    places = _places(tree, cfg, pcfg)
     if dims is None:
         dims = _zip_map(lambda t: None, tree)
 
-    def one(t, kind, dim):
-        if dim is not None:
+    def one(t, p, dim):
+        if isinstance(dim, LayerChunk):
+            t = broadcast_owned(t, dim, groups)
+        elif dim is not None:
             t = gather_dim(t, dim, groups.dp)
-        if kind == "sharded":
-            t = gather_dim(t, 0, groups.model)
+        if p.kind == "sharded":
+            t = gather_dim(t, p.axis, groups.model)
+        elif p.kind == "ep2d":
+            t = gather_dim(gather_dim(t, p.axis + 1, groups.model), p.axis,
+                           groups.data)
         return t
-    return _zip_map(one, tree, kinds, dims)
+    return _zip_map(one, tree, places, dims)
+
+
+def broadcast_owned(t, chunk: LayerChunk, groups):
+    """A ``LayerChunk`` leaf whole on every data-parallel rank: its
+    owner's ``t`` broadcast over ``groups.dp`` (the others' ``t`` is
+    empty)."""
+    import torch.distributed as dist
+    if groups.dp_rank != chunk.owner:
+        t = t.new_empty(chunk.shape)
+    else:
+        t = t.contiguous()
+    dist.broadcast(t, src=dist.get_global_rank(groups.dp, chunk.owner),
+                   group=groups.dp)
+    return t
 
 
 def _model_axis(spec):

@@ -180,8 +180,8 @@ def test_port_imports_neither_jax_nor_reference():
     counts, the autotuner, the plan checker, K1's cross-rank wrapper and
     its peer workspace, and the modules training over process groups
     touches (the weight bridge with its ZeRO-1 chunks and gathers, the
-    cross-entropy, the transformer, the comm slots) among them), the
-    example
+    cross-entropy, the transformer, the comm slots) and the trace viewer
+    among them), the example
     scripts under examples/torch/ and chip_smoke.py's imports, load with
     ``jax`` and ``repro`` made unimportable."""
     code = r"""
@@ -218,7 +218,8 @@ assert {"repro_torch.kernels.ar_rmsnorm", "repro_torch.analysis.roofline",
         "repro_torch.distributed.peer", "repro_torch.weights",
         "repro_torch.layers.embedding", "repro_torch.models.transformer",
         "repro_torch.core.fused_collectives",
-        "repro_torch.models.mamba_model"} <= set(names), names
+        "repro_torch.models.mamba_model",
+        "repro_torch.obs.trace_view"} <= set(names), names
 for n in names:
     importlib.import_module(n)
 examples = sorted(pathlib.Path("examples/torch").glob("*.py"))

@@ -1687,25 +1687,41 @@ def _refusal(case):
                SchedulerConfig(**dict(SCHED, spec_gamma=GAMMA)),
                device="cpu")
 
-    def train(name):
-        api = build(name)
-        api.train_loss(None, {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                              "labels": torch.zeros(1, 4, dtype=torch.long)})
+    def serve_data(name):
+        build(name, ep=2).init_cache(2, 16, device="cpu")
+
+    def train_ring(name):
+        # a process of a model group of one: no collective is reached
+        api = build_model(get_config(name).reduced(), tbase.ParallelConfig(
+            comm_mode="ring", use_pallas_norm=True), tp=1,
+            groups=_fake_groups(model=1))
+        params = api.init(0, device="cpu")
+        for p in torch.utils._pytree.tree_flatten(params)[0]:
+            p.requires_grad_(True)
+        b, s = 2, 8
+        batch = {"tokens": torch.zeros(b, s, dtype=torch.long),
+                 "labels": torch.zeros(b, s, dtype=torch.long)}
+        if api.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(b, 4, api.cfg.d_model)
+        api.train_loss(params, batch)
+
     def engine_data(name):
         api = build(name, ep=2)
         Engine(api, api.init(0, device="cpu"), SchedulerConfig(**SCHED),
                device="cpu")
     return {
-        "hybrid_batch_data": (lambda: build("zamba2-7b", ep=2),
+        "hybrid_batch_data": (lambda: serve_data("zamba2-7b"),
                               "ep=2.*hybrid family"),
-        "ssm_data": (lambda: build("falcon-mamba-7b", ep=2),
+        "ssm_data": (lambda: serve_data("falcon-mamba-7b"),
                      "ep=2.*ssm family"),
-        "encdec_data": (lambda: build("whisper-base", ep=2),
+        "encdec_data": (lambda: serve_data("whisper-base"),
                         "ep=2.*encdec family"),
         "engine_data": (lambda: engine_data("llama3.3-70b"),
                         "data size 1, not ep=2"),
-        "train_ssm": (lambda: train("falcon-mamba-7b"), "training"),
-        "train_encdec": (lambda: train("whisper-base"), "training"),
+        "train_ssm": (lambda: train_ring("falcon-mamba-7b"),
+                      "K1 .* has no backward", RuntimeError),
+        "train_encdec": (lambda: train_ring("whisper-base"),
+                         "K1 .* has no backward", RuntimeError),
         # the reference's own refusal, raised on either backend
         "spec_ssm": (lambda: engine_spec("falcon-mamba-7b"),
                      "speculative decoding rolls back KV positions; ssm "
@@ -1717,14 +1733,17 @@ def _refusal(case):
                                   "encdec_data", "engine_data", "train_ssm",
                                   "train_encdec", "spec_ssm"])
 def test_process_group_refuses_what_is_not_ported(case):
-    """The hybrid's batch over the data group, a data axis for the ssm
-    and encdec families, the engine at data size 2, and training of a
-    non-dense family raise NotImplementedError by name, and speculative
-    decoding of an ssm model the reference's ValueError; every family
-    builds over groups at data size 1 (tests/test_torch_pg_families.py),
-    the transformer families with the batch over the data group,
-    speculative decoding and the verify step, and they and the hybrid
-    under context-parallel decode over it."""
+    """The serving calls of the hybrid's batch over the data group and of
+    a data axis for the ssm and encdec families, and the engine at data
+    size 2, raise NotImplementedError by name; training the ssm and
+    encdec families in comm mode ring (K1 has no backward) raises the
+    rank axis's RuntimeError; speculative decoding of an ssm model raises
+    the reference's ValueError.  Every family builds over groups at any
+    data size and trains over them (tests/test_torch_pg_train.py), serves
+    at data size 1 (tests/test_torch_pg_families.py), the transformer
+    families with the batch over the data group, speculative decoding
+    and the verify step, and they and the hybrid under context-parallel
+    decode over it."""
     call, words, *exc = _refusal(case)
     with pytest.raises(*(exc or [NotImplementedError]), match=words):
         call()
@@ -1761,13 +1780,13 @@ def test_engine_refuses_a_draft_off_the_target_groups(draft_on):
 
 
 def test_training_refuses_process_group():
-    """Training over groups is ported for the dense family
-    (tests/test_torch_pg_train.py); the other families refuse it by name,
-    and comm mode ``ring`` (K1 has no backward) refuses a gradient before
-    any collective."""
-    ep2d = build_model(_ep2d_cfg(), _pcfg(), tp=2, groups=_fake_groups())
-    with pytest.raises(NotImplementedError, match="training the moe"):
-        ep2d.train_loss(None, {})
+    """Training over groups is ported for every family
+    (tests/test_torch_pg_train.py); ``ep2d`` with a pod axis refuses by
+    name, and comm mode ``ring`` (K1 has no backward) refuses a gradient
+    before any collective."""
+    pod = dataclasses.replace(_fake_groups(), pod_size=2)
+    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
+        build_model(_ep2d_cfg(), _pcfg(), tp=2, ep=2, groups=pod)
     api = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=2,
                       groups=_fake_groups())
     params = take_rank(_params(2), 0, _cfg())

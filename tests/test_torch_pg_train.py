@@ -24,11 +24,21 @@ one intra-op thread, a timeout) and runs, on the meshes (data 2, model
   fails at step 3, its resume and an uninterrupted run (final losses
   within 1e-3 relative); the groups run's checkpoint resumed by a
   one-process rank-axis run and a rank-axis checkpoint resumed over
-  groups.
+  groups;
+- every other family (``FAMILIES``: MoE ``expert``, ``ffn`` and
+  ``ep2d``, vlm, ssm, hybrid, encdec; reduced configs) in comm mode
+  fused with the weave on: both train steps, 2 steps each (``ep2d`` on
+  (data 2, model 2), the others on (pod 2, data 1, model 2), the ssm's
+  manual step with the int8 pod reduce too), held to the rank axis at
+  the bounds above, with every rank issuing the same collectives and
+  the ZeRO-1 chunks' bytes; the ``all_to_all`` over the data group
+  forward and backward at 1e-6; ``launch.train --arch NAME`` over groups
+  for each, 2 steps and a resume to 3, its losses within 1e-3 of the
+  rank axis's run.
 
 The rank axis's side runs here while the world runs.  The refusals
-(``ring`` under a gradient, training the other families over groups) need
-no world.  ``tests/test_torch_train_steps.py`` spawns its own world with
+(``ring`` under a gradient, ``ep2d`` with a pod axis) need no world.
+``tests/test_torch_train_steps.py`` spawns its own world with
 ``spawn_world`` and ``replay_reference`` to hold the steps over groups to
 the JAX reference.  This file imports neither jax nor the reference: the
 spawned processes import it.
@@ -58,7 +68,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model
 from repro_torch.training import compression as TC
 from repro_torch.training import optimizer as TO
-from repro_torch.training.data import SyntheticLM
+from repro_torch.training.data import SyntheticLM, family_inputs
 from repro_torch.training.train_step import (make_manual_sync_train_step,
                                              make_train_step, state_specs)
 
@@ -75,6 +85,15 @@ CFG = dict(name="tiny", family="dense", num_layers=2, d_model=64,
            num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
            vocab_size=125, dtype="float32")   # 125: the vocab is padded
 SEED, STEPS, BATCH, SEQ = 3, 2, 4, 32
+# every family but dense, reduced: name -> (mesh, builders); int8: the
+# pod reduce for one non-dense family
+FAMILIES = {"olmoe-1b-7b": ("p2d1m2", ("auto", "manual")),
+            "mixtral-8x22b": ("p2d1m2", ("auto", "manual")),
+            "qwen3-moe-235b-a22b": ("d2m2", ("auto", "manual")),
+            "qwen2-vl-7b": ("p2d1m2", ("auto", "manual")),
+            "falcon-mamba-7b": ("p2d1m2", ("auto", "manual", "int8")),
+            "zamba2-7b": ("p2d1m2", ("auto", "manual")),
+            "whisper-base": ("p2d1m2", ("auto", "manual"))}
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +209,16 @@ def _coll_rank_axis(name: str, tp: int, dp: int):
     return y.detach(), gx
 
 
+def _coll_a2a_rank_axis():
+    """The rank axis's ``all_to_all`` of the d2m2 data shards under
+    autograd: (out, input grad), (1, D, N, d) each."""
+    x, g = _a2a_case(2)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = TCL.all_to_all(xt, CommCtx(tp=2, dp=2))
+    (gx,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    return y.detach(), gx
+
+
 # --------------------------------------------------------------------------
 # the train steps
 # --------------------------------------------------------------------------
@@ -214,11 +243,11 @@ def _steps(api, mesh: str, builder: str):
         step, init = make_manual_sync_train_step(
             api, m, None, ocfg, compress_pod=builder == "int8")
     state = list(init(SEED, device="cpu"))
-    data = SyntheticLM(vocab=CFG["vocab_size"], seq_len=SEQ,
+    data = SyntheticLM(vocab=api.cfg.vocab_size, seq_len=SEQ,
                        global_batch=BATCH)
     losses, norms = [], []
     for i in range(STEPS):
-        got = step(*state, data.batch(i))
+        got = step(*state, family_inputs(api.cfg, data.batch(i), i))
         state = [got[0], got[1], *got[3:]]
         losses.append(float(got[2]["loss"]))
         norms.append(float(got[2]["grad_norm"]))
@@ -253,7 +282,8 @@ class _Int8Spy:
 class _CollectiveLog:
     """Every ``torch.distributed`` collective the block issues: (name,
     shape, dtype, group size), in order."""
-    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "all_to_all_single")
 
     def __enter__(self):
         self.calls, self.saved = [], {n: getattr(dist, n) for n in self.NAMES}
@@ -296,6 +326,44 @@ def _case_steps(groups, out, mesh: str):
             out[key]["ckpt_back"] = all(
                 torch.equal(a, b) for a, b in zip(_flat(back),
                                                   _flat(state)))
+
+
+def _case_families(groups, out, mesh: str):
+    """Every family of ``FAMILIES`` on this mesh: its builders' steps,
+    collectives and (int8) first pod reduce."""
+    for name, (at, builders) in FAMILIES.items():
+        if at != mesh:
+            continue
+        cfg = get_config(name).reduced()
+        for builder in builders:
+            api = build_model(cfg, _pcfg("fused", mesh),
+                              tp=groups.model_size, ep=groups.dp_size,
+                              groups=groups)
+            with _Int8Spy() as spy, _CollectiveLog() as log:
+                losses, norms, state = _steps(api, mesh, builder)
+            out[f"{name}/{builder}"] = {
+                "loss": losses, "gnorm": norms, "params": _flat(state[0]),
+                "m": _flat(state[1]["m"]), "v": _flat(state[1]["v"]),
+                "int8": spy.first, "collectives": log.calls}
+
+
+def _a2a_case(dp: int):
+    """(x, g): every data shard's (1, N, d) rows and cotangent, seeded."""
+    rng = np.random.RandomState(29)
+    return (rng.randn(1, dp, 4 * dp, 6).astype(np.float32),
+            rng.randn(1, dp, 4 * dp, 6).astype(np.float32))
+
+
+def _case_all_to_all(groups, out):
+    """``all_to_all`` over the data group, forward and backward."""
+    ctx = CommCtx(tp=groups.model_size, dp=groups.dp_size,
+                  backend="process_group", groups=groups)
+    x, g = _a2a_case(groups.dp_size)
+    q = groups.data_rank
+    mine = torch.from_numpy(x[:, q:q + 1]).requires_grad_(True)
+    y = TCL.all_to_all(mine, ctx)
+    (gx,) = torch.autograd.grad(y, mine, torch.from_numpy(g[:, q:q + 1]))
+    out["a2a"] = (y.detach(), gx)
 
 
 def _like(tree, like):
@@ -391,6 +459,24 @@ def _case_driver(rank: int, tmp, out):
             shutil.copytree(tmp / "fail", tmp / "fail_copy")
 
 
+def _family_argv(name: str, steps: int, ckpt) -> list:
+    mesh = "2x2" if FAMILIES[name][0] == "d2m2" else "2x1x2"
+    return ["--arch", name, "--reduced", "--mesh", mesh, "--steps",
+            str(steps), "--batch", "4", "--seq", "32", "--device", "cpu",
+            "--ckpt-dir", str(ckpt)]
+
+
+def _case_family_driver(rank: int, tmp, out):
+    """``launch.train --arch NAME`` over groups for every family: 2 steps,
+    then a resume to 3 from its gathered checkpoint."""
+    for name in FAMILIES:
+        for steps in (2, 3):
+            out[f"driver/{name}/{steps}"] = _drive(
+                _family_argv(name, steps, tmp / f"fam_{name}") + [
+                    "--rank", str(rank), "--world-size", str(WORLD),
+                    "--init-method", f"file://{tmp}/store_{name}_{steps}"])
+
+
 def _world(rank: int, tmp):
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     torch.set_num_threads(1)
@@ -400,9 +486,13 @@ def _world(rank: int, tmp):
         out[f"{mesh}/coords"] = (groups.pod_rank, groups.data_rank,
                                  groups.model_rank, groups.dp_rank)
         _case_collectives(groups, out, mesh)
+        if mesh == "d2m2":
+            _case_all_to_all(groups, out)
         _case_steps(groups, out, mesh)
+        _case_families(groups, out, mesh)
         dist.destroy_process_group()
     _case_driver(rank, tmp, out)
+    _case_family_driver(rank, tmp, out)
     torch.save(out, tmp / f"r{rank}.pt")
 
 
@@ -424,6 +514,19 @@ def _rank_axis(tmp):
                 if mode == "fused" and builder != "manual":
                     got[key]["ckpt"] = _flat(driver.to_checkpoint(
                         state, cfg, api.pcfg))
+    for name, (mesh, builders) in FAMILIES.items():
+        shape, _ = MESHES[mesh]
+        fcfg = get_config(name).reduced()
+        for builder in builders:
+            api = build_model(fcfg, _pcfg("fused", mesh), tp=shape[-1],
+                              ep=int(np.prod(shape[:-1])))
+            losses, norms, state = _steps(api, mesh, builder)
+            got[f"{name}/{builder}"] = {"loss": losses, "gnorm": norms,
+                                        "state": state, "api": api}
+        for steps in (2, 3):
+            got[f"driver/{name}/{steps}"] = _drive(_family_argv(
+                name, steps, tmp / f"axis_fam_{name}"))
+    got["a2a"] = _coll_a2a_rank_axis()
     return got
 
 
@@ -458,6 +561,9 @@ def world(tmp_path_factory):
 
 def _close(got, want, tol):
     got, want = got.detach().float(), want.detach().float()
+    assert got.shape == want.shape
+    if not want.numel():             # a ZeRO-1 chunk another rank owns
+        return
     err = float((got - want).abs().max()) / max(1.0,
                                                 float(want.abs().max()))
     assert err <= tol, err
@@ -564,9 +670,13 @@ def test_zero1_chunks_match_rank_axis_state(world, mesh, mode):
     params' bound), and its bytes are what ``zero_specs`` gives a device
     (the reference's layout: a leaf's bytes over its spec's model and
     data-parallel axes)."""
-    key = f"{mesh}/{mode}/auto"
+    _check_zero1(world, f"{mesh}/{mode}/auto", tbase.ModelConfig(**CFG),
+                 mesh)
+
+
+def _check_zero1(world, key: str, cfg, mesh: str):
     ax = world["axis"][key]
-    cfg, api = tbase.ModelConfig(**CFG), ax["api"]
+    api = ax["api"]
     params, opt = ax["state"][0], ax["state"][1]
     shape, _ = MESHES[mesh]
     tp, dp = shape[-1], int(np.prod(shape[:-1]))
@@ -583,13 +693,13 @@ def test_zero1_chunks_match_rank_axis_state(world, mesh, mode):
                                 "data": shape[-2]}.get(a, 1) for a in axes]))
         want_bytes += n
     for r in world["ranks"]:
-        _, _, m, q = r[f"{mesh}/coords"]
-        mine = W.take_rank(params, m, cfg)
+        _, d, m, q = r[f"{mesh}/coords"]
+        mine = W.take_rank(params, m, cfg, data_rank=d)
         dims = W.zero_dims(mine, cfg, api.pcfg, dp)
         for k in ("m", "v"):
             got = r[key][k]
-            want = tree_flatten(W.take_chunk(W.take_rank(opt[k], m, cfg),
-                                             dims, q, dp))[0]
+            want = tree_flatten(W.take_chunk(W.take_rank(
+                opt[k], m, cfg, data_rank=d), dims, q, dp))[0]
             assert len(got) == len(want)
             for a, b in zip(got, want):
                 assert a.shape == b.shape
@@ -606,7 +716,10 @@ def test_int8_pod_reduce_is_bit_equal_to_rank_axis(world, mode):
     model 2): each model rank's two pods' inputs stacked on the rank
     axis's pod axis through its ``compressed_psum`` give every pod's
     reduced gradient and new error bit for bit."""
-    key = f"p2d1m2/{mode}/int8"
+    _check_int8(world, f"p2d1m2/{mode}/int8")
+
+
+def _check_int8(world, key: str):
     ranks = world["ranks"]
     np.testing.assert_allclose(ranks[0][key]["loss"],
                                world["axis"][key]["loss"], rtol=LOSS_RTOL)
@@ -713,17 +826,112 @@ def test_ring_under_a_gradient_raises_over_groups():
         axis.train_loss(p2, batch)
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "falcon-mamba-7b",
-                                  "zamba2-7b", "whisper-base",
-                                  "qwen2-vl-7b"])
-def test_training_other_families_over_groups_is_refused(name):
-    """Every family but dense refuses training over groups by name,
-    pointing at ROADMAP.md A17 rest; so does its train step."""
+def test_ep2d_with_a_pod_axis_is_refused():
+    """``ep2d`` experts split over the data axis alone: over groups with a
+    pod axis ``build_model`` refuses by name (ROADMAP.md A.1), and so
+    does the train step on the rank axis."""
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    pod = Groups(model=None, data=None, model_rank=0, data_rank=0,
+                 model_size=1, data_size=1, pod_rank=0, pod_size=2)
+    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
+        build_model(cfg, _pcfg("fused", "p2d1m2"), ep=2, groups=pod)
+    api = build_model(cfg, _pcfg("fused", "p2d1m2"), tp=2, ep=2)
+    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
+        make_train_step(api, make_mesh(*MESHES["p2d1m2"]), None,
+                        TO.AdamWConfig(), dp_size=2)
+
+
+# --------------------------------------------------------------------------
+# every other family
+# --------------------------------------------------------------------------
+
+def test_all_to_all_backward_matches_rank_axis(world):
+    """``all_to_all`` over the data group of (data 2, model 2): each
+    process's output and input gradient are its data shard's of the rank
+    axis's autograd, float32 within 1e-6 relative (the exchange back is
+    the backward)."""
+    y_axis, g_axis = world["axis"]["a2a"]
+    for r in world["ranks"]:
+        d = r["d2m2/coords"][1]
+        y, gx = r["a2a"]
+        for got, want in ((y, y_axis), (gx, g_axis)):
+            np.testing.assert_allclose(
+                got.numpy(), want[:, d:d + 1].numpy(), rtol=COLL_RTOL,
+                atol=COLL_RTOL * float(want.abs().max()))
+
+
+def _family_cases(with_int8: bool = False):
+    return [(name, b) for name, (_, builders) in FAMILIES.items()
+            for b in builders if with_int8 or b != "int8"]
+
+
+@pytest.mark.parametrize("name,builder", _family_cases())
+def test_family_steps_over_groups_match_rank_axis(world, name, builder):
+    """Each family's steps over groups: losses within 1e-5 relative, grad
+    norms within 1e-4, every process's params within 2e-4 of its slice of
+    the rank axis's (an ``ep2d`` expert weight: its (data, model)
+    rank's)."""
+    mesh = FAMILIES[name][0]
+    ax = world["axis"][f"{name}/{builder}"]
     cfg = get_config(name).reduced()
-    api = build_model(cfg, _pcfg("fused", "d2m2"), groups=_one_rank_groups())
-    with pytest.raises(NotImplementedError,
-                       match=f"{cfg.family} family .*A17 rest"):
-        api.train_loss(None, {})
-    with pytest.raises(NotImplementedError, match="A17 rest"):
-        make_train_step(api, make_mesh((1, 1), ("data", "model")), None,
-                        TO.AdamWConfig(), dp_size=1)
+    for r in world["ranks"]:
+        got = r[f"{name}/{builder}"]
+        np.testing.assert_allclose(got["loss"], ax["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["gnorm"], ax["gnorm"], rtol=NORM_RTOL)
+        _, d, m, _ = r[f"{mesh}/coords"]
+        want = tree_flatten(W.take_rank(ax["state"][0], m, cfg,
+                                        data_rank=d))[0]
+        assert len(want) == len(got["params"])
+        for a, b in zip(got["params"], want):
+            assert a.shape == b.shape
+            _close(a, b, PARAM_TOL)
+
+
+@pytest.mark.parametrize("name,builder", _family_cases(with_int8=True))
+def test_family_ranks_issue_the_same_collectives(world, name, builder):
+    """Every process issues the same collectives in the same order, the
+    backward's among them (``ep2d``: the all-to-alls both ways)."""
+    calls = [r[f"{name}/{builder}"]["collectives"] for r in world["ranks"]]
+    assert all(c == calls[0] for c in calls)
+    names = {c[0] for c in calls[0]}
+    assert {"all_reduce", "reduce_scatter_tensor",
+            "all_gather_into_tensor"} <= names
+    ep2d = FAMILIES[name][0] == "d2m2"
+    assert ("all_to_all_single" in names) == ep2d
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_zero1_chunks_match_rank_axis_state(world, name):
+    """The auto step's ``m`` / ``v`` chunks of each family: each process's
+    within the params' bound of its slice of the rank axis's, its bytes
+    what ``zero_specs`` gives a device (the ssm's A_log and D, the
+    hybrid's per-invocation leaves and ``lora_b``, ``ep2d``'s experts
+    over (data, model) among them)."""
+    _check_zero1(world, f"{name}/auto", get_config(name).reduced(),
+                 FAMILIES[name][0])
+
+
+def test_family_int8_pod_reduce_is_bit_equal_to_rank_axis(world):
+    """The ssm's int8 manual step: losses within 1e-5 of the rank axis's
+    and its first pod reduce bit-equal on the same inputs."""
+    _check_int8(world, "falcon-mamba-7b/int8")
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_driver_trains_every_family_over_groups(world, name):
+    """``launch.train --arch NAME`` over groups: 2 steps, then a resume
+    from its gathered checkpoint to 3; every rank exits 0, only rank 0
+    prints, and the printed losses are the rank axis's run's within 1e-3
+    relative."""
+    for steps in (2, 3):
+        key = f"driver/{name}/{steps}"
+        rc, text = world["axis"][key]
+        assert rc == 0
+        for w, r in enumerate(world["ranks"]):
+            assert r[key][0] == 0
+            assert bool(r[key][1]) == (w == 0)
+        got = world["ranks"][0][key][1]
+        if steps == 3:
+            assert "resumed from checkpoint step 2" in got
+        np.testing.assert_allclose(_final_loss(got), _final_loss(text),
+                                   rtol=RESUME_RTOL)
