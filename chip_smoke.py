@@ -6030,12 +6030,21 @@ def pg_families_phase(torch, np, seed: int) -> tuple:
 PGD_MESH = (2, 2)                  # (data, model): world rank = d·2 + m
 PGD_WORLD = PGD_MESH[0] * PGD_MESH[1]
 PGD_TIMEOUT_S = 600
+# the ssm, hybrid and encdec families with the batch over data: run name
+# -> (registry name, layers at full width (None: all), prompt tokens at
+# full width; Whisper's encoder takes its 1500 frames)
+PGD_FAMILIES = {"falcon_mamba": ("falcon-mamba-7b", 8, 256),
+                "zamba2": ("zamba2-7b", 12, 256),
+                "whisper": ("whisper-base", None, 4)}
 # the runs, in order: Qwen3-MoE-235B at full width (bf16, QWEN3_LAYERS),
 # the batch over data; then float32 twins, TF32 off: identity_data_phase's
 # ep2d model and a reduced dense model with the batch over data, and the
-# reduced Zamba2 decoding context-parallel over the data group
-PGD_RUNS = ("qwen3_full", "ep2d_twin", "dense_twin", "hybrid_cp_twin")
+# reduced Zamba2 decoding context-parallel over the data group; then each
+# PGD_FAMILIES model at full width (bf16) and as its reduced float32 twin
+PGD_RUNS = ("qwen3_full", "ep2d_twin", "dense_twin", "hybrid_cp_twin") + \
+    tuple(f"{k}_{run}" for k in PGD_FAMILIES for run in ("full", "twin"))
 PGD_TWIN_ROWS, PGD_TWIN_LEN, PGD_TWIN_DECODE = 4, 48, 4
+PGD_FAMILY_ROWS = 4                # 2 rows a data shard
 PGD_CP_ROWS, PGD_CP_SLOTS, PGD_CP_LEN = 2, 256, 200
 PGD_LOGIT_TOL = 1e-5               # float32 twins against the rank axis
 
@@ -6052,6 +6061,16 @@ def pgd_model(run: str):
                 pgf_pcfg(), "batch")
     base = dict(comm_mode="ring", attn_impl="pallas", use_pallas_norm=True,
                 split_unit=16, tokenweave_min_tokens=32)
+    key, _, kind = run.rpartition("_")
+    if key in PGD_FAMILIES:
+        name, layers, _ = PGD_FAMILIES[key]
+        if kind == "twin":
+            return (dataclasses.replace(get_config(name).reduced(),
+                                        vocab_size=509),
+                    ParallelConfig(**base), "batch")
+        cfg = get_config(name)
+        return (dataclasses.replace(cfg, num_layers=layers) if layers
+                else cfg, pgf_pcfg(), "batch")
     if run == "ep2d_twin":
         return (ModelConfig(name="small-moe-ep2d", family="moe",
                             num_layers=2, d_model=256, num_heads=8,
@@ -6074,6 +6093,9 @@ def pgd_shape(run: str) -> tuple:
     """(global rows, prompt tokens, decode steps) of a pg_data run."""
     if run == "qwen3_full":
         return EP2D_ROWS, EP2D_LEN, PGF_DECODE
+    key, _, kind = run.rpartition("_")
+    if key in PGD_FAMILIES and kind == "full":
+        return PGD_FAMILY_ROWS, PGD_FAMILIES[key][2], PGF_DECODE
     if run == "hybrid_cp_twin":
         return PGD_CP_ROWS, PGD_CP_LEN, PGF_DECODE
     return PGD_TWIN_ROWS, PGD_TWIN_LEN, PGD_TWIN_DECODE
@@ -6155,11 +6177,8 @@ def pgd_drive(torch, np, api, params, seed: int, run: str) -> dict:
                 tokens = tokens[groups.data_rank * n:
                                 (groups.data_rank + 1) * n]
             rows = tokens.shape[0]
-            cache = api.init_cache(b, s + steps, device=dev)
-            logits, kv = api.prefill(params, tokens.to(dev), None, None)
-            KC.insert_chunk(cache, kv, torch.zeros(rows, device=dev),
-                            torch.arange(rows, device=dev))
-            del kv
+            logits, cache = pgd_prefill(torch, np, api, params,
+                                        tokens.to(dev), seed, b, s + steps)
             first = logits.float().cpu()
             tok = sharded_argmax(logits, vocab_size=cfg.vocab_size, ctx=ctx)
             start = s
@@ -6186,6 +6205,43 @@ def pgd_drive(torch, np, api, params, seed: int, run: str) -> dict:
         raise AssertionError(f"pg_data {run}: tokens {outs} outside the "
                              f"vocabulary")
     return {"tokens": outs, "first": first}
+
+
+def pgd_prefill(torch, np, api, params, tokens, seed: int, b: int,
+                slots: int) -> tuple:
+    """A "batch" run's prefill of ``tokens`` (a process's data shard's rows
+    of ``b``) into a fresh cache of ``slots`` cells, by family: the chunk's
+    KV inserted (the hybrid's shared KV, encdec's self KV and its cross
+    caches written; Whisper's encoder over seeded stub frames), the
+    recurrent state written in place.  Returns (logits, the cache)."""
+    from repro_torch.runtime import kv_cache as KC
+    cfg, dev, rows = api.cfg, tokens.device, tokens.shape[0]
+    start, slot_ids = (torch.zeros(rows, device=dev),
+                       torch.arange(rows, device=dev))
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(np.random.RandomState(seed + 41).randn(
+            b, cfg.max_source_positions, cfg.d_model).astype(np.float32))
+        if api.groups is not None:
+            frames = frames[api.groups.data_rank * rows:
+                            (api.groups.data_rank + 1) * rows]
+        logits, out = api.prefill(params, tokens, None, None,
+                                  frames=frames.to(dev, getattr(
+                                      torch, cfg.dtype)))
+        cache = api.init_cache(b, slots, device=dev,
+                               enc_len=cfg.max_source_positions)
+        KC.insert_chunk(cache["self"], out["self"], start, slot_ids)
+        KC.write_rows(cache["cross"], out["cross"], slot_ids)
+        return logits, cache
+    if cfg.family in ("ssm", "hybrid"):
+        cache = api.init_cache(b, slots, device=dev)
+        logits, out = api.prefill(params, tokens, cache, None)
+        if cfg.family == "hybrid":
+            KC.insert_chunk(cache["shared"], out["shared"], start, slot_ids)
+        return logits, cache
+    cache = api.init_cache(b, slots, device=dev)
+    logits, kv = api.prefill(params, tokens, None, None)
+    KC.insert_chunk(cache, kv, start, slot_ids)
+    return logits, cache
 
 
 class a2a_spy:
@@ -6282,9 +6338,9 @@ def pgd_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
 def pgd_expected(run: str) -> tuple:
     """(K1-peer launches, K3 launches) each process of a run must make:
     per forward, per weave split, the entry norm and each block's slot
-    (none where a shard's tokens do not divide over the ranks: the
-    vanilla fallback), K3 once per attention layer of each prefill
-    split."""
+    (PGF_FORMULAS by family; none where a shard's tokens do not divide
+    over the ranks: the vanilla fallback), K3 once per attention layer of
+    each prefill split (PGF_K3_FORMULAS: Whisper's encoder splits too)."""
     from repro_torch.models import transformer as TR
     from repro_torch.models.build import build_model
     cfg, pcfg, how = pgd_model(run)
@@ -6297,12 +6353,18 @@ def pgd_expected(run: str) -> tuple:
         return steps * norm_launches(one, b, 1, decode=True,
                                      slots=slots), 0
     b //= PGD_MESH[0]
-    slots = 2 * cfg.num_layers
+    n = cfg.num_layers
+    if cfg.family == "encdec":
+        got = encdec_launches(one, b, cfg.max_source_positions, s, steps,
+                              norm_kernel="ar_rmsnorm")
+        return got["ar_rmsnorm"], got["flash_attention"]
+    inv = n // cfg.shared_attn_period if cfg.family == "hybrid" else 0
+    slots = {"ssm": n, "hybrid": n + inv}.get(cfg.family, 2 * n)
     splits = 1 + TR.weave_decision_info(b, s, tp=PGD_MESH[1],
                                         pcfg=pcfg).weave
     return (norm_launches(one, b, s, decode=False, slots=slots)
             + steps * norm_launches(one, b, 1, decode=True, slots=slots),
-            splits * cfg.num_layers)
+            splits * {"ssm": 0, "hybrid": inv}.get(cfg.family, n))
 
 
 def pgd_check(torch, np, seed: int, run_dir: Path, run: str) -> tuple:
@@ -6314,13 +6376,14 @@ def pgd_check(torch, np, seed: int, run_dir: Path, run: str) -> tuple:
     (``check_peer_shapes``), K3's launches on every rank equal the
     formula and K3 within its tolerance on every rank's inputs; a twin's
     tokens equal to the rank axis's at D = 2 x R = 2 and each rank's
-    first logits within PGD_LOGIT_TOL of its slice (bf16: the tokens
-    reported).  Emits its line; returns (rank 0's K1-peer launches, the
+    first logits within PGD_LOGIT_TOL of its slice (Qwen3 in bf16: the
+    tokens reported; a PGD_FAMILIES model at full width: its twin
+    alone).  Emits its line; returns (rank 0's K1-peer launches, the
     worst K1-peer error, rank 0's K3 launches, K3's worst error)."""
     from repro_torch.models.build import build_model
 
     cfg, pcfg, how = pgd_model(run)
-    twin = run != "qwen3_full"
+    twin = not run.endswith("_full")
     res = [json.loads((run_dir / f"result_r{w}.json").read_text())
            for w in range(PGD_WORLD)]
     tp = PGD_MESH[1]
@@ -6361,27 +6424,31 @@ def pgd_check(torch, np, seed: int, run_dir: Path, run: str) -> tuple:
     k3_err, k3_shapes = pgf_check_k3(torch, run_dir, f"pg_data {run}",
                                      want_k3, ranks=range(PGD_WORLD))
     # the rank axis at D = 2 x R = 2 on the card, the same seeded weights
-    axis = build_model(cfg, pcfg, tp=tp, ep=PGD_MESH[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    params = axis.init(seed, device="cuda")
-    ref = pgd_drive(torch, np, axis, params, seed, run)
-    del params
-    n = len(ref["tokens"][0]) // (1 if how == "cp" else PGD_MESH[0])
-    tokens_equal, logit_err = [], 0.0
-    for w, r in enumerate(res):
-        d, m = divmod(w, tp)
-        lo = 0 if how == "cp" else d * n
-        tokens_equal.append(r["tokens"] == [row[lo:lo + n]
-                                            for row in ref["tokens"]])
-        mine = torch.load(run_dir / f"logits_r{w}.pt")
-        logit_err = max(logit_err, max_err(
-            mine, ref["first"][m:m + 1, lo:lo + n]))
+    # (a PGD_FAMILIES model at full width is held by its twin alone)
+    tokens_equal, logit_err = [], None
+    if twin or run == "qwen3_full":
+        axis = build_model(cfg, pcfg, tp=tp, ep=PGD_MESH[0])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        params = axis.init(seed, device="cuda")
+        ref = pgd_drive(torch, np, axis, params, seed, run)
+        del params
+        n = len(ref["tokens"][0]) // (1 if how == "cp" else PGD_MESH[0])
+        logit_err = 0.0
+        for w, r in enumerate(res):
+            d, m = divmod(w, tp)
+            lo = 0 if how == "cp" else d * n
+            tokens_equal.append(r["tokens"] == [row[lo:lo + n]
+                                                for row in ref["tokens"]])
+            mine = torch.load(run_dir / f"logits_r{w}.pt")
+            logit_err = max(logit_err, max_err(
+                mine, ref["first"][m:m + 1, lo:lo + n]))
     a2a = [r["a2a"] for r in res]
     out = {"phase": "pg_data", "run": run, "model": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "mesh": {"data": PGD_MESH[0],
                                         "model": PGD_MESH[1]},
            "backend": "gloo", "comm_mode": pcfg.comm_mode,
+           "family": cfg.family,
            "how": ("the batch over the data group" if how == "batch"
                    else "context-parallel decode over the data group"),
            "rows_per_process": len(res[0]["tokens"][0]),
@@ -7258,19 +7325,28 @@ PGT_FAMILY_TOKENS = 512            # a shard row's positions (vlm: patches too)
 # card's batched-vs-single GEMM noise into a part of a step
 PGT_PARAMS_UNHELD = ("zamba2-7b",)
 PGT_VLM_PATCHES = {"full": 64, "twin": 8}
+# ep2d under a pod axis: experts over data alone, the batch over pod x
+# data.  Its float32 twin runs over groups; at full width (1 of 94 layers,
+# bf16) four ranks' ~2.5 G params each do not fit one card (PERF.md), so
+# the full width runs on the rank axis in this process, each expert once
+PGT_POD_MESH = (2, 2, 1)
+PGT_POD_EP2D = "qwen3-moe-235b-a22b"
 
 
-def pgt_family_model(name: str, run: str) -> tuple:
+def pgt_family_model(name: str, run: str, mesh=None) -> tuple:
     """(cfg, pcfg, rows, seq, steps) of a family's pg_train run: "full"
     its registry config at full width (bf16) cut to ``PGT_FAMILIES``'
     depth, 2 rows of ``PGT_FAMILY_TOKENS`` positions a data-parallel
     shard (vlm: patch rows in front of the text; encdec: the decoder's
     tokens, the encoder taking its 1500 frames), 2 ZeRO-1 steps; "twin"
     the reduced float32 config, 2 rows of 64 positions a shard, the weave
-    forced, 2 steps.  ``fused``, K2 and K3 inside autograd, remat on."""
+    forced, 2 steps.  ``fused``, K2 and K3 inside autograd, remat on.
+    ``mesh``: another mesh than ``PGT_FAMILIES``' (its data-parallel
+    axes)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
-    mesh, layers = PGT_FAMILIES[name]
+    default, layers = PGT_FAMILIES[name]
+    mesh = mesh or default
     kw = dict(comm_mode="fused", attn_impl="pallas", use_pallas_norm=True,
               remat=True, dp_axes=pgt_axes(mesh)[:-1])
     cfg = get_config(name)
@@ -7284,10 +7360,10 @@ def pgt_family_model(name: str, run: str) -> tuple:
         pcfg = ParallelConfig(**kw, split_unit=16, tokenweave_min_tokens=32)
         positions = 64
     seq = positions - (PGT_VLM_PATCHES[run] if cfg.family == "vlm" else 0)
-    return cfg, pcfg, 4, seq, 2
+    return cfg, pcfg, 2 * math.prod(mesh[:-1]), seq, 2
 
 
-def pgt_family_expected(name: str, run: str) -> dict:
+def pgt_family_expected(name: str, run: str, mesh=None) -> dict:
     """A family's K2 and K3 launches a step on every rank: K2 in every
     add+norm slot per weave split (the entry norm once, each slot inside
     a layer twice under remat), K3 in every self attention per split,
@@ -7300,8 +7376,8 @@ def pgt_family_expected(name: str, run: str) -> dict:
     (Se: the encoder's batch splits, Sd: the decoder's)."""
     from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as TR
-    cfg, pcfg, rows, seq, _ = pgt_family_model(name, run)
-    mesh = PGT_FAMILIES[name][0]
+    mesh = mesh or PGT_FAMILIES[name][0]
+    cfg, pcfg, rows, seq, _ = pgt_family_model(name, run, mesh)
     tp, b = mesh[-1], rows // math.prod(mesh[:-1])
     r, n = 1 + pcfg.remat, cfg.num_layers
     patches = PGT_VLM_PATCHES[run] if cfg.family == "vlm" else 0
@@ -7329,16 +7405,19 @@ def pgt_family_expected(name: str, run: str) -> dict:
 
 
 def pgt_family_runs(torch, seed: int, rank: int, out_dir: Path, groups,
-                    names) -> None:
+                    names, mesh=None, runs=("full", "twin"),
+                    tag: str = "") -> None:
     """One rank's family runs over ``groups``: each family at full width
     (2 ZeRO-1 steps under ``pgt_spy``; rank 0 keeps K2's and K3's inputs
     at the first call of each shape), then its float32 twin (TF32 off;
-    params and ``m`` / ``v`` chunks kept).  Results go to ``out_dir``."""
+    params and ``m`` / ``v`` chunks kept).  ``mesh``: the groups' mesh
+    where it is not ``PGT_FAMILIES``'; ``tag`` prefixes the result files.
+    Results go to ``out_dir``."""
     from repro_torch.models.build import build_model
     flat = torch.utils._pytree.tree_flatten
     for name in names:
-        for run in ("full", "twin"):
-            model = pgt_family_model(name, run)
+        for run in runs:
+            model = pgt_family_model(name, run, mesh)
             cfg, pcfg, *_ = model
             torch.backends.cuda.matmul.allow_tf32 = False
             api = build_model(cfg, pcfg, tp=groups.model_size,
@@ -7352,7 +7431,7 @@ def pgt_family_runs(torch, seed: int, rank: int, out_dir: Path, groups,
             try:
                 with pgt_spy(torch) as spy:
                     got = pgt_drive(torch, api, model, "auto", seed,
-                                    mesh=PGT_FAMILIES[name][0],
+                                    mesh=mesh or PGT_FAMILIES[name][0],
                                     image_rows=PGT_VLM_PATCHES[run])
             finally:
                 for u in undo:
@@ -7365,19 +7444,19 @@ def pgt_family_runs(torch, seed: int, rank: int, out_dir: Path, groups,
             got["reduce"] = spy.calls
             got["coords"] = [groups.pod_rank, groups.data_rank,
                              groups.model_rank, groups.dp_rank]
-            tag = f"{name}_{run}_r{rank}"
+            path = f"{tag}{name}_{run}_r{rank}"
             if run == "twin":
                 torch.save({k: [t.detach().cpu() for t in flat(v)[0]]
                             for k, v in (("params", params),
                                          ("m", opt["m"]), ("v", opt["v"]))},
-                           out_dir / f"{tag}.pt")
+                           out_dir / f"{path}.pt")
             else:
                 offload(k3_inputs)
                 torch.save({"k3": list(k3_inputs.values()),
                             "k2": [([t.cpu() for t in ts], eps)
                                    for ts, eps in k2_inputs.values()]},
-                           out_dir / f"{tag}_kernels.pt")
-            (out_dir / f"{tag}.json").write_text(json.dumps(got))
+                           out_dir / f"{path}_kernels.pt")
+            (out_dir / f"{path}.json").write_text(json.dumps(got))
             del api, params, opt, got, k3_inputs, k2_inputs
             gc.collect()
             torch.cuda.empty_cache()
@@ -7459,6 +7538,16 @@ def pgt_rank(torch, np, seed: int, rank: int, out_dir: Path) -> None:
                          if m == mesh])
     finally:
         dist.destroy_process_group()
+    # ep2d under a pod axis, (pod 2, data 2, model 1): its float32 twin
+    groups = init_groups(make_mesh(PGT_POD_MESH, pgt_axes(PGT_POD_MESH)),
+                         backend="gloo",
+                         init_method=f"file://{out_dir}/store_pod",
+                         rank=rank, world_size=PGT_WORLD)
+    try:
+        pgt_family_runs(torch, seed, rank, out_dir, groups, [PGT_POD_EP2D],
+                        mesh=PGT_POD_MESH, runs=("twin",), tag="pod_")
+    finally:
+        dist.destroy_process_group()
 
 
 def pgt_twin_check(torch, np, seed: int, out_dir: Path,
@@ -7524,20 +7613,24 @@ def pgt_twin_check(torch, np, seed: int, out_dir: Path,
 
 
 def pgt_family_twin_check(torch, seed: int, out_dir: Path, name: str,
-                          ranks: list) -> dict:
+                          ranks: list, mesh=None, tag: str = "") -> dict:
     """A family's float32 twin against the rank axis on the card (TF32
     off): every rank's losses within 1e-5 relative, its params and its
     ZeRO-1 chunks of ``m`` / ``v`` within 2e-4 of max(1, a leaf's largest
     magnitude) of its slice and chunk of the rank axis's (the params of
-    ``PGT_PARAMS_UNHELD`` reported with their worst leaf, not gated)."""
+    ``PGT_PARAMS_UNHELD`` reported with their worst leaf, not gated; an
+    ``ep2d`` expert leaf's chunk over the pod alone under a pod axis).
+    ``mesh`` and ``tag`` as ``pgt_family_runs``'."""
     from repro_torch import weights as W
     from repro_torch.models.build import build_model
     flat = torch.utils._pytree.tree_flatten
-    model = pgt_family_model(name, "twin")
+    model = pgt_family_model(name, "twin", mesh)
     cfg, pcfg, *_ = model
-    mesh = PGT_FAMILIES[name][0]
+    mesh = mesh or PGT_FAMILIES[name][0]
+    pods = mesh[0] if len(mesh) == 3 else 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    axis = build_model(cfg, pcfg, tp=mesh[-1], ep=math.prod(mesh[:-1]))
+    axis = build_model(cfg, pcfg, tp=mesh[-1], ep=math.prod(mesh[:-1]),
+                       pods=pods)
     ref = pgt_drive(torch, axis, model, "auto", seed, mesh=mesh,
                     image_rows=PGT_VLM_PATCHES["twin"])
     params, opt = ref["state"]
@@ -7557,7 +7650,7 @@ def pgt_family_twin_check(torch, seed: int, out_dir: Path, name: str,
         worst_loss = max(worst_loss, max(
             abs(a - b) / abs(b) for a, b in zip(r["loss"], ref["loss"])))
         _, d, m, q = r["coords"]
-        kept = torch.load(out_dir / f"{name}_twin_r{w}.pt")
+        kept = torch.load(out_dir / f"{tag}{name}_twin_r{w}.pt")
         mine = W.take_rank(params, m, cfg, data_rank=d)
         dims = W.zero_dims(mine, cfg, pcfg, math.prod(mesh[:-1]))
         for path, a, b in zip(paths, kept["params"], flat(mine)[0]):
@@ -7570,7 +7663,8 @@ def pgt_family_twin_check(torch, seed: int, out_dir: Path, name: str,
         for k in ("m", "v"):
             want = flat(W.take_chunk(W.take_rank(opt[k], m, cfg,
                                                  data_rank=d),
-                                     dims, q, math.prod(mesh[:-1])))[0]
+                                     dims, q, math.prod(mesh[:-1]),
+                                     pods))[0]
             for a, b in zip(kept[k], want):
                 if a.shape != b.shape:
                     raise AssertionError(f"pg_train {name} twin rank {w} "
@@ -7665,6 +7759,81 @@ def pgt_families_check(torch, seed: int, out_dir: Path) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
     return k2, k3, k2_err, k3_err
+
+
+def pgt_pod_check(torch, seed: int, out_dir: Path) -> tuple:
+    """``ep2d`` under a pod axis, (pod 2, data 2, model 1): PGT_POD_EP2D
+    at full width (bf16, 1 layer; each expert once, the batch over pod x
+    data, 2 rows of PGT_FAMILY_TOKENS positions a shard) through 2 steps
+    of ``make_train_step`` on the rank axis in this process, K2's and
+    K3's launches on every step against ``pgt_family_expected`` and both
+    held on the run's inputs; its float32 twin over the groups against
+    the rank axis (``pgt_family_twin_check``, the expert leaves' ZeRO-1
+    chunks over the pod).  Emits a ``pg_train_family`` line; returns (K2
+    and K3 launches, K2's and K3's worst errors)."""
+    from repro_torch.models.build import build_model
+    name, mesh = PGT_POD_EP2D, PGT_POD_MESH
+    model = pgt_family_model(name, "full", mesh)
+    cfg, pcfg, rows, seq, steps = model
+    want = pgt_family_expected(name, "full", mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    api = build_model(cfg, pcfg, tp=mesh[-1], ep=math.prod(mesh[:-1]),
+                      pods=mesh[0])
+    k3_inputs, k2_inputs = {}, {}
+    undo = [capture_k3_inputs(k3_inputs), capture_k2_inputs(k2_inputs)]
+    try:
+        got = pgt_drive(torch, api, model, "auto", seed, mesh=mesh)
+    finally:
+        for u in undo:
+            u()
+    params, opt = got.pop("state")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n_params = sum(t.numel() for t in
+                   torch.utils._pytree.tree_flatten(params)[0])
+    experts = tuple(params["layers"][0]["moe"]["w_gate"].shape)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, got["loss"] + got["gnorm"])):
+        raise AssertionError(f"pg_train {name} pod: {got['loss']} "
+                             f"{got['gnorm']}")
+    for i, n in enumerate(got["launches"]):
+        if any(n[k] != want[k] for k in ("fused_residual_rmsnorm",
+                                         "flash_attention")):
+            raise AssertionError(f"pg_train {name} pod step {i}: launches "
+                                 f"{n}, expected {want}")
+    offload(k3_inputs)
+    k3_err = check_main_path_k3(torch, k3_inputs, f"pg_train {name} pod",
+                                mesh[-1])
+    k2_err = check_main_path_k2(torch, k2_inputs, f"pg_train {name} pod")
+    line = {"phase": "pg_train_family", "model": cfg.name,
+            "family": cfg.family, "moe_partition": cfg.moe_partition,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+            "mesh": dict(zip(pgt_axes(mesh), mesh)),
+            "full_width_on": "the rank axis (one process)",
+            "expert_weights_shape": list(experts), "params": n_params,
+            "comm_mode": pcfg.comm_mode, "remat": pcfg.remat,
+            "tokens_per_shard": rows // math.prod(mesh[:-1]) * seq,
+            "weave_splits": want["splits"],
+            "expected_launches_per_step": want,
+            "launches": got["launches"], "losses": got["loss"],
+            "grad_norms": got["gnorm"], "step_ms": got["ms"],
+            "peak_gb": peak, "k2_max_abs_err": k2_err,
+            "k3_max_abs_err": k3_err,
+            "twin_over_groups": pgt_family_twin_check(
+                torch, seed, out_dir, name, [
+                    json.loads((out_dir / f"pod_{name}_twin_r{w}.json")
+                               .read_text()) for w in range(PGT_WORLD)],
+                mesh=mesh, tag="pod_"),
+            "card": card_line()}
+    emit(line)
+    return (sum(n["fused_residual_rmsnorm"] for n in got["launches"]),
+            sum(n["flash_attention"] for n in got["launches"]), k2_err,
+            k3_err)
 
 
 def pgt_driver_start(root: Path, name: str) -> list:
@@ -7837,9 +8006,10 @@ def pg_train_phase(torch, np, seed: int, manual_loss: float) -> tuple:
                                                       out_dir, ranks)
             line["card"] = card_line()
             emit(line)
-        fam = pgt_families_check(torch, seed, out_dir)
-        k2, k3 = k2 + fam[0], k3 + fam[1]
-        k2_err, k3_err = max(k2_err, fam[2]), max(k3_err, fam[3])
+        for fam in (pgt_families_check(torch, seed, out_dir),
+                    pgt_pod_check(torch, seed, out_dir)):
+            k2, k3 = k2 + fam[0], k3 + fam[1]
+            k2_err, k3_err = max(k2_err, fam[2]), max(k3_err, fam[3])
         pgt_driver_check(pgt_driver_wait(driver, "resume"), manual_loss,
                          time.perf_counter() - t0)
     finally:

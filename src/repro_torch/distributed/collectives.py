@@ -358,7 +358,14 @@ def _tiles(out, x, ctx):
     the same on every rank, R_x = 1, counts R copies), the data group."""
     rows = out[0] if isinstance(out, tuple) else out
     return (_nbytes(rows) / rows.shape[1] * ctx.local_ranks / rows.shape[0],
-            ctx.dp)
+            data_size(ctx))
+
+
+def data_size(ctx: C.CommCtx) -> int:
+    """The data axis's size, which ``all_to_all`` exchanges over: the
+    rank axis's D_loc = ``ctx.dp``, or the data group's under
+    ``process_group`` (``ctx.dp`` counts its pods too)."""
+    return ctx.groups.data_size if _grouped(ctx) else ctx.dp
 
 
 @_reports("all-to-all", "data", _tiles)
@@ -371,8 +378,8 @@ def all_to_all(x: torch.Tensor, ctx: C.CommCtx, *, ids=None):
     (rows, ids).  A recorder sees one all-to-all of the rows' bytes (the
     ids add 1/d of them).  On the rank axis an index op over the D_loc =
     ``ctx.dp`` shards; under ``process_group`` ``all_to_all_single`` over
-    the data group (gloo takes CUDA tensors), with a backward where
-    autograd records the rows (the exchange back)."""
+    the data group (one per pod; gloo takes CUDA tensors), with a
+    backward where autograd records the rows (the exchange back)."""
     if not _grouped(ctx):
         def swap(t):
             dp, n = t.shape[1], t.shape[2]
@@ -382,13 +389,14 @@ def all_to_all(x: torch.Tensor, ctx: C.CommCtx, *, ids=None):
             return t.unflatten(2, (dp, n // dp)).transpose(1, 2).flatten(
                 2, 3)
         return swap(x) if ids is None else (swap(x), swap(ids))
-    if x.shape[:2] != (1, 1) or x.shape[2] % ctx.dp:
+    n_data = data_size(ctx)
+    if x.shape[:2] != (1, 1) or x.shape[2] % n_data:
         raise ValueError(f"a process holds one rank of one data shard, "
-                         f"whose rows tile over {ctx.dp}: x "
+                         f"whose rows tile over {n_data}: x "
                          f"{tuple(x.shape)}")
 
     def swap(t):
-        if ctx.dp == 1:
+        if n_data == 1:
             return t
         if AG.needs_grad(t):
             return _AllToAll.apply(t, ctx.groups.data)

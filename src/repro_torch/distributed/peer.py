@@ -152,7 +152,9 @@ def direct_rows(cfg, *, batch: int, chunk: int, dp: int = 1) -> int:
     ``batch``, and for the encdec family the encoder's ``batch`` x
     ``max_source_positions`` frames: the ``rows`` of ``attach`` for a run
     with no ``SchedulerConfig``.  With the batch over ``dp`` data shards
-    a process's forwards hold one shard's ``batch`` / ``dp`` rows."""
+    a process's forwards hold one shard's ``batch`` / ``dp`` rows, in
+    every family (the ssm's, the hybrid's and encdec's slots too; Whisper's
+    encoder over the shard's rows' frames)."""
     if batch % dp:
         raise ValueError(f"a batch of {batch} rows does not split over "
                          f"{dp} data shards")

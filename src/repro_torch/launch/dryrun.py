@@ -11,11 +11,11 @@ allocated on any device):
   ``zero_specs``.
 
 The mesh's ranks sit on the port's rank axes (``distributed/context.py``):
-``build_model(cfg, pcfg, tp=<model>, ep=<pod x data>)``.  The ssm, hybrid
-and encdec families have no data axis in the port (``models/build.py``):
-nothing crosses data shards in them, so their cell runs one data shard's
-rows (the reference's batch over the data axes), whose costs are every
-device's.  The record has the reference's keys:
+``build_model(cfg, pcfg, tp=<model>, ep=<pod x data>, pods=<pod>)``, the
+batch folded over the data shards (an ``ep2d`` model's experts over
+``data`` alone, in every pod), or under ``long_500k`` the one row on
+every shard, the full-attention caches' sequence over the shards where
+the family has them.  The record has the reference's keys:
 
 * ``memory.args`` / ``memory.out``: exact bytes per device, counted from
   the shapes and the reference's specs (``weights.reference_specs``, the
@@ -53,7 +53,7 @@ from repro_torch.analysis import op_costs
 from repro_torch.analysis.roofline import analyze
 from repro_torch.configs import ASSIGNED, get_config
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import SHAPES, cell_applicable, input_specs
 from repro_torch.models.build import build_model
 from repro_torch.runtime.sampler import sample
@@ -64,7 +64,8 @@ from repro_torch.training.train_step import make_train_step
 META = torch.device("meta")
 MEMORY_NOTE = ("temp, alias and code need a compiler's buffer assignment; "
                "a meta run has none")
-_DATA_AXIS = ("dense", "moe", "vlm")   # the families with a data rank axis
+# the families whose caches split their sequence over the data axes
+_SEQ_SHARDS = ("dense", "moe", "vlm", "hybrid")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -111,12 +112,11 @@ class Layout:
 
 def _layout(cfg, shape, mesh, dp_axes) -> Layout:
     tp, dp = mesh.size("model"), mesh.dp_size(dp_axes)
-    if cfg.family in _DATA_AXIS or (cfg.family == "hybrid"
-                                    and shape.long_context):
-        if shape.long_context:
-            return Layout(tp, dp, 1, dp, tp * dp)
+    if not shape.long_context:
         return Layout(tp, dp, dp, 1, tp * dp)
-    return Layout(tp, dp, 1, 1, tp)
+    if cfg.family in _SEQ_SHARDS:
+        return Layout(tp, dp, 1, dp, tp * dp)
+    return Layout(tp, dp, 1, 1, tp)      # the one row on every device
 
 
 def _kv_bytes(k, v, pos, lay: Layout, max_len: int) -> float:
@@ -157,14 +157,6 @@ def input_bytes(ins, lay: Layout) -> float:
     return total
 
 
-def _local_inputs(ins, lay: Layout):
-    """The rows one call runs: the whole batch where the data shards fold
-    into it, one shard's rows otherwise."""
-    if lay.fold > 1 or lay.seq_shards > 1:
-        return ins
-    return {k: v[:max(v.shape[0] // lay.dp, 1)] for k, v in ins.items()}
-
-
 def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
                pcfg_overrides=None, cfg_overrides=None):
     """Returns (fn, inputs, meta): ``fn(*inputs, recorder)`` runs the cell
@@ -181,18 +173,15 @@ def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
         return None, None, {"skip": skip}
 
     dp_axes = ("pod", "data") if multi_pod else ("data",)
-    if cfg.moe_partition == "ep2d" and mesh.size("pod") > 1:
-        raise NotImplementedError(
-            "ep2d experts split over the data axis alone; a pod axis over "
-            "them is not ported (training.train_step refuses it too)")
     n_dev = math.prod(mesh.sizes)
     over = dict(dp_axes=dp_axes, comm_mode="fused", tokenweave=True,
                 seq_shard_kv=shape.long_context, attn_impl="chunked")
     over.update(pcfg_overrides or {})
     pcfg = ParallelConfig(**over)
     lay = _layout(cfg, shape, mesh, dp_axes)
-    api = build_model(cfg, pcfg, tp=lay.tp,
-                      ep=lay.dp if lay.fold > 1 or lay.seq_shards > 1 else 1)
+    sharded = lay.fold > 1 or lay.seq_shards > 1
+    api = build_model(cfg, pcfg, tp=lay.tp, ep=lay.dp if sharded else 1,
+                      pods=mesh.size("pod") if sharded else 1)
     ins = input_specs(cfg, shape, mesh, dp_axes)
     params = api.init(0, device=META)
     ref_params = weights.to_jax_layout(params, cfg, pcfg)
@@ -208,17 +197,13 @@ def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
             "train": shape.kind == "train"}
     byts = {"params": param_bytes, "inputs": input_bytes(ins, lay)}
     meta["_bytes"], meta["_layout"] = byts, lay
-    local = _local_inputs(ins, lay)
-    kw = {k: local[k] for k in ("mrope_positions", "extra_embeds")
-          if k in local}
+    kw = {k: ins[k] for k in ("mrope_positions", "extra_embeds")
+          if k in ins}
 
     if shape.kind == "train":
         dp_size = mesh.dp_size(dp_axes)
-        # the layout the api holds: its data shards (one where the family
-        # runs one shard's rows) and the model ranks
-        step, _ = make_train_step(
-            api, make_mesh((api.ep, lay.tp), ("data", "model")), local,
-            AdamWConfig(), dp_size=api.ep)
+        step, _ = make_train_step(api, mesh, ins, AdamWConfig(),
+                                  dp_size=dp_size)
         opt = init_opt_state(params)
         shapes = tree_map(lambda t: tuple(t.shape), ref_params)
         ospec = zero_specs(shapes, pspec, dp_axes, dp_size)
@@ -230,7 +215,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
             out = step(params, opt, batch)
             _note_grad_syncs(rec, ref_params, pspec, mesh, dp_axes)
             return out
-        return fn, (params, opt, local), meta
+        return fn, (params, opt, ins), meta
 
     tok_bytes = 4 * shape.global_batch
 
@@ -245,9 +230,9 @@ def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
             tok = sample(logits, vocab_size=cfg.vocab_size)
             byts["out"] = tok_bytes + cache_bytes(kv, lay, shape.seq_len)
             return tok, kv
-        return fn, (params, local), meta
+        return fn, (params, ins), meta
 
-    rows = local["tokens"].shape[0]
+    rows = ins["tokens"].shape[0]
     cache = api.init_cache(rows, shape.seq_len, device=META)
     byts["cache"] = cache_bytes(cache, lay, shape.seq_len)
     byts["out"] = tok_bytes + byts["cache"]
@@ -258,21 +243,22 @@ def build_cell(arch: str, shape_name: str, mesh, *, multi_pod: bool,
             **({"mrope_positions": ins["mrope_positions"]}
                if "mrope_positions" in ins else {}))
         return sample(logits, vocab_size=cfg.vocab_size), cache
-    return fn, (params, local, cache), meta
+    return fn, (params, ins, cache), meta
 
 
 def _note_grad_syncs(rec, ref_params, pspec, mesh, dp_axes) -> None:
     """The gradient all-reduces of the reference's train step: each
-    gradient over the data axes, and a leaf replicated over the model
-    axis over it too (one device's bytes of the gradient each)."""
-    dp = mesh.dp_size(dp_axes)
+    gradient over the data axes its spec leaves free (an ``ep2d`` expert
+    leaf's over ``pod`` alone), and a leaf replicated over the model axis
+    over it too (one device's bytes of the gradient each)."""
     tp = mesh.size("model")
     for t, spec in zip(tree_flatten(ref_params)[0],
                        tree_flatten(pspec, is_leaf=_is_spec)[0]):
         nb = _spec_bytes(t, spec, mesh)
         axes = {a for e in spec for a in (e if isinstance(e, tuple) else (e,))}
-        if "data" not in axes:
-            rec.note("all-reduce", nb, dp)
+        free = [a for a in dp_axes if a not in axes]
+        if free:
+            rec.note("all-reduce", nb, math.prod(map(mesh.size, free)))
         if "model" not in axes:
             rec.note("all-reduce", nb, tp)
 

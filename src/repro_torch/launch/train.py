@@ -12,7 +12,8 @@ Features (and ``tests/test_torch_checkpoint.py``):
 
 By default the mesh's ranks lie on one device's rank axes
 (``launch/mesh.py``): ``--mesh PODxDATAxMODEL`` builds the model at tp =
-MODEL with the data rank axis D = POD x DATA.  With ``--world-size`` (or
+MODEL with the data rank axis D = POD x DATA (an ``ep2d`` model's
+experts over DATA alone, in every pod).  With ``--world-size`` (or
 torchrun's ``WORLD_SIZE``) the mesh is one (pod, data, model) rank per
 process instead (every family), over ``launch.mesh.init_groups``:
 ``--rank`` (or ``RANK``), ``--init-method`` (a ``file://`` store or
@@ -103,7 +104,7 @@ def from_checkpoint(tree, cfg, pcfg, device, api=None, zero=False):
             for k in ("m", "v"):
                 opt[k] = torch.utils._pytree.tree_map(
                     lambda t: t.clone(), W.take_chunk(
-                        opt[k], dims, g.dp_rank, g.dp_size))
+                        opt[k], dims, g.dp_rank, g.dp_size, g.pod_size))
         extra = [torch.utils._pytree.tree_map(
             lambda t: t.clone().to(device), W.take_pod(
                 e, api.specs(params), g.pod_rank, g.model_rank))
@@ -212,7 +213,8 @@ def _run(args, device, mesh, tp, dp, dp_axes, groups, rank):
                           tokenweave_min_tokens=256,
                           grad_compression="int8" if args.manual_sync
                           else "none")
-    api = build_model(cfg, pcfg, tp=tp, ep=dp, groups=groups)
+    api = build_model(cfg, pcfg, tp=tp, ep=dp, groups=groups,
+                      pods=mesh.size("pod"))
 
     data = SyntheticLM(vocab=cfg.vocab_size, seq_len=args.seq,
                        global_batch=args.batch)

@@ -270,7 +270,8 @@ def _ep2d_dispatch(xs, topi, *, e_loc: int, cs: int, cap2: int, ctx):
     s).  xs (N, T_loc, d), topi (N, T_loc, k).  Returns (buf (N, e_loc,
     cap2, d), slot (N, T_loc·k) each assignment's send row or -1, slot2
     (N, D·cs) each arrival row's buffer row or -1)."""
-    rows, eids, slot = _ep2d_send(xs, topi, dp=ctx.dp, e_loc=e_loc, cs=cs)
+    rows, eids, slot = _ep2d_send(xs, topi, dp=COL.data_size(ctx),
+                                  e_loc=e_loc, cs=cs)
     rows, eids = COL.all_to_all(rows[None], ctx, ids=eids[None])
     buf, slot2 = _ep2d_receive(rows[0], eids[0], e_loc=e_loc, cap2=cap2)
     return buf, slot, slot2
@@ -319,14 +320,14 @@ def _ep2d_combine(out_buf, slot, slot2, topw, *, ctx):
 
 def _ep2d_forward(params, xs, cfg, ctx):
     """``ep2d`` over xs (N, T_loc, d), each of the N data shards held here
-    one after the other: the D = ``ctx.dp`` shards on the rank axis, where
-    routing and dispatch run once for every rank (they are the same on
-    each), or this process's one.  The expert products run on each rank's
-    d_ff slice.  Returns (out (R, N·T_loc, d), partial over the ranks,
-    aux (N,))."""
+    one after the other: one pod's D = ``ctx.dp`` shards on the rank axis,
+    where routing and dispatch run once for every rank (they are the same
+    on each), or this process's one of its data group's D.  The expert
+    products run on each rank's d_ff slice.  Returns (out (R, N·T_loc,
+    d), partial over the ranks, aux (N,))."""
     record = torch.profiler.record_function
     n, t_loc, d = xs.shape
-    dp, k = ctx.dp, cfg.num_experts_per_tok
+    dp, k = COL.data_size(ctx), cfg.num_experts_per_tok
     e_loc, _ = local_sizes(cfg, ctx.tp, dp)
     want = (n, ctx.local_ranks)
     if params["w_gate"].shape[:2] != want:
@@ -362,9 +363,15 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1, ctx=None):
     rank ``ctx.rank`` of ``ctx.tp``, and in ``expert`` mode it holds
     experts [rank·E/tp, (rank+1)·E/tp).  For ``ep2d`` under
     ``process_group`` x is this process's data shard's tokens (``dp`` is
-    1), D is the data group's size ``ctx.dp``, the weights are the
-    process's (1, 1, E/D, ...) and the all-to-alls go over the data group.
-    Without one, the R local ranks are all tp ranks."""
+    1), the weights are the process's (1, 1, E/D, ...), D the data
+    group's size, and the all-to-alls go over the data group (its pod's).
+    Without one, the R local ranks are all tp ranks.
+
+    ``ep2d`` on the rank axis: the weights are (D_e, R, E/D_e, ...), D_e
+    the data axis's size, and the ``dp`` shards are ``dp`` / D_e pods of
+    D_e data shards, pod after pod; each pod's shards exchange among
+    themselves, as the reference's all-to-alls over ``data`` within each
+    pod."""
     r, b, s, d = x.shape
     tp, first = (r, 0) if ctx is None else (ctx.tp, ctx.rank)
     if b % dp:
@@ -377,8 +384,16 @@ def moe_forward(params, x: torch.Tensor, cfg, *, dp: int = 1, ctx=None):
             out, aux = _ep2d_forward(params, x.reshape(1, b * s, d), cfg,
                                      ctx)
             return out.reshape(r, b, s, d), aux
-        out, aux = _ep2d_forward(params, x[0].reshape(dp, b * s // dp, d),
-                                 cfg, CommCtx(tp=r, dp=dp))
+        ep = params["w_gate"].shape[0]
+        if dp % ep:
+            raise ValueError(f"ep2d expert weights hold (D, R) = "
+                             f"{tuple(params['w_gate'].shape[:2])}: the "
+                             f"input's {dp} data shards are not whole pods "
+                             f"of {ep}")
+        xs = x[0].reshape(dp, b * s // dp, d)
+        out, aux = (torch.cat(t, dim=i) for t, i in zip(zip(*(
+            _ep2d_forward(params, xs[p:p + ep], cfg, CommCtx(tp=r, dp=ep))
+            for p in range(0, dp, ep))), (1, 0)))
         aux = aux.expand(r, dp) if dp > 1 else aux.expand(r)
         return out.reshape(r, b, s, d), aux
     t_loc = b * s // dp

@@ -6,44 +6,41 @@ axis).  The ssm, hybrid and encdec modules have no verify, packed or
 paged step: the engine refuses those modes for them, as the reference's
 does.
 
-``ep`` is the size of the data rank axis D (the reference's ``ep =
-mesh.shape["data"]``): ``ep2d`` experts split over it, the transformer's
-batch splits over it, or, under ``pcfg.seq_shard_kv``, the transformer's
-and the hybrid's full-attention caches split their sequence over it
-(``models/transformer.py``).  Every bound call passes it on as ``dp``.
-The ssm, hybrid and encdec families train at any ``ep`` (``train_loss``
-splits their batch over it); their serving calls refuse ``ep`` > 1 by
-name (the hybrid's under ``seq_shard_kv`` aside): their batch over D is
-not ported for serving (ROADMAP.md A.1).
+``ep`` is the size of the data rank axis D, the data-parallel shards
+(pod x data, pod outer): every family's batch splits over it (each
+shard's rows one after the other; ``models/transformer.py``), or, under
+``pcfg.seq_shard_kv``, the transformer's and the hybrid's
+full-attention caches split their sequence over it.  Every bound call
+passes it on as ``dp``.  ``pods`` is the pod axis's size: ``ep2d``
+experts split over the data axis alone (the reference's ``ep =
+mesh.shape["data"]``), ``expert_shards`` = D / pods of them, each pod
+holding every expert once, while the batch stays over all D shards.
 
 ``prefill`` passes its keywords on: ``frames`` (encdec), and
 ``mrope_positions`` and ``extra_embeds`` (vlm); ``init_cache`` passes
 ``enc_len`` (encdec).
 
 ``train_loss`` gives the reference's (loss_sum, denom, aux) once per data
-shard, as (D,) tensors: the transformer splits its batch over D itself
-(a MoE layer routes per shard), the other families run each shard's rows
-on their own (nothing crosses data shards in them).  ``specs`` reads
+shard, as (D,) tensors: every family runs the batch over D folded, as
+its serving calls do (a MoE layer routes per shard).  ``specs`` reads
 the reference's layout off a parameter tree (``weights.py``).
 
 ``groups`` (``launch.mesh.init_groups``) puts the model on the
-``process_group`` backend: this process holds one (data, model) rank
-(params, caches and logits with a rank axis of 1; an ``ep2d`` layer's
-experts of its data shard) and every family's calls pass the groups on.
-``ep`` is then the data-parallel group's size (pod x data).  It is ported for the serving
-calls of every family, for the transformer families' batch over the
-data group (a process's calls take its data shard's rows; ``ep2d``'s
-all-to-alls go over the data group) and for the context-parallel decode
-of the transformer families and the hybrid over it, and for the
-transformer families' verify step (speculative decoding), and for
-every family's training (``train_loss``: a process's rows are its
-data-parallel shard's, ``ep`` the pod x data size)."""
+``process_group`` backend: this process holds one (pod, data, model)
+rank (params, caches and logits with a rank axis of 1; an ``ep2d``
+layer's experts of its data rank) and every family's calls pass the
+groups on.  ``ep`` is then the data-parallel group's size (pod x data)
+and ``pods`` the pod group's.  Every family's serving calls take the
+batch over the data group (a process's calls take its data shard's
+rows; ``ep2d``'s all-to-alls go over the data group, one per pod), the
+transformer families and the hybrid also decode context-parallel over
+it, the transformer families verify (speculative decoding), and every
+family trains (``train_loss``: a process's rows are its data-parallel
+shard's)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
-
-import torch
 
 from repro_torch import weights
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -63,11 +60,23 @@ class ModelApi:
     tp: int = 1
     ep: int = 1
     groups: Any = None
+    pods: int = 1
+
+    def __post_init__(self):
+        if self.pods < 1 or self.ep % self.pods:
+            raise ValueError(f"{self.ep} data-parallel shards do not split "
+                             f"over {self.pods} pods")
+
+    @property
+    def expert_shards(self) -> int:
+        """The shards ``ep2d`` experts split over: the data axis alone,
+        D / pods (every pod holds each expert once)."""
+        return self.ep // self.pods
 
     @property
     def _dp(self) -> dict:
-        """The data size for the modules that take one, and the groups."""
-        kw = {"dp": self.ep} if self.mod in (transformer, hybrid) else {}
+        """The data size every module takes, and the groups."""
+        kw = {"dp": self.ep}
         if self.groups is not None:
             kw["groups"] = self.groups
         return kw
@@ -84,8 +93,8 @@ class ModelApi:
         """Random weights; with ``groups`` this process's (data, model)
         rank's slice of the weights drawn from ``seed``: its model rank's
         of every sharded leaf, and its data rank's of an ``ep2d`` expert
-        weight."""
-        kw = {"ep": self.ep} if self.mod is transformer else {}
+        weight (the same on every pod)."""
+        kw = {"ep": self.expert_shards} if self.mod is transformer else {}
         if self.groups is not None:
             kw["rank"] = self.groups.model_rank
             if self.cfg.is_moe and self.cfg.moe_partition == "ep2d":
@@ -93,21 +102,9 @@ class ModelApi:
         return self.mod.init_params(self.cfg, seed=seed, device=device,
                                     dtype=dtype, tp=self.tp, **kw)
 
-    def _check_serving(self) -> None:
-        """Raise, naming the family, where a serving call meets a data
-        axis that is ported for training alone."""
-        if self.ep > 1 and not (self.mod is transformer or (
-                self.mod is hybrid and self.pcfg.seq_shard_kv)):
-            raise NotImplementedError(
-                f"a data axis (ep={self.ep}) is ported for the "
-                f"{self.cfg.family} family's training, not for its serving "
-                f"calls (ROADMAP.md A.1); the transformer families serve "
-                f"over it, the hybrid under seq_shard_kv")
-
     def init_cache(self, batch: int, max_len: int, *, device=None, **kw):
-        self._check_serving()
         kw.update(self._dp)
-        if "dp" in kw:
+        if self.mod in (transformer, hybrid):
             kw["seq_shard_kv"] = self.pcfg.seq_shard_kv
         return self.mod.init_cache(batch, max_len, self.cfg, self.tp,
                                    device=device, **kw)
@@ -119,24 +116,9 @@ class ModelApi:
         other -> (loss_sum, denom, aux), each (D,) float32.  With
         ``groups`` the batch is this process's data-parallel shard's rows
         and each is (1,)."""
-        dp = self.ep if dp is None else dp
-        if self.groups is not None:
-            kw = {"dp": dp} if self.mod is transformer else {}
-            return self.mod.train_loss(params, batch, cfg=self.cfg,
-                                       pcfg=self.pcfg, groups=self.groups,
-                                       **kw)
-        if self.mod is transformer:
-            return transformer.train_loss(params, batch, cfg=self.cfg,
-                                          pcfg=self.pcfg, dp=dp)
-        rows = batch["tokens"].shape[0]
-        if rows % dp:
-            raise ValueError(f"a batch of {rows} rows does not split over "
-                             f"{dp} data shards")
-        n = rows // dp
-        outs = [self.mod.train_loss(
-            params, {k: v[d * n:(d + 1) * n] for k, v in batch.items()},
-            cfg=self.cfg, pcfg=self.pcfg) for d in range(dp)]
-        return tuple(torch.cat(x) for x in zip(*outs))
+        return self.mod.train_loss(params, batch, cfg=self.cfg,
+                                   pcfg=self.pcfg, groups=self.groups,
+                                   dp=self.ep if dp is None else dp)
 
     def specs(self, params):
         """The reference's ``api.specs()`` (tuples) for this tree."""
@@ -145,12 +127,10 @@ class ModelApi:
     def forward(self, params, tokens, positions, **kw):
         """The shared forward with no cache: (hidden (R, B, S, d), chunk
         kv per layer); ``spec.ModelDraft``'s rollout step."""
-        self._check_serving()
         return self.mod.forward(params, tokens, cfg=self.cfg, pcfg=self.pcfg,
                                 positions=positions, **self._dp, **kw)
 
     def prefill(self, params, tokens, cache, positions, **kw):
-        self._check_serving()
         return self.mod.prefill(params, tokens, cache, cfg=self.cfg,
                                 pcfg=self.pcfg, positions=positions,
                                 **self._dp, **kw)
@@ -158,42 +138,42 @@ class ModelApi:
     def init_paged_cache(self, num_blocks: int, block_size: int, *,
                          device=None):
         from repro_torch.runtime.paging import init_paged_cache
-        self._check_serving()
         return init_paged_cache(num_blocks, block_size, self.cfg, self.tp,
                                 device=device,
                                 ranks=self.comm_ctx.local_ranks)
 
     def decode_step(self, params, tokens, cache, positions, **kw):
-        self._check_serving()
         return self.mod.decode_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
 
     def verify_step(self, params, tokens, cache, positions, **kw):
-        self._check_serving()
         return self.mod.verify_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
 
     def packed_step(self, params, tokens, cache, positions, **kw):
-        self._check_serving()
         return self.mod.packed_step(params, tokens, cache, cfg=self.cfg,
                                     pcfg=self.pcfg, positions=positions,
                                     **self._dp, **kw)
 
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig, tp: int = 1,
-                ep: int = 1, groups=None) -> ModelApi:
+                ep: int = 1, groups=None, pods: int = 1) -> ModelApi:
+    """The bound API at ``tp`` model ranks and ``ep`` data-parallel shards
+    (pod x data), ``pods`` of them pods (the groups' pod size over
+    process groups)."""
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}")
     if tp < 1 or ep < 1:
         raise ValueError(f"tp and ep must be >= 1, got {tp}, {ep}")
     mod = FAMILIES[cfg.family]
-    if (groups is not None and groups.pod_size > 1 and cfg.is_moe
-            and cfg.moe_partition == "ep2d"):
-        raise NotImplementedError(
-            "ep2d experts split over the data axis alone; a pod axis over "
-            "them is not ported (ROADMAP.md A.1)")
-    api = ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep, groups=groups)
+    if groups is not None:
+        if pods not in (1, groups.pod_size):
+            raise ValueError(f"pods={pods} against groups of "
+                             f"{groups.pod_size} pods")
+        pods = groups.pod_size
+    api = ModelApi(cfg=cfg, pcfg=pcfg, mod=mod, tp=tp, ep=ep, groups=groups,
+                   pods=pods)
     api.comm_ctx            # holds tp and ep to the groups' sizes
     return api

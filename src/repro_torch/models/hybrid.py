@@ -31,18 +31,23 @@ for the caller to insert (``runtime.kv_cache.insert_chunk``); ``decode_step``
 updates both in place.  The engine does not serve this family; the
 reference serves it by direct calls too.
 
-Under ``pcfg.seq_shard_kv`` with ``dp`` = D data shards the shared
-block's decode is context-parallel, as the reference's: its caches'
-sequence lies over D and each decode combines the D chunks
-(``layers.attention.attn_decode(seq_shards=D)``); the batch is whole on
-every shard.  A batch split over D is not ported for this family.
+With ``dp`` = D data shards the batch lies over D, as the reference's
+cache batch over ``dp_axes`` (``transformer.data_layout``): the batch
+holds the D shards' rows one after the other, the weave decision, the
+comm mode's fallback and the slots' token ownership follow each shard's
+rows, and a decode batch split takes the same rows of every shard (of
+the Mamba-2 state and of each shared cache).  Under ``pcfg.seq_shard_kv``
+the shared block's decode is context-parallel instead, as the
+reference's: its caches' sequence lies over D and each decode combines
+the D chunks (``layers.attention.attn_decode(seq_shards=D)``); the batch
+is whole on every shard.
 
 With ``groups`` each process holds one model rank (R = 1: ``init_params(
 rank=)``, the shared block's ``lora_b`` cut on its rank axis, axis 1),
-the embedding's sum and the slots run over the model group; under
-``seq_shard_kv`` at a data group of D > 1 each data rank holds C/D slots
-of every shared cache and the shared block's decode combines over the
-data group (its batch over D stays unported, as on the rank axis).
+the embedding's sum and the slots run over the model group; at a data
+group of D > 1 a process holds its data shard's rows, or under
+``seq_shard_kv`` the whole batch and C/D slots of every shared cache,
+the shared block's decode combining over the data group.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from repro_torch.layers import ssm as S
 from repro_torch.layers.norms import rms_norm
 from repro_torch.models import mamba_model as MM
 from repro_torch.models import transformer as TR
+from repro_torch.runtime import kv_cache as KC
 
 LORA_RANK = 16
 
@@ -134,13 +140,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, dtype=None,
 # --------------------------------------------------------------------------
 
 def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
-                  pcfg, weave, decode: bool, dp: int = 1):
+                  pcfg, weave, decode: bool, dp: int = 1, split_rows=None):
     """Invocation g of the shared attention block over every split.
     Prefill: the splits attend ``cache_inv``'s KV (earlier chunks) and
     every earlier split's; returns the chunk's (k, v, pos).  Decode: each
-    split writes and reads its own rows of ``cache_inv`` in place (under
-    ``seq_shard_kv`` its data rank's slots, combined over the data axis
-    that ``weave.ctx`` names); returns the cache dict."""
+    split writes and reads its own rows of ``cache_inv`` in place (the
+    rows of ``split_rows``' index tensors, gathered and written back, with
+    the batch over D; under ``seq_shard_kv`` its data rank's slots,
+    combined over the data axis that ``weave.ctx`` names); returns the
+    cache dict."""
     acfg, lay = _shared_layout(cfg, weave.ctx.tp)
     p_eff = dict(shared["attn"])
     lora_a = shared["lora_a"][g]
@@ -160,9 +168,14 @@ def _shared_weave(shared, g: int, hs, ress, embs, poss, cache_inv, *, cfg,
                    theta=cfg.rope_theta)
         if decode:
             rows = h.shape[1]
+            idx = None if split_rows is None else split_rows[i]
+            cl = (A.cache_rows(cache_inv, off, rows) if idx is None
+                  else KC.gather_slots([cache_inv], idx)[0])
             a_part, _ = A.attn_decode(
-                p_eff, u, A.cache_rows(cache_inv, off, rows), **geo,
+                p_eff, u, cl, **geo,
                 seq_shards=dp if pcfg.seq_shard_kv else None, ctx=weave.ctx)
+            if idx is not None:
+                KC.write_rows([cache_inv], [cl], idx)
             off += rows
         else:
             a_part, kv = A.attn_prefill(p_eff, u, kv_prefix=kv_prev,
@@ -188,31 +201,40 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     state cache, "shared": per invocation the chunk's (k, v, pos)
     (prefill) or the KV cache dict (decode)}).  Without ``cache`` the
     shared blocks see no prefix and the recurrence starts from zero.
-    ``dp`` > 1 needs ``pcfg.seq_shard_kv`` (module docstring).
+    ``dp``: the data shards (module docstring): the batch's, or under
+    ``pcfg.seq_shard_kv`` the shared caches' sequence's.
     ``train``: no cache and none returned; each shared-block invocation
     and each Mamba-2 layer under ``remat`` when ``pcfg.remat``.
     ``groups``: this process holds one model rank of the model group (R
-    = 1) and, at ``dp`` > 1, one data rank of a context-parallel decode
-    (the whole batch, its C/D slots of each shared cache)."""
-    _check_dp(dp, pcfg.seq_shard_kv)
+    = 1) and, at ``dp`` > 1, one data rank: its data shard's rows, or
+    under ``seq_shard_kv`` the whole batch of a context-parallel decode
+    and its C/D slots of each shared cache."""
     tp = TR._model_ranks(params, groups)
     b, s = tokens.shape
     dev = tokens.device
+    b_loc, dsplit = ((b, 1) if groups is not None
+                     else TR.data_layout(b, dp, pcfg))
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=dev)[None].expand(b, s)
     positions = positions.to(dev)
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
-                       dp=MM.group_dp(groups))
+    ctx = TR._comm_ctx(pcfg, cfg, b_loc * s, tp, groups=groups,
+                       dp=dsplit if groups is None else MM.group_dp(groups))
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
                          ctx=ctx)
     # the complete embedding: every shared-block input reuses it
     emb = psum(emb, ctx)                                  # (B, S, d)
-    split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
-    cuts = TR._split_cuts(split, b if decode else s)
-    embs = [emb[lo:hi] if decode else emb[:, lo:hi] for lo, hi in cuts]
-    poss = [positions[lo:hi] if decode else positions[:, lo:hi]
-            for lo, hi in cuts]
+    split = TR._decide_split(b_loc, s, tp=tp, pcfg=pcfg, decode=decode)
+    rows = (TR.shard_split_rows(split, b_loc, dsplit, dev) if decode
+            else [None])
+    if rows[0] is not None:
+        embs = [emb[idx] for idx in rows]
+        poss = [positions[idx] for idx in rows]
+    else:
+        cuts = TR._split_cuts(split, b if decode else s)
+        embs = [emb[lo:hi] if decode else emb[:, lo:hi] for lo, hi in cuts]
+        poss = [positions[lo:hi] if decode else positions[:, lo:hi]
+                for lo, hi in cuts]
     weave = TR._Weave(len(embs), ctx, dev, overlap=not train)
     hs, ress = map(list, zip(*(
         TR._entry_norm(weave, i, (e / tp).expand(ctx.local_ranks, *e.shape),
@@ -226,8 +248,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     mcache = (S.init_mamba2_state(b, cfg, tp, cfg.num_layers, device=dev,
                                   dtype=emb.dtype, ranks=ctx.local_ranks)
               if cache is None else cache["mamba"])
-    kw = dict(weave=weave, decode=decode,
-              split_rows=split[0] if split else 0,
+    kw = dict(weave=weave, decode=decode, split_rows=rows,
               chunk=1 if decode else ssm_chunk)
 
     def mamba_layer(i, hs, ress):
@@ -242,7 +263,7 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         hs, ress, kv = _shared_weave(
             params["shared"], g, hs, ress, embs, poss,
             None if cache is None else cache["shared"][g], cfg=cfg,
-            pcfg=pcfg, weave=weave, decode=decode, dp=dp)
+            pcfg=pcfg, weave=weave, decode=decode, dp=dp, split_rows=rows)
         shared_out.append(kv)
         for i in range(g * period, (g + 1) * period):
             hs, ress = mamba_layer(i, hs, ress)
@@ -251,7 +272,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     for i in range(len(hs)):
         weave.wait(i)
     h_out = torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2 else hs[0]
-    return h_out, {"mamba": mcache, "shared": shared_out}
+    return (TR.rows_in_batch_order(h_out, rows),
+            {"mamba": mcache, "shared": shared_out})
 
 
 def _shared_train(shared, g: int, hs, ress, embs, poss, *, cfg, pcfg,
@@ -284,13 +306,15 @@ def _train_layers(params, hs, ress, embs, poss, *, cfg, pcfg, weave,
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               aux_weight: float = 0.0, groups: Optional[Groups] = None):
+               aux_weight: float = 0.0, dp: int = 1,
+               groups: Optional[Groups] = None):
     """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
-    aux), each (1,) float32 (no aux loss).  With ``groups`` the batch is
-    this process's data-parallel shard's rows."""
+    aux), each (D,) float32, one entry per data shard of the ``dp`` the
+    batch splits over (no aux loss).  With ``groups`` the batch is this
+    process's data-parallel shard's rows and each is (1,)."""
     h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True,
-                   groups=groups)
-    ls, dn = MM.xent(params, h, batch["labels"], cfg, pcfg, groups)
+                   dp=dp, groups=groups)
+    ls, dn = MM.xent(params, h, batch["labels"], cfg, pcfg, groups, dp)
     return ls, dn, torch.zeros_like(ls)
 
 
@@ -315,36 +339,35 @@ def decode_step(params, tokens, cache, *, cfg, pcfg, positions, dp: int = 1,
     return E.lm_head_logits(params["embedding"], h), new_cache
 
 
-def _check_dp(dp: int, seq_shard_kv: bool) -> None:
-    if dp > 1 and not seq_shard_kv:
-        raise NotImplementedError(
-            "the hybrid family takes a data axis for context-parallel "
-            "decode (seq_shard_kv) only; its batch over D is not ported")
-
-
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
                device=None, dtype=None, dp: int = 1,
                seq_shard_kv: bool = False, groups: Optional[Groups] = None):
     """Zero Mamba-2 state and empty shared KV (one slot cache of
     ``max_len`` per invocation) for ``batch`` rows on ``device`` (CUDA
-    unless given); with ``seq_shard_kv`` the shared caches' ``max_len``
-    slots lie over ``dp`` data shards, in the unsharded layout.  With
-    ``groups``, this process's model rank's (R = 1) and, under
-    ``seq_shard_kv``, its data rank's ``max_len`` / ``dp`` slots of each
-    shared cache."""
+    unless given), in the global layout the reference shards over its
+    data axes: ``batch`` rows over ``dp`` data shards, or with
+    ``seq_shard_kv`` the shared caches' ``max_len`` slots.  With
+    ``groups``, this process's model rank's (R = 1) and its data rank's
+    part: ``batch`` / ``dp`` rows, or under ``seq_shard_kv`` the whole
+    batch and ``max_len`` / ``dp`` slots of each shared cache."""
     device = resolve_device(device)
-    _check_dp(dp, seq_shard_kv)
-    if max_len % dp:
+    if seq_shard_kv and max_len % dp:
         raise ValueError(f"max_len={max_len} does not split over {dp} "
                          f"data shards")
+    rows, slots = batch, max_len
+    if groups is not None and seq_shard_kv:
+        slots = max_len // dp
+    elif groups is not None:
+        rows = TR.batch_layout(batch, dp)[0]
+    elif not seq_shard_kv:
+        TR.batch_layout(batch, dp)
     n_inv, _ = _n_groups(cfg)
     acfg = _shared_attn_cfg(cfg)
     ranks = None if groups is None else 1
-    slots = max_len if groups is None else max_len // dp
-    return {"mamba": S.init_mamba2_state(batch, cfg, tp, cfg.num_layers,
+    return {"mamba": S.init_mamba2_state(rows, cfg, tp, cfg.num_layers,
                                          device=device, dtype=dtype,
                                          ranks=ranks),
-            "shared": [A.init_kv_cache(batch, slots, acfg, tp,
+            "shared": [A.init_kv_cache(rows, slots, acfg, tp,
                                        dtype=dtype, device=device,
                                        ranks=ranks)
                        for _ in range(n_inv)]}

@@ -91,6 +91,13 @@ def write_layer_state(cache, i: int, state) -> None:
         cache[i].copy_(state)
 
 
+def map_state(fn, state):
+    """``fn`` over every leaf of a state (nested tuples of tensors)."""
+    if isinstance(state, tuple):
+        return tuple(map_state(fn, t) for t in state)
+    return fn(state)
+
+
 def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
                 split_rows, chunk: int):
     """One recurrent layer over every split, as the reference's weave
@@ -99,12 +106,20 @@ def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
     layer's state rows.  Prefill: split 0 starts from ``st``, the suffix
     split resumes from split 0's final state, and the layer's new state is
     the last split's.  Decode: the batch splits, each split's state rows
-    are cut from ``st`` and the new states re-joined.  Each split's output
-    goes through its AllReduce-norm slot.  Returns (hs, ress, state)."""
+    are taken from ``st`` (``split_rows``: per split the index tensor of
+    ``transformer.shard_split_rows``, or None where the splits' rows are
+    contiguous) and the new states put back in batch order.  Each split's
+    output goes through its AllReduce-norm slot.  Returns (hs, ress,
+    state)."""
     n = len(hs)
-    sts = ([S._split_rows(st, 0, split_rows),
-            S._split_rows(st, split_rows, hs[0].shape[1] + hs[1].shape[1])]
-           if decode and n == 2 else [st] * n)
+    sts = [st] * n
+    if decode and n == 2 and split_rows[0] is not None:
+        sts = [map_state(lambda t, i=idx: t.index_select(1, i), st)
+               for idx in split_rows]
+    elif decode and n == 2:
+        b0 = hs[0].shape[1]
+        sts = [S._split_rows(st, 0, b0),
+               S._split_rows(st, b0, b0 + hs[1].shape[1])]
     out_states, prev_final = [], None
     for i in range(n):
         weave.wait(i)
@@ -115,7 +130,9 @@ def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
         prev_final = state_i
         out_states.append(state_i)
     if n == 2 and decode:
-        return hs, ress, S._cat_rows(out_states)
+        return hs, ress, map_state(
+            lambda t: TR.rows_in_batch_order(t, split_rows),
+            S._cat_rows(out_states))
     return hs, ress, out_states[-1]
 
 
@@ -125,7 +142,7 @@ def mamba_weave(block, lp, hs, ress, st, *, weave, decode: bool,
 
 def _train_layer(block, lp, hs, ress, *, weave, chunk: int):
     hs, ress, _ = mamba_weave(block, lp, list(hs), list(ress), None,
-                              weave=weave, decode=False, split_rows=0,
+                              weave=weave, decode=False, split_rows=None,
                               chunk=chunk)
     return hs, ress
 
@@ -140,7 +157,7 @@ def train_layer(block, pcfg: ParallelConfig):
 
 def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
             positions=None, cache=None, decode: bool = False,
-            ssm_chunk: int = 256, train: bool = False,
+            ssm_chunk: int = 256, train: bool = False, dp: int = 1,
             groups: Optional[Groups] = None):
     """Returns (hidden (R, B, S, d), the same on every rank, the state
     cache).  ``cache``: the state rows of this batch, read as the start
@@ -149,18 +166,28 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     ``positions`` are not read: a recurrence has no positions (padding
     would enter the state, so chunks must be exact).  ``train``: no cache
     and none returned, the layers under ``remat`` (``train_layer``).
+    ``dp``: the batch holds ``dp`` data shards' rows one after the other
+    (``transformer.data_layout``'s batch over D; the reference's cache
+    batch over ``dp_axes``): the weave decision, the comm mode's
+    fallback and the slots' token ownership follow each shard's rows, and
+    a decode batch split takes the same rows of every shard.
     ``groups``: this process holds one model rank of the model group (R
-    = 1), as the transformer's ``forward``, and in training one
-    data-parallel shard's rows."""
+    = 1) and one data-parallel shard's rows."""
     tp = TR._model_ranks(params, groups)
     b, s = tokens.shape
-    ctx = TR._comm_ctx(pcfg, cfg, b * s, tp, groups=groups,
-                       dp=group_dp(groups))
+    b_loc, dsplit = (b, 1) if groups is not None else TR.batch_layout(b, dp)
+    ctx = TR._comm_ctx(pcfg, cfg, b_loc * s, tp, groups=groups,
+                       dp=dsplit if groups is None else group_dp(groups))
     emb = E.embed_tokens(params["embedding"], tokens, scale=cfg.embed_scale,
                          ctx=ctx)
-    split = TR._decide_split(b, s, tp=tp, pcfg=pcfg, decode=decode)
-    embs = [emb[:, lo:hi] if decode else emb[:, :, lo:hi]
-            for lo, hi in TR._split_cuts(split, b if decode else s)]
+    split = TR._decide_split(b_loc, s, tp=tp, pcfg=pcfg, decode=decode)
+    rows = (TR.shard_split_rows(split, b_loc, dsplit, emb.device) if decode
+            else [None])
+    if rows[0] is not None:
+        embs = [emb[:, idx] for idx in rows]
+    else:
+        embs = [emb[:, lo:hi] if decode else emb[:, :, lo:hi]
+                for lo, hi in TR._split_cuts(split, b if decode else s)]
     weave = TR._Weave(len(embs), ctx, emb.device, overlap=not train)
     hs, ress = map(list, zip(*(TR._entry_norm(weave, i, e,
                                               params["norm_first"])
@@ -179,13 +206,12 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         hs, ress, st = mamba_weave(
             lambda p, x, **kw: S.mamba1_forward(p, x, cfg=cfg, **kw), lp,
             hs, ress, layer_state(cache, i), weave=weave, decode=decode,
-            split_rows=split[0] if split else 0,
-            chunk=1 if decode else ssm_chunk)
+            split_rows=rows, chunk=1 if decode else ssm_chunk)
         write_layer_state(cache, i, st)
     for i in range(len(hs)):
         weave.wait(i)
     h_out = torch.cat(hs, dim=1 if decode else 2) if len(hs) == 2 else hs[0]
-    return h_out, cache
+    return TR.rows_in_batch_order(h_out, rows), cache
 
 
 def lm_logits_at(params, h, last_idx=None):
@@ -209,55 +235,69 @@ def group_dp(groups: Optional[Groups]) -> int:
 
 
 def xent(params, h, labels, cfg: ModelConfig, pcfg: ParallelConfig = None,
-         groups: Optional[Groups] = None):
-    """(loss_sum, denom), each (1,), of the hidden rows h against
-    ``labels``: the per-shard values a family without a data axis
-    returns.  With ``groups`` the sums run over the model group (the loss
+         groups: Optional[Groups] = None, dp: int = 1):
+    """(loss_sum, denom), each (D,), of the hidden rows h against
+    ``labels``: one entry per data shard of the ``dp`` whose rows the
+    batch holds one after the other (with ``groups``, this process's one
+    shard).  With ``groups`` the sums run over the model group (the loss
     is then the same on every model rank)."""
     ctx = None
     if groups is not None:
         ctx = TR._comm_ctx(pcfg, cfg, 0, groups.model_size,
                            dp=groups.dp_size, groups=groups)
-    ls, dn = E.sharded_softmax_xent(
-        E.lm_head_logits(params["embedding"], h), labels.to(h.device),
-        vocab_size=cfg.vocab_size, ctx=ctx)
-    return ls[None], dn[None]
+    labels = labels.to(h.device)
+    b_loc, dsplit = ((labels.shape[0], 1) if groups is not None
+                     else TR.batch_layout(labels.shape[0], dp))
+    ls, dn = zip(*(E.sharded_softmax_xent(
+        E.lm_head_logits(params["embedding"],
+                         h[:, d * b_loc:(d + 1) * b_loc]),
+        labels[d * b_loc:(d + 1) * b_loc], vocab_size=cfg.vocab_size,
+        ctx=ctx) for d in range(dsplit)))
+    return torch.stack(ls), torch.stack(dn)
 
 
 def train_loss(params, batch, *, cfg: ModelConfig, pcfg: ParallelConfig,
-               aux_weight: float = 0.0, groups: Optional[Groups] = None):
+               aux_weight: float = 0.0, dp: int = 1,
+               groups: Optional[Groups] = None):
     """batch {"tokens" (B, S), "labels" (B, S)} -> (loss_sum, denom,
-    aux), each (1,) float32; a recurrence has no aux loss.  With
-    ``groups`` the batch is this process's data-parallel shard's rows."""
+    aux), each (D,) float32, one entry per data shard of the ``dp`` the
+    batch splits over; a recurrence has no aux loss.  With ``groups`` the
+    batch is this process's data-parallel shard's rows and each is
+    (1,)."""
     h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, train=True,
-                   groups=groups)
-    ls, dn = xent(params, h, batch["labels"], cfg, pcfg, groups)
+                   dp=dp, groups=groups)
+    ls, dn = xent(params, h, batch["labels"], cfg, pcfg, groups, dp)
     return ls, dn, torch.zeros_like(ls)
 
 
 def prefill(params, tokens, cache, *, cfg, pcfg, positions=None,
-            last_idx=None, groups: Optional[Groups] = None):
+            last_idx=None, dp: int = 1, groups: Optional[Groups] = None):
     """One (chunked) prefill step.  Returns (local logits at each row's
     last token, or at ``last_idx`` (R, B, 1, V_loc), the state cache)."""
     h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache,
-                        groups=groups)
+                        dp=dp, groups=groups)
     return lm_logits_at(params, h, last_idx), states
 
 
 def decode_step(params, tokens, cache, *, cfg, pcfg, positions=None,
-                groups: Optional[Groups] = None):
+                dp: int = 1, groups: Optional[Groups] = None):
     """One token per row.  Returns (local logits (R, B, 1, V_loc), the
     state cache, updated in place)."""
     h, states = forward(params, tokens, cfg=cfg, pcfg=pcfg, cache=cache,
-                        decode=True, groups=groups)
+                        decode=True, dp=dp, groups=groups)
     return E.lm_head_logits(params["embedding"], h), states
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, tp: int = 1, *,
-               device=None, dtype=None, groups: Optional[Groups] = None):
-    """Zero state for ``batch`` rows on ``device`` (CUDA unless given);
-    ``max_len`` is not needed by a recurrence.  With ``groups``, this
-    process's model rank's state (R = 1)."""
-    return S.init_mamba1_state(batch, cfg, tp, cfg.num_layers,
+               device=None, dtype=None, dp: int = 1,
+               groups: Optional[Groups] = None):
+    """Zero state for ``batch`` rows on ``device`` (CUDA unless given), in
+    the global layout the reference shards over its data axes: ``batch``
+    rows over ``dp`` data shards; ``max_len`` is not needed by a
+    recurrence.  With ``groups``, this process's: its model rank's state
+    (R = 1) of its data shard's ``batch`` / ``dp`` rows."""
+    rows, _ = TR.batch_layout(batch, dp)
+    return S.init_mamba1_state(batch if groups is None else rows, cfg, tp,
+                               cfg.num_layers,
                                device=resolve_device(device), dtype=dtype,
                                ranks=None if groups is None else 1)

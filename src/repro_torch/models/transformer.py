@@ -541,10 +541,38 @@ def data_layout(b: int, dp: int, pcfg: ParallelConfig) -> Tuple[int, int]:
     unless the cache's sequence does (``seq_shard_kv``)."""
     if dp == 1 or pcfg.seq_shard_kv:
         return b, 1
+    return batch_layout(b, dp)
+
+
+def batch_layout(b: int, dp: int) -> Tuple[int, int]:
+    """(rows per data shard, data shards) for a batch of ``b`` rows over
+    ``dp`` data shards."""
     if b % dp:
         raise ValueError(f"a batch of {b} rows does not split over {dp} "
                          f"data shards")
     return b // dp, dp
+
+
+def shard_split_rows(split, b_loc: int, dsplit: int, device) -> list:
+    """Each decode batch split's rows in a batch of ``dsplit`` data
+    shards' ``b_loc`` rows one after the other: rows [lo, hi) of every
+    shard, an index tensor per split; None per split where the splits'
+    rows are contiguous (one shard, or no split: ``_split_cuts``)."""
+    cuts = _split_cuts(split, b_loc)
+    if dsplit == 1 or split is None:
+        return [None] * len(cuts)
+    return [torch.cat([torch.arange(d * b_loc + lo, d * b_loc + hi)
+                       for d in range(dsplit)]).to(device)
+            for lo, hi in cuts]
+
+
+def rows_in_batch_order(h, split_rows):
+    """A decode's split outputs (R, B, ...), joined split after split on
+    dim 1, back in batch order (``shard_split_rows``' index tensors; as
+    they are where the splits' rows are contiguous)."""
+    if split_rows[0] is None:
+        return h
+    return h.index_copy(1, torch.cat(split_rows), h)
 
 
 def _model_ranks(params, groups: Optional[Groups]) -> int:
@@ -633,11 +661,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
     # the splits' [lo, hi) along the batch (decode) or the sequence; a
     # batch split over D takes rows [lo, hi) of every data shard
     cuts = _split_cuts(winfo.split, b if decode else s)
-    split_rows = [None] * len(cuts)
-    if decode and dsplit > 1 and winfo.split is not None:
-        split_rows = [torch.cat([torch.arange(d * b_loc + lo, d * b_loc + hi)
-                                 for d in range(dsplit)]).to(dev)
-                      for lo, hi in _split_cuts(winfo.split, b_loc)]
+    split_rows = (shard_split_rows(winfo.split, b_loc, dsplit, dev)
+                  if decode else [None] * len(cuts))
     state_extra = {}
     if packed and pcfg.attn_impl == "pallas":
         host_pos = positions.cpu().numpy()[0]
@@ -712,9 +737,8 @@ def forward(params, tokens, *, cfg: ModelConfig, pcfg: ParallelConfig,
         weave.wait(i)
     h_out = (torch.cat(state["h"], dim=1 if decode else 2)
              if len(state["h"]) == 2 else state["h"][0])
-    if split_rows[0] is not None:
-        # the data shards' rows back in batch order
-        h_out = h_out.index_copy(1, torch.cat(split_rows), h_out)
+    # the data shards' rows back in batch order
+    h_out = rows_in_batch_order(h_out, split_rows)
     if train:
         return h_out, state["aux"]
     return h_out, kv_all

@@ -41,9 +41,12 @@ rank's slice the gradient the rank axis gives it (seeding each with 1
 would make every gradient tp times too large, the reference's own note
 on its manual step).  A replicated leaf's gradient then holds only this
 process's uses and is summed over the model group (``_sync_model_axis``);
-a sharded leaf's slice is exact.  ``make_train_step`` holds ZeRO-1
+a sharded leaf's slice is exact.  An ``ep2d`` expert leaf (experts
+over the data axis alone, every pod holding each once) has its gradient
+summed over the pod group.  ``make_train_step`` holds ZeRO-1
 state: each process keeps its chunk of ``m`` / ``v`` on the dim
-``zero_specs`` picks (``weights.zero_dims``), the chunked gradients are
+``zero_specs`` picks (``weights.zero_dims``; an ``ep2d`` leaf's over the
+pod group alone), the chunked gradients are
 reduce-scattered over the data-parallel group and the rest all-reduced,
 AdamW updates the chunks and the params are all-gathered; the global
 norm counts every slice and chunk once (``optimizer.global_norm`` with
@@ -91,11 +94,11 @@ def _check_layout(api, mesh) -> int:
         raise ValueError(f"the model is built for tp={api.tp}, ep={api.ep}; "
                          f"the mesh {mesh.shape} over dp_axes "
                          f"{pcfg.dp_axes} gives tp={tp}, data size {dp}")
-    if (api.cfg.family == "moe" and api.cfg.moe_partition == "ep2d"
-            and mesh.size("pod") > 1):
-        raise NotImplementedError(
-            "ep2d experts split over the data axis alone; a pod axis over "
-            "them is not ported")
+    if (api.cfg.is_moe and api.cfg.moe_partition == "ep2d"
+            and api.pods != mesh.size("pod")):
+        raise ValueError(f"ep2d experts split over the data axis alone: "
+                         f"build the model with pods={mesh.size('pod')} "
+                         f"for the mesh {mesh.shape}, not {api.pods}")
     g = api.groups
     if g is not None:
         got = (g.pod_size, g.data_size, g.model_size)
@@ -174,10 +177,11 @@ class _GroupLayout:
     """How one process's leaves lie over the groups (any family's tree:
     ``weights.leaf_kinds``): each leaf sharded over the model group,
     replicated on it (``replicated``, ``per_invocation``) or one (data,
-    model) rank's experts (``ep2d``), and its ZeRO-1 dim over the
-    data-parallel group (``weights.zero_dims``; None: whole on every
-    data-parallel rank), with ``zero=False`` none (the manual step keeps
-    the reference's unchunked state)."""
+    model) rank's experts (``ep2d``, the same on every pod), and its
+    ZeRO-1 dim over the data-parallel group (``weights.zero_dims``; None:
+    whole on every data-parallel rank; an ``ep2d`` leaf's over the pod
+    group, ``weights.PodChunk``), with ``zero=False`` none (the manual
+    step keeps the reference's unchunked state)."""
 
     SYNCED = ("replicated", "per_invocation")    # summed over the model
 
@@ -197,7 +201,7 @@ class _GroupLayout:
         if self.dims_tree is None:
             return tree
         return weights.take_chunk(tree, self.dims_tree, self.groups.dp_rank,
-                                  self.groups.dp_size)
+                                  self.groups.dp_size, self.groups.pod_size)
 
     def sync_model(self, grads: list) -> list:
         """``_sync_model_axis``: a replicated leaf's gradient summed over
@@ -209,16 +213,22 @@ class _GroupLayout:
     def reduce_dp(self, grads: list) -> list:
         """The data-parallel gradient sum in float32, rounded once: a
         chunked leaf's reduce-scattered to this process's chunk, the
-        others all-reduced; an ``ep2d`` leaf's kept (its data rank owns
-        those experts, whose gradient came home from every shard through
-        the all-to-alls' backward).  Consumes ``grads``: each entry is
-        dropped once reduced, so that a whole leaf's gradient is freed as
-        its chunk is made."""
+        others all-reduced; an ``ep2d`` leaf's summed over the pod group
+        alone (its data rank owns those experts in every pod, and their
+        gradient came home from each of the pod's shards through the
+        all-to-alls' backward), reduce-scattered on a ``PodChunk``.
+        Consumes ``grads``: each entry is dropped once reduced, so that a
+        whole leaf's gradient is freed as its chunk is made."""
         g = self.groups
         out = []
         for i, (dim, kind) in enumerate(zip(self.dims, self.kinds)):
             t, grads[i] = grads[i], None
-            if g.dp_size == 1 or kind == "ep2d":
+            if kind == "ep2d":
+                out.append(t if g.pod_size == 1
+                           else _reduce_scatter(t, dim.dim, g.pod)
+                           if isinstance(dim, weights.PodChunk)
+                           else _sum_over(t, g.pod))
+            elif g.dp_size == 1:
                 out.append(t)
             elif dim is None:
                 out.append(_sum_over(t, g.dp))
@@ -230,27 +240,25 @@ class _GroupLayout:
                 out.append(buf.to(t.dtype) if g.dp_rank == dim.owner
                            else t.narrow(0, 0, 0))
             else:
-                moved = t.detach().movedim(dim, 0).float().contiguous()
-                part = moved.new_empty((moved.shape[0] // g.dp_size,
-                                        *moved.shape[1:]))
-                dist.reduce_scatter_tensor(part, moved, group=g.dp)
-                out.append(part.to(t.dtype).movedim(0, dim))
+                out.append(_reduce_scatter(t, dim, g.dp))
         return out
 
     def owned(self) -> list:
         """Which leaves this process's norm counts, so that over the
         world every part counts once: a replicated leaf on model rank 0
         alone, an unchunked leaf on data-parallel rank 0 alone, a
-        ``LayerChunk`` leaf on its owner, an ``ep2d`` leaf everywhere
-        (each (data, model) rank holds its own experts)."""
+        ``LayerChunk`` leaf on its owner, an ``ep2d`` leaf on every
+        (data, model) rank (each holds its own experts) of pod 0, or of
+        every pod where its ``PodChunk`` splits it over the pods."""
         g = self.groups
 
         def on_dp(dim):
             if isinstance(dim, weights.LayerChunk):
                 return dim.owner == g.dp_rank
             return dim is not None or g.dp_rank == 0
-        return [k == "ep2d" or ((k not in self.SYNCED or g.model_rank == 0)
-                                and on_dp(dim))
+        return [(dim is not None or g.pod_rank == 0) if k == "ep2d"
+                else ((k not in self.SYNCED or g.model_rank == 0)
+                      and on_dp(dim))
                 for k, dim in zip(self.kinds, self.dims)]
 
     @torch.no_grad()
@@ -261,10 +269,24 @@ class _GroupLayout:
         for p, dim in zip(params, self.dims):
             if isinstance(dim, weights.LayerChunk):
                 p.copy_(weights.broadcast_owned(p, dim, g))
+            elif isinstance(dim, weights.PodChunk):
+                n = p.shape[dim.dim] // g.pod_size
+                p.copy_(weights.gather_dim(
+                    p.narrow(dim.dim, g.pod_rank * n, n), dim.dim, g.pod))
             elif dim is not None:
                 n = p.shape[dim] // g.dp_size
                 p.copy_(weights.gather_dim(p.narrow(dim, g.dp_rank * n, n),
                                            dim, g.dp))
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk on ``dim`` of the float32 sum of ``t`` over
+    ``group``, rounded once to its dtype."""
+    moved = t.detach().movedim(dim, 0).float().contiguous()
+    part = moved.new_empty((moved.shape[0] // dist.get_world_size(group),
+                            *moved.shape[1:]))
+    dist.reduce_scatter_tensor(part, moved, group=group)
+    return part.to(t.dtype).movedim(0, dim)
 
 
 def _flat_dims(dims) -> list:

@@ -39,7 +39,9 @@ it: the leading axis of a layer's or the embedding's leaf, axis 1 of the
 hybrid's ``shared.lora_b``, and an ``ep2d`` expert weight's two leading
 (data, model) axes at (``data_rank``, r), (D, R, E/D, ...) -> (1, 1,
 E/D, ...): a process of a (data, model) mesh holds its data shard's
-experts' d_ff slice.
+experts' d_ff slice, and of a (pod, data, model) mesh the same slice as
+its data rank on every other pod (the experts split over ``data``
+alone).
 
 Over process groups (``training/train_step.py``): ``zero_dims`` gives
 each leaf's ZeRO-1 dim and ``take_chunk`` a process's chunk on it;
@@ -199,6 +201,16 @@ class LayerChunk:
         self.owner, self.shape = owner, tuple(shape)
 
 
+class PodChunk:
+    """The ZeRO-1 dim of an ``ep2d`` expert leaf under a pod axis: its
+    spec holds ``"data"`` already, so the reference's ``zero_extend``
+    gives it the one data-parallel axis left, ``"pod"``, and each pod rank
+    keeps chunk ``pod_rank`` of ``pod_size`` on ``dim``."""
+
+    def __init__(self, dim: int):
+        self.dim = dim
+
+
 def zero_dims(params, cfg, pcfg, dp_size: int):
     """The port's dim ZeRO-1 splits each leaf's ``m`` / ``v`` over, or
     None where the leaf stays whole, in the port's structure: the dim
@@ -206,7 +218,8 @@ def zero_dims(params, cfg, pcfg, dp_size: int):
     (its spec and shape, the stack's layer count where the reference
     stacks the layers, the size-1 axis of a replicated leaf), moved to
     the port's layout; where it picks the stacked layer axis, a
-    ``LayerChunk``.  ``params`` is the rank axis's tree or one process's
+    ``LayerChunk``; for an ``ep2d`` leaf, whose pick is the pod axis, a
+    ``PodChunk``.  ``params`` is the rank axis's tree or one process's
     (its rank axes, of size 1 there, are the spec's ``"model"`` and
     ``"data"`` axes either way, never picked)."""
     from repro_torch.training.optimizer import zero_extend
@@ -228,23 +241,32 @@ def zero_dims(params, cfg, pcfg, dp_size: int):
                   if e is not None and (i < lead or spec[i - lead] is None)]
         if not picked:
             return None
+        if picked[0] < 0 and p.kind == "ep2d":
+            raise NotImplementedError(
+                "a ZeRO-1 chunk of an ep2d leaf over the pod axis on its "
+                "stacked layer axis is not ported")
         if picked[0] < 0:
             return LayerChunk(p.layer // (p.n_layers // dp_size), p.shape)
-        return picked[0] - (ins is not None and picked[0] > ins)
+        dim = picked[0] - (ins is not None and picked[0] > ins)
+        return PodChunk(dim) if p.kind == "ep2d" else dim
     return _zip_map(leaf, _places(params, cfg, pcfg))
 
 
-def take_chunk(tree, dims, dp_rank: int, dp_size: int):
+def take_chunk(tree, dims, dp_rank: int, dp_size: int, pods: int = 1):
     """ZeRO-1 chunk ``dp_rank`` of ``dp_size`` of every leaf of ``tree``
     (a process's ``m`` / ``v``, or its params or gradients) on its dim in
     ``dims`` (``zero_dims``), as a view; a leaf whose dim is None whole,
     a ``LayerChunk`` leaf whole on its owner and empty (no rows of its
-    first dim) elsewhere."""
+    first dim) elsewhere, a ``PodChunk`` leaf's chunk of ``pods`` at the
+    pod of ``dp_rank`` (pod outer)."""
     def cut(t, dim):
         if dim is None:
             return t
         if isinstance(dim, LayerChunk):
             return t if dim.owner == dp_rank else t.narrow(0, 0, 0)
+        if isinstance(dim, PodChunk):
+            n = t.shape[dim.dim] // pods
+            return t.narrow(dim.dim, dp_rank // (dp_size // pods) * n, n)
         n = t.shape[dim] // dp_size
         return t.narrow(dim, dp_rank * n, n)
     return _zip_map(cut, tree, dims)
@@ -268,7 +290,8 @@ def gather_ranks_tree(tree, cfg, groups, dims=None, pcfg=None):
     rank's slice of each sharded leaf, its (data, model) rank's experts of
     an ``ep2d`` one; with ``dims`` its ZeRO-1 chunk on those dims) -> the
     rank axis's whole tree on every process: each chunk gathered over
-    ``groups.dp`` (a ``LayerChunk`` leaf broadcast from its owner), then
+    ``groups.dp`` (a ``LayerChunk`` leaf broadcast from its owner, a
+    ``PodChunk`` one gathered over ``groups.pod``), then
     each sharded leaf over ``groups.model`` on its rank axis, an
     ``ep2d`` leaf over ``groups.model`` and then ``groups.data`` on its
     two.  A collective: every process calls it with trees of the same
@@ -280,6 +303,8 @@ def gather_ranks_tree(tree, cfg, groups, dims=None, pcfg=None):
     def one(t, p, dim):
         if isinstance(dim, LayerChunk):
             t = broadcast_owned(t, dim, groups)
+        elif isinstance(dim, PodChunk):
+            t = gather_dim(t, dim.dim, groups.pod)
         elif dim is not None:
             t = gather_dim(t, dim, groups.dp)
         if p.kind == "sharded":

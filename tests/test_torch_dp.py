@@ -31,10 +31,16 @@ weights, inputs and outputs to an ``.npz`` that the port's side reads:
   1, as the reference's engine serves it), packed over the pool: tokens
   and forward counts equal.
 
-In process: the same model's engine at tp=1 over slots and packed over
-the pool against the reference's, the kernels' input checks on the data
-axis's tensors, the engine's refusal of a data axis, the refusals of
-families without one, and the entry points' CUDA default.
+The reduced falcon-mamba-7b, whisper-base and zamba2-7b at 2 x 2 with
+the batch over ``data`` (their ``cache_specs``): a prefill the weave
+cuts into a fresh cache, then two decode steps, in ``ring`` and
+``fused``: logits within 1e-4, states and caches within 1e-5.
+
+In process: the same ep2d model's engine at tp=1 over slots and packed
+over the pool against the reference's, the kernels' input checks on the
+data axis's tensors, the engine's refusal of a data axis, the ssm,
+encdec and hybrid families' data shards each served as a one-shard run,
+and the entry points' CUDA default.
 """
 import dataclasses
 import json
@@ -57,7 +63,7 @@ from repro_torch.core import fused_collectives as tfc
 from repro_torch.distributed import context as TC
 from repro_torch.layers import attention as TA
 from repro_torch.layers import moe as TM
-from repro_torch.models import hybrid as THY
+from repro_torch.models import encdec as TE
 from repro_torch.models import transformer as TT
 from repro_torch.models.build import build_model as t_build_model
 from repro_torch.runtime.engine import Engine as TEngine
@@ -67,8 +73,12 @@ from repro_torch.runtime.scheduler import SchedulerConfig as TSched
 from repro_torch.weights import from_jax_params
 from test_torch_configs import global_heads, local_logits, port_caches
 from test_torch_engine_paged import _drained, _drive, _gen_trace
-from test_torch_hybrid import port_shared
-from test_torch_ssm import close_state, to_port
+from test_torch_hybrid import check_shared_cache, port_shared
+from test_torch_pg import (SERVE_FAMILIES, SERVE_FRAMES, SERVE_LEN,
+                           SERVE_ROWS, _cut, family_serve_inputs,
+                           family_serve_steps)
+from test_torch_ssm import check_state, close_state, to_port
+from test_torch_vlm import check_kv
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 EP2D = "qwen3-moe-235b-a22b"
@@ -325,6 +335,70 @@ for name, dp in D.CP_MODELS.items():
         out[pre + f'{i}/tokens'], out[pre + f'{i}/positions'] = tok, ps
         out[pre + f'{i}/logits'] = np.asarray(lg)
         save(pre + f'{i}/cache/', cache)
+
+# the ssm, encdec and hybrid families at 2 x 2, the batch over data: a
+# woven prefill into a fresh cache, then two decode steps (comm mode
+# fused: without Pallas kernels the reference's ring falls back to it)
+from repro.models import encdec as JE
+from test_torch_pg import (SERVE_FAMILIES, SERVE_FRAMES, SERVE_LEN,
+                           SERVE_ROWS, SERVE_SLOTS, SERVE_STEPS,
+                           family_serve_inputs)
+bs, lg_spec = P('data'), P('data', None, 'model')
+kv5 = P(None, 'data', None, 'model', None)
+chunk = (kv5, kv5, P(None, 'data', None))
+for name in SERVE_FAMILIES:
+    cfg = C.get_config(name).reduced()
+    pcfg = ParallelConfig(comm_mode='fused', **D.PCFG)
+    api = build_model(cfg, pcfg, tp=2, ep=2)
+    params = perturb(api.init(jax.random.PRNGKey(15)), 16)
+    pre = f'fam/{name}/'
+    save(pre + 'params/', params)
+    inp = family_serve_inputs(cfg)
+    tokens = inp['tokens'].astype(np.int32)
+    pspec, cspec = api.specs(), api.cache_specs()
+    init = jax.tree.map(np.asarray, api.init_cache(
+        SERVE_ROWS, SERVE_SLOTS, **({'enc_len': SERVE_FRAMES}
+                                    if cfg.family == 'encdec' else {})))
+    if cfg.family == 'encdec':
+        def pf(p, x, t):
+            return JE.prefill(p, {'frames': x, 'tokens': t}, None, cfg=cfg,
+                              pcfg=pcfg)[:2]
+        lg, o = sm(m22, pf, (pspec, bs, bs),
+                   (lg_spec, {'self': chunk, 'cross': cspec['cross']}))(
+            params, inp['frames'], tokens)
+        cache = {'self': {n: np.array(a) for n, a in init['self'].items()},
+                 'cross': jax.tree.map(np.asarray, o['cross'])}
+        part, into = o['self'], cache['self']
+    else:
+        def pf(p, t, c, ps):
+            return api.mod.prefill(p, t, c, cfg=cfg, pcfg=pcfg,
+                                   positions=ps)[:2]
+        positions = np.tile(np.arange(SERVE_LEN, dtype=np.int32),
+                            (SERVE_ROWS, 1))
+        lg, o = sm(m22, pf, (pspec, bs, cspec, bs),
+                   (lg_spec, cspec if cfg.family == 'ssm' else
+                    {'mamba': cspec['mamba'], 'shared': chunk}))(
+            params, tokens, init, positions)
+        if cfg.family == 'ssm':
+            cache, part = jax.tree.map(np.asarray, o), None
+        else:
+            cache = {'mamba': jax.tree.map(np.asarray, o['mamba']),
+                     'shared': {n: np.array(a) for n, a in
+                                init['shared'].items()}}
+            part, into = o['shared'], cache['shared']
+    if part is not None:
+        for j, n in enumerate(('k', 'v', 'pos')):
+            into[n][:, :, :SERVE_LEN] = np.asarray(part[j])
+    out[pre + 'logits0'] = np.asarray(lg)
+    def dc(p, t, c, ps):
+        return api.mod.decode_step(p, t, c, cfg=cfg, pcfg=pcfg, positions=ps)
+    step = sm(m22, dc, (pspec, bs, cspec, bs), (lg_spec, cspec))
+    for i in range(SERVE_STEPS):
+        ps = np.full((SERVE_ROWS, 1), SERVE_LEN + i, np.int32)
+        lg, cache = step(params, inp['decode'][i].astype(np.int32), cache,
+                         ps)
+        out[pre + f'logits{i + 1}'] = np.asarray(lg)
+    save(pre + 'cache/', cache)
 
 # the ep2d model's engine at tp=2, data size 1
 cfg = dataclasses.replace(C.get_config(D.EP2D).reduced(),
@@ -846,27 +920,89 @@ def test_engine_refuses_a_data_axis(ep2d_pair):
         TEngine(api, tparams, TSched(**SCHED), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "whisper-base",
-                                  "zamba2-7b"])
-def test_build_refuses_a_data_axis_where_unported(name):
-    """The ssm, hybrid and encdec families build at ep=2 for training,
-    and their serving calls refuse the data axis by name (the hybrid's
-    under seq_shard_kv aside)."""
-    cfg = tbase.ModelConfig(**dataclasses.asdict(
+# --------------------------------------------------------------------------
+# the ssm, encdec and hybrid families with the batch over data
+# --------------------------------------------------------------------------
+
+def _family_cfg(name):
+    return tbase.ModelConfig(**dataclasses.asdict(
         jconfigs.get_config(name).reduced()))
-    api = t_build_model(cfg, tbase.ParallelConfig(), ep=2)
-    for call in (lambda: api.init_cache(2, 16, device="cpu"),
-                 lambda: api.prefill(None, None, None, None),
-                 lambda: api.decode_step(None, None, None, None)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ep=2.*{cfg.family} family's training"):
-            call()
-    if name == "zamba2-7b":
-        api = t_build_model(cfg, tbase.ParallelConfig(seq_shard_kv=True),
-                            ep=2)
-        with pytest.raises(NotImplementedError, match="seq_shard_kv"):
-            THY.init_cache(2, 16, cfg, dp=2, device="cpu")
-        assert api.ep == 2
+
+
+def _check_family_cache(got, want, family):
+    """A served cache against the reference's (``_nest``'s tree)."""
+    if family == "ssm":
+        check_state(got, _tuples(want), "ssm")
+    elif family == "hybrid":
+        check_state(got["mamba"], _tuples(want["mamba"]), "hybrid")
+        check_shared_cache(got["shared"], want["shared"])
+    else:
+        check_kv(got["self"], want["self"])
+        check_kv(got["cross"], want["cross"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("mode", ["ring", "fused"])
+@pytest.mark.parametrize("name", SERVE_FAMILIES)
+def test_families_batch_over_data_match_reference(jax_side, name, mode):
+    """The reduced falcon-mamba-7b, whisper-base and zamba2-7b at D = 2 x
+    R = 2, in ``ring`` (K1's plain version) and ``fused``, against the
+    reference's ``shard_map`` at (data 2, model 2) in ``fused`` (its
+    ``ring`` without Pallas kernels) with the batch over ``data`` (its
+    ``cache_specs``): a prefill of 2 rows a
+    shard that the weave cuts (whisper's encoder splitting each shard's
+    rows, its prompt's KV and cross caches written into the cache), then
+    two decode steps: logits within 1e-4, states and caches within 1e-5 of
+    max(1, the leaf's largest magnitude)."""
+    pre = f"fam/{name}/"
+    cfg = _family_cfg(name)
+    pcfg = _port_pcfg(comm_mode=mode)
+    api = t_build_model(cfg, pcfg, tp=2, ep=2)
+    assert TT.weave_decision_info(SERVE_ROWS // 2, SERVE_LEN, tp=2,
+                                  pcfg=pcfg).weave
+    params = from_jax_params(_nest(jax_side, pre + "params/"), cfg, pcfg,
+                             device="cpu")
+    logits, _, cache = family_serve_steps(api, params,
+                                          family_serve_inputs(cfg),
+                                          batch=SERVE_ROWS, greedy=False)
+    for i, lg in enumerate(logits):
+        _close(local_logits(lg), jax_side[f"{pre}logits{i}"], LOGIT_TOL)
+    _check_family_cache(cache, _nest(jax_side, pre + "cache/"), cfg.family)
+
+
+@pytest.mark.parametrize("name", SERVE_FAMILIES)
+def test_each_data_shard_serves_as_a_one_shard_run(name):
+    """In process, ``ring`` at D = 2 x R = 2 with 16 rows a shard: the
+    weave cuts each shard's 16 x 8 prompt tokens, the decode batch split
+    takes rows of both shards and whisper's encoder split each shard's
+    rows; each shard's logits (within 1e-5), greedy
+    tokens (equal) and cache rows (within 1e-5 of max(1, |leaf|)) are a
+    D = 1 run's on that shard's rows alone."""
+    from test_torch_pg_families import _leaves, _map
+    cfg = _family_cfg(name)
+    pcfg = _port_pcfg(comm_mode="ring")
+    assert TT.weave_decision_info(16, 1, tp=2, pcfg=pcfg, decode=True).weave
+    assert TT.weave_decision_info(16, 8, tp=2, pcfg=pcfg).weave
+    if cfg.family == "encdec":
+        assert TE.encoder_split(16, SERVE_FRAMES, tp=2, pcfg=pcfg)
+    api = t_build_model(cfg, pcfg, tp=2, ep=2)
+    one = t_build_model(cfg, pcfg, tp=2)
+    params = api.init(0, device="cpu")
+    inp = family_serve_inputs(cfg, rows=32, seed=98, length=8)
+    logits, fed, cache = family_serve_steps(api, params, inp, batch=32)
+    for d in range(2):
+        rows = slice(16 * d, 16 * (d + 1))
+        l1, f1, c1 = family_serve_steps(one, params, inp, batch=16,
+                                        rows=rows)
+        for a, b in zip(logits, l1):
+            _close(a[:, rows], b, LAYER_TOL)
+        for a, b in zip(fed, f1):
+            assert torch.equal(a[rows], b)
+        groups = TC.Groups(model=None, data=None, model_rank=0,
+                           data_rank=d, model_size=1, data_size=2)
+        mine = dict(_leaves(_cut(cache, c1, groups)))
+        for p, t in _leaves(c1):
+            close_state(mine[p].numpy(), t.numpy(), KV_TOL)
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "init_rank"])

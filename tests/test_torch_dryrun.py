@@ -6,7 +6,8 @@
   equal the reference's;
 * per-device parameter, ZeRO-1 optimizer-state and cache bytes equal the
   reference's ``jax.eval_shape`` trees under its specs, one config per
-  family on the 16x16 mesh and one on 2x16x16;
+  family on the 16x16 mesh (every batch folded over the data axes) and
+  two on 2x16x16 (the ep2d model's experts over data alone);
 * the tiny model at tp=2 (a 64-token prefill with the weave's two
   splits, and a decode step): collective counts by kind, wire bytes by
   kind and FLOPs per device equal the reference's HLO analyzer
@@ -62,14 +63,18 @@ NAMES = list_configs()
 FAMILY_CONFIGS = {"dense": "gemma3-1b", "moe": "olmoe-1b-7b",
                   "ssm": "falcon-mamba-7b", "hybrid": "zamba2-7b",
                   "encdec": "whisper-base", "vlm": "qwen2-vl-7b"}
-# (config, shape whose cache is held, multi-pod)
+# (config, shape whose cache is held, multi-pod); the params and the
+# ZeRO-1 state are train_4k's.  Every family's batch folds over the data
+# axes (fold > 1), ep2d's experts over data alone under a pod axis
 BYTE_CASES = [("gemma3-1b", "long_500k", False),
               ("qwen3-moe-235b-a22b", "decode_32k", False),
               ("falcon-mamba-7b", "decode_32k", False),
               ("zamba2-7b", "long_500k", False),
               ("whisper-base", "decode_32k", False),
               ("qwen2-vl-7b", "decode_32k", False),
-              ("qwen3-14b", "decode_32k", True)]
+              ("qwen3-14b", "decode_32k", True),
+              ("qwen3-moe-235b-a22b", "decode_32k", True),
+              ("zamba2-7b", "decode_32k", False)]
 
 
 def _dtype_name(dt) -> str:
@@ -146,6 +151,9 @@ def test_per_device_bytes_equal_the_references(name, shape_name, multi_pod):
     mesh = make_production_mesh(multi_pod=multi_pod)
     _, _, train = DR.build_cell(name, "train_4k", mesh, multi_pod=multi_pod)
     _, _, serve = DR.build_cell(name, shape_name, mesh, multi_pod=multi_pod)
+    if not TSH.SHAPES[shape_name].long_context:
+        assert serve["_layout"].fold == mesh.dp_size(
+            ("pod", "data") if multi_pod else ("data",))
     got = {"params": train["_bytes"]["params"], "opt": train["_bytes"]["opt"],
            "cache": serve["_bytes"]["cache"]}
     assert serve["_bytes"]["params"] == got["params"]

@@ -9,8 +9,9 @@ model 2); world 2 then runs ``launch.serve``'s main (the reduced
 qwen3-moe-235b-a22b, ``ep2d``, among its models).  Every rank runs every
 case of a mesh and writes its results to an ``.npz``; the tests read
 them and compute the rank-axis side here.  The data meshes run the data
-group: ``all_to_all``, the batch over it (the ep2d model and the tiny
-dense model at (2, 2), each process its data shard's rows) and
+group: ``all_to_all``, the batch over it (the ep2d model, the tiny
+dense model and the reduced falcon-mamba-7b, whisper-base and zamba2-7b
+at (2, 2), each process its data shard's rows) and
 context-parallel decode over it (zamba2-7b and olmoe-1b-7b at (2, 2),
 the ep2d model at (2, 1)).
 The reference runs on 4 XLA host devices in one subprocess
@@ -814,6 +815,99 @@ def _case_cp_families(groups, out):
             out[f"cpf/{name}/cache/{path}"] = t.numpy()
 
 
+# the ssm, encdec and hybrid families' serving with the batch over the
+# data group: a woven prefill of SERVE_ROWS x SERVE_LEN into a fresh cache,
+# then SERVE_STEPS decode steps
+SERVE_FAMILIES = ("falcon-mamba-7b", "whisper-base", "zamba2-7b")
+SERVE_ROWS, SERVE_LEN, SERVE_SLOTS, SERVE_FRAMES = 4, 48, 64, 16
+SERVE_STEPS = 2
+
+
+def family_serve_inputs(cfg, rows: int = SERVE_ROWS, seed: int = 97,
+                        length: int = SERVE_LEN):
+    """A served batch of ``rows`` rows (numpy): prompt tokens (rows,
+    ``length``), encdec's frames (rows, SERVE_FRAMES, d), and SERVE_STEPS
+    decode steps' tokens (steps, rows, 1) for a run that does not take
+    its own greedy tokens."""
+    rng = np.random.RandomState(seed)
+    inp = {"tokens": rng.randint(0, cfg.vocab_size, (rows, length)),
+           "decode": rng.randint(0, cfg.vocab_size, (SERVE_STEPS, rows, 1))}
+    if cfg.family == "encdec":
+        inp["frames"] = rng.randn(rows, SERVE_FRAMES,
+                                  cfg.d_model).astype(np.float32)
+    return inp
+
+
+def family_serve_steps(api, params, inp, *, batch: int, rows=slice(None),
+                       greedy: bool = True):
+    """``inp``'s ``rows`` (a process's data shard's) served through
+    ``api``: the prompt's prefill, its KV (encdec: and cross caches)
+    written into a fresh cache of ``batch`` rows (``init_cache``'s batch,
+    the global one over groups), then SERVE_STEPS decode steps on the
+    greedy tokens, or on ``inp["decode"]``.  Returns (logits of every
+    forward, the greedy tokens fed, the cache)."""
+    from repro_torch.runtime import kv_cache as KC
+    tokens = torch.from_numpy(inp["tokens"][rows])
+    b, s = tokens.shape
+    enc = api.cfg.family == "encdec"
+    cache = api.init_cache(batch, SERVE_SLOTS, device="cpu",
+                           **({"enc_len": SERVE_FRAMES} if enc else {}))
+    slots, start = torch.arange(b), torch.zeros(b, dtype=torch.long)
+    logits, fed = [], []
+    with torch.no_grad():
+        if enc:
+            lg, out = api.prefill(params, tokens, None, None,
+                                  frames=torch.from_numpy(
+                                      inp["frames"][rows]))
+            KC.insert_chunk(cache["self"], out["self"], start, slots)
+            KC.write_rows(cache["cross"], out["cross"], slots)
+        else:
+            lg, out = api.prefill(params, tokens, cache, torch.arange(
+                s, dtype=torch.int32).repeat(b, 1))
+            if api.cfg.family == "hybrid":
+                KC.insert_chunk(cache["shared"], out["shared"], start, slots)
+        logits.append(lg)
+        for i in range(SERVE_STEPS):
+            if greedy:
+                tok = sample(lg, vocab_size=api.cfg.vocab_size,
+                             ctx=api.comm_ctx)[:, None]
+                fed.append(tok)
+            else:
+                tok = torch.from_numpy(inp["decode"][i][rows])
+            lg, cache = api.decode_step(params, tok, cache, torch.full(
+                (b, 1), s + i, dtype=torch.int32))
+            logits.append(lg)
+    return logits, fed, cache
+
+
+def _case_data_families(groups, out):
+    """SERVE_FAMILIES at (2, 2) in ``fused`` and ``ring``, each process on
+    its data shard's rows and its model rank's weights."""
+    from test_torch_pg_families import _leaves
+    from test_torch_pg_families import _params as family_params
+    from repro_torch.configs import get_config
+    tp, dp = groups.model_size, groups.data_size
+    r, d = groups.model_rank, groups.data_rank
+    n = SERVE_ROWS // dp
+    for name in SERVE_FAMILIES:
+        cfg = get_config(name).reduced()
+        params = take_rank(family_params(name), r, cfg)
+        inp = family_serve_inputs(cfg)
+        for mode in DATA_MODES:
+            api = build_model(cfg, _pcfg(comm_mode=mode), tp=tp, ep=dp,
+                              groups=groups)
+            logits, fed, cache = family_serve_steps(
+                api, params, inp, batch=SERVE_ROWS,
+                rows=slice(d * n, (d + 1) * n))
+            key = f"fam/{name}/{mode}"
+            for i, lg in enumerate(logits):
+                out[f"{key}/logits{i}"] = lg.numpy()
+            for i, t in enumerate(fed):
+                out[f"{key}/tokens{i}"] = t.numpy()
+            for path, t in _leaves(cache):
+                out[f"{key}/cache/{path}"] = t.numpy()
+
+
 def _worker(rank, world, tmp, ref_path):
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     torch.set_num_threads(1)
@@ -841,6 +935,7 @@ def _worker(rank, world, tmp, ref_path):
             _case_cp_families(groups, out)
             if n_model == 2:
                 _case_data_batch(groups, out)
+                _case_data_families(groups, out)
         np.savez(f"{tmp}/{n_data}x{n_model}_r{rank}.npz", **out)
         dist.destroy_process_group()
     if world == 2:
@@ -1578,6 +1673,43 @@ def test_cp_decode_of_families_over_data_group_matches_rank_axis(worlds,
             _close_leaf(like[p].numpy(), t.numpy())
 
 
+@pytest.mark.parametrize("mode", DATA_MODES)
+@pytest.mark.parametrize("name", SERVE_FAMILIES)
+def test_families_batch_over_data_group_match_rank_axis(worlds, name, mode):
+    """The reduced falcon-mamba-7b, whisper-base and zamba2-7b served at
+    (data 2, model 2), each process on its data shard's rows (the weave
+    cutting the prompt, whisper's encoder splitting each shard's rows): a
+    prefill and two greedy decode steps against the rank axis at D = 2 x
+    R = 2, logits within 1e-5, tokens equal, each process's states and
+    caches within 1e-5 of max(1, |leaf|) of its part of the rank axis's."""
+    from test_torch_pg_families import _leaves, _map
+    from test_torch_pg_families import _params as family_params
+    from repro_torch.configs import get_config
+    cfg = get_config(name).reduced()
+    api = build_model(cfg, _pcfg(comm_mode=mode), tp=2, ep=2)
+    assert TT.weave_decision_info(SERVE_ROWS // 2, SERVE_LEN, tp=2,
+                                  pcfg=api.pcfg).weave
+    logits, fed, cache = family_serve_steps(
+        api, family_params(name), family_serve_inputs(cfg), batch=SERVE_ROWS)
+    n = SERVE_ROWS // 2
+    key = f"fam/{name}/{mode}"
+    for w, got in enumerate(worlds[(2, 2)]):
+        d, r = divmod(w, 2)
+        for i, lg in enumerate(logits):
+            _close(got[f"{key}/logits{i}"],
+                   lg[r:r + 1, d * n:(d + 1) * n].numpy())
+        for i, t in enumerate(fed):
+            np.testing.assert_array_equal(got[f"{key}/tokens{i}"],
+                                          t[d * n:(d + 1) * n].numpy())
+        groups = Groups(model=None, data=None, model_rank=r, data_rank=d,
+                        model_size=2, data_size=2)
+        like = {p: torch.from_numpy(got[f"{key}/cache/{p}"])
+                for p, _ in _leaves(cache)}
+        mine = _cut(cache, _map(lambda p, t: like[p], cache), groups)
+        for p, t in _leaves(mine):
+            _close_leaf(like[p].numpy(), t.numpy())
+
+
 def test_serve_launcher_serves_ep2d_at_data_size_1(worlds):
     """``launch.serve --arch qwen3-moe-235b-a22b --reduced --comm-mode
     ring`` in a world of 2 (mesh 1 x 2: every expert on both ranks, each
@@ -1687,9 +1819,6 @@ def _refusal(case):
                SchedulerConfig(**dict(SCHED, spec_gamma=GAMMA)),
                device="cpu")
 
-    def serve_data(name):
-        build(name, ep=2).init_cache(2, 16, device="cpu")
-
     def train_ring(name):
         # a process of a model group of one: no collective is reached
         api = build_model(get_config(name).reduced(), tbase.ParallelConfig(
@@ -1710,12 +1839,6 @@ def _refusal(case):
         Engine(api, api.init(0, device="cpu"), SchedulerConfig(**SCHED),
                device="cpu")
     return {
-        "hybrid_batch_data": (lambda: serve_data("zamba2-7b"),
-                              "ep=2.*hybrid family"),
-        "ssm_data": (lambda: serve_data("falcon-mamba-7b"),
-                     "ep=2.*ssm family"),
-        "encdec_data": (lambda: serve_data("whisper-base"),
-                        "ep=2.*encdec family"),
         "engine_data": (lambda: engine_data("llama3.3-70b"),
                         "data size 1, not ep=2"),
         "train_ssm": (lambda: train_ring("falcon-mamba-7b"),
@@ -1729,21 +1852,19 @@ def _refusal(case):
     }[case]
 
 
-@pytest.mark.parametrize("case", ["hybrid_batch_data", "ssm_data",
-                                  "encdec_data", "engine_data", "train_ssm",
+@pytest.mark.parametrize("case", ["engine_data", "train_ssm",
                                   "train_encdec", "spec_ssm"])
 def test_process_group_refuses_what_is_not_ported(case):
-    """The serving calls of the hybrid's batch over the data group and of
-    a data axis for the ssm and encdec families, and the engine at data
-    size 2, raise NotImplementedError by name; training the ssm and
+    """The engine at data size 2 raises NotImplementedError by name, as
+    the reference's engine serves at data size 1; training the ssm and
     encdec families in comm mode ring (K1 has no backward) raises the
     rank axis's RuntimeError; speculative decoding of an ssm model raises
     the reference's ValueError.  Every family builds over groups at any
-    data size and trains over them (tests/test_torch_pg_train.py), serves
-    at data size 1 (tests/test_torch_pg_families.py), the transformer
-    families with the batch over the data group, speculative decoding
-    and the verify step, and they and the hybrid under context-parallel
-    decode over it."""
+    data size, trains over them (tests/test_torch_pg_train.py) and
+    serves with the batch over the data group (above; at data size 1
+    tests/test_torch_pg_families.py), the transformer families with
+    speculative decoding and the verify step, and they and the hybrid
+    under context-parallel decode over it."""
     call, words, *exc = _refusal(case)
     with pytest.raises(*(exc or [NotImplementedError]), match=words):
         call()
@@ -1780,13 +1901,9 @@ def test_engine_refuses_a_draft_off_the_target_groups(draft_on):
 
 
 def test_training_refuses_process_group():
-    """Training over groups is ported for every family
-    (tests/test_torch_pg_train.py); ``ep2d`` with a pod axis refuses by
-    name, and comm mode ``ring`` (K1 has no backward) refuses a gradient
-    before any collective."""
-    pod = dataclasses.replace(_fake_groups(), pod_size=2)
-    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
-        build_model(_ep2d_cfg(), _pcfg(), tp=2, ep=2, groups=pod)
+    """Training over groups is ported for every family, ``ep2d`` under a
+    pod axis too (tests/test_torch_pg_train.py); comm mode ``ring`` (K1
+    has no backward) refuses a gradient before any collective."""
     api = build_model(_cfg(), _pcfg(comm_mode="ring"), tp=2,
                       groups=_fake_groups())
     params = take_rank(_params(2), 0, _cfg())

@@ -36,8 +36,14 @@ one intra-op thread, a timeout) and runs, on the meshes (data 2, model
   for each, 2 steps and a resume to 3, its losses within 1e-3 of the
   rank axis's run.
 
-The rank axis's side runs here while the world runs.  The refusals
-(``ring`` under a gradient, ``ep2d`` with a pod axis) need no world.
+- ``ep2d`` under a pod axis (the reduced qwen3-moe-235b-a22b at (pod
+  2, data 2, model 1): experts over data alone, the batch over pod x
+  data): both train steps held to the rank axis at the bounds above,
+  the ZeRO-1 chunks of its expert leaves over the pod group alone, and
+  ``launch.train --mesh 2x2x1`` over groups, 2 steps and a resume to 3.
+
+The rank axis's side runs here while the world runs.  The refusal
+(``ring`` under a gradient) needs no world.
 ``tests/test_torch_train_steps.py`` spawns its own world with
 ``spawn_world`` and ``replay_reference`` to hold the steps over groups to
 the JAX reference.  This file imports neither jax nor the reference: the
@@ -78,6 +84,11 @@ COLL_RTOL = 1e-6
 LOSS_RTOL, NORM_RTOL, PARAM_TOL, RESUME_RTOL = 1e-5, 1e-4, 2e-4, 1e-3
 MESHES = {"d2m2": ((2, 2), ("data", "model")),
           "p2d1m2": ((2, 1, 2), ("pod", "data", "model"))}
+# ep2d under a pod axis: experts over data alone, the batch over pod x data
+POD_MESH = "p2d2m1"
+ALL_MESHES = dict(MESHES, **{POD_MESH: ((2, 2, 1), ("pod", "data",
+                                                    "model"))})
+POD_EP2D = ("qwen3-moe-235b-a22b", ("auto", "manual"))
 MODES = ("vanilla", "reordered", "fused", "nocomm")
 BUILDERS = {"d2m2": ("auto", "manual"),
             "p2d1m2": ("auto", "manual", "int8")}   # int8: the pod reduce
@@ -130,7 +141,7 @@ def spawn_world(fn, args, nprocs: int = WORLD, timeout: float = TIMEOUT_S,
 
 
 def _groups(mesh: str, rank: int, tmp, tag: str = ""):
-    shape, axes = MESHES[mesh]
+    shape, axes = ALL_MESHES[mesh]
     return init_groups(make_mesh(shape, axes), backend="gloo",
                        init_method=f"file://{tmp}/store_{mesh}{tag}",
                        rank=rank, world_size=WORLD)
@@ -224,7 +235,7 @@ def _coll_a2a_rank_axis():
 # --------------------------------------------------------------------------
 
 def _pcfg(mode: str, mesh: str):
-    pod = mesh == "p2d1m2"
+    pod = len(ALL_MESHES[mesh][0]) == 3
     return tbase.ParallelConfig(
         comm_mode=mode, tokenweave=True, remat=True, split_unit=16,
         tokenweave_min_tokens=32, use_pallas_norm=True, attn_impl="pallas",
@@ -234,7 +245,7 @@ def _pcfg(mode: str, mesh: str):
 
 def _steps(api, mesh: str, builder: str):
     """``STEPS`` steps of a builder from SEED -> (losses, norms, state)."""
-    shape, axes = MESHES[mesh]
+    shape, axes = ALL_MESHES[mesh]
     m = make_mesh(shape, axes)
     ocfg = TO.AdamWConfig(lr=1e-2, warmup_steps=5)
     if builder == "auto":
@@ -345,6 +356,22 @@ def _case_families(groups, out, mesh: str):
                 "loss": losses, "gnorm": norms, "params": _flat(state[0]),
                 "m": _flat(state[1]["m"]), "v": _flat(state[1]["v"]),
                 "int8": spy.first, "collectives": log.calls}
+
+
+def _case_pod_ep2d(groups, out):
+    """``POD_EP2D``'s builders at (pod 2, data 2, model 1): each process
+    holds its data rank's experts, the same in both pods."""
+    name, builders = POD_EP2D
+    cfg = get_config(name).reduced()
+    for builder in builders:
+        api = build_model(cfg, _pcfg("fused", POD_MESH), tp=1,
+                          ep=groups.dp_size, groups=groups)
+        with _CollectiveLog() as log:
+            losses, norms, state = _steps(api, POD_MESH, builder)
+        out[f"pod/{name}/{builder}"] = {
+            "loss": losses, "gnorm": norms, "params": _flat(state[0]),
+            "m": _flat(state[1]["m"]), "v": _flat(state[1]["v"]),
+            "collectives": log.calls}
 
 
 def _a2a_case(dp: int):
@@ -466,6 +493,12 @@ def _family_argv(name: str, steps: int, ckpt) -> list:
             "--ckpt-dir", str(ckpt)]
 
 
+def _pod_argv(steps: int, ckpt) -> list:
+    return ["--arch", POD_EP2D[0], "--reduced", "--mesh", "2x2x1",
+            "--steps", str(steps), "--batch", "4", "--seq", "32",
+            "--device", "cpu", "--ckpt-dir", str(ckpt)]
+
+
 def _case_family_driver(rank: int, tmp, out):
     """``launch.train --arch NAME`` over groups for every family: 2 steps,
     then a resume to 3 from its gathered checkpoint."""
@@ -475,6 +508,10 @@ def _case_family_driver(rank: int, tmp, out):
                 _family_argv(name, steps, tmp / f"fam_{name}") + [
                     "--rank", str(rank), "--world-size", str(WORLD),
                     "--init-method", f"file://{tmp}/store_{name}_{steps}"])
+    for steps in (2, 3):
+        out[f"driver/pod/{steps}"] = _drive(_pod_argv(steps, tmp / "pod") + [
+            "--rank", str(rank), "--world-size", str(WORLD),
+            "--init-method", f"file://{tmp}/store_pod_{steps}"])
 
 
 def _world(rank: int, tmp):
@@ -491,6 +528,11 @@ def _world(rank: int, tmp):
         _case_steps(groups, out, mesh)
         _case_families(groups, out, mesh)
         dist.destroy_process_group()
+    groups = _groups(POD_MESH, rank, tmp)
+    out[f"{POD_MESH}/coords"] = (groups.pod_rank, groups.data_rank,
+                                 groups.model_rank, groups.dp_rank)
+    _case_pod_ep2d(groups, out)
+    dist.destroy_process_group()
     _case_driver(rank, tmp, out)
     _case_family_driver(rank, tmp, out)
     torch.save(out, tmp / f"r{rank}.pt")
@@ -526,6 +568,16 @@ def _rank_axis(tmp):
         for steps in (2, 3):
             got[f"driver/{name}/{steps}"] = _drive(_family_argv(
                 name, steps, tmp / f"axis_fam_{name}"))
+    name, builders = POD_EP2D
+    for builder in builders:
+        api = build_model(get_config(name).reduced(),
+                          _pcfg("fused", POD_MESH), tp=1, ep=4, pods=2)
+        losses, norms, state = _steps(api, POD_MESH, builder)
+        got[f"pod/{name}/{builder}"] = {"loss": losses, "gnorm": norms,
+                                        "state": state, "api": api}
+    for steps in (2, 3):
+        got[f"driver/pod/{steps}"] = _drive(_pod_argv(steps,
+                                                      tmp / "axis_pod"))
     got["a2a"] = _coll_a2a_rank_axis()
     return got
 
@@ -678,8 +730,9 @@ def _check_zero1(world, key: str, cfg, mesh: str):
     ax = world["axis"][key]
     api = ax["api"]
     params, opt = ax["state"][0], ax["state"][1]
-    shape, _ = MESHES[mesh]
+    shape, _ = ALL_MESHES[mesh]
     tp, dp = shape[-1], int(np.prod(shape[:-1]))
+    pods = shape[0] if len(shape) == 3 else 1
     _, ospec = state_specs(api, params, dp)
     ref = W.to_jax_layout(params, cfg, api.pcfg)
     want_bytes = 0
@@ -699,7 +752,7 @@ def _check_zero1(world, key: str, cfg, mesh: str):
         for k in ("m", "v"):
             got = r[key][k]
             want = tree_flatten(W.take_chunk(W.take_rank(
-                opt[k], m, cfg, data_rank=d), dims, q, dp))[0]
+                opt[k], m, cfg, data_rank=d), dims, q, dp, pods))[0]
             assert len(got) == len(want)
             for a, b in zip(got, want):
                 assert a.shape == b.shape
@@ -826,21 +879,6 @@ def test_ring_under_a_gradient_raises_over_groups():
         axis.train_loss(p2, batch)
 
 
-def test_ep2d_with_a_pod_axis_is_refused():
-    """``ep2d`` experts split over the data axis alone: over groups with a
-    pod axis ``build_model`` refuses by name (ROADMAP.md A.1), and so
-    does the train step on the rank axis."""
-    cfg = get_config("qwen3-moe-235b-a22b").reduced()
-    pod = Groups(model=None, data=None, model_rank=0, data_rank=0,
-                 model_size=1, data_size=1, pod_rank=0, pod_size=2)
-    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
-        build_model(cfg, _pcfg("fused", "p2d1m2"), ep=2, groups=pod)
-    api = build_model(cfg, _pcfg("fused", "p2d1m2"), tp=2, ep=2)
-    with pytest.raises(NotImplementedError, match="ep2d .*pod axis"):
-        make_train_step(api, make_mesh(*MESHES["p2d1m2"]), None,
-                        TO.AdamWConfig(), dp_size=2)
-
-
 # --------------------------------------------------------------------------
 # every other family
 # --------------------------------------------------------------------------
@@ -925,6 +963,87 @@ def test_driver_trains_every_family_over_groups(world, name):
     relative."""
     for steps in (2, 3):
         key = f"driver/{name}/{steps}"
+        rc, text = world["axis"][key]
+        assert rc == 0
+        for w, r in enumerate(world["ranks"]):
+            assert r[key][0] == 0
+            assert bool(r[key][1]) == (w == 0)
+        got = world["ranks"][0][key][1]
+        if steps == 3:
+            assert "resumed from checkpoint step 2" in got
+        np.testing.assert_allclose(_final_loss(got), _final_loss(text),
+                                   rtol=RESUME_RTOL)
+
+
+# --------------------------------------------------------------------------
+# ep2d under a pod axis
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("builder", POD_EP2D[1])
+def test_ep2d_under_a_pod_steps_match_rank_axis(world, builder):
+    """The reduced qwen3-moe-235b-a22b at (pod 2, data 2, model 1): each
+    process holds its data rank's experts (the same in both pods), runs
+    the all-to-alls over its pod's data group and sums the experts'
+    gradients over the pod group.  Losses within 1e-5 relative, grad
+    norms within 1e-4, every process's params within 2e-4 of its slice of
+    the rank axis's (D = 4 over 2 pods).  The manual step is held to the
+    rank axis alone: the reference's own raises on ``ep2d``."""
+    name = POD_EP2D[0]
+    ax = world["axis"][f"pod/{name}/{builder}"]
+    cfg = get_config(name).reduced()
+    assert ax["api"].expert_shards == 2
+    for r in world["ranks"]:
+        got = r[f"pod/{name}/{builder}"]
+        np.testing.assert_allclose(got["loss"], ax["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["gnorm"], ax["gnorm"], rtol=NORM_RTOL)
+        _, d, m, _ = r[f"{POD_MESH}/coords"]
+        want = tree_flatten(W.take_rank(ax["state"][0], m, cfg,
+                                        data_rank=d))[0]
+        assert len(want) == len(got["params"])
+        for a, b in zip(got["params"], want):
+            assert a.shape == b.shape
+            _close(a, b, PARAM_TOL)
+
+
+@pytest.mark.parametrize("builder", POD_EP2D[1])
+def test_ep2d_under_a_pod_ranks_issue_the_same_collectives(world, builder):
+    """Every process issues the same collectives in the same order, the
+    data group's all-to-alls both ways among them."""
+    calls = [r[f"pod/{POD_EP2D[0]}/{builder}"]["collectives"]
+             for r in world["ranks"]]
+    assert all(c == calls[0] for c in calls)
+    names = {c[0] for c in calls[0]}
+    assert {"all_reduce", "all_to_all_single"} <= names
+
+
+def test_ep2d_under_a_pod_zero1_chunks_match_rank_axis_state(world):
+    """The auto step's ``m`` / ``v`` under a pod axis: each expert leaf
+    chunked over the pod group alone (``weights.PodChunk``, the
+    reference's ``zero_specs`` giving it the one free axis, ``pod``), the
+    other leaves over pod x data; each process's chunks within the
+    params' bound of its slice of the rank axis's, their bytes what
+    ``zero_specs`` gives a device."""
+    name = POD_EP2D[0]
+    cfg = get_config(name).reduced()
+    ax = world["axis"][f"pod/{name}/auto"]
+    mine = W.take_rank(ax["state"][0], 0, cfg, data_rank=0)
+    pairs = []
+    W._zip_map(lambda dim, kind: pairs.append((dim, kind)),
+               W.zero_dims(mine, cfg, ax["api"].pcfg, 4),
+               W.leaf_kinds(mine, cfg, ax["api"].pcfg))
+    assert any(kind == "ep2d" for _, kind in pairs)
+    assert all(isinstance(dim, W.PodChunk) == (kind == "ep2d")
+               for dim, kind in pairs if dim is not None)
+    _check_zero1(world, f"pod/{name}/auto", cfg, POD_MESH)
+
+
+def test_driver_trains_ep2d_under_a_pod_over_groups(world):
+    """``launch.train --arch qwen3-moe-235b-a22b --mesh 2x2x1`` over
+    groups: 2 steps, then a resume to 3 from its gathered checkpoint;
+    every rank exits 0, only rank 0 prints, and the printed losses are
+    the rank axis's run's within 1e-3 relative."""
+    for steps in (2, 3):
+        key = f"driver/pod/{steps}"
         rc, text = world["axis"][key]
         assert rc == 0
         for w, r in enumerate(world["ranks"]):

@@ -17,7 +17,8 @@ the CPU.
 - the ``auto`` step of the reduced falcon-mamba-7b, zamba2-7b,
   whisper-base and olmoe-1b-7b, in the same subprocess, against the
   port's rank axes at the same mesh: losses within 1e-5, params after 3
-  steps within 2e-4;
+  steps within 2e-4; and of the reduced qwen3-moe-235b-a22b (``ep2d``)
+  at (pod 2, data 2, model 1), the same bounds;
 - the same three variants over process groups: one spawned world of 4
   gloo processes, each one (pod, data, model) rank
   (``test_torch_pg_train.replay_reference``), replays them from its
@@ -65,6 +66,10 @@ FAMILY_ADAMW = dict(lr=1e-2, warmup_steps=5)
 # element whose clipped gradient is below eps turns the two packages'
 # ~1e-7 relative summation noise into a sixth of a step
 PARAMS_UNHELD = ("zamba2-7b",)
+# ep2d under a pod axis: the reference's auto step at (pod 2, data 2,
+# model 1) on 8 rows (2 a data-parallel shard); its manual step raises on
+# ep2d (ROADMAP.md, caveats about the reference)
+EP2D, EP2D_BATCH = "qwen3-moe-235b-a22b", 8
 
 
 # --------------------------------------------------------------------------
@@ -80,13 +85,16 @@ def _padded(spec, ndim: int):
     ("gemma3-1b", 2, 1, ("pod", "data"), 4),
     ("qwen3-moe-235b-a22b", 2, 2, ("data",), 2),
     ("zamba2-7b", 2, 1, ("pod", "data"), 4),
-    ("whisper-base", 1, 1, ("data",), 2)])
+    ("whisper-base", 1, 1, ("data",), 2),
+    ("qwen3-moe-235b-a22b", 1, 2, ("pod", "data"), 4)])
 def test_layout_specs_and_zero_specs_match_reference(name, tp, ep, dp_axes,
                                                      dp_size):
     """``to_jax_layout`` gives the reference's pytree (keys, shapes),
     ``reference_specs`` its ``api.specs()``, ``state_specs`` its ZeRO-1
     ``opt_state_specs``, and every reference leaf has ndim >= 2 (so the
-    reference decays every leaf, and so does the port)."""
+    reference decays every leaf, and so does the port).  ``ep`` is the
+    reference's expert split; under a pod axis the port's api takes the
+    data-parallel size and the pods (``ModelApi.expert_shards``)."""
     cfg = (JModelConfig(**TINY) if name == "tiny"
            else jconfigs.get_config(name).reduced())
     jpcfg = JParallel(**PCFG, dp_axes=dp_axes)
@@ -95,8 +103,11 @@ def test_layout_specs_and_zero_specs_match_reference(name, tp, ep, dp_axes,
     jspec = api.specs()
     jz = JO.opt_state_specs(like, jspec, dp_axes, dp_size)
     tcfg = tbase.ModelConfig(**dataclasses.asdict(cfg))
+    pods = (dp_size // ep if tcfg.moe_partition == "ep2d"
+            and "pod" in dp_axes else 1)
     tapi = t_build_model(tcfg, tbase.ParallelConfig(**PCFG, dp_axes=dp_axes),
-                         tp=tp, ep=ep)
+                         tp=tp, ep=ep * pods, pods=pods)
+    assert tapi.expert_shards == ep
     tparams = tapi.init(0, device="cpu")
     ref = to_jax_layout(tparams, tcfg, tapi.pcfg)
     flat_j = jax.tree_util.tree_flatten_with_path(like)[0]
@@ -213,6 +224,27 @@ for name in %(families)r:
     out[name + "/loss"] = np.array(losses)
     out[name + "/gnorm"] = np.array(norms)
     keep(name + "/params", state[0])
+# ep2d under a pod axis: experts over data, the batch over pod x data
+pd_mesh = jax.make_mesh((2, 2, 1), ('pod', 'data', 'model'),
+                        axis_types=(jax.sharding.AxisType.Auto,) * 3)
+qcfg = configs.get_config(%(ep2d)r).reduced()
+qapi = build_model(qcfg, pcfg, tp=1, ep=2)
+qdata = SyntheticLM(vocab=qcfg.vocab_size, seq_len=32,
+                    global_batch=%(ep2d_batch)d)
+def qbatch(i):
+    return {k: jnp.asarray(v) for k, v in qdata.batch(i).items()}
+step, init = make_train_step(qapi, pd_mesh, qbatch(0), focfg, dp_size=4)
+state = list(init(jax.random.PRNGKey(3)))
+keep("ep2d_pod/init", state[0])
+step = step.lower(*state, qbatch(0)).compile(%(fast)r)
+losses, norms = [], []
+for i in range(%(steps)d):
+    state[0], state[1], m = step(*state, qbatch(i))
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+out["ep2d_pod/loss"] = np.array(losses)
+out["ep2d_pod/gnorm"] = np.array(norms)
+keep("ep2d_pod/params", state[0])
 np.savez(sys.argv[1], **out)
 print("PASS")
 """
@@ -236,7 +268,8 @@ def ref_steps(tmp_path_factory):
     path = tmp_path_factory.mktemp("train_steps") / "ref.npz"
     code = REF_STEPS % {"tiny": TINY, "pcfg": STEP_PCFG, "steps": STEPS,
                         "families": FAMILIES, "family_adamw": FAMILY_ADAMW,
-                        "fast": FAST_COMPILE}
+                        "fast": FAST_COMPILE, "ep2d": EP2D,
+                        "ep2d_batch": EP2D_BATCH}
     run_distributed(code.replace("sys.argv[1]", repr(str(path))),
                     n_devices=4, timeout=300)
     return np.load(path)
@@ -326,6 +359,45 @@ def test_family_auto_step_matches_reference_at_pod2_model2(name, ref_steps):
     if name in PARAMS_UNHELD:
         return
     close_tree(got, unflatten(z, name + "/params"), STEP_PARAM_TOL)
+
+
+def test_ep2d_auto_step_under_a_pod_matches_reference(ref_steps):
+    """The reduced qwen3-moe-235b-a22b (``ep2d``) at (pod 2, data 2, model
+    1): the experts split over ``data`` alone (each pod holds every
+    expert once), the batch over pod x data, their gradients summed over
+    both pods.  The reference's ``auto`` step and the port's on its rank
+    axes (D = 4 over 2 pods, R = 1) from the same params and batches:
+    losses within 1e-5 and grad norms within 1e-4 relative, params after
+    3 steps within 2e-4."""
+    z = ref_steps
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(
+        jconfigs.get_config(EP2D).reduced()))
+    tpcfg = tbase.ParallelConfig(**STEP_PCFG, **PORT_KERNELS,
+                                 dp_axes=("pod", "data"),
+                                 grad_compression="int8")
+    api = t_build_model(tcfg, tpcfg, tp=1, ep=4, pods=2)
+    step, _ = make_train_step(api, make_mesh((2, 2, 1), ("pod", "data",
+                                                          "model")),
+                              None, TO.AdamWConfig(**FAMILY_ADAMW),
+                              dp_size=4)
+    params = from_jax_params(unflatten(z, "ep2d_pod/init"), tcfg, tpcfg,
+                             device="cpu")
+    assert params["layers"][0]["moe"]["w_gate"].shape[:2] == (2, 1)
+    opt = TO.init_opt_state(params)
+    data = TSyntheticLM(vocab=tcfg.vocab_size, seq_len=32,
+                        global_batch=EP2D_BATCH)
+    losses, norms = [], []
+    for i in range(STEPS):
+        params, opt, m = step(params, opt, data.batch(i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    np.testing.assert_allclose(losses, z["ep2d_pod/loss"],
+                               rtol=STEP_LOSS_RTOL)
+    np.testing.assert_allclose(norms, z["ep2d_pod/gnorm"],
+                               rtol=STEP_NORM_RTOL)
+    with torch.no_grad():
+        got = to_jax_layout(params, tcfg, tpcfg)
+    close_tree(got, unflatten(z, "ep2d_pod/params"), STEP_PARAM_TOL)
 
 
 @pytest.fixture(scope="module")
